@@ -1,0 +1,51 @@
+"""Fused RMSNorm: the wrapper around the hand-written Hopper kernel
+``csrc/rmsnorm.cu`` and its plain PyTorch version.
+
+Counterpart of the reference package's ``kernels/rmsnorm.py``
+(``rmsnorm_pallas``): ``x * rsqrt(mean(x^2) + eps) * w`` over the last
+axis of a ``(rows, d)`` input, fp32 accumulation, cast to ``x.dtype``.
+A tensor on the CPU takes the plain version; a CUDA tensor launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of ``x`` ``(rows, d)`` by ``w`` ``(d,)``."""
+    if x.dim() != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm takes x (rows, d) and w (d,), got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return rmsnorm_plain(x, w, eps)
+    if not (x.is_cuda and w.device == x.device):
+        raise ValueError("rmsnorm operands must both lie on one CUDA device")
+    if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
+        raise TypeError(f"rmsnorm takes float32 or bfloat16, got {x.dtype}/{w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("rmsnorm operands must be contiguous")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    status = _build.library().rmsnorm_fwd(
+        _DTYPES[x.dtype], _DTYPES[w.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        x.shape[0], x.shape[1], float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(status, "rmsnorm_fwd")
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0

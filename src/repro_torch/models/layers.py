@@ -1,0 +1,117 @@
+"""Model primitives: norms, RoPE, dense/gated MLPs, attention.
+
+Counterpart of the reference package's ``models/layers.py`` in plain
+functions on tensors; parameters are plain dicts.  Layouts are the
+reference's: activations ``(B, S, d)``, heads ``(B, S, H, hd)``, weights
+``(d_in, d_out)``.  RMSNorm goes through ``kernels.ops.rmsnorm`` (the
+Hopper kernel on a CUDA tensor, its plain version on the CPU); the math
+is the reference's ``apply_norm``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+Params = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+GATED = {"silu", "gelu_gated"}
+
+
+# ------------------------------------------------------------------- norms
+def apply_norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return ops.rmsnorm(x, p["w"], eps=eps)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm {kind!r}")
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["w"].float() + p["b"].float()).to(x.dtype)
+
+
+# ------------------------------------------------------------------- RoPE
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split (not interleaved) rotary embedding with fp32 angles.
+    x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., :, None].float() * freqs  # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ------------------------------------------------------------------- MLP
+def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    h = x @ p["wi"]
+    if activation == "silu":
+        h = F.silu(h) * (x @ p["wg"])
+    elif activation == "gelu_gated":
+        h = F.gelu(h, approximate="tanh") * (x @ p["wg"])
+    elif activation == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif activation == "relu2":
+        h = F.relu(h).square()
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return h @ p["wo"]
+
+
+# ------------------------------------------------------------------- attention
+def qkv_project(
+    p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (
+        q.reshape(b, s, n_heads, head_dim),
+        k.reshape(b, s, n_kv_heads, head_dim),
+        v.reshape(b, s, n_kv_heads, head_dim),
+    )
+
+
+def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, H, hd) by repeating groups (GQA)."""
+    n_kv = k.shape[2]
+    if n_kv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // n_kv, dim=2)
+
+
+def gqa_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, Hkv, hd), not repeated
+    v: torch.Tensor,
+    *,
+    q_positions: torch.Tensor,  # (B, Sq)
+    kv_positions: torch.Tensor,  # (B, Skv)
+) -> torch.Tensor:
+    """Causal grouped-query attention over a contiguous cache without
+    repeating KV heads (fp32 logits, ``-1e30`` mask, as the reference).
+    The reference's sliding-window, KV-mask and softcap options wait for
+    a ported path that uses them."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, hd)
+    logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float()) * (1.0 / math.sqrt(hd))
+    mask = kv_positions[:, None, None, None, :] <= q_positions[:, None, None, :, None]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, hd)

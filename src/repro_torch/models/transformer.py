@@ -1,0 +1,242 @@
+"""The dense decoder's serving path on a paged KV cache.
+
+Counterpart of the reference package's ``models/transformer.py`` for
+the dense family:
+
+    model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
+    params = model.init(seed, device="cuda")
+    cache = model.init_cache(batch, max_len, paged=True, page_size=16, n_pages=N)
+    logits, cache = model.decode_step(params, cache, tokens, pos)
+    logits, cache = model.prefill_chunk(params, cache, tokens, offsets, lengths)
+
+Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
+one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
+{wi, wg, wo}), ``ln_f`` and ``lm_head`` ``(d, Vp)``.  The page pools are
+updated in place (the reference returns a new cache pytree); both calls
+still return the cache so call sites read alike.
+
+Writes to the paged cache are masked explicitly.  The reference relies
+on JAX dropping out-of-bounds scatters for a parked row (its table entry
+is the sentinel ``n_pages``) and for padded prefill tokens (sent to
+``n_pages``); indexing a torch tensor out of range raises on the CPU and
+kills the CUDA context, so only valid ``(row, token)`` pairs are written.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import GATED, apply_mlp, apply_norm, apply_rope, qkv_project
+
+Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class ModelRuntime:
+    """Execution knobs, orthogonal to the architecture (logits are always
+    float32, the reference's default)."""
+
+    dtype: torch.dtype = torch.float32
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, runtime: Optional[ModelRuntime] = None):
+        unsupported = [
+            name for name, on in (
+                (f"family {cfg.family!r}", cfg.family != "dense"),
+                ("MLA", cfg.use_mla),
+                ("sliding-window attention", cfg.sliding_window > 0),
+                ("encoder-decoder", cfg.is_encoder_decoder),
+                ("vision tokens", cfg.n_vision_tokens > 0),
+                ("learned positions", cfg.max_position_embeddings > 0),
+            ) if on
+        ]
+        if unsupported:
+            raise NotImplementedError(
+                f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
+                "(ROADMAP Queue 1: MLA paged, SSM/hybrid, the model zoo)"
+            )
+        self.cfg = cfg
+        self.rt = runtime or ModelRuntime()
+
+    # ------------------------------------------------------------- init
+    def init(self, seed: int, device=None) -> Params:
+        """Random weights from ``numpy.random.default_rng(seed)`` with the
+        reference's shapes and scales (``std = scale / sqrt(d_in)``,
+        embeddings ``0.02``, output projections scaled by
+        ``1 / sqrt(2 L)``).  The draws differ from ``jax.random``'s; parity
+        tests share weights through ``models.weights.params_from_jax``."""
+        device = resolve_device(device)
+        cfg, dtype = self.cfg, self.rt.dtype
+        rng = np.random.default_rng(seed)
+        d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+        h, hkv, vp = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
+        depth_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+        def normal(shape, std) -> torch.Tensor:
+            return put(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
+
+        def dense(d_in, d_out, scale=1.0) -> torch.Tensor:
+            return normal((d_in, d_out), scale / math.sqrt(d_in))
+
+        def norm() -> Params:
+            p = {"w": put(np.ones((d,), np.float32))}
+            if cfg.norm == "layernorm":
+                p["b"] = put(np.zeros((d,), np.float32))
+            return p
+
+        params: Params = {"embed": normal((vp, d), 0.02), "layers": []}
+        for _ in range(cfg.n_layers):
+            attn = {
+                "wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
+                "wo": dense(h * hd, d, depth_scale),
+            }
+            if cfg.qkv_bias:
+                attn.update(bq=put(np.zeros(h * hd, np.float32)),
+                            bk=put(np.zeros(hkv * hd, np.float32)),
+                            bv=put(np.zeros(hkv * hd, np.float32)))
+            mlp = {"wi": dense(d, f)}
+            if cfg.activation in GATED:
+                mlp["wg"] = dense(d, f)
+            mlp["wo"] = dense(f, d, depth_scale)
+            params["layers"].append({"ln1": norm(), "attn": attn, "ln2": norm(), "mlp": mlp})
+        params["ln_f"] = norm()
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense(d, vp)
+        return params
+
+    # ------------------------------------------------------------- cache
+    def init_cache(
+        self,
+        batch: int,
+        max_len: int,
+        *,
+        paged: bool = True,
+        page_size: int = 16,
+        n_pages: Optional[int] = None,
+        device=None,
+    ) -> Params:
+        """Paged decode cache: ``k_pages``/``v_pages``
+        ``(L, n_pages, page_size, Hkv, hd)`` and a ``page_table``
+        ``(batch, ceil(max_len / page_size))`` int32 whose entries hold the
+        sentinel ``n_pages`` until the allocator backs them."""
+        if not paged:
+            raise NotImplementedError(
+                "the dense (per-slot) cache is not ported yet (ROADMAP Queue 1: dense cache mode)"
+            )
+        device = resolve_device(device)
+        cfg, dtype = self.cfg, self.rt.dtype
+        ps = int(page_size)
+        pages_per_slot = -(-max_len // ps)
+        pool = batch * pages_per_slot if n_pages is None else int(n_pages)
+        shape = (cfg.n_layers, pool, ps, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {
+            "page_table": torch.full((batch, pages_per_slot), pool, dtype=torch.int32,
+                                     device=device),
+            "k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device),
+        }
+
+    # ------------------------------------------------------------- steps
+    def decode_step(
+        self, params: Params, cache: Params, tokens: torch.Tensor, pos: torch.Tensor
+    ) -> Tuple[torch.Tensor, Params]:
+        """One token per row. tokens ``(B, 1)``; pos ``(B,)`` per-row cache
+        positions (rows may be at different depths).  Returns logits
+        ``(B, 1, Vp)``."""
+        b = tokens.shape[0]
+        pos = torch.as_tensor(pos, device=tokens.device).long().expand(b)
+        positions = pos[:, None]  # (b, 1)
+        h = params["embed"][tokens].to(self.rt.dtype)
+        h = self._run_layers(params, cache, h, positions, valid=None)
+        return self._logits(params, h), cache
+
+    def prefill_chunk(
+        self,
+        params: Params,
+        cache: Params,
+        tokens: torch.Tensor,  # (B, T) right-padded prompt chunks
+        offsets: torch.Tensor,  # (B,) cache position of each row's first token
+        lengths: torch.Tensor,  # (B,) valid tokens per row; 0 = inactive row
+    ) -> Tuple[torch.Tensor, Params]:
+        """Ingest whole prompt chunks in one dispatch; returns the logits of
+        each row's last valid token ``(B, Vp)``."""
+        b, T = tokens.shape
+        lengths = lengths.long()
+        h = self._prefill_hidden(params, cache, tokens, offsets, lengths)
+        last = (lengths - 1).clamp(0, T - 1)
+        h_last = h[torch.arange(b, device=h.device), last][:, None]  # (b, 1, d)
+        return self._logits(params, h_last)[:, 0], cache
+
+    def _prefill_hidden(self, params, cache, tokens, offsets, lengths) -> torch.Tensor:
+        T = tokens.shape[1]
+        ar = torch.arange(T, device=tokens.device)
+        positions = offsets.long()[:, None] + ar[None, :]
+        valid = ar[None, :] < lengths[:, None]
+        h = params["embed"][tokens].to(self.rt.dtype)
+        return self._run_layers(params, cache, h, positions, valid=valid)
+
+    # ------------------------------------------------------------- layers
+    def _run_layers(self, params, cache, h, positions, valid) -> torch.Tensor:
+        cfg = self.cfg
+        table = cache["page_table"]
+        n_pages, page_size = cache["k_pages"].shape[1], cache["k_pages"].shape[2]
+        slots = write_slots(table, n_pages, page_size, positions, valid)
+        for i, lp in enumerate(params["layers"]):
+            hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
+            h = h + self._attn_paged(lp["attn"], hn, cache["k_pages"][i],
+                                     cache["v_pages"][i], table, positions, slots)
+            hn = apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
+            h = h + apply_mlp(lp["mlp"], hn, cfg.activation)
+        return h
+
+    def _attn_paged(self, p, x, k_pages, v_pages, table, positions, slots):
+        cfg = self.cfg
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        b, T, _ = x.shape
+        q, k, v = qkv_project(p, x, h, hkv, hd)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        rows, toks, pages, offs = slots
+        k_pages[pages, offs] = k[rows, toks].to(k_pages.dtype)
+        v_pages[pages, offs] = v[rows, toks].to(v_pages.dtype)
+        out = ops.paged_attention(q, k_pages, v_pages, table, positions[:, 0],
+                                  softcap=cfg.attn_logit_softcap)
+        return out.reshape(b, T, h * hd) @ p["wo"]
+
+    def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        return (h @ w).float()
+
+
+def write_slots(
+    table: torch.Tensor,  # (B, P) int32
+    n_pages: int,
+    page_size: int,
+    positions: torch.Tensor,  # (B, T) absolute positions
+    valid: Optional[torch.Tensor],  # (B, T) real tokens, None = all
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(row, token, page, offset)`` of every K/V write a dispatch makes:
+    the real tokens whose logical page is backed.  Parked rows (sentinel
+    table entries) and padded tokens write nothing, not even into page 0.
+    Computed once per dispatch (one host sync) and shared by every layer."""
+    logical = (positions // page_size).clamp(max=table.shape[1] - 1)
+    phys = table.long().gather(1, logical)  # (B, T)
+    ok = (phys >= 0) & (phys < n_pages)
+    if valid is not None:
+        ok = ok & valid
+    rows, toks = ok.nonzero(as_tuple=True)
+    return rows, toks, phys[rows, toks], positions[rows, toks] % page_size

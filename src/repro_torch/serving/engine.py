@@ -1,0 +1,452 @@
+"""Serving executor: the device-dispatch layer of the serving tier.
+
+Counterpart of the reference package's ``serving/engine.py`` for the
+paged cache with fused dispatch:
+:class:`~repro_torch.serving.scheduler.RequestScheduler` admits requests
+into freed rows (continuous batching), the
+:class:`~repro_torch.serving.cache_manager.KVCacheManager` backs the
+positions each dispatch will write (radix prefix cache, copy-on-write),
+and :class:`ServeEngine` dispatches: fused chunked prefill
+(``prefill_chunk`` tokens per row per dispatch) and ONE decode dispatch
+per tick for any mix of row positions, with sampling and the done mask
+on the device.  Finished rows are parked (pages freed) before the next
+dispatch.
+
+Knob names, refusals and the :class:`EngineStats` counters are the
+reference's; ``device`` (default ``cuda``) picks where the cache lives
+and must hold the parameters.  Not ported yet, and refused with
+``NotImplementedError`` naming their ROADMAP Queue 1 item: the dense
+cache, grouped dispatch, speculative decoding, the prefix store,
+disaggregated roles, checkpoint resume and handoff admission.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.serving.cache_manager import KVCacheManager
+from repro_torch.serving.sampling import make_decode_step, make_prefill_step
+from repro_torch.serving.scheduler import RequestScheduler
+from repro_torch.serving.types import EngineStats, Request, Slot
+
+__all__ = ["Request", "ServeEngine", "Slot"]
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
+
+
+def _param_devices(tree) -> set:
+    if isinstance(tree, dict):
+        return set().union(*(_param_devices(v) for v in tree.values()))
+    if isinstance(tree, list):
+        return set().union(*(_param_devices(v) for v in tree))
+    return {tree.device}
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        model,
+        params,
+        *,
+        max_batch: int = 4,
+        max_len: int = 256,
+        rng_seed: int = 0,
+        prefill_chunk: int = 16,
+        dispatch_mode: str = "fused",
+        sample_on_device: bool = True,
+        cache_mode: str = "paged",
+        page_size: int = 16,
+        total_pages: Optional[int] = None,
+        prefix_cache: bool = True,
+        prefix_match: str = "token",
+        prefix_store=None,
+        refill_policy: str = "continuous",
+        prefill_token_budget: Optional[int] = None,
+        worker_role: str = "unified",
+        speculative: str = "off",
+        draft_model=None,
+        draft_params=None,
+        device=None,
+    ):
+        if dispatch_mode not in ("fused", "grouped"):
+            raise ValueError(f"dispatch_mode must be fused|grouped, got {dispatch_mode!r}")
+        if cache_mode not in ("dense", "paged"):
+            raise ValueError(f"cache_mode must be dense|paged, got {cache_mode!r}")
+        if worker_role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"worker_role must be unified|prefill|decode, got {worker_role!r}"
+            )
+        if speculative not in ("off", "ngram", "draft"):
+            raise ValueError(f"speculative must be off|ngram|draft, got {speculative!r}")
+        if cache_mode == "dense":
+            raise _unported("cache_mode='dense'", "dense cache mode")
+        if dispatch_mode == "grouped":
+            raise _unported("dispatch_mode='grouped'", "grouped dispatch")
+        if speculative != "off" or draft_model is not None or draft_params is not None:
+            raise _unported("speculative decoding", "speculative + DraftProposer")
+        if prefix_store is not None:
+            raise _unported("prefix_store", "prefix store and payload")
+        if worker_role != "unified":
+            raise _unported(f"worker_role={worker_role!r}", "prefix store and payload")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        held = _param_devices(params)
+        if held != {self.device}:
+            raise ValueError(f"params live on {sorted(map(str, held))}, the engine runs "
+                             f"on {self.device}; move them first")
+        self.model = model
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.prefill_chunk = int(prefill_chunk)
+        self.sample_on_device = sample_on_device
+
+        # the layers share one counter block and are cross-wired at exactly
+        # two points: admission (scheduler -> cache: reset + stitch) and
+        # pool-pressure preemption (cache -> scheduler)
+        self.stats = EngineStats()
+        self.cache_mgr = KVCacheManager(
+            model,
+            max_batch=max_batch,
+            max_len=max_len,
+            stats=self.stats,
+            device=self.device,
+            page_size=page_size,
+            total_pages=total_pages,
+            prefix_cache=prefix_cache,
+            prefix_match=prefix_match,
+        )
+        self.scheduler = RequestScheduler(
+            max_batch,
+            self.stats,
+            refill_policy=refill_policy,
+            prefill_token_budget=prefill_token_budget,
+        )
+        self.scheduler.cache = self.cache_mgr
+        self.cache_mgr.preempt_for = self.scheduler.preempt_for
+        # the yield seam: the allocator requeues the requesting row only
+        # after its allocation loop unwound; skip when the slot was
+        # already emptied by a direct preemption
+        self.cache_mgr.preempt_row = (
+            lambda row: self.scheduler.preempt(row)
+            if self.scheduler.slots[row].req is not None else None
+        )
+
+        self._rng_seed = rng_seed
+        self._decode = make_decode_step(model, rng_seed, sample_on_device)
+        self._use_prefill = self.prefill_chunk > 0
+        self._prefill = (
+            make_prefill_step(model, rng_seed, sample_on_device)
+            if self._use_prefill else None
+        )
+        if prefill_token_budget is not None and not self._use_prefill:
+            raise ValueError(
+                "prefill_token_budget requires the fused prefill path "
+                "(prefill_chunk > 0); it would be silently inert here"
+            )
+
+    # ---------------------------------------------- layer-delegation surface
+    @property
+    def cache(self):
+        return self.cache_mgr.cache
+
+    @property
+    def prefix(self):
+        return self.cache_mgr.prefix
+
+    @property
+    def pending(self) -> List[Request]:
+        return self.scheduler.pending
+
+    @property
+    def finished(self) -> List[Request]:
+        return self.scheduler.finished
+
+    @property
+    def slots(self) -> List[Slot]:
+        return self.scheduler.slots
+
+    @property
+    def peak_cache_bytes(self) -> int:
+        return self.cache_mgr.peak_cache_bytes
+
+    def snapshot(self) -> Dict:
+        """Full counter + timing snapshot."""
+        snap = self.stats.snapshot()
+        snap["peak_cache_bytes"] = self.peak_cache_bytes
+        snap["timing"] = self.scheduler.timing()
+        snap["total_pages"] = self.cache_mgr.n_pages
+        snap["page_size"] = self.cache_mgr.page_size
+        return snap
+
+    # ------------------------------------------------------------- intake
+    def submit(self, reqs: List[Request]) -> None:
+        self.scheduler.submit(reqs)
+        # adaptive pool sizing sees the queue depth at submit
+        self.cache_mgr.on_submit(self.scheduler.pending)
+
+    def submit_resume(self, ckpt: Dict) -> Request:
+        raise _unported("submit_resume", "prefix store and payload")
+
+    def submit_handoff(self, rec: Dict) -> Request:
+        raise _unported("submit_handoff", "prefix store and payload")
+
+    # ------------------------------------------------------------- stepping
+    def step(self) -> int:
+        """One engine tick: admit queued requests into freed rows, ingest
+        pending prompt chunks (bounded by the tick's prefill token budget),
+        then advance every decode-ready row one token in a single decode
+        dispatch."""
+        self.scheduler.begin_tick()
+        if not self.scheduler.has_active():
+            return 0
+        emitted = 0
+        if self._use_prefill:
+            emitted += self._ingest_prompts()
+        emitted += self._decode_tick()
+        return emitted
+
+    # -- prompt ingestion (fused chunked prefill) ---------------------------
+    def _plan_prefill(self, prefilling: List[int], left: Optional[int]) -> Dict[int, int]:
+        """Per-row token counts for the next prefill dispatch under the
+        remaining tick budget (``None`` = unbounded)."""
+        C, slots = self.prefill_chunk, self.scheduler.slots
+        if left is None:
+            return {i: min(C, len(slots[i].remaining_prompt)) for i in prefilling}
+        # fair-share the remaining budget (ceil of an even split each),
+        # rotating the head row by tick so a budget smaller than the row
+        # count cannot starve the same rows forever
+        plan: Dict[int, int] = {}
+        start = self.scheduler.tick % len(prefilling)
+        order = prefilling[start:] + prefilling[:start]
+        for idx, i in enumerate(order):
+            share = -(-left // (len(order) - idx))
+            n = min(C, len(slots[i].remaining_prompt), share)
+            if n > 0:
+                plan[i] = n
+                left -= n
+        return plan
+
+    def _ingest_prompts(self) -> int:
+        emitted = 0
+        B, C = self.max_batch, self.prefill_chunk
+        slots = self.scheduler.slots
+        left = self.scheduler.prefill_token_budget
+        while True:
+            prefilling = [
+                i for i, s in enumerate(slots)
+                if s.req is not None and s.remaining_prompt
+            ]
+            if not prefilling or (left is not None and left <= 0):
+                return emitted
+            plan = self._plan_prefill(prefilling, left)
+            if left is not None:
+                left -= sum(plan.values())
+            if not plan:
+                return emitted
+            # reservation pass before building inputs: CoW / eviction /
+            # preemption mutate slot state, and a later row's allocation
+            # may preempt (or yield) an earlier one
+            for i, n in plan.items():
+                s = slots[i]
+                if s.req is not None and s.remaining_prompt:
+                    self.cache_mgr.ensure_pages(i, s.pos + n, write_start=s.pos)
+            rows = [
+                i for i in plan
+                if slots[i].req is not None and slots[i].remaining_prompt
+            ]
+            if left is not None:
+                # refund tokens planned for rows the reservation dropped: the
+                # budget promises tokens ingested, not tokens planned
+                left += sum(plan[i] for i in plan if i not in rows)
+            if not rows:
+                return emitted
+            tokens = np.zeros((B, C), np.int64)
+            offsets = np.zeros((B,), np.int64)
+            lengths = np.zeros((B,), np.int64)
+            meta = self._row_meta()
+            for i in rows:
+                slot = slots[i]
+                n = min(plan[i], len(slot.remaining_prompt))
+                tokens[i, :n] = slot.remaining_prompt[:n]
+                offsets[i] = slot.pos
+                lengths[i] = n
+                self._fill_meta(meta, i, slot)
+            self.cache_mgr.push_table()
+            if self.sample_on_device:
+                nxt, done, _ = self._prefill(self.params, self.cache_mgr.cache, tokens,
+                                             offsets, lengths, *meta)
+                nxt, done, lg = nxt.cpu().numpy(), done.cpu().numpy(), None
+            else:
+                logits, _ = self._prefill(self.params, self.cache_mgr.cache, tokens,
+                                          offsets, lengths)
+                nxt, done, lg = None, None, logits.float().cpu().numpy()
+            self.stats.prefill_dispatches += 1
+            self.stats.dispatches += 1
+            for i in rows:
+                slot = slots[i]
+                n = min(plan[i], len(slot.remaining_prompt))
+                del slot.remaining_prompt[:n]
+                slot.pos += n
+                self.stats.prompt_tokens_ingested += n
+                if not slot.remaining_prompt:
+                    # prompt fully resident: publish its full pages before
+                    # accept (which may finish the row and drop its refs)
+                    self.cache_mgr.prefix_insert(i, slot.req.prompt)
+                    self._accept_token(i, self._token(i, nxt, lg),
+                                       bool(done[i]) if done is not None else None)
+                    emitted += 1
+
+    # -- decode -------------------------------------------------------------
+    def _row_meta(self):
+        B = self.max_batch
+        return [np.zeros((B,), np.float32), np.zeros((B,), np.int64),
+                np.zeros((B,), np.int64), np.full((B,), -1, np.int64),
+                np.full((B,), 1 << 30, np.int64)]
+
+    @staticmethod
+    def _fill_meta(meta, i: int, slot: Slot) -> None:
+        temps, streams, steps, stops, max_news = meta
+        temps[i] = slot.req.temperature
+        streams[i] = slot.req.sample_stream
+        steps[i] = len(slot.req.output)
+        if slot.req.stop_token is not None:
+            stops[i] = slot.req.stop_token
+        max_news[i] = slot.req.max_new_tokens
+
+    def _decode_tick(self) -> int:
+        B = self.max_batch
+        slots = self.scheduler.slots
+        # reservation pass first: allocation may CoW a shared page or
+        # preempt/yield a slot, so inputs come only from the rows that still
+        # hold their pages.  Rows held mid-prefill by the tick budget are
+        # covered too: the batch-wide dispatch writes (garbage) KV at their
+        # pos through their live table, so a shared page there is
+        # privatized first; the row overwrites it when its prefill resumes
+        for i, s in enumerate(slots):
+            if s.req is not None:
+                self.cache_mgr.ensure_pages(i, s.pos + 1, write_start=s.pos)
+        tokens = np.zeros((B, 1), np.int64)
+        pos = np.zeros((B,), np.int64)
+        meta = self._row_meta()
+        active = []
+        for i, slot in enumerate(slots):
+            # parked rows keep their stale pos; their sentinel table row
+            # masks the write out of the dispatch
+            pos[i] = slot.pos
+            if slot.req is None or (self._use_prefill and slot.remaining_prompt):
+                continue
+            active.append(i)
+            if slot.remaining_prompt:  # decode-path ingestion (prefill_chunk=0)
+                tokens[i, 0] = slot.remaining_prompt[0]
+            elif slot.req.output:
+                tokens[i, 0] = slot.req.output[-1]
+            else:
+                tokens[i, 0] = slot.req.prompt[-1]
+            self._fill_meta(meta, i, slot)
+        if not active:
+            return 0
+        self.cache_mgr.push_table()
+        if self.sample_on_device:
+            nxt, done, _ = self._decode(self.params, self.cache_mgr.cache, tokens, pos, *meta)
+            nxt, done, lg = nxt.cpu().numpy(), done.cpu().numpy(), None
+        else:
+            logits, _ = self._decode(self.params, self.cache_mgr.cache, tokens, pos)
+            nxt, done, lg = None, None, logits.float().cpu().numpy()
+        self.stats.decode_dispatches += 1
+        self.stats.steps_executed += 1
+        self.stats.dispatches += 1
+        emitted = 0
+        for i in active:
+            slot = slots[i]
+            slot.pos += 1
+            if slot.remaining_prompt:
+                slot.remaining_prompt.pop(0)
+                self.stats.prompt_tokens_ingested += 1
+                if slot.remaining_prompt:
+                    continue  # still ingesting the prompt
+                self.cache_mgr.prefix_insert(i, slot.req.prompt)
+            self._accept_token(i, self._token(i, nxt, lg),
+                               bool(done[i]) if done is not None else None)
+            emitted += 1
+        return emitted
+
+    # -- bookkeeping ---------------------------------------------------------
+    def _token(self, row: int, nxt, lg) -> int:
+        if nxt is not None:
+            return int(nxt[row])
+        req = self.scheduler.slots[row].req
+        return self._host_sample(lg[row], req.temperature, stream=req.sample_stream,
+                                 step=len(req.output))
+
+    def _accept_token(self, row: int, tok: int, done: Optional[bool] = None) -> None:
+        slot = self.scheduler.slots[row]
+        slot.req.output.append(tok)
+        self.stats.tokens_emitted += 1
+        self.scheduler.on_token(row)
+        if done is None:
+            # host fallback (sample_on_device=False): re-derive the mask
+            done = len(slot.req.output) >= slot.req.max_new_tokens or (
+                slot.req.stop_token is not None and tok == slot.req.stop_token
+            )
+        if done or slot.pos >= self.max_len - 1:
+            self.scheduler.finish(row)
+
+    def _host_sample(self, lg_row: np.ndarray, temperature: float, stream: int,
+                     step: int) -> int:
+        """Host fallback sampler (``sample_on_device=False``): greedy, or a
+        max-subtracted softmax draw from an rng keyed on ``(seed, stream,
+        step)``, independent of scheduling and preemption replays."""
+        lg = np.asarray(lg_row, np.float64)
+        if temperature <= 0:
+            return int(np.argmax(lg))
+        p = np.exp((lg - lg.max()) / temperature)
+        p /= p.sum()
+        rng = np.random.default_rng((self._rng_seed, stream, step))
+        return int(rng.choice(len(p), p=p))
+
+    def run_to_completion(self, max_steps: int = 100_000) -> List[Request]:
+        steps = 0
+        while (
+            self.scheduler.pending or self.scheduler.has_active()
+        ) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.scheduler.finished
+
+
+def _stats_alias(name: str) -> property:
+    """Read/write view of one EngineStats counter on the engine."""
+    return property(
+        lambda self: getattr(self.stats, name),
+        lambda self, value: setattr(self.stats, name, value),
+    )
+
+
+def _cache_alias(name: str) -> property:
+    return property(lambda self: getattr(self.cache_mgr, name))
+
+
+for _name in (
+    "steps_executed", "decode_dispatches", "prefill_dispatches", "dispatches",
+    "tokens_emitted", "prompt_tokens_ingested",
+    "pages_in_use", "peak_pages", "page_allocs", "page_bytes",
+    "dense_cache_bytes",
+    "prefix_hit_tokens", "prompt_tokens_skipped", "pages_shared_peak",
+    "prefix_hit_tokens_partial", "cow_partial_stitches",
+    "cow_copies", "prefix_evictions", "preemptions", "tokens_discarded",
+):
+    setattr(ServeEngine, _name, _stats_alias(_name))
+for _name in (
+    "page_size", "n_pages", "pages_per_slot",
+    "_free_pages", "_page_refs", "_slot_pages", "_table",
+):
+    setattr(ServeEngine, _name, _cache_alias(_name))
+del _name

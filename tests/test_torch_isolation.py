@@ -1,0 +1,137 @@
+"""The port stands apart from the reference package and from the CPU:
+no port module imports ``jax`` or ``repro``; every knob not ported yet
+refuses with ``NotImplementedError``; a default-device entry point on a
+host without CUDA raises instead of running on the CPU; and
+``chip_smoke.py`` prints no result without a card."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ArchConfig, get_arch, reduced
+from repro_torch.models import Model
+from repro_torch.models.weights import params_from_jax
+from repro_torch.serving.engine import Request, ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "repro")}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    m = Model(reduced(get_arch("ds-paper-100m")))
+    return m, m.init(0, device="cpu")
+
+
+UNPORTED_KNOBS = [
+    dict(cache_mode="dense"),
+    dict(dispatch_mode="grouped"),
+    dict(speculative="ngram"),
+    dict(speculative="draft"),
+    dict(prefix_store="a-store"),
+    dict(worker_role="prefill"),
+    dict(worker_role="decode"),
+]
+
+
+def _knob_id(knob) -> str:
+    (name, value), = knob.items()
+    return f"{name}={value}"
+
+
+@pytest.mark.parametrize("knob", UNPORTED_KNOBS, ids=_knob_id)
+def test_unported_engine_knobs_refuse(tiny, knob):
+    m, p = tiny
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        ServeEngine(m, p, device="cpu", **knob)
+
+
+@pytest.mark.parametrize("knob", [dict(cache_mode="sparse"), dict(dispatch_mode="x"),
+                                  dict(prefix_match="chunk"), dict(refill_policy="lazy")])
+def test_invalid_engine_knobs_raise_value_error(tiny, knob):
+    m, p = tiny
+    with pytest.raises(ValueError):
+        ServeEngine(m, p, device="cpu", **knob)
+
+
+@pytest.mark.parametrize("method", ["submit_resume", "submit_handoff"])
+def test_unported_engine_entry_points_refuse(tiny, method):
+    m, p = tiny
+    eng = ServeEngine(m, p, device="cpu", max_len=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        getattr(eng, method)({})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        eng.cache_mgr.publish_generation(0, [1, 2, 3])
+
+
+def test_unported_model_features_refuse(tiny):
+    m, _ = tiny
+    with pytest.raises(NotImplementedError, match="dense cache"):
+        m.init_cache(2, 32, paged=False, device="cpu")
+    moe = ArchConfig(name="x-moe", family="moe", n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=2, d_ff=128, vocab_size=256, n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        Model(moe)
+    with pytest.raises(NotImplementedError, match="dense family"):
+        reduced(moe)
+
+
+def test_engine_refuses_params_on_another_device(tiny):
+    m, p = tiny
+    moved = {**p, "embed": p["embed"].to("meta")}
+    with pytest.raises(ValueError, match="params live on"):
+        ServeEngine(m, moved, device="cpu")
+
+
+def test_default_device_raises_without_cuda(tiny, monkeypatch):
+    """The default device is cuda: with no CUDA device every entry point
+    raises instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    m, p = tiny
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        m.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        m.init_cache(2, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(m, p)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax({"layers": {"ln1": {"w": [[1.0]]}}})
+    # the explicit CPU request still works
+    eng = ServeEngine(m, p, device="cpu", max_len=32, total_pages=4, page_size=8)
+    eng.submit([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])
+    assert len(eng.run_to_completion()[0].output) == 2
+
+
+def test_chip_smoke_prints_no_result_without_a_card(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no result,
+    in the checkout and as a lone file outside it."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                             cwd=script.parent, timeout=120)
+        assert run.returncode != 0
+        assert '"ok"' not in run.stdout

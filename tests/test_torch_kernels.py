@@ -1,0 +1,214 @@
+"""Port kernels (plain path on the CPU) against the reference package:
+``repro_torch.kernels.ops`` vs ``repro.kernels.ops`` in interpret mode
+and vs ``repro.kernels.ref``, on identical numpy inputs, at the
+reference's tolerances (2e-5 f32, 2e-2 bf16)."""
+
+import inspect
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_decode, ops, ref
+from repro_torch.kernels import rmsnorm as rms_mod
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def both(a: np.ndarray, name="float32"):
+    """The same numpy array as a JAX and a torch array of one dtype."""
+    jd, td = DTYPES[name]
+    return jnp.asarray(a, jd), torch.from_numpy(np.ascontiguousarray(a)).to(td)
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _alloc_table(B, P, n_pages, frontiers, ps, seed=1):
+    """Disjoint physical pages per row covering each row's frontier; the
+    sentinel ``n_pages`` everywhere else (as ``tests/test_kernels.py``)."""
+    rng = np.random.default_rng(seed)
+    perm = list(rng.permutation(n_pages))
+    table = np.full((B, P), n_pages, np.int32)
+    for b, frontier in enumerate(frontiers):
+        for j in range(-(-frontier // ps)):
+            table[b, j] = perm.pop()
+    return table
+
+
+def _paged_case(B, T, hkv, g, dk, ps, P, n_pages, offsets, seed=0, dv=None):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((n_pages, ps, hkv, dk)).astype(np.float32)
+    v = rng.standard_normal((n_pages, ps, hkv, dv or dk)).astype(np.float32)
+    q = rng.standard_normal((B, T, hkv * g, dk)).astype(np.float32)
+    table = _alloc_table(B, P, n_pages, np.asarray(offsets) + T, ps)
+    return q, k, v, table, np.asarray(offsets, np.int32)
+
+
+def _run_both(q, k, v, table, offs, dtype="float32", **kw):
+    jq, tq = both(q, dtype)
+    jk, tk = both(k, dtype)
+    jv, tv = both(v, dtype)
+    jt, tt = jnp.asarray(table), torch.from_numpy(table)
+    jo, to = jnp.asarray(offs), torch.from_numpy(offs)
+    got = ops.paged_attention(tq, tk, tv, tt, to, **kw)
+    want_kernel = jops.paged_attention(jq, jk, jv, jt, jo, interpret=True, **kw)
+    want_ref = jref.paged_attention_reference(jq, jk, jv, jt, jo, **kw)
+    port_ref = ref.paged_attention_reference(tq, tk, tv, tt, to, **kw)
+    return got, want_kernel, want_ref, port_ref
+
+
+# ------------------------------------------------- paged flash decode/extend
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 4])  # flash-decode and chunk-extend
+@pytest.mark.parametrize("hkv,g", [(2, 4), (1, 8)])  # GQA and MLA-style Hkv=1
+def test_paged_attention_vs_reference(T, hkv, g, dtype):
+    case = _paged_case(B=3, T=T, hkv=hkv, g=g, dk=32, ps=8, P=4, n_pages=10,
+                       offsets=[5, 0, 9])
+    got, want_kernel, want_ref, port_ref = _run_both(*case, dtype=dtype)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (3, T, hkv * g, 32)
+    for want in (want_kernel, want_ref, port_ref):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("k", [1, 3])  # draft window sizes
+def test_paged_verify_vs_reference(k):
+    """``paged_verify`` on its own contract: k+1 candidate queries per row
+    against the accepted history, against the reference's verify entry
+    and the registered oracle."""
+    T = k + 1
+    q, kk, v, table, offs = _paged_case(B=3, T=T, hkv=2, g=4, dk=32, ps=8, P=4,
+                                        n_pages=12, offsets=[5, 0, 9], seed=7)
+    tt = [torch.from_numpy(x) for x in (q, kk, v, table, offs)]
+    jj = [jnp.asarray(x) for x in (q, kk, v, table, offs)]
+    got = ops.paged_verify(*tt)
+    np.testing.assert_allclose(f32(got), f32(jops.paged_verify(*jj, interpret=True)),
+                               rtol=3e-5, atol=3e-5)
+    np.testing.assert_allclose(f32(got), f32(ref.ORACLES["paged_verify"](*tt)),
+                               rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("softcap,dv,v_width", [(30.0, 32, 0), (0.0, 48, 32), (5.0, 48, 40)])
+def test_paged_attention_softcap_and_v_width(softcap, dv, v_width):
+    """The kernel contract's two options the dense slice does not use:
+    tanh softcap on the scores and values read from the first
+    ``v_width`` columns of a wider (MLA-style) page."""
+    case = _paged_case(B=3, T=4, hkv=1, g=8, dk=32, ps=8, P=4, n_pages=10,
+                       offsets=[5, 0, 9], seed=3, dv=dv)
+    got, want_kernel, want_ref, port_ref = _run_both(*case, softcap=softcap, v_width=v_width)
+    assert got.shape[-1] == (v_width or dv)
+    for want in (want_kernel, want_ref, port_ref):
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_paged_attention_matches_contiguous_reference():
+    """Pages laid out contiguously == plain causal attention over the
+    logical sequence: the page indirection is position-exact."""
+    B, T, h, dk, ps = 2, 8, 4, 16, 4
+    seq = 16
+    P = seq // ps
+    rng = np.random.default_rng(3)
+    table = np.arange(B * P, dtype=np.int32).reshape(B, P)
+    kv = rng.standard_normal((B, seq, h, dk)).astype(np.float32)
+    vv = rng.standard_normal((B, seq, h, dk)).astype(np.float32)
+    q = rng.standard_normal((B, T, h, dk)).astype(np.float32)
+    offsets = np.full((B,), seq - T, np.int32)
+    out = ops.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(kv.reshape(B * P, ps, h, dk)),
+        torch.from_numpy(vv.reshape(B * P, ps, h, dk)), torch.from_numpy(table),
+        torch.from_numpy(offsets),
+    )
+    full_q = rng.standard_normal((B, seq, h, dk)).astype(np.float32)
+    full_q[:, seq - T:] = q
+    fold = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * h, -1, dk)  # noqa: E731
+    want = jref.attention_reference(fold(full_q), fold(kv), fold(vv), causal=True)
+    want = np.asarray(want).reshape(B, h, seq, dk).transpose(0, 2, 1, 3)[:, seq - T:]
+    np.testing.assert_allclose(f32(out), want, rtol=2e-5, atol=2e-5)
+
+
+def test_paged_attention_parked_rows_are_finite_zero():
+    """Rows whose pages were all freed (sentinel everywhere) produce exact
+    zeros, not NaNs."""
+    B, T, h, dk, ps, P, n_pages = 2, 1, 4, 16, 8, 4, 6
+    rng = np.random.default_rng(4)
+    k = torch.from_numpy(rng.standard_normal((n_pages, ps, h, dk)).astype(np.float32))
+    table = np.full((B, P), n_pages, np.int32)
+    table[0, 0] = 2  # row 0 live, row 1 parked
+    q = torch.from_numpy(rng.standard_normal((B, T, h, dk)).astype(np.float32))
+    out = ops.paged_attention(q, k, k, torch.from_numpy(table),
+                              torch.tensor([3, 3], dtype=torch.int32))
+    assert torch.isfinite(out).all()
+    assert (out[1] == 0).all()
+    assert (out[0] != 0).any()
+
+
+def test_paged_wrapper_rejects_bad_fold():
+    q = torch.zeros((1, 2, 5, 16))
+    pages = torch.zeros((4, 8, 2, 16))
+    with pytest.raises(ValueError, match="fold"):
+        flash_decode.paged_flash_attention_folded(
+            q, pages, pages, torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros((1,), dtype=torch.int32), tokens_per_row=2)
+
+
+# ------------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 256), (2, 8, 512), (3, 5, 128), (37, 100)])
+def test_rmsnorm_sweep(shape, dtype):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal(shape[-1]) + 1.0).astype(np.float32)
+    jx, tx = both(x, dtype)
+    got = ops.rmsnorm(tx, torch.from_numpy(w))
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    want_kernel = jops.rmsnorm(jx, jnp.asarray(w), interpret=True)
+    want_ref = jref.rmsnorm_reference(jx, jnp.asarray(w))
+    for want in (want_kernel, want_ref, ref.rmsnorm_reference(tx, torch.from_numpy(w))):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+def test_rmsnorm_wrapper_takes_2d_only():
+    with pytest.raises(ValueError, match="rows, d"):
+        rms_mod.rmsnorm(torch.zeros((2, 3, 4)), torch.ones(4))
+
+
+# ------------------------------------------------------------------ registry
+def test_oracle_registry_is_total():
+    """Every public ``kernels.ops`` entry point has a registered oracle."""
+    public = {
+        name for name, fn in vars(ops).items()
+        if inspect.isfunction(fn) and fn.__module__ == ops.__name__
+        and not name.startswith("_")
+    }
+    assert public == set(ref.ORACLES), (
+        f"ORACLES registry drift: ops has {sorted(public)}, "
+        f"registry has {sorted(ref.ORACLES)}"
+    )
+
+
+def test_plain_path_never_loads_the_kernel_library(monkeypatch):
+    """CPU tensors take the plain versions: the CUDA library is never
+    built or loaded for them, and no launch is counted."""
+    from repro_torch.kernels import _build
+
+    def boom():
+        raise AssertionError("kernel library touched on the CPU path")
+
+    monkeypatch.setattr(_build, "library", boom)
+    before = (flash_decode.paged_flash_attention_folded.launches, rms_mod.rmsnorm.launches)
+    case = _paged_case(B=2, T=1, hkv=2, g=2, dk=16, ps=4, P=4, n_pages=8, offsets=[3, 6])
+    ops.paged_attention(*(torch.from_numpy(x) for x in case), scale=1 / math.sqrt(16))
+    ops.rmsnorm(torch.ones((3, 8)), torch.ones(8))
+    after = (flash_decode.paged_flash_attention_folded.launches, rms_mod.rmsnorm.launches)
+    assert before == after
