@@ -11,8 +11,10 @@ Phases, each printing one JSON line:
 - ``build``: compiles ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc``
   per source, in parallel) into ``build/kernels/``;
 - ``kernels``: each kernel against its plain version on the card, f32
-  (atol/rtol 2e-5) and bf16 (2e-2), over the slice's shapes and the
-  GQA/MQA/MLA/softcap/verify/aliased/parked cases;
+  (atol/rtol 2e-5) and bf16 (2e-2): paged attention over the serving
+  slice's shapes and the GQA/MQA/MLA/softcap/verify/aliased/parked cases,
+  RMSNorm (and its gradient), flash attention over the reference's sweep,
+  sliding windows, the model layout and the eval phase's shapes;
 - ``parity``: full-width ``ds-paper-100m`` in f32 from seed 0, the engine
   on ``cuda`` (kernel path) against the same engine on ``cpu`` (plain
   path): equal greedy tokens (a near-tie below 1e-3 of the CPU's top-2
@@ -25,7 +27,20 @@ Phases, each printing one JSON line:
   yardstick;
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
-  idle share against the unprofiled wall time, top device ops.
+  idle share against the unprofiled wall time, top device ops;
+- ``train_parity``: full-width f32 training, 2 x 128 tokens, 2 AdamW
+  steps on the card against the same steps on the CPU from the same
+  weights and batches (loss, grad norm, parameters), once as one batch
+  and once as 2 microbatches with int8 stochastic-rounding accumulation;
+- ``train``: full width in f32, 8 x 512 tokens, 20 steps through the span
+  runner into a checkpoint, resumed for 2 more and held against an
+  uninterrupted 22-step run: losses, step times, tokens/s, peak memory,
+  and one step traced with ``torch.profiler``;
+- ``eval``: full-width forward through the eval runner in bf16 and f32
+  at 8 x 512 and 2 x 4096: tokens/s, 12 flash and 25 RMSNorm launches
+  per forward, logits with the flash kernel against direct attention, a
+  traced forward, and the flash kernel timed beside its bound, its plain
+  version and ``F.scaled_dot_product_attention``.
 
 Then a ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -251,16 +266,107 @@ def check_rmsnorm() -> dict:
     return worst
 
 
-def phase_kernels() -> dict:
-    from repro_torch.kernels.flash_decode import paged_flash_attention_folded
-    from repro_torch.kernels.rmsnorm import rmsnorm
+def check_rmsnorm_grad() -> float:
+    """The autograd wrapper's gradients on the card against autograd
+    through the plain version (f32): the kernel's forward must not cut
+    the graph."""
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((37, 768), generator=gen, device="cuda")
+    w = torch.randn((768,), generator=gen, device="cuda") + 1.0
+    g = torch.randn((37, 768), generator=gen, device="cuda")
+    grads = []
+    for fn in (rmsnorm, rmsnorm_plain):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        fn(xx, ww, 1e-5).backward(g)
+        grads.append((xx.grad, ww.grad))
+    err = max((a - b).abs().max().item() for a, b in zip(grads[0], grads[1]))
+    ok = all(torch.allclose(a, b, atol=1e-4, rtol=1e-4) for a, b in zip(grads[0], grads[1]))
+    emit({"phase": "kernels", "kernel": "rmsnorm", "case": "grad_f32", "max_abs_err": err,
+          "ok": ok})
+    require(ok, "rmsnorm's gradient on the card disagrees with autograd of its plain version")
+    return err
+
+
+def flash_cases():
+    """(name, bh, s, hd, block, causal, window, dtype): the reference's sweep
+    (tests/test_kernels.py::test_flash_attention_sweep), its sliding-window
+    cases and the eval phase's timed shapes."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for bh, s, hd, block in ((2, 128, 64, 64), (1, 256, 128, 128), (3, 512, 64, 256),
+                                 (2, 128, 192, 64)):
+            for causal in (True, False):
+                cases.append((f"sweep_{bh}x{s}x{hd}_b{block}_{'causal' if causal else 'full'}"
+                              f"_{tag}", bh, s, hd, block, causal, 0, dtype))
+        for window in (32, 128):
+            cases.append((f"window{window}_{tag}", 2, 256, 64, 64, True, window, dtype))
+    cases.append(("eval_8x512_bf16", 96, 512, 64, 512, True, 0, torch.bfloat16))
+    cases.append(("eval_2x4096_bf16", 24, 4096, 64, 512, True, 0, torch.bfloat16))
+    return cases
+
+
+def check_flash_attention() -> dict:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd,
+        flash_attention_bhsd_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for name, bh, s, hd, block, causal, window, dtype in flash_cases():
+        q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        got = flash_attention_bhsd(q, k, v, causal=causal, window=window, block_q=block,
+                                   block_k=block)
+        torch.cuda.synchronize()
+        want = flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
+        err = (got.float() - want.float()).abs().max().item()
+        t = tol(dtype)
+        ok = bool(torch.allclose(got.float(), want.float(), atol=t, rtol=t))
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": name,
+              "shape": [bh, s, hd], "max_abs_err": err, "ok": ok})
+        require(ok, f"flash_attention case {name} disagrees with its plain version")
+        key = str(dtype).removeprefix("torch.")
+        worst[key] = max(worst[key], err)
+    # operands at an offset off the 16-byte grid (the wrapper copies them)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(2 * 128 * 64 + 1, generator=gen, device="cuda").to(dtype)[1:]
+                   .view(2, 128, 64) for _ in range(3))
+        got = flash_attention_bhsd(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        want = flash_attention_bhsd_plain(q, k, v, causal=True)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.allclose(got.float(), want.float(), atol=tol(dtype), rtol=tol(dtype)))
+        name = f"misaligned_{'f32' if dtype == torch.float32 else 'bf16'}"
+        emit({"phase": "kernels", "kernel": "flash_attention", "case": name,
+              "shape": [2, 128, 64], "max_abs_err": err, "ok": ok})
+        require(ok, f"flash_attention case {name} disagrees with its plain version")
+    # the model layout: (B, S, H, hd) folded to (B*H, S, hd) and back
+    q, k, v = (torch.randn((2, 128, 4, 64), generator=gen, device="cuda") for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    want = ref.ORACLES["flash_attention"](q, k, v, causal=True)
+    err = (got - want).abs().max().item()
+    ok = bool(torch.allclose(got, want, atol=F32_TOL, rtol=F32_TOL))
+    emit({"phase": "kernels", "kernel": "flash_attention", "case": "model_layout_f32",
+          "shape": list(q.shape), "max_abs_err": err, "ok": ok})
+    require(ok, "flash_attention in the model layout disagrees with its oracle")
+    worst["float32"] = max(worst["float32"], err)
+    return worst
+
+
+def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = {"paged_attention": check_paged_attention(), "rmsnorm": check_rmsnorm()}
+    errs = {"paged_attention": check_paged_attention(), "rmsnorm": check_rmsnorm(),
+            "flash_attention": check_flash_attention()}
+    errs["rmsnorm"]["grad_float32"] = check_rmsnorm_grad()
     rec = {"phase": "kernels", "max_abs_err": errs,
-           "launches_in_checks": {"paged_attention": paged_flash_attention_folded.launches,
-                                  "rmsnorm": rmsnorm.launches}}
+           "launches_in_checks": read_launches()}
     emit(rec)
     return rec
 
@@ -316,20 +422,22 @@ def run_engine(model, params, reqs, device, **kw):
     return eng, time.perf_counter() - t0
 
 
-def reset_launches():
+def launch_counters() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.flash_decode import paged_flash_attention_folded
     from repro_torch.kernels.rmsnorm import rmsnorm
 
-    paged_flash_attention_folded.launches = 0
-    rmsnorm.launches = 0
+    return {"paged_attention": paged_flash_attention_folded, "rmsnorm": rmsnorm,
+            "flash_attention": flash_attention_bhsd}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels.flash_decode import paged_flash_attention_folded
-    from repro_torch.kernels.rmsnorm import rmsnorm
-
-    return {"paged_attention": paged_flash_attention_folded.launches,
-            "rmsnorm": rmsnorm.launches}
+    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 PARITY_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches", "tokens_emitted",
@@ -577,8 +685,6 @@ def phase_serve() -> dict:
     require(len(outs) == len(reqs), "not every serve request finished")
     require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
             "a serve request emitted a wrong number of tokens or an id outside the vocab")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} never launched on the main path")
     d = eng.dispatches
     require(launches["paged_attention"] == cfg.n_layers * d, "paged launches != 12/dispatch")
     require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d, "rmsnorm launches != 25/dispatch")
@@ -610,10 +716,9 @@ def phase_serve() -> dict:
     return rec
 
 
-def phase_profile() -> dict:
-    """Where a decode dispatch's time goes at the serve shape: 16 rows
-    decoding at once.  16 steady decode ticks are timed on the host clock
-    without the profiler, then 16 more are traced with torch.profiler.
+def trace(fn, reps: int, unit: str) -> dict:
+    """Where the time of ``fn`` goes: ``reps`` calls timed on the host clock
+    without the profiler, then ``reps`` more traced with torch.profiler.
     Device busy time is the sum of the traced kernels and copies (one
     stream); the idle share is 1 - busy / the unprofiled wall time, so the
     profiler's own host overhead is not counted as idle."""
@@ -622,6 +727,37 @@ def phase_profile() -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    busy_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {f"wall_ms_per_{unit}": wall_ms / reps,
+            f"profiled_wall_ms_per_{unit}": profiled_wall_ms / reps,
+            f"device_busy_ms_per_{unit}": busy_ms / reps,
+            "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
+            f"device_ops_per_{unit}": len(dev) / reps,
+            "top_device_ops": [{"name": n[:80], f"ms_per_{unit}": v[0] / reps,
+                                f"count_per_{unit}": v[1] / reps} for n, v in top]}
+
+
+def phase_profile() -> dict:
+    """Where a decode dispatch's time goes at the serve shape: 16 rows
+    decoding at once, 16 ticks timed and 16 traced (``trace``)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, ModelRuntime
     from repro_torch.serving.engine import Request, ServeEngine
@@ -638,34 +774,263 @@ def phase_profile() -> dict:
         eng.step()
     d0 = eng.decode_dispatches
     ticks = 16
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(ticks):
-        eng.step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            eng.step()
-        torch.cuda.synchronize()
-        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    traced = trace(eng.step, ticks, "dispatch")
     require(eng.decode_dispatches - d0 == 2 * ticks, "timed ticks were not all decode dispatches")
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in dev:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
-    busy_ms = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    rec = {"phase": "profile", "what": "decode dispatch, 16 rows, prompts 256",
-           "ticks": ticks, "wall_ms_per_dispatch": wall_ms / ticks,
-           "profiled_wall_ms_per_dispatch": profiled_wall_ms / ticks,
-           "device_busy_ms_per_dispatch": busy_ms / ticks,
-           "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
-           "device_ops_per_dispatch": len(dev) / ticks,
-           "top_device_ops": [{"name": n[:80], "ms_per_dispatch": v[0] / ticks,
-                               "count_per_dispatch": v[1] / ticks} for n, v in top]}
+    rec = {"phase": "profile", "what": "decode dispatch, 16 rows, prompts 256", "ticks": ticks,
+           **traced}
+    emit(rec)
+    return rec
+
+
+# ------------------------------------------------------------------ training
+def heartbeat_events(events: list):
+    """A heartbeat for the job runners that records a CUDA event each
+    time it is called (after a step's loss has reached the host)."""
+
+    def beat(progress=None):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append(e)
+
+    return beat
+
+
+def event_intervals_ms(events: list) -> list:
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+# Tolerances of the card against the CPU, f32 on both (no TF32): losses and
+# gradient norms differ only by summation order (rtol 1e-4).  A parameter
+# moves by at most ~lr per Adam step, so a near-zero gradient whose sign
+# differs between the devices moves it by at most 2 * (lr_1 + lr_2) =
+# 9e-5 over the two steps (lr 1.5e-5 then 3e-5, the job defaults'
+# warmup); parameters are held at atol 1e-4 + rtol 1e-4.
+PARITY_RTOL = 1e-4
+PARITY_PARAM_ATOL = 1e-4
+
+
+def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
+    from repro_torch import prng
+    from repro_torch.launch.train import build_model, build_train_step
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import init_opt_state
+
+    model = build_model(job)
+    step_fn, opt_cfg = build_train_step(job, model)
+    data = SyntheticLM(model.cfg, DataConfig(seq_len=seq_len, global_batch=batch), device=device)
+    params = model.init(0, device=device)
+    opt = init_opt_state(params, opt_cfg)
+    metrics = []
+    for step in range(2):
+        params, opt, met = step_fn(params, opt, data.batch(step), prng.PRNGKey(step, device=device))
+        metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+    return metrics, params
+
+
+def phase_train_parity() -> dict:
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {"one_batch": {}, "microbatches2_int8": {"microbatches": 2, "accum_dtype": "int8"}}
+    rec = {"phase": "train_parity", "arch": "ds-paper-100m", "dtype": "float32",
+           "tokens": "2 x 128", "steps": 2, "rtol": PARITY_RTOL,
+           "param_atol": PARITY_PARAM_ATOL, "runs": {}}
+    for name, extra in runs.items():
+        job = {"arch": "ds-paper-100m", **extra}
+        t0 = time.perf_counter()
+        reset_launches()
+        card, card_params = train_two_steps(job, "cuda", 128, 2)
+        card_launches = read_launches()["rmsnorm"]
+        card_s = time.perf_counter() - t0
+        card_params = [p.cpu() for p in tree_leaves(card_params)]
+        t0 = time.perf_counter()
+        cpu, cpu_params = train_two_steps(job, "cpu", 128, 2)
+        cpu_s = time.perf_counter() - t0
+        worst = 0.0
+        for a, b in zip(card_params, tree_leaves(cpu_params)):
+            worst = max(worst, (a - b).abs().max().item())
+            require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
+                    f"train_parity {name}: parameters after 2 steps differ (max {worst})")
+        for step, (c, h) in enumerate(zip(card, cpu)):
+            for key in ("loss", "grad_norm"):
+                require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
+                        f"train_parity {name}: {key} at step {step} card {c[key]} cpu {h[key]}")
+        # one forward and one backward per microbatch; norms run forward only
+        per_step = (2 * 12 + 1) * job.get("microbatches", 1)
+        require(card_launches == 2 * per_step,
+                f"rmsnorm launched {card_launches} times in 2 training steps")
+        rec["runs"][name] = {"card": card, "cpu": cpu, "param_max_abs_err": worst,
+                             "card_s": card_s, "cpu_s": cpu_s,
+                             "rmsnorm_launches": card_launches}
+    emit(rec)
+    return rec
+
+
+TRAIN_JOB = {"arch": "ds-paper-100m", "run": "smoke", "seq_len": 512, "global_batch": 8}
+
+
+def phase_train(store_root: Path) -> dict:
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch.train import run_train_span
+    from repro_torch.train.checkpoint import checkpoint_exists
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = ObjectStore(str(store_root / "interrupted"))
+    events: list = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    first = run_train_span({**TRAIN_JOB, "start_step": 0, "num_steps": 20}, store,
+                           heartbeat_events(events), device="cuda")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = event_intervals_ms(events)
+    require(len(first["losses"]) == 20 and all(math.isfinite(x) for x in first["losses"]),
+            "the 20 training losses are not all finite")
+    require(checkpoint_exists(store, "smoke", 20), "no checkpoint at step 20")
+    require(launches["rmsnorm"] == 20 * 25 and launches["flash_attention"] == 0,
+            f"training launches {launches}: want 25 RMSNorm per step and no flash kernel")
+    resumed = run_train_span({**TRAIN_JOB, "start_step": 20, "num_steps": 2}, store,
+                             lambda progress=None: None, device="cuda")
+    whole = run_train_span({**TRAIN_JOB, "start_step": 0, "num_steps": 22},
+                           ObjectStore(str(store_root / "uninterrupted")),
+                           lambda progress=None: None, device="cuda")
+    for got, want in zip(first["losses"] + resumed["losses"], whole["losses"]):
+        require(abs(got - want) <= PARITY_RTOL * abs(want),
+                f"resumed training diverges from the uninterrupted run: {got} vs {want}")
+    tokens = TRAIN_JOB["seq_len"] * TRAIN_JOB["global_batch"]
+    med = summary(step_ms)["median"]
+    rec = {"phase": "train", "arch": "ds-paper-100m", "dtype": "float32",
+           "tokens_per_step": tokens, "losses": first["losses"],
+           "resumed_losses": resumed["losses"], "uninterrupted_losses": whole["losses"][20:],
+           "step_ms": summary(step_ms), "tokens_per_s": tokens / (med / 1e3),
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "profile": trace_train_step()}
+    emit(rec)
+    return rec
+
+
+def trace_train_step() -> dict:
+    """Where a full-width f32 train step's time goes (8 x 512 tokens, the
+    span runner's step on its own: 3 steps timed, 3 traced)."""
+    from repro_torch import prng
+    from repro_torch.launch.train import build_model, build_train_step
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import init_opt_state
+
+    model = build_model(TRAIN_JOB)
+    step_fn, opt_cfg = build_train_step(TRAIN_JOB, model)
+    batch = SyntheticLM(model.cfg, DataConfig(seq_len=TRAIN_JOB["seq_len"],
+                                              global_batch=TRAIN_JOB["global_batch"]),
+                        device="cuda").batch(0)
+    state = {"params": model.init(0, device="cuda")}
+    state["opt"] = init_opt_state(state["params"], opt_cfg)
+    key = prng.PRNGKey(0, device="cuda")
+
+    def one_step():
+        state["params"], state["opt"], met = step_fn(state["params"], state["opt"], batch, key)
+        float(met["loss"])
+
+    one_step()  # warm
+    return {"what": "f32 train step, 8 x 512 tokens", **trace(one_step, 3, "step")}
+
+
+def flash_work(bh: int, s: int, hd: int, dtype) -> tuple:
+    """Bytes (q, k, v read once, out written once) and causal flops
+    (2 * BH * S^2 * hd: QK and PV over the lower triangle)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    return 4 * bh * s * hd * item, 2 * bh * s * s * hd
+
+
+def time_flash(bh: int, s: int, dtype) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd,
+        flash_attention_bhsd_plain,
+    )
+
+    hd = 64
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    kern = lambda: flash_attention_bhsd(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: flash_attention_bhsd_plain(q, k, v, causal=True)  # noqa: E731
+    # SDPA takes its fast kernels for (batch, heads, S, hd): the same folded
+    # tensors with a unit batch axis
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], is_causal=True)
+    err = check_at_shape(f"flash attention ({bh}x{s})", kern, plain, dtype)
+    nbytes, flops = flash_work(bh, s, hd, dtype)
+    bms, by = bound(nbytes, flops, dtype)
+    return {"shape": {"BH": bh, "S": s, "hd": hd}, "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10),
+            "bound_ms": bms, "bound_by": by, "library_ms": time_ms(lib),
+            "library_call": "F.scaled_dot_product_attention(is_causal=True) on the folded "
+                            "tensors viewed as (1, BH, S, hd)"}
+
+
+EVAL_SHAPES = ((8, 512), (2, 4096))
+# Logits with the flash kernel against direct attention: f32 differs by
+# summation order only; in bf16 the direct path rounds its probabilities
+# to bf16 before P.V (as the reference) while the kernel keeps fp32, and
+# the difference compounds over 12 layers of bf16 activations.
+EVAL_LOGIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+
+
+def phase_eval(store_root: Path) -> dict:
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch.train import build_model, run_eval
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.train.checkpoint import latest_step, restore_state
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = ObjectStore(str(store_root / "interrupted"))
+    n_batches = 3
+    rec = {"phase": "eval", "arch": "ds-paper-100m", "ckpt_step": latest_step(store, "smoke"),
+           "runs": [], "kernel_times": []}
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        job = {**TRAIN_JOB, "dtype": name, "n_batches": n_batches}
+        base = build_model(job)
+        params, _ = restore_state(store, "smoke", rec["ckpt_step"], base.abstract_params(),
+                                  device="cuda")
+        for b, s in EVAL_SHAPES:
+            events: list = []
+            reset_launches()
+            out = run_eval({**job, "seq_len": s, "global_batch": b}, store,
+                           heartbeat_events(events), device="cuda")
+            launches = read_launches()
+            ms = event_intervals_ms(events)
+            require(launches["flash_attention"] == 12 * n_batches
+                    and launches["rmsnorm"] == 25 * n_batches,
+                    f"eval {name} {b}x{s}: launches {launches}, want 12 flash and 25 RMSNorm "
+                    "per forward")
+            require(math.isfinite(out["loss"]), f"eval {name} {b}x{s}: loss not finite")
+            batch = SyntheticLM(base.cfg, DataConfig(seq_len=s, global_batch=b, seed=1234),
+                                device="cuda").batch(0)
+            with torch.no_grad():
+                logits = {impl: Model(base.cfg, ModelRuntime(dtype=dtype, attn_impl=impl))
+                          .forward(params, batch["tokens"]) for impl in ("kernel", "direct")}
+            err = (logits["kernel"] - logits["direct"]).abs().max().item()
+            t = EVAL_LOGIT_TOL[dtype]
+            require(bool(torch.isfinite(logits["kernel"]).all())
+                    and bool(torch.allclose(logits["kernel"], logits["direct"], atol=t, rtol=t)),
+                    f"eval {name} {b}x{s}: kernel logits differ from direct by {err}")
+            del logits
+            evaluator = Model(base.cfg, ModelRuntime(dtype=dtype))
+            with torch.no_grad():
+                profile = trace(lambda: float(evaluator.loss(params, batch)[0]), 3, "forward")
+            rec["runs"].append({
+                "dtype": name, "batch": b, "seq_len": s, "loss": out["loss"], "ppl": out["ppl"],
+                "forward_ms": summary(ms), "tokens_per_s": b * s / (summary(ms)["median"] / 1e3),
+                "launches": launches,
+                "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+                "logits_kernel_vs_direct_max_abs_err": err, "logits_tol": t,
+                "profile": profile})
+            rec["kernel_times"].append(time_flash(b * base.cfg.n_heads, s, dtype))
+        del params
     emit(rec)
     return rec
 
@@ -674,25 +1039,38 @@ KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:99"),
 }
 
 
-def kernels_line(checks: dict, serve: dict) -> dict:
+def kernels_line(checks: dict, serve: dict, train: dict, evals: dict) -> dict:
+    """One row per kernel: its launches on the main paths (serve, train,
+    eval: counts set to 0 before each and read after), its worst error,
+    and its times at its first timed shape with the others beside."""
     rows = []
+    serve_times = serve["kernel_times"]
+    eval_launches = {k: sum(r["launches"][k] for r in evals["runs"]) for k in KERNELS}
     for name, (source, replaces) in KERNELS.items():
-        times = serve["kernel_times"][name]
-        dec = times["decode"]
+        launches = {"serve": serve["launches"][name], "train": train["launches"][name],
+                    "eval": eval_launches[name]}
+        if name == "flash_attention":
+            timed = {f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
+                     for t in evals["kernel_times"]}
+        else:
+            timed = serve_times[name]
+        first = next(iter(timed.values()))
+        errs = [*checks["max_abs_err"][name].values(), *(t["max_abs_err"] for t in timed.values())]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": serve["launches"][name],
-            "max_abs_err": max(*checks["max_abs_err"][name].values(),
-                               dec["max_abs_err"], times["prefill"]["max_abs_err"]),
-            "max_abs_err_by_dtype": checks["max_abs_err"][name],
-            "ms": dec["ms"], "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-            "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
-            "at": "decode", "prefill": {k: times["prefill"][k] for k in
-                                        ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "max_abs_err")},
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(errs), "max_abs_err_by_dtype": checks["max_abs_err"][name],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "at": next(iter(timed)),
+            "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "max_abs_err")}
+                             for k, t in list(timed.items())[1:]},
         })
     return {"kernels": rows}
 
@@ -704,13 +1082,19 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
 
+    import tempfile
+
     phase_env()
     phase_build()
     checks = phase_kernels()
     phase_parity()
     serve = phase_serve()
     phase_profile()
-    emit(kernels_line(checks, serve))
+    phase_train_parity()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        train = phase_train(Path(tmp))
+        evals = phase_eval(Path(tmp))
+    emit(kernels_line(checks, serve, train, evals))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -35,6 +35,7 @@ SIGNATURES = {
     "paged_attention_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp,
                             _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _vp],
     "rmsnorm_fwd": [_i, _i, _vp, _vp, _vp, _i, _i, _f, _vp],
+    "flash_attention_fwd": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
 }
 
 

@@ -5,15 +5,43 @@ the CUDA kernel or the plain version from the tensors' device."""
 
 from __future__ import annotations
 
-from typing import Optional
-
+import functools
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.flash_decode import paged_flash_attention_folded
+
+
+def _fold_flash(attend: Callable, q, k, v, *, causal: bool, sliding_window: int) -> torch.Tensor:
+    """Fold model-layout heads into the batch (``(B*H, S, hd)``), run
+    ``attend`` (the kernel wrapper or its plain version) and unfold."""
+    b, s, h, hd = q.shape
+
+    def fold(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, x.shape[1], hd)
+
+    out = attend(fold(q), fold(k), fold(v), causal=causal, window=sliding_window)
+    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, hd) model layout
+    k: torch.Tensor,  # (B, S, H, hd), KV heads already repeated to H
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:  # (B, S, H, hd)
+    """Full-sequence flash attention; the sequence must divide
+    ``min(block, S)`` (the reference's block contract)."""
+    attend = functools.partial(flash_attention_bhsd, block_q=block_q, block_k=block_k)
+    return _fold_flash(attend, q, k, v, causal=causal, sliding_window=sliding_window)
 
 
 def _fold_paged(attend: Callable, q, k_pages, v_pages, page_table, offsets, *,

@@ -10,8 +10,29 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_bhsd_plain
 from repro_torch.kernels.flash_decode import paged_flash_attention_folded_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+
+# Direct softmax attention with causal/sliding-window masking in the
+# folded ``(BH, S, hd)`` layout, the reference's ``attention_reference``.
+attention_reference = flash_attention_bhsd_plain
+
+
+def flash_attention_reference(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, S, H, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sliding_window: int = 0,
+    block_q: int = 512,
+    block_k: int = 512,
+) -> torch.Tensor:
+    """Model-layout oracle for ``ops.flash_attention`` (the blocks only
+    shape the kernel's contract, not its result)."""
+    return ops._fold_flash(flash_attention_bhsd_plain, q, k, v, causal=causal,
+                           sliding_window=sliding_window)
 
 
 def paged_attention_reference(
@@ -38,6 +59,7 @@ rmsnorm_reference = rmsnorm_plain  # any leading shape: it normalises the last a
 # a test keeps it total.  ``paged_verify`` shares ``paged_attention``'s
 # oracle: the verify primitive is the chunk-extend case (T = k + 1).
 ORACLES = {
+    "flash_attention": flash_attention_reference,
     "paged_attention": paged_attention_reference,
     "paged_verify": paged_attention_reference,
     "rmsnorm": rmsnorm_reference,

@@ -6,6 +6,13 @@ Counterpart of the reference package's ``kernels/rmsnorm.py``
 axis of a ``(rows, d)`` input, fp32 accumulation, cast to ``x.dtype``.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.
+
+The op is differentiable: :class:`_RMSNorm` runs the kernel (or the plain
+version) forward and the analytic RMSNorm gradient backward, in plain
+torch at fp32 (or the input's wider type).  The reference package has no
+backward kernel for RMSNorm, so the port has none either; the gradient
+reaches ``x`` and ``w`` on the card as on the CPU, where writing the
+kernel's output through a raw pointer alone would cut the graph.
 """
 
 from __future__ import annotations
@@ -17,19 +24,18 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    acc = _acc_dtype(x)
+    xf = x.to(acc)
     ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+    return (xf * torch.rsqrt(ms + eps) * w.to(acc)).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm of ``x`` ``(rows, d)`` by ``w`` ``(d,)``."""
-    if x.dim() != 2 or w.shape != (x.shape[1],):
-        raise ValueError(f"rmsnorm takes x (rows, d) and w (d,), got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}")
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return rmsnorm_plain(x, w, eps)
+def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("rmsnorm operands must both lie on one CUDA device")
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
@@ -46,6 +52,37 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     _build.check(status, "rmsnorm_fwd")
     rmsnorm.launches += 1
     return out
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        if x.device.type == "cpu" and w.device.type == "cpu":
+            return rmsnorm_plain(x, w, eps)
+        return _launch(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        acc = _acc_dtype(x)
+        xf, wf, g = x.to(acc), w.to(acc), dy.to(acc)
+        r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
+        xhat = xf * r
+        gw = g * wf
+        dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+        dw = (g * xhat).sum(dim=0)
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of ``x`` ``(rows, d)`` by ``w`` ``(d,)``, differentiable in
+    both."""
+    if x.dim() != 2 or w.shape != (x.shape[1],):
+        raise ValueError(f"rmsnorm takes x (rows, d) and w (d,), got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    return _RMSNorm.apply(x, w, float(eps))
 
 
 rmsnorm.launches = 0

@@ -11,7 +11,7 @@ is the reference's ``apply_norm``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,3 +115,42 @@ def gqa_attention(
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)
     return out.reshape(b, sq, h, hd)
+
+
+def attention_scores(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, H, hd), KV heads repeated to H
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    q_positions: Optional[torch.Tensor] = None,  # (B, Sq); default arange
+    kv_positions: Optional[torch.Tensor] = None,  # (B, Skv); default arange
+    sliding_window: int = 0,
+    kv_mask: Optional[torch.Tensor] = None,  # (B, Skv) valid cache slots
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Direct attention, the reference's ``attention_scores``: fp32 logits
+    (the inputs upcast, so bf16 products are exact), optional tanh
+    softcap, causal / sliding-window / KV masks at ``-1e30``, and the
+    probabilities cast to q's dtype before the PV product."""
+    sq, hd = q.shape[1], q.shape[3]
+    skv = k.shape[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    if logit_softcap > 0:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    if q_positions is None:
+        q_positions = torch.arange(sq, device=q.device)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(skv, device=q.device)[None, :]
+    qp = q_positions[:, None, :, None]
+    kp = kv_positions[:, None, None, :]
+    mask = torch.ones((), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kp <= qp
+    if sliding_window > 0:
+        mask = mask & (kp > qp - sliding_window)
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, :]
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)

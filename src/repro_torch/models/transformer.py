@@ -1,13 +1,23 @@
-"""The dense decoder's serving path on a paged KV cache.
+"""The dense decoder: full-sequence forward, loss and the serving path
+on a paged KV cache.
 
 Counterpart of the reference package's ``models/transformer.py`` for
 the dense family:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
+    logits = model.forward(params, tokens)              # (B, S, Vp)
+    loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
     cache = model.init_cache(batch, max_len, paged=True, page_size=16, n_pages=N)
     logits, cache = model.decode_step(params, cache, tokens, pos)
     logits, cache = model.prefill_chunk(params, cache, tokens, offsets, lengths)
+
+The full-sequence path chooses its attention by ``ModelRuntime``
+(``resolve_attn``): ``direct`` (``layers.attention_scores``),
+``chunked`` (online softmax over KV chunks in plain torch) or
+``kernel`` (``ops.flash_attention``, the Hopper flash kernel, forward
+only).  Layers run as a Python loop over the per-layer dicts (the
+reference scans stacked layers); remat is not ported.
 
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
 one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
@@ -33,10 +43,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
-from repro_torch.models.layers import GATED, apply_mlp, apply_norm, apply_rope, qkv_project
+from repro_torch.models.layers import (
+    GATED,
+    apply_mlp,
+    apply_norm,
+    apply_rope,
+    attention_scores,
+    qkv_project,
+    repeat_kv,
+)
 
 Params = Dict[str, Any]
+ATTN_IMPLS = ("auto", "direct", "chunked", "kernel")
 
 
 @dataclass(frozen=True)
@@ -45,6 +65,126 @@ class ModelRuntime:
     float32, the reference's default)."""
 
     dtype: torch.dtype = torch.float32
+    attn_impl: str = "auto"  # auto | direct | chunked | kernel
+    attn_chunk: int = 1024
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r} not in {ATTN_IMPLS}")
+
+    def resolve_attn(self, seq_len: int, *, device=None, grad: bool = False,
+                     head_dim: int = 0) -> str:
+        """The full-sequence attention implementation.  An explicit
+        ``attn_impl`` is obeyed.  ``auto`` keeps the reference's rule
+        (``direct`` up to 4096 tokens, else ``chunked``) on the CPU and
+        wherever a gradient is taken; on a CUDA device with no gradient it
+        takes the flash kernel where the kernel has the head width and the
+        length fits its blocks, as the reference's ``resolve_paged_attn``
+        picks its kernel on its own accelerator."""
+        if self.attn_impl != "auto":
+            return self.attn_impl
+        on_card = device is not None and torch.device(device).type == "cuda"
+        if on_card and not grad and flash.supports(seq_len, head_dim):
+            return "kernel"
+        return "chunked" if seq_len > 4096 else "direct"
+
+
+def _pick_chunk(s: int, target: int) -> int:
+    """Largest divisor of s that is <= target (prefer multiples of 128)."""
+    best = 1
+    for c in range(min(target, s), 0, -1):
+        if s % c == 0:
+            if c % 128 == 0:
+                return c
+            if best == 1:
+                best = c  # best non-128-aligned fallback so far
+    return best
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, S, H, hd)
+    k: torch.Tensor,  # (B, S, H, hd), KV heads repeated
+    v: torch.Tensor,
+    *,
+    causal: bool,
+    sliding_window: int = 0,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the reference's pure-jnp
+    flash pattern, its ``lax.scan`` loops written out).  Memory is
+    O(B·H·chunk²); every chunk pair is computed, masked, as the
+    reference does."""
+    b, s, h, hd = q.shape
+    if s % chunk:
+        raise ValueError(f"seq {s} % chunk {chunk} != 0")
+    nq = s // chunk
+    scale = 1.0 / math.sqrt(hd)
+
+    def split(x):  # (nq, b, h, c, hd)
+        return x.reshape(b, nq, chunk, h, hd).permute(1, 0, 3, 2, 4)
+
+    qs, ks, vs = split(q), split(k), split(v)
+    ar = torch.arange(chunk, device=q.device)
+    outs = []
+    for iq in range(nq):
+        qi = qs[iq]
+        q_pos = iq * chunk + ar
+        m = torch.full((b, h, chunk), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, h, chunk, hd), dtype=torch.float32, device=q.device)
+        for jk in range(nq):
+            k_pos = jk * chunk + ar
+            logits = torch.einsum("bhqd,bhkd->bhqk", qi.float(), ks[jk].float()) * scale
+            mask = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
+            if causal:
+                mask = k_pos[None, :] <= q_pos[:, None]
+            if sliding_window > 0:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - sliding_window)
+            logits = logits.masked_fill(~mask, -1e30)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(  # f32 accumulation of q-dtype P, V
+                "bhqk,bhkd->bhqd", p.to(qi.dtype).float(), vs[jk].float())
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+    return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, hd)
+
+
+def _attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, rt: ModelRuntime, *,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal self-attention of one layer (the reference's
+    ``_attn_forward`` for the dense family)."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, s, _ = x.shape
+    q, k, v = qkv_project(p, x, h, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kr, vr = repeat_kv(k, h), repeat_kv(v, h)
+    impl = rt.resolve_attn(s, device=x.device, grad=q.requires_grad, head_dim=hd)
+    if impl == "kernel":
+        # as the reference's kernel branch, no logit softcap here
+        out = ops.flash_attention(q, kr, vr, causal=True, sliding_window=cfg.sliding_window)
+    elif impl == "chunked":
+        out = chunked_attention(q, kr, vr, causal=True, sliding_window=cfg.sliding_window,
+                                chunk=_pick_chunk(s, rt.attn_chunk))
+    else:
+        out = attention_scores(q, kr, vr, causal=True, sliding_window=cfg.sliding_window,
+                               q_positions=positions, kv_positions=positions,
+                               logit_softcap=cfg.attn_logit_softcap)
+    return out.reshape(b, s, h * hd) @ p["wo"]
+
+
+def _mixer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> torch.Tensor:
+    xn = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    return _attn_forward(p["attn"], xn, cfg, rt, positions=positions)
+
+
+def _layer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> torch.Tensor:
+    h = x + _mixer_apply(p, x, cfg, rt, positions)
+    hn = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
+    return h + apply_mlp(p["mlp"], hn, cfg.activation)
 
 
 class Model:
@@ -75,25 +215,43 @@ class Model:
         ``1 / sqrt(2 L)``).  The draws differ from ``jax.random``'s; parity
         tests share weights through ``models.weights.params_from_jax``."""
         device = resolve_device(device)
-        cfg, dtype = self.cfg, self.rt.dtype
+        dtype = self.rt.dtype
         rng = np.random.default_rng(seed)
+
+        def normal(shape, std) -> torch.Tensor:
+            a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+            return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+        def const(shape, value) -> torch.Tensor:
+            return torch.full(shape, float(value), dtype=dtype, device=device)
+
+        return self._param_tree(normal, const)
+
+    def abstract_params(self) -> Params:
+        """The parameter tree's shapes and dtypes as ``meta`` tensors,
+        nothing allocated (the counterpart of ``jax.eval_shape(model.init)``)."""
+        dtype = self.rt.dtype
+
+        def empty(shape, _) -> torch.Tensor:
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        return self._param_tree(empty, empty)
+
+    def _param_tree(self, normal, const) -> Params:
+        """The parameter tree, each leaf made by ``normal(shape, std)`` or
+        ``const(shape, value)`` in a fixed order."""
+        cfg = self.cfg
         d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
         h, hkv, vp = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
         depth_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
-
-        def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(device=device, dtype=dtype)
-
-        def normal(shape, std) -> torch.Tensor:
-            return put(rng.standard_normal(shape, dtype=np.float32) * np.float32(std))
 
         def dense(d_in, d_out, scale=1.0) -> torch.Tensor:
             return normal((d_in, d_out), scale / math.sqrt(d_in))
 
         def norm() -> Params:
-            p = {"w": put(np.ones((d,), np.float32))}
+            p = {"w": const((d,), 1.0)}
             if cfg.norm == "layernorm":
-                p["b"] = put(np.zeros((d,), np.float32))
+                p["b"] = const((d,), 0.0)
             return p
 
         params: Params = {"embed": normal((vp, d), 0.02), "layers": []}
@@ -103,9 +261,8 @@ class Model:
                 "wo": dense(h * hd, d, depth_scale),
             }
             if cfg.qkv_bias:
-                attn.update(bq=put(np.zeros(h * hd, np.float32)),
-                            bk=put(np.zeros(hkv * hd, np.float32)),
-                            bv=put(np.zeros(hkv * hd, np.float32)))
+                attn.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
+                            bv=const((hkv * hd,), 0.0))
             mlp = {"wi": dense(d, f)}
             if cfg.activation in GATED:
                 mlp["wg"] = dense(d, f)
@@ -115,6 +272,35 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense(d, vp)
         return params
+
+    # ------------------------------------------------------------- forward
+    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: tokens ``(B, S)`` -> logits
+        ``(B, S, Vp)`` float32."""
+        x = params["embed"][tokens].to(self.rt.dtype)
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h = x
+        for lp in params["layers"]:
+            h = _layer_apply(lp, h, self.cfg, self.rt, positions)
+        return self._logits(params, h)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
+        """Next-token cross-entropy over ``batch`` (``tokens``, ``labels``
+        and an optional float ``loss_mask``)."""
+        logits = self.forward(params, batch["tokens"])
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, labels[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones_like(ll)
+        loss = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
+        return loss, {"loss": loss, "tokens": mask.sum()}
+
+    def prefill(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Prefill forward: the last position's logits ``(B, 1, Vp)``."""
+        return self.forward(params, tokens)[:, -1:]
 
     # ------------------------------------------------------------- cache
     def init_cache(
@@ -159,7 +345,7 @@ class Model:
         pos = torch.as_tensor(pos, device=tokens.device).long().expand(b)
         positions = pos[:, None]  # (b, 1)
         h = params["embed"][tokens].to(self.rt.dtype)
-        h = self._run_layers(params, cache, h, positions, valid=None)
+        h = self._run_layers_paged(params, cache, h, positions, valid=None)
         return self._logits(params, h), cache
 
     def prefill_chunk(
@@ -185,10 +371,10 @@ class Model:
         positions = offsets.long()[:, None] + ar[None, :]
         valid = ar[None, :] < lengths[:, None]
         h = params["embed"][tokens].to(self.rt.dtype)
-        return self._run_layers(params, cache, h, positions, valid=valid)
+        return self._run_layers_paged(params, cache, h, positions, valid=valid)
 
     # ------------------------------------------------------------- layers
-    def _run_layers(self, params, cache, h, positions, valid) -> torch.Tensor:
+    def _run_layers_paged(self, params, cache, h, positions, valid) -> torch.Tensor:
         cfg = self.cfg
         table = cache["page_table"]
         n_pages, page_size = cache["k_pages"].shape[1], cache["k_pages"].shape[2]

@@ -1,10 +1,19 @@
-"""Weights carried across from the reference package.
+"""The bridge between the port's trees and the reference package's.
 
-The port cannot reproduce ``jax.random`` initialisation, so parity tests
-share weights: the caller turns the reference ``Model.init`` pytree into
-nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
-:func:`params_from_jax` turns those into the port's parameters.  This
-module never imports JAX.
+The reference stacks every layer's leaves along a leading ``L`` axis
+(its layers run as a ``lax.scan``); the port keeps ``layers`` as a list
+of per-layer dicts.  Both directions are here:
+
+- ``to_reference_layout`` / ``from_reference_layout`` restack torch
+  trees on their device: parameters, gradients and optimizer states
+  alike (every dict whose ``layers`` is a list, or a stacked dict);
+- ``params_from_jax`` / ``params_to_jax`` and ``opt_state_from_jax`` /
+  ``opt_state_to_jax`` cross to and from the reference's numpy leaves
+  (``jax.tree.map(np.asarray, tree)`` on its side).  Parity tests share
+  weights this way, since the port's numpy-seeded init cannot draw what
+  ``jax.random.normal`` draws; checkpoints restack through the torch pair.
+
+This module never imports JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +24,44 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.tree import tree_map
+
+Tree = Any
+
+
+def to_reference_layout(tree: Tree) -> Tree:
+    """Stack the per-layer list of every ``layers`` entry along a new
+    leading axis (the reference's layout); other leaves are shared."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "layers" and isinstance(v, list):
+            out[k] = tree_map(lambda *xs: torch.stack(xs), *v)
+        else:
+            out[k] = to_reference_layout(v)
+    return out
+
+
+def from_reference_layout(tree: Tree) -> Tree:
+    """Split every stacked ``layers`` entry into the port's list of
+    per-layer dicts (each leaf its own contiguous tensor)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k == "layers" and isinstance(v, dict):
+            n = _leading(v)
+            out[k] = [tree_map(lambda a, i=i: a[i].clone(), v) for i in range(n)]
+        else:
+            out[k] = from_reference_layout(v)
+    return out
+
+
+def _leading(tree: Tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(tree.shape[0])
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -25,29 +72,43 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(
     np_params: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = torch.float32
 ) -> Dict[str, Any]:
-    """Port parameters from the reference's dense-model pytree.
-
-    ``np_params["layers"]`` stacks every layer's leaves along a leading
-    ``L`` axis; it is unstacked into the port's list of per-layer dicts.
-    Every other leaf keeps its shape (weights are ``(d_in, d_out)`` in
-    both packages)."""
+    """Port parameters from the reference's dense-model pytree of numpy
+    leaves (layers stacked along ``L``), converted to ``dtype``."""
     device = resolve_device(device)
     if "dense_layers" in np_params or "layers" not in np_params:
         raise NotImplementedError("params_from_jax takes the dense family's pytree only")
+    return from_reference_layout(tree_map(lambda a: _tensor(a, device, dtype), np_params))
 
-    def convert(tree):
-        if isinstance(tree, dict):
-            return {k: convert(v) for k, v in tree.items()}
-        return _tensor(tree, device, dtype)
 
-    stacked = np_params["layers"]
-    n_layers = len(np.asarray(stacked["ln1"]["w"]))
+def _numpy(t) -> np.ndarray:
+    """A leaf as numpy: bf16 (which numpy lacks) widens to float32."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    return np.asarray(t)
 
-    def layer(tree, i):
-        if isinstance(tree, dict):
-            return {k: layer(v, i) for k, v in tree.items()}
-        return _tensor(np.asarray(tree)[i], device, dtype)
 
-    out = {k: convert(v) for k, v in np_params.items() if k != "layers"}
-    out["layers"] = [layer(stacked, i) for i in range(n_layers)]
+def params_to_jax(params: Tree) -> Tree:
+    """The reference's pytree of numpy leaves (layers stacked) from port
+    parameters; feed it to JAX with ``jax.tree.map(jnp.asarray, ...)``."""
+    return tree_map(_numpy, to_reference_layout(params))
+
+
+def opt_state_to_jax(state: Tree) -> Tree:
+    """``train.optimizer`` state in the reference's layout: the step as an
+    int32 scalar, moments (and master) stacked, int8 moments kept int8."""
+    out = tree_map(_numpy, to_reference_layout({k: v for k, v in state.items() if k != "step"}))
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out
+
+
+def opt_state_from_jax(np_state: Tree, device=None) -> Tree:
+    """``train.optimizer`` state from the reference's (numpy leaves; each
+    leaf keeps its dtype: float32 moments, int8 ``q`` with float32
+    ``scale``)."""
+    device = resolve_device(device)
+    rest = {k: v for k, v in np_state.items() if k != "step"}
+    out = from_reference_layout(
+        tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), rest))
+    out["step"] = int(np.asarray(np_state["step"]))
     return out

@@ -8,10 +8,12 @@ at submit) and each emitted token a *step* (tokens already generated),
 so a row's draws never depend on its batch placement, slot or the
 dispatch schedule.  Greedy rows take the first index of the maximum, as
 the reference does.  Temperature rows use the Gumbel-max trick on
-max-subtracted logits with noise from a ``torch.Generator`` seeded from
-``(base_seed, stream, step)``; the reference draws its noise from JAX's
-threefry stream, so temperature samples agree with it in distribution
-and determinism, not bit for bit (ROADMAP Queue 3).
+max-subtracted logits, with each row's noise drawn as the reference
+draws it: ``gumbel(fold_in(fold_in(PRNGKey(base_seed), stream), step),
+(V,))`` from the port's copy of JAX's threefry stream (``prng``), for all
+temperature rows at once on the logits' device.  The sampled ids equal
+the reference's except at a near-tie, where the two libraries' ``log``
+may differ by an ulp.
 """
 
 from __future__ import annotations
@@ -21,10 +23,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-
-def _row_seed(base_seed: int, stream: int, step: int) -> int:
-    state = np.random.SeedSequence([base_seed, stream, step]).generate_state(1, np.uint64)
-    return int(state[0])
+from repro_torch import prng
 
 
 def sample_tokens(
@@ -39,13 +38,20 @@ def sample_tokens(
     argmax, temperature rows a Gumbel-max draw."""
     lg = logits.float()
     out = torch.argmax(lg, dim=-1)
-    for i in np.flatnonzero(np.asarray(temps) > 0):
-        gen = torch.Generator(device=lg.device)
-        gen.manual_seed(_row_seed(base_seed, int(streams[i]), int(steps[i])))
-        u = torch.rand(lg.shape[-1], generator=gen, device=lg.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        z = (lg[i] - lg[i].max()) / float(temps[i]) + gumbel
-        out[i] = torch.argmax(z)
+    rows = np.flatnonzero(np.asarray(temps) > 0)
+    if rows.size == 0:
+        return out
+    dev = lg.device
+    idx = torch.as_tensor(rows, device=dev)
+    keys = prng.fold_in(
+        prng.fold_in(prng.PRNGKey(base_seed, device=dev),
+                     torch.as_tensor(np.asarray(streams)[rows], device=dev)),
+        torch.as_tensor(np.asarray(steps)[rows], device=dev))
+    noise = prng.gumbel(keys, lg.shape[-1:])  # (n, V)
+    t = torch.as_tensor(np.asarray(temps, np.float32)[rows], device=dev)
+    sel = lg[idx]
+    z = (sel - sel.max(dim=-1, keepdim=True).values) / t[:, None] + noise
+    out[idx] = torch.argmax(z, dim=-1)
     return out
 
 

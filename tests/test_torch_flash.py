@@ -1,0 +1,110 @@
+"""The flash-attention op (plain path on the CPU) against the reference
+package on identical numpy inputs: the reference's sweep, sliding
+windows and model layout against its kernel in interpret mode and its
+oracles, at its tolerances (2e-5 f32, 2e-2 bf16, 3e-5 in the model
+layout); direct attention's options; the block contract and the missing
+gradient."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_bhsd as jflash
+from repro.models.layers import attention_scores as jattention_scores
+from repro_torch.kernels import flash_attention, ops, ref
+from repro_torch.models.layers import attention_scores
+
+torch.set_num_threads(1)  # the test workers share the host's cores
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+def both(a: np.ndarray, name="float32"):
+    jd, td = DTYPES[name]
+    return jnp.asarray(a, jd), torch.from_numpy(np.ascontiguousarray(a)).to(td)
+
+
+def f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _qkv(shape, name, seed=0):
+    rng = np.random.default_rng(seed)
+    return [both(rng.standard_normal(shape).astype(np.float32), name) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,s,hd,block", [(2, 128, 64, 64), (1, 256, 128, 128),
+                                           (3, 512, 64, 256), (2, 128, 192, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_sweep(bh, s, hd, block, causal, dtype):
+    """The reference's sweep: the port's wrapper (its plain version on the
+    CPU) against the reference's kernel in interpret mode and its oracle."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((bh, s, hd), dtype)
+    got = flash_attention.flash_attention_bhsd(tq, tk, tv, causal=causal, block_q=block,
+                                               block_k=block)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want_kernel = jflash(jq, jk, jv, causal=causal, block_q=block, block_k=block, interpret=True)
+    for want in (want_kernel, jref.attention_reference(jq, jk, jv, causal=causal),
+                 ref.attention_reference(tq, tk, tv, causal=causal)):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_flash_attention_sliding_window(window):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((2, 256, 64), "float32", seed=1)
+    got = flash_attention.flash_attention_bhsd(tq, tk, tv, causal=True, window=window,
+                                               block_q=64, block_k=64)
+    want = jflash(jq, jk, jv, causal=True, window=window, block_q=64, block_k=64,
+                  interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        f32(got), f32(jref.attention_reference(jq, jk, jv, causal=True, window=window)),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_model_layout():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((2, 128, 4, 64), "float32", seed=2)
+    got = ops.flash_attention(tq, tk, tv, causal=True, block_q=64, block_k=64)
+    want = jops.flash_attention(jq, jk, jv, causal=True, block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=3e-5, atol=3e-5)
+    for want in (jattention_scores(jq, jk, jv, causal=True),
+                 attention_scores(tq, tk, tv, causal=True),
+                 ref.ORACLES["flash_attention"](tq, tk, tv, causal=True)):
+        np.testing.assert_allclose(f32(got), f32(want), rtol=3e-5, atol=3e-5)
+
+
+def test_attention_scores_options_match_reference():
+    """Direct attention's positions, window, KV mask and softcap."""
+    rng = np.random.default_rng(6)
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((2, 5, 4, 16), "float32", seed=6)
+    qpos = np.asarray([[3, 4, 5, 6, 7], [0, 1, 2, 3, 4]], np.int32)
+    kvpos = np.tile(np.arange(5, dtype=np.int32), (2, 1)) + np.asarray([[2], [0]], np.int32)
+    kv_mask = rng.random((2, 5)) > 0.2
+    kv_mask[:, 0] = True
+    kw = dict(causal=True, sliding_window=3, logit_softcap=5.0)
+    want = jattention_scores(jq, jk, jv, q_positions=jnp.asarray(qpos),
+                             kv_positions=jnp.asarray(kvpos), kv_mask=jnp.asarray(kv_mask), **kw)
+    got = attention_scores(tq, tk, tv, q_positions=torch.from_numpy(qpos),
+                           kv_positions=torch.from_numpy(kvpos),
+                           kv_mask=torch.from_numpy(kv_mask), **kw)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_wrapper_keeps_the_block_contract_and_has_no_gradient():
+    q = torch.zeros((1, 96, 64))
+    with pytest.raises(ValueError, match="must divide blocks"):
+        flash_attention.flash_attention_bhsd(q, q, q, block_q=64, block_k=64)
+    q = torch.randn((1, 64, 64), requires_grad=True)
+    out = flash_attention.flash_attention_bhsd(q, q, q)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        out.sum().backward()

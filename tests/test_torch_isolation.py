@@ -12,11 +12,16 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import prng, resolve_device
 from repro_torch.configs import ArchConfig, get_arch, reduced
+from repro_torch.core.storage import ObjectStore
+from repro_torch.launch.train import run_train_span
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.train.data import DataConfig, SyntheticLM
+
+torch.set_num_threads(1)  # the test workers share the host's cores
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -34,7 +39,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
-    bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "repro")}
+    bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "ml_dtypes", "repro")}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
@@ -104,7 +109,7 @@ def test_engine_refuses_params_on_another_device(tiny):
         ServeEngine(m, moved, device="cpu")
 
 
-def test_default_device_raises_without_cuda(tiny, monkeypatch):
+def test_default_device_raises_without_cuda(tiny, monkeypatch, tmp_path):
     """The default device is cuda: with no CUDA device every entry point
     raises instead of carrying on on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -119,6 +124,13 @@ def test_default_device_raises_without_cuda(tiny, monkeypatch):
         ServeEngine(m, p)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax({"layers": {"ln1": {"w": [[1.0]]}}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        prng.PRNGKey(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLM(m.cfg, DataConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_train_span({"arch": "ds-paper-100m", "start_step": 0, "num_steps": 1},
+                       ObjectStore(str(tmp_path)), lambda progress=None: None)
     # the explicit CPU request still works
     eng = ServeEngine(m, p, device="cpu", max_len=32, total_pages=4, page_size=8)
     eng.submit([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])

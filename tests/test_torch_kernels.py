@@ -1,11 +1,13 @@
 """Port kernels (plain path on the CPU) against the reference package:
 ``repro_torch.kernels.ops`` vs ``repro.kernels.ops`` in interpret mode
 and vs ``repro.kernels.ref``, on identical numpy inputs, at the
-reference's tolerances (2e-5 f32, 2e-2 bf16)."""
+reference's tolerances (2e-5 f32, 2e-2 bf16); the RMSNorm op's
+analytic gradient by ``gradcheck``."""
 
 import inspect
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +15,10 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import flash_decode, ops, ref
+from repro_torch.kernels import flash_attention, flash_decode, ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
+
+torch.set_num_threads(1)  # the test workers share the host's cores
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -178,6 +182,40 @@ def test_rmsnorm_sweep(shape, dtype):
         np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
+def test_rmsnorm_gradient_gradcheck():
+    """The autograd wrapper's analytic backward (dx and dw) against finite
+    differences in float64."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((6, 24), generator=gen, dtype=torch.float64, requires_grad=True)
+    w = (torch.randn((24,), generator=gen, dtype=torch.float64) + 1.0).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b: rms_mod.rmsnorm(a, b, 1e-5), (x, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_gradient_matches_reference(dtype):
+    """dx and dw of the model-layout op against ``jax.grad`` through the
+    reference's norm (the math of its ``apply_norm``)."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    w = (rng.standard_normal(64) + 1.0).astype(np.float32)
+    g = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    jx, tx = both(x, dtype)
+    jw, tw = both(w, dtype)
+    jg, tg = both(g, dtype)
+
+    def jloss(a, b):
+        return jnp.sum(jref.rmsnorm_reference(a, b).astype(jnp.float32) * jg.astype(jnp.float32))
+
+    want = jax.grad(jloss, argnums=(0, 1))(jx, jw)
+    tx.requires_grad_(True)
+    tw.requires_grad_(True)
+    ops.rmsnorm(tx, tw).backward(tg)
+    for a, b in zip((tx.grad, tw.grad), want):
+        assert a.dtype == tx.dtype
+        np.testing.assert_allclose(f32(a), f32(b), **(tol(dtype) if dtype == "float32" else
+                                                     dict(rtol=2e-2, atol=5e-2)))
+
+
 def test_rmsnorm_wrapper_takes_2d_only():
     with pytest.raises(ValueError, match="rows, d"):
         rms_mod.rmsnorm(torch.zeros((2, 3, 4)), torch.ones(4))
@@ -206,9 +244,15 @@ def test_plain_path_never_loads_the_kernel_library(monkeypatch):
         raise AssertionError("kernel library touched on the CPU path")
 
     monkeypatch.setattr(_build, "library", boom)
-    before = (flash_decode.paged_flash_attention_folded.launches, rms_mod.rmsnorm.launches)
+    def counts():
+        return (flash_decode.paged_flash_attention_folded.launches, rms_mod.rmsnorm.launches,
+                flash_attention.flash_attention_bhsd.launches)
+
+    before = counts()
     case = _paged_case(B=2, T=1, hkv=2, g=2, dk=16, ps=4, P=4, n_pages=8, offsets=[3, 6])
     ops.paged_attention(*(torch.from_numpy(x) for x in case), scale=1 / math.sqrt(16))
     ops.rmsnorm(torch.ones((3, 8)), torch.ones(8))
-    after = (flash_decode.paged_flash_attention_folded.launches, rms_mod.rmsnorm.launches)
+    q = torch.ones((1, 4, 8, 64))
+    ops.flash_attention(q, q, q)
+    after = counts()
     assert before == after

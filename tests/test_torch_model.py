@@ -19,6 +19,8 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.models import Model, layers
 from repro_torch.models.weights import params_from_jax
 
+torch.set_num_threads(1)  # the test workers share the host's cores
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -8,16 +8,20 @@ workloads.  The allocator invariants are checked after every tick."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_arch as jget_arch
 from repro.configs import reduced as jreduced
 from repro.models import Model as JModel
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServeEngine as JEngine
+from repro_torch import prng
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serving.engine import Request, ServeEngine
+
+torch.set_num_threads(1)  # the test workers share the host's cores
 
 COUNTERS = (
     "dispatches", "prefill_dispatches", "decode_dispatches", "steps_executed",
@@ -175,3 +179,65 @@ def test_pool_exhaustion_and_overlong_prompt_raise(models):
     eng.submit([Request(uid="big", prompt=list(range(1, 25)), max_new_tokens=2)])
     with pytest.raises(ValueError, match="max_len"):
         eng.run_to_completion()
+
+
+# ------------------------------------------------------ temperature sampling
+def _no_near_tie(m, p, req, temperature, seed, gap=1e-3):
+    """Every temperature draw of ``req`` had a clear winner: the top two
+    Gumbel-perturbed scores differ by more than ``gap`` (the two
+    libraries' ``log`` agree to ~1e-7, so no id can flip)."""
+    import torch
+
+    from repro_torch import prng
+
+    toks = list(req.prompt)
+    for step, tok in enumerate(req.output):
+        logits = m.forward(p, torch.tensor([toks]))[0, -1, :m.cfg.vocab_size]
+        key = prng.fold_in(prng.fold_in(prng.PRNGKey(seed, device="cpu"), req.sample_stream), step)
+        z = (logits - logits.max()) / temperature + prng.gumbel(key, logits.shape)
+        top2 = torch.topk(z, 2).values
+        assert int(torch.argmax(z)) == tok
+        assert float(top2[0] - top2[1]) > gap, f"near-tie at step {step}"
+        toks.append(tok)
+
+
+def test_temperature_sampling_matches_reference_on_the_named_input(models):
+    """ROADMAP Queue 3 item 1's input: reduced ds-paper-100m, prompt
+    [10, 20, 30, 40, 50], temperature 0.7, rng_seed 5 -- the same ids as
+    the reference's threefry draws."""
+    jm, jp, m, p = models
+    kw = dict(max_batch=2, max_len=32, prefill_chunk=4, page_size=8, total_pages=8,
+              rng_seed=5)
+    eng = ServeEngine(m, p, device="cpu", **kw)
+    eng.submit([Request(uid="t", prompt=[10, 20, 30, 40, 50], max_new_tokens=12,
+                        temperature=0.7)])
+    jeng = JEngine(jm, jp, cache_mode="paged", **kw)
+    jeng.submit([JRequest(uid="t", prompt=[10, 20, 30, 40, 50], max_new_tokens=12,
+                          temperature=0.7)])
+    want = {r.uid: r.output for r in jeng.run_to_completion()}
+    done = eng.run_to_completion()
+    assert {r.uid: r.output for r in done} == want
+    _no_near_tie(m, p, done[0], 0.7, 5)
+
+
+def test_mixed_greedy_and_temperature_rows_match_reference(models):
+    """One engine run mixing greedy rows and rows at two temperatures,
+    under a pool small enough to preempt: ids equal the reference's."""
+    jm, jp, m, p = models
+    temps = [0.0, 0.7, 1.3, 0.0, 0.7]
+    prompts = [[3 + i, 17, 29 + i, 41, 50 + 2 * i, 61] for i in range(5)]
+    kw = dict(max_batch=3, max_len=32, prefill_chunk=4, page_size=8, total_pages=5,
+              rng_seed=11)
+    eng = ServeEngine(m, p, device="cpu", **kw)
+    eng.submit([Request(uid=f"r{i}", prompt=pr, max_new_tokens=8, temperature=t)
+                for i, (pr, t) in enumerate(zip(prompts, temps))])
+    jeng = JEngine(jm, jp, cache_mode="paged", **kw)
+    jeng.submit([JRequest(uid=f"r{i}", prompt=pr, max_new_tokens=8, temperature=t)
+                 for i, (pr, t) in enumerate(zip(prompts, temps))])
+    want = {r.uid: r.output for r in jeng.run_to_completion()}
+    done = eng.run_to_completion()
+    assert {r.uid: r.output for r in done} == want
+    assert eng.preemptions == jeng.preemptions > 0
+    for r in done:
+        if r.temperature > 0:
+            _no_near_tie(m, p, r, r.temperature, 11)
