@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
-kernels, holds each against its plain PyTorch version, drives the paged
-serving engine at full width and prints what it measured.
+kernels, holds each against its plain PyTorch version, drives the serving
+engine (paged and dense caches), training, eval and the SSM family at full
+width and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -13,25 +14,32 @@ Phases, each printing one JSON line:
 - ``kernels``: each kernel against its plain version on the card, f32
   (atol/rtol 2e-5) and bf16 (2e-2): paged attention over the serving
   slice's shapes and the GQA/MQA/MLA/softcap/verify/aliased/parked cases,
-  RMSNorm (and its gradient), flash attention over the reference's sweep,
-  sliding windows, the model layout and the eval phase's shapes;
+  RMSNorm (and its gradient; d = 768 and mamba2's 2048), flash attention
+  over the reference's sweep, sliding windows, the model layout and the
+  eval phase's shapes, and the SSD chunk kernel over the reference's
+  sweep, chunks of 1-16 positions, the serve prefill shape with padded
+  tokens and idle rows, mamba2's eval shapes, and ``ops.ssd`` from a
+  carried state (final state at 1e-4);
 - ``parity``: full-width ``ds-paper-100m`` in f32 from seed 0, the engine
   on ``cuda`` (kernel path) against the same engine on ``cpu`` (plain
-  path): equal greedy tokens (a near-tie below 1e-3 of the CPU's top-2
-  logit gap is the one allowed exception), equal counters, and launch
-  counts of 12 paged-attention and 25 RMSNorm kernels per dispatch;
-- ``serve``: full width in bf16, 32 requests, tokens/s, per-dispatch
-  times from CUDA events, peak memory, and each kernel at the decode and
-  prefill shapes, held against its plain version (bf16 tolerance) and
-  timed beside its bound, its plain version and one PyTorch call as a
-  yardstick;
+  path), in paged mode (12 paged-attention and 25 RMSNorm launches per
+  dispatch) and in dense mode, now the engine's default as in the
+  reference (25 RMSNorm, no paged launch): equal greedy tokens (a near-tie
+  below 1e-3 of the CPU's top-2 logit gap is the one allowed exception)
+  and counters, and dense tokens equal to paged ones;
+- ``serve``: full width in bf16, paged, 32 requests, tokens/s,
+  per-dispatch times from CUDA events, peak memory, and each kernel at
+  the decode and prefill shapes, held against its plain version (bf16
+  tolerance) and timed beside its bound, its plain version and one
+  PyTorch call as a yardstick;
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
   idle share against the unprofiled wall time, top device ops;
-- ``train_parity``: full-width f32 training, 2 x 128 tokens, 2 AdamW
-  steps on the card against the same steps on the CPU from the same
-  weights and batches (loss, grad norm, parameters), once as one batch
-  and once as 2 microbatches with int8 stochastic-rounding accumulation;
+- ``train_parity``: full-width f32 training at 4 of the 12 layers (the
+  depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
+  the card against the same steps on the CPU from the same weights and
+  batches (loss, grad norm, parameters), once as one batch and once as 2
+  microbatches with int8 stochastic-rounding accumulation;
 - ``train``: full width in f32, 8 x 512 tokens, 20 steps through the span
   runner into a checkpoint, resumed for 2 more and held against an
   uninterrupted 22-step run: losses, step times, tokens/s, peak memory,
@@ -40,7 +48,21 @@ Phases, each printing one JSON line:
   at 8 x 512 and 2 x 4096: tokens/s, 12 flash and 25 RMSNorm launches
   per forward, logits with the flash kernel against direct attention, a
   traced forward, and the flash kernel timed beside its bound, its plain
-  version and ``F.scaled_dot_product_attention``.
+  version and ``F.scaled_dot_product_attention``;
+- ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers, d_model 2048,
+  1.35 B parameters) drawn once from seed 0 on the host, reused below;
+- ``ssm_parity``: f32, the dense-cache engine on the card against the
+  same engine on the CPU: equal greedy tokens and counters, 48 SSD
+  launches per prefill dispatch, none per decode dispatch, 49 RMSNorm per
+  dispatch;
+- ``ssm_serve``: bf16, dense cache, 32 requests: tokens/s, per-dispatch
+  times, peak memory, 16 decode dispatches traced, the SSD kernel at the
+  serve prefill shape and RMSNorm at d = 2048 timed beside their bounds;
+- ``ssm_eval``: the eval runner on a bf16 checkpoint of the same weights
+  written with the port's ``save_state``, bf16 and f32 at 8 x 512 and
+  2 x 4096: finite loss, 48 SSD and 49 RMSNorm launches per forward,
+  logits with the SSD kernel against the plain chunked scan, a traced
+  forward, and the SSD kernel timed at both shapes.
 
 Then a ``kernels`` summary line, the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -79,6 +101,16 @@ def emit(obj) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
+
+
+def release_device_memory() -> None:
+    """Free what earlier phases left (an engine and its scheduler reference
+    each other, so only the cycle collector frees an engine's parameters
+    and cache) before a phase reads its peak memory."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def smi_line() -> str:
@@ -243,6 +275,8 @@ def check_rmsnorm() -> dict:
     cases += [(37, 100, torch.bfloat16, torch.bfloat16), (37, 100, torch.float32, torch.float32),
               (37, 768, torch.bfloat16, torch.float32)]
     cases += [(37, 768, torch.float32, "misaligned"), (37, 768, torch.bfloat16, "misaligned")]
+    # mamba2-1.3b's width: a decode dispatch (16 rows) and a prefill one (16 x 16)
+    cases += [(r, 2048, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(xdt)
@@ -359,11 +393,115 @@ def check_flash_attention() -> dict:
     return worst
 
 
+def ssd_inputs(b, nc, q, h, p, n, dtype, seed, lengths=None):
+    """Random SSD chunk inputs on the card with the reference sweep's
+    distributions (x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1))
+    and A = -exp(N(0, 1) / 2) in f32).  ``lengths`` gives each batch row's
+    valid positions (one chunk): later ones get dt = 0, as the padded
+    tokens of a prefill dispatch do.  Returns ``(x, dt, A, B, C)``."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, nc, q, h, p), generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((b, nc, q, h), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.5)
+    B = torch.randn((b, nc, q, n), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((b, nc, q, n), generator=gen, device="cuda").to(dtype)
+    if lengths is not None:
+        valid = torch.arange(q, device="cuda")[None, :] < torch.as_tensor(lengths, device="cuda")[:, None]
+        dt = dt * valid[:, None, :, None]
+    return x, dt, A, B, C
+
+
+def ssd_cases():
+    """(name, (b, nc, q, h, p, n), block_h, dtype, lengths): the reference's
+    sweep (tests/test_kernels.py::test_ssd_kernel_sweep), short chunks
+    (serving prefill picks divisors of prefill_chunk), the serve prefill
+    shape with padded tokens and idle rows, and the eval shapes of
+    mamba2-1.3b (8 x 512, 2 x 4096)."""
+    serve_lengths = [16, 0, 5, 16, 1, 0, 9, 16, 16, 3, 16, 0, 12, 16, 7, 16]
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for b, l, h, p, n, chunk, bh in ((2, 64, 4, 16, 16, 16, 2), (1, 128, 8, 32, 32, 32, 4),
+                                         (2, 256, 16, 64, 128, 128, 8)):
+            cases.append((f"sweep_{b}x{l}_h{h}_p{p}_n{n}_q{chunk}_{tag}",
+                          (b, l // chunk, chunk, h, p, n), bh, dtype, None))
+        for q in (1, 2, 4, 7, 16):
+            cases.append((f"q{q}_{tag}", (2, 3, q, 16, 64, 128), 8, dtype, None))
+        cases.append((f"serve_prefill_padded_{tag}", (16, 1, 16, 64, 64, 128), 8, dtype,
+                       serve_lengths))
+        cases.append((f"eval_8x512_{tag}", (8, 4, 128, 64, 64, 128), 8, dtype, None))
+        cases.append((f"eval_2x4096_{tag}", (2, 32, 128, 64, 64, 128), 8, dtype, None))
+    return cases
+
+
+# The kernel and its plain version take the same running sums and differ
+# only in summation order: 2e-5 (f32) holds for Y_diag and the states.
+# ops.ssd adds the inter-chunk scan, where a state carried over many
+# chunks sums the per-chunk rounding differences: its final state is held
+# at 1e-4 (the reference's own test holds it at 1e-3).
+SSD_STATE_TOL = 1e-4
+
+
+def check_ssd() -> dict:
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_plain
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for seed, (name, (b, nc, q, h, p, n), bh, dtype, lengths) in enumerate(ssd_cases()):
+        x, dt, A, B, C = ssd_inputs(b, nc, q, h, p, n, dtype, 40 + seed, lengths)
+        dA = dt * A
+        y, st = ssd_chunk(x, dA, dt, B, C, block_h=bh)
+        torch.cuda.synchronize()
+        y_want, st_want = ssd_chunk_plain(x, dA, dt, B, C)
+        err = max((y - y_want).abs().max().item(), (st - st_want).abs().max().item())
+        t = tol(dtype)
+        ok = bool(torch.allclose(y, y_want, atol=t, rtol=t)
+                  and torch.allclose(st, st_want, atol=t, rtol=t))
+        rec = {"phase": "kernels", "kernel": "ssd", "case": name,
+               "shape": {"b": b, "nc": nc, "q": q, "h": h, "p": p, "n": n, "block_h": bh},
+               "max_abs_err": err, "ok": ok}
+        if lengths is not None:
+            idle = [r for r, length in enumerate(lengths) if length == 0]
+            zero = bool((y[idle] == 0).all().item() and (st[idle] == 0).all().item())
+            rec["idle_rows_exact_zero"] = zero
+            ok = ok and zero
+        emit(rec)
+        require(ok, f"ssd case {name} disagrees with its plain version")
+        key = str(dtype).removeprefix("torch.")
+        worst[key] = max(worst[key], err)
+    # the model-layout op: kernel + inter-chunk glue from a carried state,
+    # against the model's plain chunked scan
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dt, A, B, C = ssd_inputs(2, 4, 64, 16, 64, 128, dtype, 61)
+        x, dt = x.reshape(2, 256, 16, 64), dt.reshape(2, 256, 16)
+        B, C = B.reshape(2, 256, 128), C.reshape(2, 256, 128)
+        init = torch.randn((2, 16, 64, 128), generator=gen, device="cuda")
+        y, final = ops.ssd(x, dt, A, B, C, chunk=64, initial_state=init)
+        torch.cuda.synchronize()
+        y_want, final_want = ref.ORACLES["ssd"](x, dt, A, B, C, 64, initial_state=init)
+        t = tol(dtype)
+        y_err = (y.float() - y_want.float()).abs().max().item()
+        st_err = (final - final_want).abs().max().item()
+        ok = bool(torch.allclose(y.float(), y_want.float(), atol=t, rtol=t)
+                  and torch.allclose(final, final_want, atol=SSD_STATE_TOL, rtol=SSD_STATE_TOL))
+        name = f"ops_initial_state_{'f32' if dtype == torch.float32 else 'bf16'}"
+        emit({"phase": "kernels", "kernel": "ssd", "case": name, "shape": list(x.shape),
+              "chunk": 64, "max_abs_err": y_err, "final_state_max_abs_err": st_err,
+              "final_state_tol": SSD_STATE_TOL, "ok": ok})
+        require(ok, f"ssd case {name} disagrees with the model's chunked scan")
+        key = str(dtype).removeprefix("torch.")
+        worst[key] = max(worst[key], y_err)
+    return worst
+
+
 def phase_kernels() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {"paged_attention": check_paged_attention(), "rmsnorm": check_rmsnorm(),
-            "flash_attention": check_flash_attention()}
+            "flash_attention": check_flash_attention(), "ssd": check_ssd()}
     errs["rmsnorm"]["grad_float32"] = check_rmsnorm_grad()
     rec = {"phase": "kernels", "max_abs_err": errs,
            "launches_in_checks": read_launches()}
@@ -394,12 +532,16 @@ def parity_requests(vocab: int):
 
 
 def next_token_logits(model, params, tokens, device) -> torch.Tensor:
-    """Logits after ``tokens`` from a fresh one-row paged cache."""
+    """Logits after ``tokens`` from a fresh one-row cache (paged where the
+    architecture pages, dense otherwise)."""
     ps = 16
     pages = -(-(len(tokens) + 1) // ps)
-    cache = model.init_cache(1, pages * ps, paged=True, page_size=ps, n_pages=pages,
-                             device=device)
-    cache["page_table"].copy_(torch.arange(pages, dtype=torch.int32)[None])
+    if model.supports_paged_cache:
+        cache = model.init_cache(1, pages * ps, paged=True, page_size=ps, n_pages=pages,
+                                 device=device)
+        cache["page_table"].copy_(torch.arange(pages, dtype=torch.int32)[None])
+    else:
+        cache = model.init_cache(1, pages * ps, device=device)
     logits = None
     for s in range(0, len(tokens), ps):
         chunk = tokens[s:s + ps]
@@ -426,9 +568,10 @@ def launch_counters() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.flash_decode import paged_flash_attention_folded
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssd import ssd_chunk
 
     return {"paged_attention": paged_flash_attention_folded, "rmsnorm": rmsnorm,
-            "flash_attention": flash_attention_bhsd}
+            "flash_attention": flash_attention_bhsd, "ssd": ssd_chunk}
 
 
 def reset_launches():
@@ -444,30 +587,18 @@ PARITY_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches", "tok
                    "prefix_hit_tokens", "peak_pages")
 
 
-def phase_parity() -> dict:
-    from repro_torch.configs import get_arch
-    from repro_torch.models import Model, ModelRuntime
-
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity: full-precision matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = get_arch("ds-paper-100m")
-    model = Model(cfg, ModelRuntime(dtype=torch.float32))
-    kw = dict(max_batch=4, max_len=128, prefill_chunk=16, page_size=16, cache_mode="paged")
-    params_gpu = model.init(0, device="cuda")
-    reset_launches()
-    gpu, gpu_s = run_engine(model, params_gpu, parity_requests(cfg.vocab_size), "cuda", **kw)
-    launches = read_launches()
-    del params_gpu
-    params_cpu = model.init(0, device="cpu")
-    cpu, cpu_s = run_engine(model, params_cpu, parity_requests(cfg.vocab_size), "cpu", **kw)
+def compare_greedy(model, params_cpu, gpu, cpu, what: str) -> list:
+    """Require equal finished requests and greedy outputs of two engine
+    runs, a near-tie at the first difference (a CPU top-2 logit gap below
+    ``NEAR_TIE_GAP``) being the one allowed exception; the divergences."""
     got = {r.uid: r.output for r in gpu.finished}
     want = {r.uid: r.output for r in cpu.finished}
-    require(sorted(got) == sorted(want), "card and CPU finished different requests")
+    require(sorted(got) == sorted(want), f"{what}: the runs finished different requests")
     prompts = {r.uid: r.prompt for r in cpu.finished}
     divergences = []
     for uid in sorted(want):
         a, b = got[uid], want[uid]
-        require(len(a) == len(b), f"{uid}: output lengths differ")
+        require(len(a) == len(b), f"{what}: {uid}: output lengths differ")
         k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if k is None:
             continue
@@ -476,21 +607,59 @@ def phase_parity() -> dict:
         gap = float(top2[0] - top2[1])
         divergences.append({"uid": uid, "index": k, "cpu_top2_gap": gap})
         require(gap < NEAR_TIE_GAP,
-                f"{uid}: card and CPU diverge at token {k} with a CPU top-2 gap of {gap}")
-    counters = {c: [getattr(gpu, c), getattr(cpu, c)] for c in PARITY_COUNTERS}
+                f"{what}: {uid}: the runs diverge at token {k} with a CPU top-2 gap of {gap}")
+    return divergences
+
+
+def compare_counters(a, b, what: str) -> dict:
+    counters = {c: [getattr(a, c), getattr(b, c)] for c in PARITY_COUNTERS}
     for c, (g, h) in counters.items():
-        require(g == h, f"counter {c} differs: card {g}, CPU {h}")
-    require(gpu.prefix_hit_tokens > 0, "the shared prefix was never hit")
-    d = gpu.dispatches
-    require(launches["paged_attention"] == cfg.n_layers * d,
-            f"paged attention launched {launches['paged_attention']} times for {d} dispatches")
-    require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d,
-            f"rmsnorm launched {launches['rmsnorm']} times for {d} dispatches")
-    rec = {"phase": "parity", "arch": cfg.name, "dtype": "float32",
-           "tokens_equal": not divergences, "divergences": divergences,
-           "counters_card_cpu": counters, "launches": launches,
-           "launches_per_dispatch": {k: v / d for k, v in launches.items()},
-           "card_s": gpu_s, "cpu_s": cpu_s}
+        require(g == h, f"{what}: counter {c} differs: {g} against {h}")
+    return counters
+
+
+def phase_parity() -> dict:
+    """Full-width ds-paper-100m in f32, card against CPU, in paged mode
+    (paged kernel, RMSNorm) and in dense mode (RMSNorm, plain attention
+    over the per-slot cache), and dense against paged on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity: full-precision matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch("ds-paper-100m")
+    model = Model(cfg, ModelRuntime(dtype=torch.float32))
+    base = dict(max_batch=4, max_len=128, prefill_chunk=16)
+    modes = {"paged": dict(base, page_size=16, cache_mode="paged"),
+             "dense": dict(base, cache_mode="dense")}
+    params_gpu = model.init(0, device="cuda")
+    params_cpu = model.init(0, device="cpu")
+    rec = {"phase": "parity", "arch": cfg.name, "dtype": "float32", "modes": {}}
+    card = {}
+    for mode, kw in modes.items():
+        reset_launches()
+        gpu, gpu_s = run_engine(model, params_gpu, parity_requests(cfg.vocab_size), "cuda", **kw)
+        launches = read_launches()
+        cpu, cpu_s = run_engine(model, params_cpu, parity_requests(cfg.vocab_size), "cpu", **kw)
+        divergences = compare_greedy(model, params_cpu, gpu, cpu, f"parity {mode}")
+        counters = compare_counters(gpu, cpu, f"parity {mode}, card against CPU")
+        d = gpu.dispatches
+        want_paged = cfg.n_layers * d if mode == "paged" else 0
+        require(launches["paged_attention"] == want_paged,
+                f"{mode}: paged attention launched {launches['paged_attention']} times for "
+                f"{d} dispatches")
+        require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d,
+                f"{mode}: rmsnorm launched {launches['rmsnorm']} times for {d} dispatches")
+        if mode == "paged":
+            require(gpu.prefix_hit_tokens > 0, "the shared prefix was never hit")
+        card[mode] = gpu
+        rec["modes"][mode] = {
+            "tokens_equal": not divergences, "divergences": divergences,
+            "counters_card_cpu": counters, "launches": launches,
+            "launches_per_dispatch": {k: v / d for k, v in launches.items()},
+            "card_s": gpu_s, "cpu_s": cpu_s}
+    rec["dense_vs_paged_divergences"] = compare_greedy(
+        model, params_cpu, card["dense"], card["paged"], "parity, dense against paged")
     emit(rec)
     return rec
 
@@ -673,6 +842,7 @@ def phase_serve() -> dict:
     eng = ServeEngine(model, params, device="cuda", **kw)
     eng._decode, eng._prefill = DispatchTimer(eng._decode), DispatchTimer(eng._prefill)
     eng.submit(reqs)
+    release_device_memory()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -828,6 +998,12 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
     return metrics, params
 
 
+# train_parity runs 4 of ds-paper-100m's 12 layers at full width: at all 12
+# its CPU side (2 x 2 full-width f32 steps, 135M-element threefry draws)
+# took 55 s on the host of a one-H100 machine, the script's longest phase.
+TRAIN_PARITY_LAYERS = 4
+
+
 def phase_train_parity() -> dict:
     from repro_torch.tree import tree_leaves
 
@@ -835,10 +1011,11 @@ def phase_train_parity() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     runs = {"one_batch": {}, "microbatches2_int8": {"microbatches": 2, "accum_dtype": "int8"}}
     rec = {"phase": "train_parity", "arch": "ds-paper-100m", "dtype": "float32",
-           "tokens": "2 x 128", "steps": 2, "rtol": PARITY_RTOL,
+           "layers": TRAIN_PARITY_LAYERS, "tokens": "2 x 128", "steps": 2, "rtol": PARITY_RTOL,
            "param_atol": PARITY_PARAM_ATOL, "runs": {}}
     for name, extra in runs.items():
-        job = {"arch": "ds-paper-100m", **extra}
+        job = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": TRAIN_PARITY_LAYERS},
+               **extra}
         t0 = time.perf_counter()
         reset_launches()
         card, card_params = train_two_steps(job, "cuda", 128, 2)
@@ -858,7 +1035,7 @@ def phase_train_parity() -> dict:
                 require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
                         f"train_parity {name}: {key} at step {step} card {c[key]} cpu {h[key]}")
         # one forward and one backward per microbatch; norms run forward only
-        per_step = (2 * 12 + 1) * job.get("microbatches", 1)
+        per_step = (2 * TRAIN_PARITY_LAYERS + 1) * job.get("microbatches", 1)
         require(card_launches == 2 * per_step,
                 f"rmsnorm launched {card_launches} times in 2 training steps")
         rec["runs"][name] = {"card": card, "cpu": cpu, "param_max_abs_err": worst,
@@ -879,6 +1056,7 @@ def phase_train(store_root: Path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     store = ObjectStore(str(store_root / "interrupted"))
     events: list = []
+    release_device_memory()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     first = run_train_span({**TRAIN_JOB, "start_step": 0, "num_steps": 20}, store,
@@ -1035,30 +1213,284 @@ def phase_eval(store_root: Path) -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ the SSM family
+SSM_ARCH = "mamba2-1.3b"
+
+
+def ssm_weights():
+    """Full-width mamba2-1.3b weights from seed 0, drawn once on the host
+    in f32 and reused by every SSM phase (cast or moved as each needs)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = Model(cfg, ModelRuntime(dtype=torch.float32)).init(0, device="cpu")
+    emit({"phase": "ssm_weights", "arch": cfg.name, "seconds": time.perf_counter() - t0,
+          "parameters": sum(t.numel() for t in tree_leaves(params))})
+    return cfg, params
+
+
+def cast_params(params, dtype, device):
+    """The tree on ``device`` in ``dtype``, the SSM's A_log, D and dt_bias
+    kept float32 (as in the reference and ``Model.init``)."""
+    from repro_torch.models.ssm import FP32_PARAMS
+    from repro_torch.tree import tree_map_with_path
+
+    return tree_map_with_path(
+        lambda path, t: t.to(device=device,
+                             dtype=torch.float32 if path[-1] in FP32_PARAMS else dtype),
+        params)
+
+
+def phase_ssm_parity(cfg, params_cpu) -> dict:
+    """Full-width mamba2-1.3b in f32 from seed 0: the dense-cache engine on
+    the card (SSD kernel at prefill, RMSNorm) against the same engine on
+    the CPU (plain path): equal greedy tokens (the near-tie exception of
+    ``phase_parity``) and counters; 48 SSD launches per prefill dispatch,
+    none per decode dispatch, 49 RMSNorm per dispatch."""
+    from repro_torch.models import Model, ModelRuntime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Model(cfg, ModelRuntime(dtype=torch.float32))
+    kw = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
+    params_gpu = cast_params(params_cpu, torch.float32, "cuda")
+    reset_launches()
+    gpu, gpu_s = run_engine(model, params_gpu, parity_requests(cfg.vocab_size), "cuda", **kw)
+    launches = read_launches()
+    del params_gpu
+    cpu, cpu_s = run_engine(model, params_cpu, parity_requests(cfg.vocab_size), "cpu", **kw)
+    divergences = compare_greedy(model, params_cpu, gpu, cpu, "ssm_parity")
+    counters = compare_counters(gpu, cpu, "ssm_parity, card against CPU")
+    L, d, pd = cfg.n_layers, gpu.dispatches, gpu.prefill_dispatches
+    require(launches["ssd"] == L * pd,
+            f"ssd launched {launches['ssd']} times for {pd} prefill dispatches")
+    require(launches["rmsnorm"] == (L + 1) * d,
+            f"rmsnorm launched {launches['rmsnorm']} times for {d} dispatches")
+    require(launches["paged_attention"] == 0 and launches["flash_attention"] == 0,
+            f"attention kernels launched in an SSM run: {launches}")
+    rec = {"phase": "ssm_parity", "arch": cfg.name, "dtype": "float32", "layers": L,
+           "cache_mode": "dense", "tokens_equal": not divergences, "divergences": divergences,
+           "counters_card_cpu": counters, "launches": launches,
+           "ssd_per_prefill_dispatch": launches["ssd"] / pd,
+           "rmsnorm_per_dispatch": launches["rmsnorm"] / d, "card_s": gpu_s, "cpu_s": cpu_s}
+    emit(rec)
+    return rec
+
+
+def ssd_work(b, nc, q, h, p, n, item) -> tuple:
+    """Bytes (x, B, C in their type, dA and dt in f32 read once; Y_diag and
+    the states written once in f32) and operations (2 per multiply-add of
+    C.B^T and of Y_diag over the causal triangle, and of the states)."""
+    tri = q * (q + 1) // 2
+    nbytes = (b * nc * q * (h * p + 2 * n) * item + 2 * b * nc * q * h * 4
+              + b * nc * q * h * p * 4 + b * nc * h * p * n * 4)
+    flops = 2 * b * nc * (tri * n + h * tri * p + h * q * p * n)
+    return nbytes, flops
+
+
+def time_ssd(label, b, nc, q, dtype, lengths=None) -> dict:
+    from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_plain
+
+    h, p, n = 64, 64, 128  # mamba2-1.3b
+    x, dt, A, B, C = ssd_inputs(b, nc, q, h, p, n, dtype, 70, lengths)
+    dA = dt * A
+    kern = lambda: ssd_chunk(x, dA, dt, B, C)  # noqa: E731
+    plain = lambda: ssd_chunk_plain(x, dA, dt, B, C)  # noqa: E731
+    got, want = kern(), None
+    torch.cuda.synchronize()
+    want = plain()
+    err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
+    t = tol(dtype)
+    require(all(bool(torch.allclose(g, w, atol=t, rtol=t)) for g, w in zip(got, want)),
+            f"ssd ({label}) disagrees with its plain version (max err {err})")
+    del got, want
+    nbytes, flops = ssd_work(b, nc, q, h, p, n, x.element_size())
+    bms, by = bound(nbytes, flops, torch.float32)  # all math on the fp32 CUDA cores
+    return {"at": label, "shape": {"b": b, "nc": nc, "q": q, "h": h, "p": p, "n": n},
+            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10), "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "library_call": "none: no one PyTorch call computes the SSD chunk term"}
+
+
+SSM_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, cache_mode="dense")
+
+
+def phase_ssm_serve(cfg, params) -> dict:
+    """Full-width mamba2-1.3b in bf16 on the dense state cache: 32
+    requests (prompts 128-512, 64 new tokens), tokens/s, per-dispatch
+    times, peak memory; 16 decode dispatches traced; the SSD kernel at the
+    serve prefill shape and RMSNorm at d = 2048 timed beside their bounds."""
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    dtype = torch.bfloat16
+    model = Model(cfg, ModelRuntime(dtype=dtype))
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 40 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **SSM_SERVE_KW)
+    reqs = serve_requests(cfg.vocab_size)
+    eng = ServeEngine(model, params, device="cuda", **SSM_SERVE_KW)
+    eng._decode, eng._prefill = DispatchTimer(eng._decode), DispatchTimer(eng._prefill)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    outs = {r.uid: r.output for r in eng.finished}
+    require(len(outs) == len(reqs), "not every SSM serve request finished")
+    require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+            "an SSM serve request emitted a wrong number of tokens or an id outside the vocab")
+    L, d, pd = cfg.n_layers, eng.dispatches, eng.prefill_dispatches
+    require(launches["ssd"] == L * pd, f"ssd launches {launches['ssd']} != {L}/prefill dispatch")
+    require(launches["rmsnorm"] == (L + 1) * d, f"rmsnorm launches != {L + 1}/dispatch")
+    rec = {
+        "phase": "ssm_serve", "arch": cfg.name, "dtype": "bfloat16", "cache_mode": "dense",
+        "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "max_new_tokens": 64, "max_batch": 16, "prefill_chunk": 16, "wall_s": wall,
+        "tokens_emitted": eng.tokens_emitted, "tokens_per_s": eng.tokens_emitted / wall,
+        "dispatches": d, "prefill_dispatches": pd, "decode_dispatches": eng.decode_dispatches,
+        "decode_dispatch_ms": summary(eng._decode.ms()),
+        "prefill_dispatch_ms": summary(eng._prefill.ms()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_cache_bytes": eng.peak_cache_bytes, "launches": launches,
+    }
+    del eng
+    # where a decode dispatch's time goes: 16 rows at prompts 256
+    rng = np.random.default_rng(5)
+    eng = ServeEngine(model, params, device="cuda", **SSM_SERVE_KW)
+    eng.submit([Request(uid=f"q{i}", prompt=rng.integers(1, cfg.vocab_size, 256).tolist(),
+                        max_new_tokens=64) for i in range(16)])
+    while eng.decode_dispatches < 4:  # prompts drain in 16 prefill dispatches, then decode
+        eng.step()
+    d0, p0 = eng.decode_dispatches, eng.prefill_dispatches
+    ticks = 16
+    rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256", "ticks": ticks,
+                      **trace(eng.step, ticks, "dispatch")}
+    require(eng.decode_dispatches - d0 == 2 * ticks and eng.prefill_dispatches == p0,
+            "traced SSM ticks were not all decode dispatches")
+    del eng
+    rec["kernel_times"] = {
+        "ssd": {"serve_prefill": time_ssd("serve_prefill", 16, 1, 16, dtype,
+                                          rng.integers(0, 17, 16).tolist())},
+        "rmsnorm": {"decode": time_rmsnorm("decode", 16, cfg.d_model, dtype),
+                    "prefill": time_rmsnorm("prefill", 16 * 16, cfg.d_model, dtype)},
+    }
+    emit(rec)
+    return rec
+
+
+SSM_EVAL_JOB = {"arch": SSM_ARCH, "run": "ssm"}
+# Logits with the SSD kernel against the plain chunked scan: f32 differs by
+# summation order only; bf16 activations round each layer's small
+# differences, compounded over 48 layers.
+SSM_LOGIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
+
+
+def phase_ssm_eval(cfg, params, store_root: Path) -> dict:
+    """The eval runner on a checkpoint of the seed-0 weights (bf16, written
+    with the port's ``save_state``), bf16 and f32 at 8 x 512 and 2 x 4096:
+    finite loss, 48 SSD and 49 RMSNorm launches per forward, logits with
+    the kernel against ``use_ssd_kernel=False``, a traced forward, and the
+    SSD kernel timed at both shapes."""
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch.train import run_eval
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.train.checkpoint import restore_state, save_state
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = ObjectStore(str(store_root / "ssm"))
+    t0 = time.perf_counter()
+    save_state(store, SSM_EVAL_JOB["run"], 0, params)
+    save_s = time.perf_counter() - t0
+    n_batches, L = 3, cfg.n_layers
+    rec = {"phase": "ssm_eval", "arch": cfg.name, "checkpoint_dtype": "bfloat16",
+           "checkpoint_save_s": save_s, "runs": [], "kernel_times": []}
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        job = {**SSM_EVAL_JOB, "dtype": name, "n_batches": n_batches}
+        base = Model(cfg, ModelRuntime(dtype=dtype))
+        restored, _ = restore_state(store, job["run"], 0, base.abstract_params(), device="cuda")
+        for b, s in EVAL_SHAPES:
+            events: list = []
+            reset_launches()
+            out = run_eval({**job, "seq_len": s, "global_batch": b}, store,
+                           heartbeat_events(events), device="cuda")
+            launches = read_launches()
+            ms = event_intervals_ms(events)
+            require(launches["ssd"] == L * n_batches and launches["rmsnorm"] == (L + 1) * n_batches,
+                    f"ssm_eval {name} {b}x{s}: launches {launches}, want {L} SSD and {L + 1} "
+                    "RMSNorm per forward")
+            require(math.isfinite(out["loss"]), f"ssm_eval {name} {b}x{s}: loss not finite")
+            batch = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=b, seed=1234),
+                                device="cuda").batch(0)
+            with torch.no_grad():
+                logits = {k: Model(cfg, ModelRuntime(dtype=dtype, use_ssd_kernel=k))
+                          .forward(restored, batch["tokens"]) for k in (True, False)}
+            err = (logits[True] - logits[False]).abs().max().item()
+            t = SSM_LOGIT_TOL[dtype]
+            require(bool(torch.isfinite(logits[True]).all())
+                    and bool(torch.allclose(logits[True], logits[False], atol=t, rtol=t)),
+                    f"ssm_eval {name} {b}x{s}: kernel logits differ from the plain scan by {err}")
+            del logits
+            evaluator = Model(cfg, ModelRuntime(dtype=dtype))
+            with torch.no_grad():
+                profile = trace(lambda: float(evaluator.loss(restored, batch)[0]), 1, "forward")
+            rec["runs"].append({
+                "dtype": name, "batch": b, "seq_len": s, "loss": out["loss"], "ppl": out["ppl"],
+                "forward_ms": summary(ms), "tokens_per_s": b * s / (summary(ms)["median"] / 1e3),
+                "launches": launches,
+                "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+                "logits_kernel_vs_plain_max_abs_err": err, "logits_tol": t, "profile": profile})
+            rec["kernel_times"].append(time_ssd(f"{name}_{b}x{s}", b, s // 128, 128, dtype))
+        del restored
+    emit(rec)
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:25"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:99"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:61"),
 }
 
 
-def kernels_line(checks: dict, serve: dict, train: dict, evals: dict) -> dict:
+def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve: dict,
+                 ssm_eval: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve, train,
-    eval: counts set to 0 before each and read after), its worst error,
-    and its times at its first timed shape with the others beside."""
+    eval, ssm_serve, ssm_eval: counts set to 0 before each and read after),
+    its worst error, and its times at its first timed shape with the
+    others beside."""
+    def total(runs):
+        return {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
+
+    paths = {"serve": serve["launches"], "train": train["launches"], "eval": total(evals["runs"]),
+             "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"])}
+    timed_by_kernel = {
+        "paged_attention": serve["kernel_times"]["paged_attention"],
+        "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
+                    **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()}},
+        "flash_attention": {f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
+                            for t in evals["kernel_times"]},
+        "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
+                **ssm_serve["kernel_times"]["ssd"]},
+    }
     rows = []
-    serve_times = serve["kernel_times"]
-    eval_launches = {k: sum(r["launches"][k] for r in evals["runs"]) for k in KERNELS}
     for name, (source, replaces) in KERNELS.items():
-        launches = {"serve": serve["launches"][name], "train": train["launches"][name],
-                    "eval": eval_launches[name]}
-        if name == "flash_attention":
-            timed = {f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
-                     for t in evals["kernel_times"]}
-        else:
-            timed = serve_times[name]
+        launches = {path: counts[name] for path, counts in paths.items()}
+        timed = timed_by_kernel[name]
         first = next(iter(timed.values()))
         errs = [*checks["max_abs_err"][name].values(), *(t["max_abs_err"] for t in timed.values())]
         rows.append({
@@ -1094,7 +1526,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
         evals = phase_eval(Path(tmp))
-    emit(kernels_line(checks, serve, train, evals))
+        cfg, params_cpu = ssm_weights()
+        phase_ssm_parity(cfg, params_cpu)
+        params = cast_params(params_cpu, torch.bfloat16, "cuda")
+        del params_cpu
+        ssm_serve = phase_ssm_serve(cfg, params)
+        ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
+    emit(kernels_line(checks, serve, train, evals, ssm_serve, ssm_eval))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

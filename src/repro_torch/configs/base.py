@@ -3,7 +3,7 @@ registry and :func:`reduced` for CPU-sized tests.
 
 A copy of the reference package's ``configs/base.py`` (the port keeps
 its own: it imports nothing of the JAX package), restricted to what the
-port's dense serving path reads.  Field names, defaults and derived
+port's dense and SSM paths read.  Field names, defaults and derived
 properties are unchanged so a config means the same thing in both
 packages.
 """
@@ -95,6 +95,19 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         return pad_to(self.vocab_size, VOCAB_PAD_MULTIPLE)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
+
 
 # ---------------------------------------------------------------------- registry
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
@@ -118,11 +131,13 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A tiny same-family config for CPU tests (the reference package's
-    ``reduced`` for the dense family: 2 layers, d_model 64, 4 query heads
-    over at most 2 KV heads, head_dim 16, vocab 256)."""
-    if cfg.family != "dense":
+    ``reduced`` for the dense and SSM families: 2 layers, d_model 64, vocab
+    256; 4 query heads over at most 2 KV heads of 16, or SSM state 16,
+    head width 16 and chunk 16)."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
-            f"reduced() is ported for the dense family only, got {cfg.family!r}"
+            f"reduced() is ported for the dense family and the SSM family only, "
+            f"got {cfg.family!r}"
         )
     small: Dict = dict(
         n_layers=2,
@@ -133,6 +148,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab_size=256,
         head_dim=16 if cfg.n_heads else 0,
     )
+    if cfg.family == "ssm":
+        small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16, d_model=64)
     if cfg.sliding_window:
         small.update(sliding_window=32)
     if cfg.max_position_embeddings:

@@ -7,13 +7,14 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.flash_decode import paged_flash_attention_folded
+from repro_torch.kernels.ssd import blocked_cumsum, ssd_chunk
 
 
 def _fold_flash(attend: Callable, q, k, v, *, causal: bool, sliding_window: int) -> torch.Tensor:
@@ -108,3 +109,49 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Ten
     shape = x.shape
     out = _rmsnorm.rmsnorm(x.reshape(-1, shape[-1]).contiguous(), w.contiguous(), eps)
     return out.reshape(shape)
+
+
+def ssd(
+    x: torch.Tensor,  # (b, l, h, p)
+    dt: torch.Tensor,  # (b, l, h) float32, after softplus
+    A: torch.Tensor,  # (h,) negative
+    B: torch.Tensor,  # (b, l, n)
+    C: torch.Tensor,  # (b, l, n)
+    *,
+    chunk: int = 128,
+    block_h: int = 8,
+    initial_state: Optional[torch.Tensor] = None,  # (b, h, p, n) float32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: the Hopper within-chunk kernel (``ssd_chunk``) plus the
+    inter-chunk recurrence and ``Y_off`` in plain torch, as the reference
+    leaves them in jnp.  The contract of ``models.ssm.ssd_chunked``:
+    returns ``(y (b, l, h, p) in x's dtype, final state (b, h, p, n)
+    float32)``."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    if l % chunk:
+        raise ValueError(f"seq {l} !% chunk {chunk}")
+    nc = l // chunk
+    if h % block_h:
+        block_h = h  # degrade to one head block
+    xr = x.reshape(b, nc, chunk, h, p)
+    dtr = dt.reshape(b, nc, chunk, h).float()
+    dAr = (dt * A).reshape(b, nc, chunk, h).float()
+    Br = B.reshape(b, nc, chunk, n)
+    Cr = C.reshape(b, nc, chunk, n)
+    y_diag, states = ssd_chunk(xr, dAr, dtr, Br, Cr, block_h=block_h)
+
+    # inter-chunk recurrence over the (b, h, p, n) chunk states
+    cum = blocked_cumsum(dAr, 2)  # (b, nc, q, h)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (b, nc, h)
+    if initial_state is None:
+        initial_state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    carry = initial_state.float()
+    prev = []
+    for c in range(nc):
+        prev.append(carry)  # the state entering chunk c
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(prev, dim=1)  # (b, nc, h, p, n)
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", Cr.float(), prev) * torch.exp(cum)[..., None]
+    y = (y_diag + y_off).reshape(b, l, h, p).to(x.dtype)
+    return y, carry

@@ -13,6 +13,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_bhsd_plain
 from repro_torch.kernels.flash_decode import paged_flash_attention_folded_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.ssd import ssd_chunk_plain
 
 # Direct softmax attention with causal/sliding-window masking in the
 # folded ``(BH, S, hd)`` layout, the reference's ``attention_reference``.
@@ -55,6 +56,29 @@ def paged_attention_reference(
 
 rmsnorm_reference = rmsnorm_plain  # any leading shape: it normalises the last axis
 
+# The within-chunk term and per-chunk states (the kernel's contract):
+# x (b, nc, q, h, p); dA/dt (b, nc, q, h); B/C (b, nc, q, n) ->
+# (Y_diag (b, nc, q, h, p), states (b, nc, h, p, n)), float32.
+ssd_chunk_reference = ssd_chunk_plain
+
+
+def ssd_reference(
+    x: torch.Tensor,  # (b, l, h, p)
+    dt: torch.Tensor,  # (b, l, h)
+    A: torch.Tensor,  # (h,)
+    B: torch.Tensor,  # (b, l, n)
+    C: torch.Tensor,  # (b, l, n)
+    chunk: int,
+    *,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """Full chunked-SSD oracle for ``ops.ssd``, shared with the model's
+    plain path (``models.ssm.ssd_chunked``), as in the reference."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    return ssd_chunked(x, dt, A, B, C, chunk, initial_state=initial_state)
+
+
 # Op name -> plain oracle for every public entry point in ``kernels.ops``;
 # a test keeps it total.  ``paged_verify`` shares ``paged_attention``'s
 # oracle: the verify primitive is the chunk-extend case (T = k + 1).
@@ -62,5 +86,6 @@ ORACLES = {
     "flash_attention": flash_attention_reference,
     "paged_attention": paged_attention_reference,
     "paged_verify": paged_attention_reference,
+    "ssd": ssd_reference,
     "rmsnorm": rmsnorm_reference,
 }

@@ -18,8 +18,10 @@ called after every step or batch.  Checkpoints are in the reference's
 format, so a span can resume from the reference's checkpoint and the
 other way round.  One job key is the port's own: ``dtype`` (``"float32"``,
 the reference's default, or ``"bfloat16"``).  Attention follows
-``ModelRuntime.resolve_attn``: ``direct`` while training, the flash
-kernel for eval on the card.  Registering the runners as worker payloads
+``ModelRuntime.resolve_attn`` and an SSM's scan ``resolve_ssd``: the plain
+paths while training, the flash and SSD kernels for eval on the card.  An
+SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a bf16 run, in its
+checkpoints as in its parameters.  Registering the runners as worker payloads
 waits for the port's queue and worker (ROADMAP Queue 1).
 """
 

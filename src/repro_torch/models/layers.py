@@ -36,6 +36,16 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str, eps: float) -> torch.Tenso
     return (y * p["w"].float() + p["b"].float()).to(x.dtype)
 
 
+def rmsnorm_gated(p: Params, x: torch.Tensor, gate: torch.Tensor, eps: float) -> torch.Tensor:
+    """Mamba2's gated RMSNorm, ``norm(x * silu(gate)) * w``, rounded where
+    the reference rounds: ``x * silu(gate)`` is taken in x's dtype and only
+    then widened to fp32.  Plain torch: the reference computes it in jnp,
+    not through its RMSNorm kernel."""
+    xf = (x * F.silu(gate.float()).to(x.dtype)).float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * p["w"].float()).to(x.dtype)
+
+
 # ------------------------------------------------------------------- RoPE
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
@@ -100,17 +110,23 @@ def gqa_attention(
     *,
     q_positions: torch.Tensor,  # (B, Sq)
     kv_positions: torch.Tensor,  # (B, Skv)
+    kv_mask: Optional[torch.Tensor] = None,  # (B, Skv) valid cache slots
+    logit_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Causal grouped-query attention over a contiguous cache without
-    repeating KV heads (fp32 logits, ``-1e30`` mask, as the reference).
-    The reference's sliding-window, KV-mask and softcap options wait for
-    a ported path that uses them."""
+    repeating KV heads (the reference's ``gqa_attention``: fp32 logits,
+    optional tanh softcap, ``-1e30`` mask, probabilities in q's dtype).
+    Its sliding-window option waits for a ported path that uses it."""
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
     qg = q.reshape(b, sq, hkv, g, hd)
     logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float()) * (1.0 / math.sqrt(hd))
+    if logit_softcap > 0:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
     mask = kv_positions[:, None, None, None, :] <= q_positions[:, None, None, :, None]
+    if kv_mask is not None:
+        mask = mask & kv_mask[:, None, None, None, :]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)

@@ -1,13 +1,14 @@
-"""The dense decoder: full-sequence forward, loss and the serving path
-on a paged KV cache.
+"""The dense decoder and the SSM (mamba2) family: full-sequence forward,
+loss and the serving path on a paged or a dense (per-slot) cache.
 
 Counterpart of the reference package's ``models/transformer.py`` for
-the dense family:
+the dense and SSM families:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
     logits = model.forward(params, tokens)              # (B, S, Vp)
     loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
+    cache = model.init_cache(batch, max_len)            # dense, the default
     cache = model.init_cache(batch, max_len, paged=True, page_size=16, n_pages=N)
     logits, cache = model.decode_step(params, cache, tokens, pos)
     logits, cache = model.prefill_chunk(params, cache, tokens, offsets, lengths)
@@ -16,20 +17,31 @@ The full-sequence path chooses its attention by ``ModelRuntime``
 (``resolve_attn``): ``direct`` (``layers.attention_scores``),
 ``chunked`` (online softmax over KV chunks in plain torch) or
 ``kernel`` (``ops.flash_attention``, the Hopper flash kernel, forward
+only); an SSM layer chooses its scan by ``resolve_ssd``: the plain
+``ssm.ssd_chunked`` or ``ops.ssd`` (the Hopper SSD chunk kernel, forward
 only).  Layers run as a Python loop over the per-layer dicts (the
 reference scans stacked layers); remat is not ported.
 
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
 one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
-{wi, wg, wo}), ``ln_f`` and ``lm_head`` ``(d, Vp)``.  The page pools are
-updated in place (the reference returns a new cache pytree); both calls
-still return the cache so call sites read alike.
+{wi, wg, wo}; or for an SSM layer ``ln1`` and ``mixer``, see
+``ssm.mamba2_param_tree``), ``ln_f`` and ``lm_head`` ``(d, Vp)``.
+
+Caches are stacked over the layers and updated in place (the reference
+returns a new cache pytree); both calls still return the cache so call
+sites read alike.  The paged cache holds ``page_table``, ``k_pages`` and
+``v_pages``; the dense cache ``k``/``v`` ``(L, B, max_len, Hkv, hd)`` for
+the dense family and, for an SSM, ``state``: the conv windows ``(L, B,
+k-1, c)`` in the model dtype and ``ssm`` ``(L, B, h, p, n)`` in fp32.
+Every decode dispatch advances every row of a dense cache, parked rows
+included (a new admission zeroes its row first, as in the reference).
 
 Writes to the paged cache are masked explicitly.  The reference relies
 on JAX dropping out-of-bounds scatters for a parked row (its table entry
 is the sentinel ``n_pages``) and for padded prefill tokens (sent to
 ``n_pages``); indexing a torch tensor out of range raises on the CPU and
-kills the CUDA context, so only valid ``(row, token)`` pairs are written.
+kills the CUDA context, so only valid ``(row, token)`` pairs are written,
+in the dense cache as in the paged one.
 """
 
 from __future__ import annotations
@@ -45,12 +57,14 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     GATED,
     apply_mlp,
     apply_norm,
     apply_rope,
     attention_scores,
+    gqa_attention,
     qkv_project,
     repeat_kv,
 )
@@ -67,6 +81,7 @@ class ModelRuntime:
     dtype: torch.dtype = torch.float32
     attn_impl: str = "auto"  # auto | direct | chunked | kernel
     attn_chunk: int = 1024
+    use_ssd_kernel: Optional[bool] = None  # None = resolve_ssd's rule
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -87,6 +102,17 @@ class ModelRuntime:
         if on_card and not grad and flash.supports(seq_len, head_dim):
             return "kernel"
         return "chunked" if seq_len > 4096 else "direct"
+
+    def resolve_ssd(self, *, device=None, grad: bool = False) -> bool:
+        """Whether an SSM layer runs ``ops.ssd`` (the Hopper SSD chunk
+        kernel) rather than the plain ``ssd_chunked``.  An explicit
+        ``use_ssd_kernel`` is obeyed; ``None`` takes the kernel on a CUDA
+        device when no gradient is taken (the kernel has no backward, as
+        in the reference), the plain path on the CPU or under a gradient."""
+        if self.use_ssd_kernel is not None:
+            return self.use_ssd_kernel
+        on_card = device is not None and torch.device(device).type == "cuda"
+        return on_card and not grad
 
 
 def _pick_chunk(s: int, target: int) -> int:
@@ -176,13 +202,43 @@ def _attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, rt: ModelRuntime,
     return out.reshape(b, s, h * hd) @ p["wo"]
 
 
+def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: ArchConfig):
+    """Decode or chunked prefill against a dense per-slot KV cache ``(B, t,
+    Hkv, hd)`` (the reference's ``_attn_decode``/``_attn_extend``): the
+    tokens ``writes = (rows, toks)`` write their K/V at ``position % t``, in
+    place, and every query attends to the slots at or before its position;
+    slot ``s`` holds ``last - ((last - s) mod t)``, the reference's
+    reconstruction (the slot itself while the cache does not wrap; negative
+    = never written)."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, T, _ = x.shape
+    q, k, v = qkv_project(p, x, h, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    t = cache_k.shape[1]
+    rows, toks = writes
+    write = positions[rows, toks] % t
+    cache_k[rows, write] = k[rows, toks].to(cache_k.dtype)
+    cache_v[rows, write] = v[rows, toks].to(cache_v.dtype)
+    last = positions[:, -1:]
+    kv_pos = last - torch.remainder(last - torch.arange(t, device=x.device)[None, :], t)
+    out = gqa_attention(q, cache_k, cache_v, q_positions=positions, kv_positions=kv_pos,
+                        kv_mask=kv_pos >= 0, logit_softcap=cfg.attn_logit_softcap)
+    return out.reshape(b, T, h * hd) @ p["wo"]
+
+
 def _mixer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> torch.Tensor:
     xn = apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
+    if "mixer" in p:
+        use_kernel = rt.resolve_ssd(device=xn.device, grad=xn.requires_grad)
+        return ssm.apply_mamba2(p["mixer"], xn, cfg, use_kernel=use_kernel)
     return _attn_forward(p["attn"], xn, cfg, rt, positions=positions)
 
 
 def _layer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> torch.Tensor:
     h = x + _mixer_apply(p, x, cfg, rt, positions)
+    if "ln2" not in p:  # an SSM layer is its mixer alone
+        return h
     hn = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
     return h + apply_mlp(p["mlp"], hn, cfg.activation)
 
@@ -191,7 +247,7 @@ class Model:
     def __init__(self, cfg: ArchConfig, runtime: Optional[ModelRuntime] = None):
         unsupported = [
             name for name, on in (
-                (f"family {cfg.family!r}", cfg.family != "dense"),
+                (f"family {cfg.family!r}", cfg.family not in ("dense", "ssm")),
                 ("MLA", cfg.use_mla),
                 ("sliding-window attention", cfg.sliding_window > 0),
                 ("encoder-decoder", cfg.is_encoder_decoder),
@@ -202,7 +258,7 @@ class Model:
         if unsupported:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
-                "(ROADMAP Queue 1: MLA paged, SSM/hybrid, the model zoo)"
+                "(ROADMAP Queue 1: MLA paged, the hybrid family, the model zoo)"
             )
         self.cfg = cfg
         self.rt = runtime or ModelRuntime()
@@ -225,7 +281,10 @@ class Model:
         def const(shape, value) -> torch.Tensor:
             return torch.full(shape, float(value), dtype=dtype, device=device)
 
-        return self._param_tree(normal, const)
+        def fp32(a) -> torch.Tensor:
+            return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+        return self._param_tree(normal, const, fp32)
 
     def abstract_params(self) -> Params:
         """The parameter tree's shapes and dtypes as ``meta`` tensors,
@@ -235,11 +294,15 @@ class Model:
         def empty(shape, _) -> torch.Tensor:
             return torch.empty(shape, dtype=dtype, device="meta")
 
-        return self._param_tree(empty, empty)
+        def fp32(a) -> torch.Tensor:
+            return torch.empty(np.shape(a), dtype=torch.float32, device="meta")
 
-    def _param_tree(self, normal, const) -> Params:
-        """The parameter tree, each leaf made by ``normal(shape, std)`` or
-        ``const(shape, value)`` in a fixed order."""
+        return self._param_tree(empty, empty, fp32)
+
+    def _param_tree(self, normal, const, fp32) -> Params:
+        """The parameter tree, each leaf made by ``normal(shape, std)``,
+        ``const(shape, value)`` (both in the model dtype) or ``fp32(array)``
+        (float32 whatever the model dtype) in a fixed order."""
         cfg = self.cfg
         d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
         h, hkv, vp = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
@@ -256,6 +319,11 @@ class Model:
 
         params: Params = {"embed": normal((vp, d), 0.02), "layers": []}
         for _ in range(cfg.n_layers):
+            if cfg.family == "ssm":
+                params["layers"].append({
+                    "ln1": norm(),
+                    "mixer": ssm.mamba2_param_tree(cfg, normal, const, fp32, depth_scale)})
+                continue
             attn = {
                 "wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
                 "wo": dense(h * hd, d, depth_scale),
@@ -303,30 +371,59 @@ class Model:
         return self.forward(params, tokens)[:, -1:]
 
     # ------------------------------------------------------------- cache
+    @property
+    def supports_paged_cache(self) -> bool:
+        """Whether this architecture's decode cache can be paged: an SSM's
+        state is O(1) per slot (nothing to page), as in the reference."""
+        cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid") or cfg.is_encoder_decoder:
+            return False
+        return cfg.sliding_window == 0
+
+    @property
+    def supports_fused_prefill(self) -> bool:
+        """Whether ``prefill_chunk`` can ingest this architecture's prompts
+        (the reference's rule: not for encoder-decoder, vision or MoE)."""
+        cfg = self.cfg
+        return not (cfg.is_encoder_decoder or cfg.n_vision_tokens or cfg.family == "moe")
+
     def init_cache(
         self,
         batch: int,
         max_len: int,
         *,
-        paged: bool = True,
+        paged: bool = False,
         page_size: int = 16,
         n_pages: Optional[int] = None,
         device=None,
     ) -> Params:
-        """Paged decode cache: ``k_pages``/``v_pages``
-        ``(L, n_pages, page_size, Hkv, hd)`` and a ``page_table``
-        ``(batch, ceil(max_len / page_size))`` int32 whose entries hold the
-        sentinel ``n_pages`` until the allocator backs them."""
-        if not paged:
-            raise NotImplementedError(
-                "the dense (per-slot) cache is not ported yet (ROADMAP Queue 1: dense cache mode)"
-            )
+        """Decode cache, stacked over the layers.  Dense (the default): the
+        SSM ``state`` or ``k``/``v`` ``(L, batch, max_len, Hkv, hd)``.
+        ``paged=True``: ``k_pages``/``v_pages`` ``(L, n_pages, page_size,
+        Hkv, hd)`` and a ``page_table`` ``(batch, ceil(max_len /
+        page_size))`` int32 whose entries hold the sentinel ``n_pages``
+        until the allocator backs them."""
         device = resolve_device(device)
         cfg, dtype = self.cfg, self.rt.dtype
+        L = cfg.n_layers
+        if not paged:
+            if cfg.family == "ssm":
+                one = ssm.mamba2_decode_state(cfg, batch, dtype, device)
+                return {"state": {k: torch.zeros((L,) + v.shape, dtype=v.dtype, device=device)
+                                  for k, v in one.items()}}
+            shape = (L, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+        if not self.supports_paged_cache:
+            raise ValueError(
+                f"paged cache unsupported for arch {cfg.name!r} "
+                "(ssm/hybrid state, enc-dec cross cache, or rolling "
+                "sliding-window cache)"
+            )
         ps = int(page_size)
         pages_per_slot = -(-max_len // ps)
         pool = batch * pages_per_slot if n_pages is None else int(n_pages)
-        shape = (cfg.n_layers, pool, ps, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (L, pool, ps, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {
             "page_table": torch.full((batch, pages_per_slot), pool, dtype=torch.int32,
                                      device=device),
@@ -343,9 +440,13 @@ class Model:
         ``(B, 1, Vp)``."""
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, device=tokens.device).long().expand(b)
-        positions = pos[:, None]  # (b, 1)
         h = params["embed"][tokens].to(self.rt.dtype)
-        h = self._run_layers_paged(params, cache, h, positions, valid=None)
+        if "page_table" in cache:
+            h = self._run_layers_paged(params, cache, h, pos[:, None], valid=None)
+        elif self.cfg.family == "ssm":
+            h = self._decode_ssm(params, cache, h)
+        else:
+            h = self._decode_attn(params, cache, h, pos)
         return self._logits(params, h), cache
 
     def prefill_chunk(
@@ -371,9 +472,61 @@ class Model:
         positions = offsets.long()[:, None] + ar[None, :]
         valid = ar[None, :] < lengths[:, None]
         h = params["embed"][tokens].to(self.rt.dtype)
-        return self._run_layers_paged(params, cache, h, positions, valid=valid)
+        if "page_table" in cache:
+            return self._run_layers_paged(params, cache, h, positions, valid=valid)
+        if self.cfg.family == "ssm":
+            return self._prefill_ssm(params, cache, h, lengths, valid)
+        return self._prefill_attn(params, cache, h, positions, valid)
 
     # ------------------------------------------------------------- layers
+    def _decode_attn(self, params, cache, h, pos) -> torch.Tensor:
+        """Every row writes its token (the reference's decode writes every
+        row, parked ones included, at ``pos % t``)."""
+        b = h.shape[0]
+        writes = (torch.arange(b, device=h.device), torch.zeros(b, dtype=torch.long,
+                                                                device=h.device))
+        return self._run_layers_dense(params, cache, h, pos[:, None], writes)
+
+    def _prefill_attn(self, params, cache, h, positions, valid) -> torch.Tensor:
+        """Only the valid tokens write (one host sync a dispatch)."""
+        return self._run_layers_dense(params, cache, h, positions, valid.nonzero(as_tuple=True))
+
+    def _run_layers_dense(self, params, cache, h, positions, writes) -> torch.Tensor:
+        cfg = self.cfg
+        for i, lp in enumerate(params["layers"]):
+            hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
+            h = h + _attn_dense_cache(lp["attn"], hn, cache["k"][i], cache["v"][i], positions,
+                                      writes, cfg)
+            hn = apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
+            h = h + apply_mlp(lp["mlp"], hn, cfg.activation)
+        return h
+
+    def _decode_ssm(self, params, cache, h) -> torch.Tensor:
+        cfg, state = self.cfg, cache["state"]
+        for i, lp in enumerate(params["layers"]):
+            hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
+            out, new = ssm.apply_mamba2_decode(lp["mixer"], hn,
+                                               {k: v[i] for k, v in state.items()}, cfg)
+            h = h + out
+            for k, v in new.items():
+                state[k][i].copy_(v)
+        return h
+
+    def _prefill_ssm(self, params, cache, h, lengths, valid) -> torch.Tensor:
+        """Each layer ingests the chunk from its cached state; on the card
+        the scan goes through ``ops.ssd`` (``resolve_ssd``)."""
+        cfg, state = self.cfg, cache["state"]
+        use_kernel = self.rt.resolve_ssd(device=h.device)
+        for i, lp in enumerate(params["layers"]):
+            hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
+            out, new = ssm.apply_mamba2_prefill(
+                lp["mixer"], hn, {k: v[i] for k, v in state.items()}, cfg, valid=valid,
+                lengths=lengths, use_kernel=use_kernel)
+            h = h + out
+            for k, v in new.items():
+                state[k][i].copy_(v)
+        return h
+
     def _run_layers_paged(self, params, cache, h, positions, valid) -> torch.Tensor:
         cfg = self.cfg
         table = cache["page_table"]

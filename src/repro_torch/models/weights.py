@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.tree import tree_map
+from repro_torch.models.ssm import FP32_PARAMS
+from repro_torch.tree import tree_map, tree_map_with_path
 
 Tree = Any
 
@@ -72,12 +73,18 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(
     np_params: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = torch.float32
 ) -> Dict[str, Any]:
-    """Port parameters from the reference's dense-model pytree of numpy
-    leaves (layers stacked along ``L``), converted to ``dtype``."""
+    """Port parameters from the reference's dense- or SSM-model pytree of
+    numpy leaves (layers stacked along ``L``), converted to ``dtype``; an
+    SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32, as the reference
+    keeps them in every model dtype."""
     device = resolve_device(device)
-    if "dense_layers" in np_params or "layers" not in np_params:
-        raise NotImplementedError("params_from_jax takes the dense family's pytree only")
-    return from_reference_layout(tree_map(lambda a: _tensor(a, device, dtype), np_params))
+    if "dense_layers" in np_params or "layers" not in np_params or "shared" in np_params:
+        raise NotImplementedError("params_from_jax takes the dense or SSM family's pytree only")
+
+    def leaf(path, a):
+        return _tensor(a, device, torch.float32 if path[-1] in FP32_PARAMS else dtype)
+
+    return from_reference_layout(tree_map_with_path(leaf, np_params))
 
 
 def _numpy(t) -> np.ndarray:

@@ -1,15 +1,18 @@
 """KVCacheManager — the serving tier's cache layer, on torch tensors.
 
-Counterpart of the reference package's ``serving/cache_manager.py`` for
-the paged cache.  The host-side logic is the reference's, unchanged: the
+Counterpart of the reference package's ``serving/cache_manager.py``, in
+its two modes.  ``cache_mode="dense"`` (the default, as in the
+reference) reserves ``model.init_cache(max_batch, max_len)`` whole: a KV
+row or an SSM state row per slot, zeroed at admission, with no pages and
+no prefix cache.  ``cache_mode="paged"`` keeps the reference's host-side
+logic unchanged: the
 free-list allocator with per-page refcounts, allocate-on-write, copy-on-
 write of shared pages, adaptive pool sizing, the radix prefix cache
 with sub-page (token-granularity) stitching, and pool-pressure recovery
 by LRU prefix eviction then youngest-slot preemption.  Every site that
 touches the device is rewritten in torch: pool creation and growth,
-the page copy, and the page-table push.  The page pools are updated in
-place.  The dense per-slot cache and the cross-host prefix store are not
-ported (ROADMAP Queue 1).
+the page copy, and the page-table push.  Both caches are updated in
+place.  The cross-host prefix store is not ported (ROADMAP Queue 1).
 
 Contracts with the other layers:
 
@@ -39,6 +42,7 @@ import torch
 
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.types import EngineStats, Slot
+from repro_torch.tree import tree_leaves
 
 _LOG = logging.getLogger(__name__)
 
@@ -52,6 +56,7 @@ class KVCacheManager:
         max_len: int,
         stats: EngineStats,
         device: torch.device,
+        cache_mode: str = "dense",
         page_size: int = 16,
         total_pages: Optional[int] = None,
         prefix_cache: bool = True,
@@ -66,6 +71,7 @@ class KVCacheManager:
         self.max_len = max_len
         self.stats = stats
         self.device = device
+        self.cache_mode = cache_mode
         self.page_size = int(page_size)
         # "token" (default) additionally reuses the longest common token
         # prefix inside the first divergent page via a CoW copy of the
@@ -78,6 +84,11 @@ class KVCacheManager:
         # preempt_row — at a clean seam AFTER the allocation loop unwinds
         self.preempt_for: Callable[[int], Optional[int]] = lambda row: None
         self.preempt_row: Callable[[int], None] = lambda row: None
+        if cache_mode != "paged":
+            self.prefix = None
+            self._adaptive = False
+            self.cache = model.init_cache(max_batch, max_len, device=device)
+            return
         self.pages_per_slot = -(-max_len // self.page_size)
         self.prefix = PrefixCache(self.page_size) if prefix_cache else None
         self._adaptive = not total_pages
@@ -192,7 +203,10 @@ class KVCacheManager:
     # ------------------------------------------------------- page allocator
     @property
     def peak_cache_bytes(self) -> int:
-        """High-water cache footprint: pages actually resident."""
+        """High-water cache footprint: pages actually resident (paged) or
+        the whole dense reservation."""
+        if self.cache_mode != "paged":
+            return sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(self.cache))
         return self.stats.peak_pages * self.stats.page_bytes
 
     def _incref(self, pid: int) -> None:
@@ -333,7 +347,7 @@ class KVCacheManager:
         """Admission control under pool pressure: admitting into a pool with
         neither a free page nor an evictable cached page can only yield
         straight back to the queue, so hold the queue until one exists."""
-        if self.cache is None or self._free_pages:
+        if self.cache_mode != "paged" or self.cache is None or self._free_pages:
             return True
         return self.prefix is not None and self.prefix.evictable(
             lambda p: self._page_refs[p]
@@ -343,7 +357,7 @@ class KVCacheManager:
         """Drop the slot's references (shared/cached pages stay resident)
         and reset its table row to the sentinel so a stale write is
         masked out of the next dispatch."""
-        if self.cache is None:
+        if self.cache_mode != "paged" or self.cache is None:
             return
         pages = self._slot_pages[row]
         if not pages:
@@ -355,10 +369,18 @@ class KVCacheManager:
         self._table_dirty = True
 
     def reset_row(self, row: int) -> None:
-        """Prepare a row for a fresh admission: nothing to do in the paged
-        cache (the row's pages went back at finish, its table row is the
-        sentinel, and stale data inside a reallocated page sits past the new
-        owner's write frontier where the causal mask excludes it)."""
+        """Prepare a row for a fresh admission.  Dense mode zeroes the row
+        of every cache leaf, in place: every decode dispatch advances every
+        row's recurrence, parked rows included, so only this makes a new
+        request's SSM state start clean.  Paged mode has nothing to do (the
+        row's pages went back at finish, its table row is the sentinel, and
+        stale data inside a reallocated page sits past the new owner's write
+        frontier where the causal mask excludes it)."""
+        if self.cache_mode == "paged":
+            return
+        for leaf in tree_leaves(self.cache):
+            if leaf.dim() >= 2 and leaf.shape[1] == self.max_batch:
+                leaf[:, row].zero_()
 
     # --------------------------------------------------------- prefix cache
     def stitch_prefix(self, row: int, slot: Slot) -> None:
@@ -467,8 +489,8 @@ class KVCacheManager:
         holders (slot tables + the radix cache), no slot maps a page
         twice, the free list is exactly the refcount-0 pages, the table
         shadow mirrors the slot page lists, and ``pages_in_use`` equals
-        the pool size minus free pages."""
-        if self.cache is None:
+        the pool size minus free pages.  The dense cache has none."""
+        if self.cache_mode != "paged" or self.cache is None:
             return
         holders = [0] * self.n_pages
         for row, pages in enumerate(self._slot_pages):
@@ -508,7 +530,8 @@ class KVCacheManager:
 
     # ------------------------------------------------------------- dispatch
     def push_table(self) -> None:
-        """Copy the host page table to the device before a dispatch."""
-        if self._table_dirty:
+        """Copy the host page table to the device before a dispatch (the
+        dense cache has none)."""
+        if self.cache_mode == "paged" and self._table_dirty:
             self.cache["page_table"].copy_(torch.from_numpy(self._table))
             self._table_dirty = False

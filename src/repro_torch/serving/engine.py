@@ -1,23 +1,25 @@
 """Serving executor: the device-dispatch layer of the serving tier.
 
-Counterpart of the reference package's ``serving/engine.py`` for the
-paged cache with fused dispatch:
+Counterpart of the reference package's ``serving/engine.py`` with fused
+dispatch, on the dense (per-slot, the default) or the paged cache:
 :class:`~repro_torch.serving.scheduler.RequestScheduler` admits requests
 into freed rows (continuous batching), the
-:class:`~repro_torch.serving.cache_manager.KVCacheManager` backs the
-positions each dispatch will write (radix prefix cache, copy-on-write),
-and :class:`ServeEngine` dispatches: fused chunked prefill
-(``prefill_chunk`` tokens per row per dispatch) and ONE decode dispatch
-per tick for any mix of row positions, with sampling and the done mask
-on the device.  Finished rows are parked (pages freed) before the next
-dispatch.
+:class:`~repro_torch.serving.cache_manager.KVCacheManager` zeroes an
+admitted row (dense) or backs the positions each dispatch will write
+(paged: radix prefix cache, copy-on-write), and :class:`ServeEngine`
+dispatches: fused chunked prefill (``prefill_chunk`` tokens per row per
+dispatch) and ONE decode dispatch per tick for any mix of row positions,
+with sampling and the done mask on the device.  Finished rows are parked
+(pages freed) before the next dispatch.  The SSM family serves from the
+dense cache only, as in the reference.
 
 Knob names, refusals and the :class:`EngineStats` counters are the
 reference's; ``device`` (default ``cuda``) picks where the cache lives
-and must hold the parameters.  Not ported yet, and refused with
-``NotImplementedError`` naming their ROADMAP Queue 1 item: the dense
-cache, grouped dispatch, speculative decoding, the prefix store,
-disaggregated roles, checkpoint resume and handoff admission.
+and must hold the parameters.  The reference's refusals for recurrent
+families come first; then what is not ported yet is refused with
+``NotImplementedError`` naming its ROADMAP Queue 1 item: grouped
+dispatch, speculative decoding, the prefix store, disaggregated roles,
+checkpoint resume and handoff admission.
 """
 
 from __future__ import annotations
@@ -40,6 +42,40 @@ def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
 
 
+def _refuse_for_recurrent(model, cache_mode: str, dispatch_mode: str, speculative: str,
+                          prefill_token_budget: Optional[int]) -> None:
+    """The reference's refusals for architectures without a pageable
+    cache and for recurrent (SSM/hybrid) state, with its messages."""
+    family = model.cfg.family
+    if cache_mode == "paged" and not model.supports_paged_cache:
+        raise ValueError(
+            "cache_mode='paged' unsupported for arch "
+            f"{model.cfg.name!r} (no pageable KV cache)"
+        )
+    if family not in ("ssm", "hybrid"):
+        return
+    if dispatch_mode == "grouped":
+        # per-group re-dispatch re-advances recurrent state every extra
+        # call per tick (KV writes are idempotent, recurrences are not)
+        raise ValueError(
+            "dispatch_mode='grouped' corrupts recurrent SSM/hybrid state; "
+            f"use the fused engine for family {family!r}"
+        )
+    if speculative != "off":
+        raise ValueError(
+            "speculative decoding cannot roll back recurrent "
+            f"(family {family!r}) state; rejected draft "
+            "tokens would corrupt the recurrence"
+        )
+    if prefill_token_budget is not None:
+        raise ValueError(
+            "prefill_token_budget is unsupported for recurrent "
+            f"(family {family!r}) models: a mid-prefill "
+            "row's recurrence would be advanced by the decode "
+            "dispatch it sits out"
+        )
+
+
 def _param_devices(tree) -> set:
     if isinstance(tree, dict):
         return set().union(*(_param_devices(v) for v in tree.values()))
@@ -60,7 +96,7 @@ class ServeEngine:
         prefill_chunk: int = 16,
         dispatch_mode: str = "fused",
         sample_on_device: bool = True,
-        cache_mode: str = "paged",
+        cache_mode: str = "dense",
         page_size: int = 16,
         total_pages: Optional[int] = None,
         prefix_cache: bool = True,
@@ -84,8 +120,8 @@ class ServeEngine:
             )
         if speculative not in ("off", "ngram", "draft"):
             raise ValueError(f"speculative must be off|ngram|draft, got {speculative!r}")
-        if cache_mode == "dense":
-            raise _unported("cache_mode='dense'", "dense cache mode")
+        _refuse_for_recurrent(model, cache_mode, dispatch_mode, speculative,
+                              prefill_token_budget)
         if dispatch_mode == "grouped":
             raise _unported("dispatch_mode='grouped'", "grouped dispatch")
         if speculative != "off" or draft_model is not None or draft_params is not None:
@@ -107,6 +143,7 @@ class ServeEngine:
         self.max_len = max_len
         self.prefill_chunk = int(prefill_chunk)
         self.sample_on_device = sample_on_device
+        self.cache_mode = cache_mode
 
         # the layers share one counter block and are cross-wired at exactly
         # two points: admission (scheduler -> cache: reset + stitch) and
@@ -118,6 +155,7 @@ class ServeEngine:
             max_len=max_len,
             stats=self.stats,
             device=self.device,
+            cache_mode=cache_mode,
             page_size=page_size,
             total_pages=total_pages,
             prefix_cache=prefix_cache,
@@ -141,7 +179,7 @@ class ServeEngine:
 
         self._rng_seed = rng_seed
         self._decode = make_decode_step(model, rng_seed, sample_on_device)
-        self._use_prefill = self.prefill_chunk > 0
+        self._use_prefill = self.prefill_chunk > 0 and model.supports_fused_prefill
         self._prefill = (
             make_prefill_step(model, rng_seed, sample_on_device)
             if self._use_prefill else None
@@ -182,8 +220,9 @@ class ServeEngine:
         snap = self.stats.snapshot()
         snap["peak_cache_bytes"] = self.peak_cache_bytes
         snap["timing"] = self.scheduler.timing()
-        snap["total_pages"] = self.cache_mgr.n_pages
-        snap["page_size"] = self.cache_mgr.page_size
+        if self.cache_mode == "paged":
+            snap["total_pages"] = self.cache_mgr.n_pages
+            snap["page_size"] = self.cache_mgr.page_size
         return snap
 
     # ------------------------------------------------------------- intake
@@ -251,13 +290,14 @@ class ServeEngine:
                 left -= sum(plan.values())
             if not plan:
                 return emitted
-            # reservation pass before building inputs: CoW / eviction /
-            # preemption mutate slot state, and a later row's allocation
-            # may preempt (or yield) an earlier one
-            for i, n in plan.items():
-                s = slots[i]
-                if s.req is not None and s.remaining_prompt:
-                    self.cache_mgr.ensure_pages(i, s.pos + n, write_start=s.pos)
+            if self.cache_mode == "paged":
+                # reservation pass before building inputs: CoW / eviction /
+                # preemption mutate slot state, and a later row's allocation
+                # may preempt (or yield) an earlier one
+                for i, n in plan.items():
+                    s = slots[i]
+                    if s.req is not None and s.remaining_prompt:
+                        self.cache_mgr.ensure_pages(i, s.pos + n, write_start=s.pos)
             rows = [
                 i for i in plan
                 if slots[i].req is not None and slots[i].remaining_prompt
@@ -324,22 +364,25 @@ class ServeEngine:
     def _decode_tick(self) -> int:
         B = self.max_batch
         slots = self.scheduler.slots
-        # reservation pass first: allocation may CoW a shared page or
-        # preempt/yield a slot, so inputs come only from the rows that still
-        # hold their pages.  Rows held mid-prefill by the tick budget are
-        # covered too: the batch-wide dispatch writes (garbage) KV at their
-        # pos through their live table, so a shared page there is
-        # privatized first; the row overwrites it when its prefill resumes
-        for i, s in enumerate(slots):
-            if s.req is not None:
-                self.cache_mgr.ensure_pages(i, s.pos + 1, write_start=s.pos)
+        if self.cache_mode == "paged":
+            # reservation pass first: allocation may CoW a shared page or
+            # preempt/yield a slot, so inputs come only from the rows that
+            # still hold their pages.  Rows held mid-prefill by the tick
+            # budget are covered too: the batch-wide dispatch writes
+            # (garbage) KV at their pos through their live table, so a
+            # shared page there is privatized first; the row overwrites it
+            # when its prefill resumes
+            for i, s in enumerate(slots):
+                if s.req is not None:
+                    self.cache_mgr.ensure_pages(i, s.pos + 1, write_start=s.pos)
         tokens = np.zeros((B, 1), np.int64)
         pos = np.zeros((B,), np.int64)
         meta = self._row_meta()
         active = []
         for i, slot in enumerate(slots):
-            # parked rows keep their stale pos; their sentinel table row
-            # masks the write out of the dispatch
+            # parked rows keep their stale pos: their sentinel table row
+            # masks the write out of a paged dispatch; a dense row is
+            # zeroed at its next admission
             pos[i] = slot.pos
             if slot.req is None or (self._use_prefill and slot.remaining_prompt):
                 continue

@@ -77,7 +77,7 @@ def make_decode_step(model, base_seed: int, on_device: bool) -> Callable:
     vocab = model.cfg.vocab_size
 
     def logits_step(params, cache, tokens, pos):
-        device = cache["page_table"].device
+        device = params["embed"].device
         tok, p = _on(device, tokens, pos)
         logits, cache = model.decode_step(params, cache, tok, p)
         return logits[:, 0, :vocab], cache
@@ -101,7 +101,7 @@ def make_prefill_step(model, base_seed: int, on_device: bool) -> Callable:
     vocab = model.cfg.vocab_size
 
     def logits_step(params, cache, tokens, offsets, lengths):
-        device = cache["page_table"].device
+        device = params["embed"].device
         tok, off, ln = _on(device, tokens, offsets, lengths)
         logits, cache = model.prefill_chunk(params, cache, tok, off, ln)
         return logits[:, :vocab], cache

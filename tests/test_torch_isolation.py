@@ -1,8 +1,9 @@
 """The port stands apart from the reference package and from the CPU:
 no port module imports ``jax`` or ``repro``; every knob not ported yet
-refuses with ``NotImplementedError``; a default-device entry point on a
-host without CUDA raises instead of running on the CPU; and
-``chip_smoke.py`` prints no result without a card."""
+refuses with ``NotImplementedError`` (the dense cache, ported since,
+runs); a default-device entry point on a host without CUDA raises
+instead of running on the CPU; and ``chip_smoke.py`` prints no result
+without a card."""
 
 import ast
 import subprocess
@@ -50,7 +51,6 @@ def tiny():
 
 
 UNPORTED_KNOBS = [
-    dict(cache_mode="dense"),
     dict(dispatch_mode="grouped"),
     dict(speculative="ngram"),
     dict(speculative="draft"),
@@ -72,6 +72,18 @@ def test_unported_engine_knobs_refuse(tiny, knob):
         ServeEngine(m, p, device="cpu", **knob)
 
 
+def test_dense_cache_mode_runs(tiny):
+    """``cache_mode="dense"``, the reference's default and now the port's,
+    serves: no pages, the whole per-slot reservation as the cache peak."""
+    m, p = tiny
+    eng = ServeEngine(m, p, device="cpu", cache_mode="dense", max_batch=2, max_len=32)
+    assert ServeEngine(m, p, device="cpu").cache_mode == "dense"
+    eng.submit([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=3)])
+    assert len(eng.run_to_completion()[0].output) == 3
+    assert eng.peak_pages == 0 and "total_pages" not in eng.snapshot()
+    assert eng.peak_cache_bytes == 2 * eng.cache["k"].numel() * eng.cache["k"].element_size()
+
+
 @pytest.mark.parametrize("knob", [dict(cache_mode="sparse"), dict(dispatch_mode="x"),
                                   dict(prefix_match="chunk"), dict(refill_policy="lazy")])
 def test_invalid_engine_knobs_raise_value_error(tiny, knob):
@@ -83,7 +95,7 @@ def test_invalid_engine_knobs_raise_value_error(tiny, knob):
 @pytest.mark.parametrize("method", ["submit_resume", "submit_handoff"])
 def test_unported_engine_entry_points_refuse(tiny, method):
     m, p = tiny
-    eng = ServeEngine(m, p, device="cpu", max_len=32)
+    eng = ServeEngine(m, p, device="cpu", max_len=32, cache_mode="paged")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         getattr(eng, method)({})
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
@@ -92,8 +104,9 @@ def test_unported_engine_entry_points_refuse(tiny, method):
 
 def test_unported_model_features_refuse(tiny):
     m, _ = tiny
-    with pytest.raises(NotImplementedError, match="dense cache"):
-        m.init_cache(2, 32, paged=False, device="cpu")
+    dense = m.init_cache(2, 32, paged=False, device="cpu")  # the dense cache runs now
+    assert set(dense) == {"k", "v"} and dense["k"].shape == (2, 2, 32, 2, 16)
+    assert set(m.init_cache(2, 32, device="cpu")) == {"k", "v"}  # and is the default
     moe = ArchConfig(name="x-moe", family="moe", n_layers=2, d_model=64, n_heads=4,
                      n_kv_heads=2, d_ff=128, vocab_size=256, n_experts=4, top_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
@@ -132,7 +145,8 @@ def test_default_device_raises_without_cuda(tiny, monkeypatch, tmp_path):
         run_train_span({"arch": "ds-paper-100m", "start_step": 0, "num_steps": 1},
                        ObjectStore(str(tmp_path)), lambda progress=None: None)
     # the explicit CPU request still works
-    eng = ServeEngine(m, p, device="cpu", max_len=32, total_pages=4, page_size=8)
+    eng = ServeEngine(m, p, device="cpu", max_len=32, total_pages=4, page_size=8,
+                      cache_mode="paged")
     eng.submit([Request(uid="a", prompt=[1, 2, 3], max_new_tokens=2)])
     assert len(eng.run_to_completion()[0].output) == 2
 

@@ -158,12 +158,12 @@ def test_temperature_rows_are_placement_independent(models):
     for kw in (dict(max_batch=1, total_pages=8), dict(max_batch=4, total_pages=16),
                dict(max_batch=2, total_pages=3)):
         eng = ServeEngine(m, p, device="cpu", max_len=32, prefill_chunk=4, page_size=8,
-                          rng_seed=5, **kw)
+                          rng_seed=5, cache_mode="paged", **kw)
         eng.submit(reqs())
         outs.append({r.uid: r.output for r in eng.run_to_completion()})
     assert outs[0] == outs[1] == outs[2]
     greedy = ServeEngine(m, p, device="cpu", max_batch=4, max_len=32, prefill_chunk=4,
-                         page_size=8, total_pages=16, rng_seed=5)
+                         page_size=8, total_pages=16, rng_seed=5, cache_mode="paged")
     greedy.submit([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=6) for r in reqs()])
     assert {r.uid: r.output for r in greedy.run_to_completion()} != outs[0]
 
@@ -208,7 +208,7 @@ def test_temperature_sampling_matches_reference_on_the_named_input(models):
     jm, jp, m, p = models
     kw = dict(max_batch=2, max_len=32, prefill_chunk=4, page_size=8, total_pages=8,
               rng_seed=5)
-    eng = ServeEngine(m, p, device="cpu", **kw)
+    eng = ServeEngine(m, p, device="cpu", cache_mode="paged", **kw)
     eng.submit([Request(uid="t", prompt=[10, 20, 30, 40, 50], max_new_tokens=12,
                         temperature=0.7)])
     jeng = JEngine(jm, jp, cache_mode="paged", **kw)
@@ -228,7 +228,7 @@ def test_mixed_greedy_and_temperature_rows_match_reference(models):
     prompts = [[3 + i, 17, 29 + i, 41, 50 + 2 * i, 61] for i in range(5)]
     kw = dict(max_batch=3, max_len=32, prefill_chunk=4, page_size=8, total_pages=5,
               rng_seed=11)
-    eng = ServeEngine(m, p, device="cpu", **kw)
+    eng = ServeEngine(m, p, device="cpu", cache_mode="paged", **kw)
     eng.submit([Request(uid=f"r{i}", prompt=pr, max_new_tokens=8, temperature=t)
                 for i, (pr, t) in enumerate(zip(prompts, temps))])
     jeng = JEngine(jm, jp, cache_mode="paged", **kw)
