@@ -14,24 +14,33 @@ Phases, each printing one JSON line:
 - ``kernels``: each kernel against its plain version on the card, f32
   (atol/rtol 2e-5) and bf16 (2e-2): paged attention over the serving
   slice's shapes and the GQA/MQA/MLA/softcap/verify/aliased/parked cases,
-  RMSNorm (and its gradient; d = 768 and mamba2's 2048), flash attention
-  over the reference's sweep, sliding windows, the model layout and the
-  eval phase's shapes, and the SSD chunk kernel over the reference's
+  and its bf16 tensor-core path's edges (G*T 16 at pages of 8-64 with
+  offsets 0 and straddling a page, G 2 x T 16, a ragged G 3 x T 8 fold,
+  dk = dv = 128, a parked row held exactly zero, aliased first pages,
+  softcap 30; each record names the path), RMSNorm (and its gradient;
+  d = 768 and mamba2's 2048), flash attention over the reference's sweep,
+  sliding windows, the model layout, the eval phase's shapes and the
+  ``wgmma`` kernel's edges (S 192 and 320 with a ragged last 128-row
+  tile, S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
+  and 128, hd 128 and 192), and
+  the SSD chunk kernel over the reference's
   sweep, chunks of 1-16 positions, the serve prefill shape with padded
   tokens and idle rows, mamba2's eval shapes, and ``ops.ssd`` from a
   carried state (final state at 1e-4);
 - ``parity``: full-width ``ds-paper-100m`` in f32 from seed 0, the engine
   on ``cuda`` (kernel path) against the same engine on ``cpu`` (plain
-  path), in paged mode (12 paged-attention and 25 RMSNorm launches per
-  dispatch) and in dense mode, now the engine's default as in the
-  reference (25 RMSNorm, no paged launch): equal greedy tokens (a near-tie
-  below 1e-3 of the CPU's top-2 logit gap is the one allowed exception)
-  and counters, and dense tokens equal to paged ones;
+  path), in paged mode (12 paged-attention launches per dispatch, none on
+  the bf16 tensor-core path, and 25 RMSNorm) and in dense mode, now the
+  engine's default as in the reference (25 RMSNorm, no paged launch):
+  equal greedy tokens (a near-tie below 1e-3 of the CPU's top-2 logit gap
+  is the one allowed exception) and counters, and dense tokens equal to
+  paged ones;
 - ``serve``: full width in bf16, paged, 32 requests, tokens/s,
-  per-dispatch times from CUDA events, peak memory, and each kernel at
-  the decode and prefill shapes, held against its plain version (bf16
-  tolerance) and timed beside its bound, its plain version and one
-  PyTorch call as a yardstick;
+  per-dispatch times from CUDA events, peak memory, 12 tensor-core paged
+  launches per prefill dispatch and 12 CUDA-core ones per decode dispatch,
+  and each kernel at the decode and prefill shapes, held against its plain
+  version (bf16 tolerance) and timed beside its bound, its plain version
+  and one PyTorch call as a yardstick;
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
   idle share against the unprofiled wall time, top device ops;
@@ -64,7 +73,8 @@ Phases, each printing one JSON line:
   logits with the SSD kernel against the plain chunked scan, a traced
   forward, and the SSD kernel timed at both shapes.
 
-Then a ``kernels`` summary line, the card's ``nvidia-smi`` name and power
+Then a ``kernels`` summary line (the paged kernel's launches also per
+path), the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA device; exits
 non-zero without a result when there is none or when run outside a
@@ -221,6 +231,28 @@ def paged_cases():
             (f"page64_{tag}", dict(B=3, hkv=8, g=8, T=1, dk=128, ps=64, P=10,
                                    offsets=[0, 70, 400], seed=11, **d), 0.0, 0),
         ]
+    # the bf16 tensor-core path's edges (G*T >= 16, dk and dv in {64, 128}):
+    # page sizes 8-64 with offsets 0 and straddling a page, 32 and a ragged
+    # 24 folded rows, dk = dv = 128, a parked row, aliased first pages
+    bf = {"dtype": torch.bfloat16}
+    for ps in (8, 16, 32, 64):
+        cases.append((f"tc_page{ps}_bf16", dict(B=3, hkv=4, g=1, T=16, dk=64, ps=ps, P=8,
+                                                offsets=[0, ps // 2 + 3, 5 * ps - 7],
+                                                seed=30 + ps, **bf), 0.0, 0))
+    cases += [
+        ("tc_g2_t16_bf16", dict(B=3, hkv=6, g=2, T=16, dk=64, ps=16, P=40,
+                                offsets=[0, 21, 300], seed=31, **bf), 0.0, 0),
+        ("tc_g3_t8_ragged24_bf16", dict(B=3, hkv=4, g=3, T=8, dk=64, ps=16, P=40,
+                                        offsets=[3, 40, 129], seed=32, **bf), 0.0, 0),
+        ("tc_dk128_bf16", dict(B=2, hkv=4, g=1, T=16, dk=128, ps=16, P=40,
+                               offsets=[0, 77], seed=33, **bf), 0.0, 0),
+        ("tc_parked_bf16", dict(B=3, hkv=12, g=1, T=16, dk=64, ps=16, P=40,
+                                offsets=[20, 33, 70], seed=34, parked=(1,), **bf), 0.0, 0),
+        ("tc_aliased_bf16", dict(B=3, hkv=12, g=1, T=16, dk=64, ps=16, P=40,
+                                 offsets=[20, 20, 40], seed=35, alias=True, **bf), 0.0, 0),
+        ("tc_softcap30_page8_bf16", dict(B=3, hkv=4, g=1, T=16, dk=64, ps=8, P=80,
+                                         offsets=[0, 13, 200], seed=36, **bf), 30.0, 0),
+    ]
     # the parity engine's slots (max_len 128: 8 pages of 16), its own dtype
     cases += [
         ("parity_decode_f32", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
@@ -235,6 +267,7 @@ def paged_cases():
 
 def check_paged_attention() -> dict:
     from repro_torch.kernels.flash_decode import (
+        kernel_path,
         paged_flash_attention_folded,
         paged_flash_attention_folded_plain,
     )
@@ -253,8 +286,11 @@ def check_paged_attention() -> dict:
         err = (got.float() - want.float()).abs().max().item()
         t = tol(kw["dtype"])
         ok = bool(torch.allclose(got.float(), want.float(), atol=t, rtol=t))
+        dv = v_width or vp.shape[-1]
         rec = {"phase": "kernels", "kernel": "paged_attention", "case": name,
-               "shape": list(q.shape), "max_abs_err": err, "ok": ok}
+               "shape": list(q.shape), "page_size": kw["ps"],
+               "path": kernel_path(q.dtype, q.shape[2], q.shape[3], dv),
+               "max_abs_err": err, "ok": ok}
         if kw.get("parked"):
             zero = bool((got[list(kw["parked"])] == 0).all().item())
             rec["parked_rows_exact_zero"] = zero
@@ -339,7 +375,32 @@ def flash_cases():
             cases.append((f"window{window}_{tag}", 2, 256, 64, 64, True, window, dtype))
     cases.append(("eval_8x512_bf16", 96, 512, 64, 512, True, 0, torch.bfloat16))
     cases.append(("eval_2x4096_bf16", 24, 4096, 64, 512, True, 0, torch.bfloat16))
+    # the wgmma kernel's edges: a ragged last 128-row tile, windows at S 320,
+    # head widths 128 and 192 (two and three 64-column slabs)
+    bf = torch.bfloat16
+    for s, causal in ((192, True), (192, False), (320, True), (320, False)):
+        cases.append((f"ragged_s{s}_{'causal' if causal else 'full'}_bf16", 3, s, 64, 64,
+                      causal, 0, bf))
+    for window in (32, 128):
+        cases.append((f"window{window}_s320_bf16", 2, 320, 64, 64, True, window, bf))
+    for hd in (128, 192):
+        for causal in (True, False):
+            cases.append((f"hd{hd}_s320_{'causal' if causal else 'full'}_bf16", 2, 320, hd, 64,
+                          causal, 0, bf))
+    # from 1024 queries on, hd 64 takes 192-row blocks (three warpgroups):
+    # a ragged last block of 64 rows, a window
+    for causal in (True, False):
+        cases.append((f"rows192_s1216_{'causal' if causal else 'full'}_bf16", 2, 1216, 64, 64,
+                      causal, 0, bf))
+    cases.append(("rows192_window128_s1216_bf16", 2, 1216, 64, 64, True, 128, bf))
     return cases
+
+
+# (name, bh, sq, skv, hd, causal): queries and keys of different lengths
+# (positions count from 0 in both)
+FLASH_SQ_NE_SKV = [(f"sq{sq}_skv{skv}", 2, sq, skv, 64, causal)
+                   for sq, skv in ((128, 320), (320, 192), (1216, 1024))
+                   for causal in (True, False)]
 
 
 def check_flash_attention() -> dict:
@@ -366,6 +427,23 @@ def check_flash_attention() -> dict:
         require(ok, f"flash_attention case {name} disagrees with its plain version")
         key = str(dtype).removeprefix("torch.")
         worst[key] = max(worst[key], err)
+    for name, bh, sq, skv, hd, causal in FLASH_SQ_NE_SKV:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn((bh, skv, hd), generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            got = flash_attention_bhsd(q, k, v, causal=causal, block_q=64, block_k=64)
+            torch.cuda.synchronize()
+            want = flash_attention_bhsd_plain(q, k, v, causal=causal)
+            err = (got.float() - want.float()).abs().max().item()
+            ok = bool(torch.allclose(got.float(), want.float(), atol=tol(dtype), rtol=tol(dtype)))
+            case = (f"{name}_{'causal' if causal else 'full'}_"
+                    f"{'f32' if dtype == torch.float32 else 'bf16'}")
+            emit({"phase": "kernels", "kernel": "flash_attention", "case": case,
+                  "shape": [bh, sq, skv, hd], "max_abs_err": err, "ok": ok})
+            require(ok, f"flash_attention case {case} disagrees with its plain version")
+            key = str(dtype).removeprefix("torch.")
+            worst[key] = max(worst[key], err)
     # operands at an offset off the 16-byte grid (the wrapper copies them)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn(2 * 128 * 64 + 1, generator=gen, device="cuda").to(dtype)[1:]
@@ -575,12 +653,23 @@ def launch_counters() -> dict:
 
 
 def reset_launches():
+    from repro_torch.kernels import flash_decode
+
     for fn in launch_counters().values():
         fn.launches = 0
+    paged = flash_decode.paged_flash_attention_folded
+    paged.launches_by_path = dict.fromkeys(flash_decode.PATHS, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    """Launches per kernel, and the paged kernel's per path
+    (``paged_attention_cuda_core``, ``paged_attention_tensor_core``)."""
+    from repro_torch.kernels.flash_decode import paged_flash_attention_folded
+
+    counts = {name: fn.launches for name, fn in launch_counters().items()}
+    for path, n in paged_flash_attention_folded.launches_by_path.items():
+        counts[f"paged_attention_{path}"] = n
+    return counts
 
 
 PARITY_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches", "tokens_emitted",
@@ -650,6 +739,8 @@ def phase_parity() -> dict:
                 f"{d} dispatches")
         require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d,
                 f"{mode}: rmsnorm launched {launches['rmsnorm']} times for {d} dispatches")
+        require(launches["paged_attention_tensor_core"] == 0,
+                f"{mode}: f32 paged attention took the bf16 tensor-core path")
         if mode == "paged":
             require(gpu.prefix_hit_tokens > 0, "the shared prefix was never hit")
         card[mode] = gpu
@@ -769,6 +860,7 @@ def time_paged(label, B, T, offsets, dtype):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import (
+        kernel_path,
         paged_flash_attention_folded,
         paged_flash_attention_folded_plain,
     )
@@ -796,7 +888,7 @@ def time_paged(label, B, T, offsets, dtype):
     err = check_at_shape(f"paged attention ({label})", kern, plain, dtype)
     return {"at": label, "shape": {"B": B, "Hkv": hkv, "G": 1, "T": T, "dk": dk,
                                    "page_size": ps, "pages_per_slot": P},
-            "max_abs_err": err,
+            "path": kernel_path(dtype, T, dk, dk), "max_abs_err": err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms,
             "bound_by": by, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on pre-gathered contiguous K/V"}
@@ -857,6 +949,14 @@ def phase_serve() -> dict:
             "a serve request emitted a wrong number of tokens or an id outside the vocab")
     d = eng.dispatches
     require(launches["paged_attention"] == cfg.n_layers * d, "paged launches != 12/dispatch")
+    # a prefill dispatch (16 rows of 16 tokens, G*T 16) runs the tensor-core
+    # path, a decode dispatch (G*T 1) the CUDA-core one
+    require(launches["paged_attention_tensor_core"] == cfg.n_layers * eng.prefill_dispatches,
+            f"tensor-core paged launches {launches['paged_attention_tensor_core']} != 12 per "
+            f"prefill dispatch ({eng.prefill_dispatches})")
+    require(launches["paged_attention_cuda_core"] == cfg.n_layers * eng.decode_dispatches,
+            f"CUDA-core paged launches {launches['paged_attention_cuda_core']} != 12 per "
+            f"decode dispatch ({eng.decode_dispatches})")
     require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d, "rmsnorm launches != 25/dispatch")
     rec = {
         "phase": "serve", "arch": cfg.name, "dtype": "bfloat16", "requests": len(reqs),
@@ -1474,7 +1574,7 @@ def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve:
     its worst error, and its times at its first timed shape with the
     others beside."""
     def total(runs):
-        return {k: sum(r["launches"][k] for r in runs) for k in KERNELS}
+        return {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
 
     paths = {"serve": serve["launches"], "train": train["launches"], "eval": total(evals["runs"]),
              "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"])}
@@ -1487,6 +1587,9 @@ def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve:
         "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
                 **ssm_serve["kernel_times"]["ssd"]},
     }
+    kernel_paths = {f"paged_attention_{p}": sum(counts[f"paged_attention_{p}"]
+                                                for counts in paths.values())
+                    for p in ("cuda_core", "tensor_core")}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         launches = {path: counts[name] for path, counts in paths.items()}
@@ -1500,6 +1603,9 @@ def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve:
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "at": next(iter(timed)),
+            **({"launches_by_kernel_path": {k.removeprefix("paged_attention_"): v
+                                            for k, v in kernel_paths.items()}}
+               if name == "paged_attention" else {}),
             "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms", "max_abs_err")}
                              for k, t in list(timed.items())[1:]},

@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
 started together) into an object, and the objects are linked into one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the sources and flags so an edited
-source is rebuilt and an unchanged one is loaded as is.  Nothing is built
+``.gitignore``), named by a hash of the sources, the headers beside them
+(``csrc/*.cuh``) and the compile and link flags, so an edited file is
+rebuilt and an unchanged one is loaded as is.  Nothing is built
 when the module is imported: the first call of :func:`library` builds.
 """
 
@@ -24,6 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
+# The library links no libcuda: cuTensorMapEncodeTiled (the flash kernel's
+# TMA maps) is looked up through the CUDA runtime.
+LINK_FLAGS = ["-shared", *ARCH_FLAGS]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -33,7 +37,7 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes passes it as a 32-bit int and cuts it.
 SIGNATURES = {
     "paged_attention_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp,
-                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _vp],
+                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
     "rmsnorm_fwd": [_i, _i, _vp, _vp, _vp, _i, _i, _f, _vp],
     "flash_attention_fwd": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "ssd_chunk_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],
@@ -58,8 +62,11 @@ def _sources():
 
 
 def _digest() -> str:
+    """Hash of every source and header under ``CSRC`` and of the compile
+    and link flags: a change to any of them names a new library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h.update(b"\0" + " ".join(LINK_FLAGS).encode())
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -92,7 +99,7 @@ def build(verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run(
-        [nvcc, "-shared", *ARCH_FLAGS, *(str(o) for _, o, _ in procs), "-o", str(tmp)],
+        [nvcc, *LINK_FLAGS, *(str(o) for _, o, _ in procs), "-o", str(tmp)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if link.returncode != 0:

@@ -13,6 +13,14 @@ pages past the row's last query and table entries ``>= n_pages``
 zeros.  ``v_width`` reads values from the first columns of a shared MLA
 page; ``softcap`` applies ``tanh(s / softcap) * softcap`` to the scores.
 
+The kernel has two paths, chosen here by :func:`kernel_path` and passed
+to the C entry, which refuses a path that does not apply (the wrapper
+then raises; there is no fallback): bf16 chunk-extend with ``G*T >= 16``
+and ``dk, dv`` in {64, 128} runs on the tensor cores (``mma.sync`` over
+``cp.async``-pipelined page tiles); every other call (f32, decode, GQA
+decode, MLA's 576/512) runs the CUDA-core kernel.  Launches are counted
+in total (``launches``) and per path (``launches_by_path``).
+
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
 kernel or raises.
 """
@@ -28,6 +36,19 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PATHS = ("cuda_core", "tensor_core")  # the C entry's `path` codes 0 and 1
+TENSOR_CORE_WIDTHS = (64, 128)
+
+
+def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int) -> str:
+    """Which of the kernel's paths takes a call: ``"tensor_core"`` for bf16
+    with at least one 16-row M-tile of folded queries (``ql = G*T >= 16``,
+    at most 8 tiles) and ``dk, dv`` in {64, 128}; ``"cuda_core"`` for every
+    other call."""
+    if (dtype == torch.bfloat16 and 16 <= ql <= 128 and dk in TENSOR_CORE_WIDTHS
+            and dv in TENSOR_CORE_WIDTHS):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def paged_flash_attention_folded_plain(
@@ -111,16 +132,19 @@ def paged_flash_attention_folded(
     out = torch.empty((b, hkv, ql, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    path = kernel_path(q.dtype, ql, dk, dv)
     status = _build.library().paged_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), offsets.data_ptr(), out.data_ptr(),
         b, hkv, ql, dk, n_pages, page_size, page_table.shape[1], dv_store, dv,
-        tokens_per_row, float(scale), float(softcap),
+        tokens_per_row, float(scale), float(softcap), PATHS.index(path),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(status, "paged_attention_fwd")
+    _build.check(status, f"paged_attention_fwd ({path} path)")
     paged_flash_attention_folded.launches += 1
+    paged_flash_attention_folded.launches_by_path[path] += 1
     return out
 
 
 paged_flash_attention_folded.launches = 0
+paged_flash_attention_folded.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -44,7 +44,9 @@ def _qkv(shape, name, seed=0):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bh,s,hd,block", [(2, 128, 64, 64), (1, 256, 128, 128),
-                                           (3, 512, 64, 256), (2, 128, 192, 64)])
+                                           (3, 512, 64, 256), (2, 128, 192, 64),
+                                           # a ragged last 128-row tile of the CUDA kernel
+                                           (2, 192, 64, 64), (1, 320, 64, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_sweep(bh, s, hd, block, causal, dtype):
     """The reference's sweep: the port's wrapper (its plain version on the
@@ -70,6 +72,20 @@ def test_flash_attention_sliding_window(window):
     np.testing.assert_allclose(
         f32(got), f32(jref.attention_reference(jq, jk, jv, causal=True, window=window)),
         rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+@pytest.mark.parametrize("s", [192, 320])
+def test_flash_attention_sliding_window_ragged(s, window):
+    """Windows over sequences whose last 128-row tile of the CUDA kernel
+    is ragged, in both dtypes, against the reference's kernel."""
+    for dtype in ("float32", "bfloat16"):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv((2, s, 64), dtype, seed=s + window)
+        got = flash_attention.flash_attention_bhsd(tq, tk, tv, causal=True, window=window,
+                                                   block_q=64, block_k=64)
+        want = jflash(jq, jk, jv, causal=True, window=window, block_q=64, block_k=64,
+                      interpret=True)
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
 
 
 def test_flash_attention_model_layout():

@@ -256,3 +256,21 @@ def test_plain_path_never_loads_the_kernel_library(monkeypatch):
     ops.flash_attention(q, q, q)
     after = counts()
     assert before == after
+
+
+def test_build_digest_sees_headers_and_link_flags(monkeypatch, tmp_path):
+    """The library's name hashes every ``csrc/*.cu`` and ``*.cuh`` and the
+    compile and link flags, so an edited header or flag is never served a
+    stale library (no ``nvcc`` needed to check)."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._digest()
+    assert _build._digest() == first
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    second = _build._digest()
+    assert second != first
+    monkeypatch.setattr(_build, "LINK_FLAGS", [*_build.LINK_FLAGS, "-lcuda"])
+    assert _build._digest() not in (first, second)
