@@ -17,11 +17,15 @@ Phases, each printing one JSON line:
   and its bf16 tensor-core path's edges (G*T 16 at pages of 8-64 with
   offsets 0 and straddling a page, G 2 x T 16, a ragged G 3 x T 8 fold,
   dk = dv = 128, a parked row held exactly zero, aliased first pages,
-  softcap 30; each record names the path), RMSNorm (and its gradient;
+  softcap 30; each record names the path), its split-KV decode path's
+  edges in f32 and bf16 (the ``dec_*`` cases: one row over 1 and 4096
+  keys, mixed long and short rows, pages of 8 and 64, softcap 30 at T 1,
+  a G 2 x T 4 fold, GQA G 8 at dk 128, a parked row beside aliased first
+  pages), RMSNorm (and its gradient;
   d = 768 and mamba2's 2048), flash attention over the reference's sweep,
-  sliding windows, the model layout, the eval phase's shapes and the
-  ``wgmma`` kernel's edges (S 192 and 320 with a ragged last 128-row
-  tile, S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
+  sliding windows, the model layout, and in both dtypes the eval phase's
+  shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
+  S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
   and 128, hd 128 and 192), and
   the SSD chunk kernel over the reference's
   sweep, chunks of 1-16 positions, the serve prefill shape with padded
@@ -30,15 +34,18 @@ Phases, each printing one JSON line:
 - ``parity``: full-width ``ds-paper-100m`` in f32 from seed 0, the engine
   on ``cuda`` (kernel path) against the same engine on ``cpu`` (plain
   path), in paged mode (12 paged-attention launches per dispatch, none on
-  the bf16 tensor-core path, and 25 RMSNorm) and in dense mode, now the
+  the bf16 tensor-core path, 12 per decode dispatch on the decode path,
+  and 25 RMSNorm) and in dense mode, now the
   engine's default as in the reference (25 RMSNorm, no paged launch):
   equal greedy tokens (a near-tie below 1e-3 of the CPU's top-2 logit gap
   is the one allowed exception) and counters, and dense tokens equal to
   paged ones;
 - ``serve``: full width in bf16, paged, 32 requests, tokens/s,
   per-dispatch times from CUDA events, peak memory, 12 tensor-core paged
-  launches per prefill dispatch and 12 CUDA-core ones per decode dispatch,
-  and each kernel at the decode and prefill shapes, held against its plain
+  launches per prefill dispatch, 12 decode-path ones per decode dispatch
+  and none on the CUDA-core path, and each kernel at the decode and
+  prefill shapes (the paged kernel also at ``decode_long``: 16 rows of
+  2048-4096 keys), held against its plain
   version (bf16 tolerance) and timed beside its bound, its plain version
   and one PyTorch call as a yardstick;
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
@@ -56,7 +63,8 @@ Phases, each printing one JSON line:
 - ``eval``: full-width forward through the eval runner in bf16 and f32
   at 8 x 512 and 2 x 4096: tokens/s, 12 flash and 25 RMSNorm launches
   per forward, logits with the flash kernel against direct attention, a
-  traced forward, and the flash kernel timed beside its bound, its plain
+  traced forward, and the flash kernel timed beside its bound (f32: three
+  TF32 passes, its route, with the CUDA-core figure beside it), its plain
   version and ``F.scaled_dot_product_attention``;
 - ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers, d_model 2048,
   1.35 B parameters) drawn once from seed 0 on the host, reused below;
@@ -98,6 +106,7 @@ F32_TOL = 2e-5
 BF16_TOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 non-tensor
+TF32_OPS = 494.7e12  # dense TF32 tensor cores
 
 
 class CheckFailed(RuntimeError):
@@ -253,6 +262,36 @@ def paged_cases():
         ("tc_softcap30_page8_bf16", dict(B=3, hkv=4, g=1, T=16, dk=64, ps=8, P=80,
                                          offsets=[0, 13, 200], seed=36, **bf), 30.0, 0),
     ]
+    # the split-KV decode path's edges (G*T <= 8, dk and dv in {64, 128}),
+    # both dtypes: one row (the fewest blocks) over 1 key and over 4096
+    # keys (256 pages), long and short rows in one batch, pages of 8 and
+    # 64, a softcap, a G 2 x T 4 fold, GQA G 8 at dk 128 over 4096 keys
+    # (the gqa, page64, aliased and parked cases above take this path too)
+    for dtype in (torch.float32, torch.bfloat16):
+        d = {"dtype": dtype}
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases += [
+            (f"dec_b1_ctx1_{tag}", dict(B=1, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
+                                        offsets=[0], seed=40, **d), 0.0, 0),
+            (f"dec_b1_ctx4096_{tag}", dict(B=1, hkv=12, g=1, T=1, dk=64, ps=16, P=256,
+                                           offsets=[4095], seed=41, **d), 0.0, 0),
+            (f"dec_ctx4096_mixed_{tag}", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=256,
+                                              offsets=[4095, 0, 2500, 130], seed=42, **d),
+             0.0, 0),
+            (f"dec_page8_{tag}", dict(B=3, hkv=12, g=1, T=1, dk=64, ps=8, P=80,
+                                      offsets=[0, 9, 600], seed=43, **d), 0.0, 0),
+            (f"dec_page64_{tag}", dict(B=3, hkv=12, g=1, T=1, dk=64, ps=64, P=10,
+                                       offsets=[0, 70, 630], seed=44, **d), 0.0, 0),
+            (f"dec_softcap30_{tag}", dict(B=3, hkv=12, g=1, T=1, dk=64, ps=16, P=40,
+                                          offsets=[0, 48, 600], seed=45, **d), 30.0, 0),
+            (f"dec_g2_t4_{tag}", dict(B=3, hkv=6, g=2, T=4, dk=64, ps=16, P=40,
+                                      offsets=[0, 21, 300], seed=46, **d), 0.0, 0),
+            (f"dec_gqa8_dk128_ctx4096_{tag}", dict(B=2, hkv=8, g=8, T=1, dk=128, ps=16, P=256,
+                                                   offsets=[4095, 777], seed=47, **d), 0.0, 0),
+            (f"dec_parked_aliased_{tag}", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=40,
+                                               offsets=[20, 33, 20, 400], seed=48, alias=True,
+                                               parked=(1,), **d), 0.0, 0),
+        ]
     # the parity engine's slots (max_len 128: 8 pages of 16), its own dtype
     cases += [
         ("parity_decode_f32", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
@@ -287,10 +326,12 @@ def check_paged_attention() -> dict:
         t = tol(kw["dtype"])
         ok = bool(torch.allclose(got.float(), want.float(), atol=t, rtol=t))
         dv = v_width or vp.shape[-1]
+        path = kernel_path(q.dtype, q.shape[2], q.shape[3], dv)
         rec = {"phase": "kernels", "kernel": "paged_attention", "case": name,
-               "shape": list(q.shape), "page_size": kw["ps"],
-               "path": kernel_path(q.dtype, q.shape[2], q.shape[3], dv),
+               "shape": list(q.shape), "page_size": kw["ps"], "path": path,
                "max_abs_err": err, "ok": ok}
+        require(not name.startswith("dec_") or path == "decode",
+                f"paged_attention case {name} did not take the decode path")
         if kw.get("parked"):
             zero = bool((got[list(kw["parked"])] == 0).all().item())
             rec["parked_rows_exact_zero"] = zero
@@ -373,26 +414,29 @@ def flash_cases():
                               f"_{tag}", bh, s, hd, block, causal, 0, dtype))
         for window in (32, 128):
             cases.append((f"window{window}_{tag}", 2, 256, 64, 64, True, window, dtype))
-    cases.append(("eval_8x512_bf16", 96, 512, 64, 512, True, 0, torch.bfloat16))
-    cases.append(("eval_2x4096_bf16", 24, 4096, 64, 512, True, 0, torch.bfloat16))
-    # the wgmma kernel's edges: a ragged last 128-row tile, windows at S 320,
-    # head widths 128 and 192 (two and three 64-column slabs)
-    bf = torch.bfloat16
-    for s, causal in ((192, True), (192, False), (320, True), (320, False)):
-        cases.append((f"ragged_s{s}_{'causal' if causal else 'full'}_bf16", 3, s, 64, 64,
-                      causal, 0, bf))
-    for window in (32, 128):
-        cases.append((f"window{window}_s320_bf16", 2, 320, 64, 64, True, window, bf))
-    for hd in (128, 192):
+    # the eval phase's shapes and each kernel's edges, in both dtypes: a
+    # ragged last block of 128 rows (bf16 and f32 at hd 64), windows at S
+    # 320, head widths 128 and 192 (wgmma: two and three 64-column slabs;
+    # 3xTF32: one M-tile a warp, 64-row blocks, Q split as it is read), and
+    # from 1024 queries on bf16 hd 64's 192-row blocks (three warpgroups): a
+    # ragged last block of 64 rows, a window
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases.append((f"eval_8x512_{tag}", 96, 512, 64, 512, True, 0, dtype))
+        cases.append((f"eval_2x4096_{tag}", 24, 4096, 64, 512, True, 0, dtype))
+        for s, causal in ((192, True), (192, False), (320, True), (320, False)):
+            cases.append((f"ragged_s{s}_{'causal' if causal else 'full'}_{tag}", 3, s, 64, 64,
+                          causal, 0, dtype))
+        for window in (32, 128):
+            cases.append((f"window{window}_s320_{tag}", 2, 320, 64, 64, True, window, dtype))
+        for hd in (128, 192):
+            for causal in (True, False):
+                cases.append((f"hd{hd}_s320_{'causal' if causal else 'full'}_{tag}", 2, 320, hd,
+                              64, causal, 0, dtype))
         for causal in (True, False):
-            cases.append((f"hd{hd}_s320_{'causal' if causal else 'full'}_bf16", 2, 320, hd, 64,
-                          causal, 0, bf))
-    # from 1024 queries on, hd 64 takes 192-row blocks (three warpgroups):
-    # a ragged last block of 64 rows, a window
-    for causal in (True, False):
-        cases.append((f"rows192_s1216_{'causal' if causal else 'full'}_bf16", 2, 1216, 64, 64,
-                      causal, 0, bf))
-    cases.append(("rows192_window128_s1216_bf16", 2, 1216, 64, 64, True, 128, bf))
+            cases.append((f"rows192_s1216_{'causal' if causal else 'full'}_{tag}", 2, 1216, 64,
+                          64, causal, 0, dtype))
+        cases.append((f"rows192_window128_s1216_{tag}", 2, 1216, 64, 64, True, 128, dtype))
     return cases
 
 
@@ -663,7 +707,8 @@ def reset_launches():
 
 def read_launches() -> dict:
     """Launches per kernel, and the paged kernel's per path
-    (``paged_attention_cuda_core``, ``paged_attention_tensor_core``)."""
+    (``paged_attention_cuda_core``, ``paged_attention_tensor_core``,
+    ``paged_attention_decode``)."""
     from repro_torch.kernels.flash_decode import paged_flash_attention_folded
 
     counts = {name: fn.launches for name, fn in launch_counters().items()}
@@ -741,6 +786,12 @@ def phase_parity() -> dict:
                 f"{mode}: rmsnorm launched {launches['rmsnorm']} times for {d} dispatches")
         require(launches["paged_attention_tensor_core"] == 0,
                 f"{mode}: f32 paged attention took the bf16 tensor-core path")
+        # f32 decode dispatches (G*T 1) run the split-KV decode path, f32
+        # prefill (G*T 16) the CUDA-core one
+        want_decode = cfg.n_layers * gpu.decode_dispatches if mode == "paged" else 0
+        require(launches["paged_attention_decode"] == want_decode,
+                f"{mode}: decode-path paged launches {launches['paged_attention_decode']} != "
+                f"{want_decode} (12 per decode dispatch)")
         if mode == "paged":
             require(gpu.prefix_hit_tokens > 0, "the shared prefix was never hit")
         card[mode] = gpu
@@ -856,7 +907,7 @@ def check_at_shape(what: str, kern, plain, dtype) -> float:
     return err
 
 
-def time_paged(label, B, T, offsets, dtype):
+def time_paged(label, B, T, offsets, dtype, P=40):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import (
@@ -865,7 +916,7 @@ def time_paged(label, B, T, offsets, dtype):
         paged_flash_attention_folded_plain,
     )
 
-    hkv, dk, ps, P = 12, 64, 16, 40
+    hkv, dk, ps = 12, 64, 16
     q, kp, vp, table, offs = paged_inputs(B=B, hkv=hkv, g=1, T=T, dk=dk, ps=ps, P=P,
                                           offsets=offsets, dtype=dtype, seed=21)
     scale = 1.0 / math.sqrt(dk)
@@ -950,13 +1001,17 @@ def phase_serve() -> dict:
     d = eng.dispatches
     require(launches["paged_attention"] == cfg.n_layers * d, "paged launches != 12/dispatch")
     # a prefill dispatch (16 rows of 16 tokens, G*T 16) runs the tensor-core
-    # path, a decode dispatch (G*T 1) the CUDA-core one
+    # path, a decode dispatch (G*T 1) the split-KV decode one, and nothing
+    # runs the CUDA-core path
     require(launches["paged_attention_tensor_core"] == cfg.n_layers * eng.prefill_dispatches,
             f"tensor-core paged launches {launches['paged_attention_tensor_core']} != 12 per "
             f"prefill dispatch ({eng.prefill_dispatches})")
-    require(launches["paged_attention_cuda_core"] == cfg.n_layers * eng.decode_dispatches,
-            f"CUDA-core paged launches {launches['paged_attention_cuda_core']} != 12 per "
+    require(launches["paged_attention_decode"] == cfg.n_layers * eng.decode_dispatches,
+            f"decode-path paged launches {launches['paged_attention_decode']} != 12 per "
             f"decode dispatch ({eng.decode_dispatches})")
+    require(launches["paged_attention_cuda_core"] == 0,
+            f"serve launched the CUDA-core paged path {launches['paged_attention_cuda_core']} "
+            "times")
     require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d, "rmsnorm launches != 25/dispatch")
     rec = {
         "phase": "serve", "arch": cfg.name, "dtype": "bfloat16", "requests": len(reqs),
@@ -976,6 +1031,9 @@ def phase_serve() -> dict:
             "decode": time_paged("decode", 16, 1, rng.integers(128, 576, 16).tolist(), dtype),
             "prefill": time_paged("prefill", 16, 16,
                                   (16 * rng.integers(0, 32, 16)).tolist(), dtype),
+            # long contexts on the decode path: 2048-4096 keys, 256 pages a slot
+            "decode_long": time_paged("decode_long", 16, 1,
+                                      rng.integers(2047, 4096, 16).tolist(), dtype, P=256),
         },
         "rmsnorm": {
             "decode": time_rmsnorm("decode", 16, cfg.d_model, dtype),
@@ -1242,9 +1300,17 @@ def time_flash(bh: int, s: int, dtype) -> dict:
     err = check_at_shape(f"flash attention ({bh}x{s})", kern, plain, dtype)
     nbytes, flops = flash_work(bh, s, hd, dtype)
     bms, by = bound(nbytes, flops, dtype)
+    route = {"bound_route": "bf16 tensor cores, 989 TFLOP/s"}
+    if dtype == torch.float32:
+        # the f32 kernel runs 3xTF32 on the tensor cores: its bound is three
+        # TF32 passes; the CUDA-core figure stands beside it
+        route = {"bound_route": "3xTF32 tensor cores: 3 passes at 494.7 TFLOP/s",
+                 "bound_ms_cuda_core": bms, "bound_by_cuda_core": by}
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_OPS
+        bms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
     return {"shape": {"BH": bh, "S": s, "hd": hd}, "dtype": str(dtype).removeprefix("torch."),
             "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10),
-            "bound_ms": bms, "bound_by": by, "library_ms": time_ms(lib),
+            "bound_ms": bms, "bound_by": by, **route, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention(is_causal=True) on the folded "
                             "tensors viewed as (1, BH, S, hd)"}
 
@@ -1587,9 +1653,11 @@ def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve:
         "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
                 **ssm_serve["kernel_times"]["ssd"]},
     }
+    from repro_torch.kernels.flash_decode import PATHS
+
     kernel_paths = {f"paged_attention_{p}": sum(counts[f"paged_attention_{p}"]
                                                 for counts in paths.values())
-                    for p in ("cuda_core", "tensor_core")}
+                    for p in PATHS}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         launches = {path: counts[name] for path, counts in paths.items()}
@@ -1607,7 +1675,8 @@ def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve:
                                             for k, v in kernel_paths.items()}}
                if name == "paged_attention" else {}),
             "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms", "max_abs_err")}
+                                                   "bound_route", "bound_ms_cuda_core",
+                                                   "library_ms", "max_abs_err") if f in t}
                              for k, t in list(timed.items())[1:]},
         })
     return {"kernels": rows}

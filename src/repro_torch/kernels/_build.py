@@ -37,7 +37,8 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes passes it as a 32-bit int and cuts it.
 SIGNATURES = {
     "paged_attention_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp,
-                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
+                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _vp,
+                            _vp, _vp],
     "rmsnorm_fwd": [_i, _i, _vp, _vp, _vp, _i, _i, _f, _vp],
     "flash_attention_fwd": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "ssd_chunk_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],

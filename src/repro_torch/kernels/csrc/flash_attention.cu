@@ -59,22 +59,46 @@
 //   no serialised wgmma at HD 64, 128 or 192; a block is allocated 168
 //   registers a thread at NWG 2 (384 threads) and 128 at NWG 3 (512), and
 //   setmaxnreg then gives the consumers 240 / 160 and the producer 24.
-// - float32 (flash_f32_kernel): CUDA-core fp32 math, no TF32, so f32 holds
-//   2e-5.  A block of 4 warps; a warp owns R rows;
-//   each step stages 32 keys and their values in shared memory as fp32;
-//   lane j scores key j for all R rows (Q read as broadcast float4s, K rows
-//   padded so a warp's float4 reads hit distinct banks), the row max is a
-//   warp reduction, each lane keeps a partial row sum, and the
-//   probabilities go through a per-warp shared-memory slice to the P.V
-//   product, where a lane owns output columns lane, lane + 32, ...
+// - float32 (flash_f32_kernel): 3xTF32 on mma.sync.m16n8k8.  Each operand
+//   x is split into hi (x rounded to TF32, as cvt.rna.tf32 rounds) and lo
+//   (x - hi, rounded the same way), and every product is formed as
+//   lo.hi + hi.lo + hi.hi in the fp32 accumulator (lo.lo, about 2^-22 of
+//   the product, is dropped): fp32 accuracy from the TF32 tensor cores,
+//   three passes at 494.7 TFLOP/s against 67 on the CUDA cores (mma.sync
+//   itself reaches ~316 TFLOP/s of TF32 on an H100: tools/kernel_variants.py).
+//   A block of
+//   4 warps; K and V tiles of 32 keys come in through a 2-stage cp.async
+//   ring, rows padded to HD + 4 floats so the fragment loads hit distinct
+//   banks, and each warp splits its K and V fragments as it loads them
+//   (ldmatrix moves 32-bit words as pairs of b16: one x4 gives the B
+//   fragments of two k-steps).  At HD 64 a warp owns two 16-row M-tiles,
+//   so each K/V fragment and its split serve 32 rows, and Q is split once
+//   into hi and lo halves in shared memory (128 rows a block); at 128 and
+//   192 a warp owns one M-tile (two would not fit the O fragments in the
+//   registers) and splits Q as it reads it each tile (64 rows a block).
+//   The online softmax runs on the S fragments as in the bf16 kernel (quad
+//   shuffles, scale * log2(e) folded into one FMA before ex2, the mask only
+//   on tiles that can hold a hidden key); a warp skips a tile wholly masked
+//   for its rows.  P.V takes P from the S fragments without shuffles: a
+//   lane holds keys 2t and 2t + 1 of each 8-key step where the A fragment
+//   wants k = t and t + 4, so the step's keys are taken in the order
+//   k = q <-> key 2q, k = q + 4 <-> key 2q + 1, and V's B fragment is read
+//   in the same order.  tools/kernel_variants.py times each choice undone
+//   against this kernel (NVIDIA H100 80GB HBM3, 700 W; BH 24 x 4096 / 96 x
+//   512, hd 64, ms): this kernel 0.86 / 0.089; one M-tile a warp 1.00 /
+//   0.093; two cvt.rna.tf32 a split 0.96 / 0.106; 64-key tiles 1.00 /
+//   0.102; all three 1.31 / 0.110.
+//   ptxas -v (sm_90a, nvcc 12.9): 181, 134 and 184 registers at HD 64, 128
+//   and 192, no spills.
 //
 // Bound on this card: the work must read q, k and v once and write out
 // once, and for causal attention do about 2 * BH * S^2 * HD multiply-adds'
 // worth of flops (QK and PV over the lower triangle).  At S = 512 and
 // HD = 64 in bf16 that is ~64 flops a byte, below the ~295 at which the
 // tensor cores bound it, so bytes bound short sequences and the
-// tensor-core rate bounds long ones; in f32 the 67 TFLOP/s CUDA-core rate
-// bounds both.  The kernels' times on the card are recorded against that
+// tensor-core rate bounds long ones; in f32 on this route the bound is
+// three TF32 passes, 3 * flops at 494.7 TFLOP/s (67 TFLOP/s on the CUDA
+// cores).  The kernels' times on the card are recorded against that
 // bound in PERF.md.
 
 #include <cuda.h>
@@ -88,38 +112,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBK = 32;  // keys per staged tile: one per lane
 constexpr float kNegInf = -1e30f;  // the reference's mask value
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows [row0, row0 + rows) of a (n_rows, HD) float matrix into shared memory
-// at dst[r * stride] with 16-byte copies, zeros past n_rows.
-template <int HD>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int row0, int n_rows,
-                                           float* dst, int stride, int rows) {
-  constexpr int kPerRow = HD / 4;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * 4;
-    *reinterpret_cast<float4*>(dst + r * stride + c) =
-        row0 + r < n_rows
-            ? *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * HD + c)
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
 
 struct Args {
   const void* q;
@@ -131,127 +124,6 @@ struct Args {
   int causal, window;
   int bh;  // heads x batch (the wgmma kernel's persistent schedule)
 };
-
-template <int HD, int R>
-constexpr size_t smem_floats() {
-  // Q tile, K tile (rows padded by 4), V tile, per-warp probabilities
-  return (size_t)kWarps * R * HD + (size_t)kBK * (HD + 4) + (size_t)kBK * HD +
-         (size_t)kWarps * R * kBK;
-}
-
-template <int HD, int R>
-__global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Args a) {
-  constexpr int NC = HD / 32;  // output columns per lane
-  constexpr int BQ = kWarps * R;
-  constexpr int KS = HD + 4;  // K row stride: float4 reads of 8 lanes hit distinct banks
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [BQ][HD]
-  float* ks = qs + BQ * HD;                     // [kBK][KS]
-  float* vs = ks + kBK * KS;                    // [kBK][HD]
-  float* ps = vs + kBK * HD;                    // [kWarps][R][kBK]
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest query tiles first
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* __restrict__ qg = static_cast<const float*>(a.q) + (size_t)bh * a.sq * HD;
-  const float* __restrict__ kg = static_cast<const float*>(a.k) + (size_t)bh * a.skv * HD;
-  const float* __restrict__ vg = static_cast<const float*>(a.v) + (size_t)bh * a.skv * HD;
-  stage_rows<HD>(qg, q0, a.sq, qs, HD, BQ);
-
-  // the keys any row of this tile may see
-  int k_end = a.skv;
-  if (a.causal) k_end = min(a.skv, q0 + BQ);
-  int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  k_begin -= k_begin % kBK;
-
-  const int r0 = q0 + warp * R;  // this warp's first query row
-  const float* qw = qs + warp * R * HD;
-  float* pw = ps + warp * R * kBK;
-  float m[R], l[R], acc[R][NC];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;  // this lane's share of the row sum
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // Q is staged; the previous tile is consumed
-    stage_rows<HD>(kg, k0, a.skv, ks, KS, kBK);
-    stage_rows<HD>(vg, k0, a.skv, vs, HD, kBK);
-    __syncthreads();
-
-    // scores: lane j takes key k0 + j for every row of the warp
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;
-    const float* kr = ks + lane * KS;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qw + r * HD + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
-    }
-    // online softmax; a masked key carries p = 0
-    const int kpos = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int qpos = r0 + r;
-      const bool valid = kpos < a.skv && (!a.causal || kpos <= qpos) &&
-                         (a.window <= 0 || kpos > qpos - a.window);
-      const float sv = valid ? s[r] * a.scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float p = valid ? expf(sv - m_new) : 0.f;
-      const float corr = expf(m[r] - m_new);
-      l[r] = fmaf(l[r], corr, p);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
-      m[r] = m_new;
-      pw[r * kBK + lane] = p;
-    }
-    __syncwarp();
-    // P.V: lane owns columns lane + 32 c
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float vv[4][NC];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) vv[u][c] = vs[(kk + u) * HD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 pv = *reinterpret_cast<const float4*>(pw + r * kBK + kk);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          acc[r][c] = fmaf(pv.x, vv[0][c], acc[r][c]);
-          acc[r][c] = fmaf(pv.y, vv[1][c], acc[r][c]);
-          acc[r][c] = fmaf(pv.z, vv[2][c], acc[r][c]);
-          acc[r][c] = fmaf(pv.w, vv[3][c], acc[r][c]);
-        }
-      }
-    }
-    __syncwarp();  // pw is rewritten by the next tile
-  }
-
-  float* __restrict__ og = static_cast<float*>(a.out) + (size_t)bh * a.sq * HD;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    // a row with nothing attendable keeps l == 0 and writes zeros
-    const float lsum = fmaxf(warp_sum(l[r]), 1e-30f);
-    if (r0 + r < a.sq) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) og[(size_t)(r0 + r) * HD + lane + 32 * c] = acc[r][c] / lsum;
-    }
-  }
-}
 
 // ------------------------------------------------------ bf16 wgmma/TMA path
 using mma_sm80::pack_bf16;
@@ -337,7 +209,7 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // exp2 on the special-function unit, subnormal results flushed to zero
-// (p below 2^-126 is 0 either way once rounded to bf16 for P.V).
+// (a p below 2^-126 weighs nothing beside the row's largest, which is 1).
 __device__ __forceinline__ float ex2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -751,6 +623,311 @@ __global__ void __launch_bounds__(WgCfg<HD, NWG>::THREADS, 1)
   }
 }
 
+// ------------------------------------------------ float32: 3xTF32 mma.sync
+using mma_sm80::cp_async16;
+using mma_sm80::cp_async_commit;
+using mma_sm80::cp_async_wait;
+using mma_sm80::ldmatrix_x4;
+
+constexpr int kF32Threads = 128;  // 4 warps
+
+template <int HD>
+struct F32Cfg {
+  static constexpr int BN = 32;      // keys per tile
+  static constexpr int LD = HD + 4;  // padded rows (floats): fragment loads hit distinct banks
+  // M-tiles of 16 query rows a warp: at HD 64 two, so each K and V
+  // fragment (and its split) serves 32 rows, with Q split once into hi and
+  // lo halves in shared memory; at 128 and 192 one (the O fragments of two
+  // would not fit the registers), with Q split as it is read, each tile
+  static constexpr int MT = HD == 64 ? 2 : 1;
+  static constexpr bool QSPLIT = MT == 2;
+  static constexpr int BM = 4 * 16 * MT;  // query rows a block
+  // Q (hi and lo, or as loaded), then a 2-stage ring of K and V tiles
+  static constexpr size_t SMEM =
+      sizeof(float) * ((QSPLIT ? 2 : 1) * (size_t)BM * LD + 2 * 2 * BN * LD);
+};
+
+// x = hi + lo to about 2^-22 of x: hi is x rounded to TF32 (to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds), lo the rest (exact in
+// fp32) with half of TF32's last bit added: the tensor cores read the top
+// 19 bits of an operand, so lo is rounded the same way where it is used.
+// In integer arithmetic: two cvt.rna.tf32 per value measured 10% slower at
+// BH 24 x 4096 on an H100 (tools/kernel_variants.py).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c (16x8 fp32) += a (16x8 tf32, row-major) * b (8x8 tf32, col-major).  A:
+// lane 4 g + t holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B: (k
+// t, n g), (k t + 4, n g); C as mma_sm80.cuh's.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32: the cross terms hi.lo and lo.hi, then hi.hi (lo.lo,
+// about 2^-22 of the product, is dropped).
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Rows [row0, row0 + rows) of a (n_rows, HD) f32 matrix into shared memory
+// at dst[r * LD] with 16-byte cp.async, zero-filled past n_rows.
+template <int HD, int LD>
+__device__ __forceinline__ void cp_rows(const float* __restrict__ src, int row0, int n_rows,
+                                        float* dst, int rows) {
+  constexpr int kChunks = HD / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 4;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + r * LD + c, src + (in ? (size_t)(row0 + r) * HD + c : 0), in);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const Args a) {
+  using C = F32Cfg<HD>;
+  constexpr int BN = C::BN, LD = C::LD, KSTEPS = HD / 8, MT = C::MT, BM = C::BM;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [BM][LD]: Q, then its hi halves
+  float* qlo = qs + BM * LD;                     // [BM][LD]: Q's lo halves (QSPLIT)
+  float* ring = qs + (C::QSPLIT ? 2 : 1) * BM * LD;  // stage st: K at 2 st BN LD, then V
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest query tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;    // fragment row and column group
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
+  const float* __restrict__ qg = static_cast<const float*>(a.q) + (size_t)bh * a.sq * HD;
+  const float* __restrict__ kg = static_cast<const float*>(a.k) + (size_t)bh * a.skv * HD;
+  const float* __restrict__ vg = static_cast<const float*>(a.v) + (size_t)bh * a.skv * HD;
+
+  // the keys any row of this tile may see
+  int k_end = a.skv;
+  if (a.causal) k_end = min(a.skv, q0 + BM);
+  int k_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  k_begin -= k_begin % BN;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+  auto load_tile = [&](int it) {
+    float* ks = ring + (it & 1) * 2 * BN * LD;
+    cp_rows<HD, LD>(kg, k_begin + it * BN, a.skv, ks, BN);
+    cp_rows<HD, LD>(vg, k_begin + it * BN, a.skv, ks + BN * LD, BN);
+  };
+  cp_rows<HD, LD>(qg, q0, a.sq, qs, BM);
+  cp_async_commit();
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+  if constexpr (C::QSPLIT) {
+    // split Q once for all warps: hi in place, lo beside it (the loop's
+    // first barrier orders these writes before any read)
+    cp_async_wait<1>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < BM * HD / 4; i += kF32Threads) {
+      const int r = i / (HD / 4), col = (i - r * (HD / 4)) * 4;
+      float4* p = reinterpret_cast<float4*>(qs + r * LD + col);
+      const float4 x = *p;
+      uint32_t h[4], l[4];
+      split_tf32(x.x, h[0], l[0]);
+      split_tf32(x.y, h[1], l[1]);
+      split_tf32(x.z, h[2], l[2]);
+      split_tf32(x.w, h[3], l[3]);
+      *reinterpret_cast<uint4*>(p) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(qlo + r * LD + col) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+  }
+
+  const int r0 = q0 + warp * 16 * MT;  // this warp's first row
+  const float c = a.scale * kLog2e;    // exp(x * scale) = exp2(x * c)
+  float m_a[MT], m_b[MT], l_a[MT], l_b[MT];  // l: this lane's share
+  float o[MT][HD / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m_a[mt] = m_b[mt] = kNegInf;
+    l_a[mt] = l_b[mt] = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      o[mt][dt][0] = o[mt][dt][1] = o[mt][dt][2] = o[mt][dt][3] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    // the next tile's copy is in flight while this one is computed
+    if (it + 1 < n_tiles) load_tile(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* ks = ring + (it & 1) * 2 * BN * LD;
+    const float* vs = ks + BN * LD;
+    const int k0 = k_begin + it * BN;
+    // a tile wholly masked for this warp's rows is skipped
+    const bool need = r0 < a.sq && (!a.causal || k0 <= r0 + 16 * MT - 1) &&
+                      (a.window <= 0 || k0 + BN - 1 > r0 - a.window);
+    if (need) {
+      // S = Q.K^T: K's B fragments of two k-steps come from one ldmatrix
+      // (it moves 32-bit words as pairs of b16)
+      float s[MT][BN / 8][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt)
+          s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; kk += 2) {
+        // Q's A fragments of k-steps kk and kk + 1, hi and lo
+        uint32_t ah[MT][2][4], al[MT][2][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int off = (warp * 16 * MT + mt * 16 + (mi & 1) * 8 + mr) * LD + (kk + u) * 8 +
+                            (mi >> 1) * 4;
+            if constexpr (C::QSPLIT) {
+              ldmatrix_x4(ah[mt][u], qs + off);
+              ldmatrix_x4(al[mt][u], qlo + off);
+            } else {
+              uint32_t raw[4];
+              ldmatrix_x4(raw, qs + off);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), ah[mt][u][i], al[mt][u][i]);
+            }
+          }
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt) {
+          uint32_t raw[4], bh[4], bl[4];
+          ldmatrix_x4(raw, ks + (nt * 8 + mr) * LD + kk * 8 + mi * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), bh[i], bl[i]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_3xtf32(s[mt][nt], ah[mt][0], al[mt][0], bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(s[mt][nt], ah[mt][1], al[mt][1], bh[2], bh[3], bl[2], bl[3]);
+          }
+        }
+      }
+      // online softmax on the fragments, a row spanning the 4 lanes of a quad
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int rm = r0 + mt * 16, row_a = rm + g, row_b = row_a + 8;
+        // mask only a tile that may hold a key hidden from one of the rows
+        const bool full = k0 + BN <= a.skv && (!a.causal || k0 + BN - 1 <= rm) &&
+                          (a.window <= 0 || k0 > rm + 15 - a.window);
+        if (!full) {
+#pragma unroll
+          for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = k0 + nt * 8 + 2 * t + e;
+              const bool in = key < a.skv;
+              if (!(in && (!a.causal || key <= row_a) &&
+                    (a.window <= 0 || key > row_a - a.window)))
+                s[mt][nt][e] = -INFINITY;
+              if (!(in && (!a.causal || key <= row_b) &&
+                    (a.window <= 0 || key > row_b - a.window)))
+                s[mt][nt][2 + e] = -INFINITY;
+            }
+        }
+        float xa[2] = {m_a[mt], -INFINITY}, xb[2] = {m_b[mt], -INFINITY};
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            xa[e] = fmaxf(xa[e], s[mt][nt][e]);
+            xb[e] = fmaxf(xb[e], s[mt][nt][2 + e]);
+          }
+        float mx_a = fmaxf(xa[0], xa[1]), mx_b = fmaxf(xb[0], xb[1]);
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+        // m starts at -1e30: corr is 0 once a row first sees a key, and a
+        // masked score (-inf) gives p = 0; the difference is taken before
+        // scaling (see the bf16 kernel)
+        const float corr_a = ex2_ftz((m_a[mt] - mx_a) * c);
+        const float corr_b = ex2_ftz((m_b[mt] - mx_b) * c);
+        m_a[mt] = mx_a;
+        m_b[mt] = mx_b;
+        const float mc_a = mx_a * c, mc_b = mx_b * c;
+        float ya[2] = {0.f, 0.f}, yb[2] = {0.f, 0.f};
+#pragma unroll
+        for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[mt][nt][e] = ex2_ftz(fmaf(s[mt][nt][e], c, -mc_a));
+            s[mt][nt][2 + e] = ex2_ftz(fmaf(s[mt][nt][2 + e], c, -mc_b));
+            ya[e] += s[mt][nt][e];
+            yb[e] += s[mt][nt][2 + e];
+          }
+        l_a[mt] = fmaf(l_a[mt], corr_a, ya[0] + ya[1]);
+        l_b[mt] = fmaf(l_b[mt], corr_b, yb[0] + yb[1]);
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt) {
+          o[mt][dt][0] *= corr_a;
+          o[mt][dt][1] *= corr_a;
+          o[mt][dt][2] *= corr_b;
+          o[mt][dt][3] *= corr_b;
+        }
+      }
+      // O += P.V.  This lane's probabilities sit at keys 2t and 2t + 1 of
+      // each 8-key step, where P's A fragment wants k = t and t + 4: the
+      // step's keys are taken in the order k = q <-> key 2q, k = q + 4 <->
+      // key 2q + 1, and V's B fragment is read in the same order.
+#pragma unroll
+      for (int kc = 0; kc < BN / 8; ++kc) {
+        uint32_t ph[MT][4], pl[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          split_tf32(s[mt][kc][0], ph[mt][0], pl[mt][0]);
+          split_tf32(s[mt][kc][2], ph[mt][1], pl[mt][1]);
+          split_tf32(s[mt][kc][1], ph[mt][2], pl[mt][2]);
+          split_tf32(s[mt][kc][3], ph[mt][3], pl[mt][3]);
+        }
+        const float* v0 = vs + (kc * 8 + 2 * t) * LD + g;
+#pragma unroll
+        for (int dt = 0; dt < HD / 8; ++dt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v0[dt * 8], bh0, bl0);
+          split_tf32(v0[LD + dt * 8], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_3xtf32(o[mt][dt], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration's copy
+  }
+  cp_async_wait<0>();
+
+  float* __restrict__ og = static_cast<float*>(a.out) + (size_t)bh * a.sq * HD;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float la = l_a[mt], lb = l_b[mt];
+    la += __shfl_xor_sync(0xffffffffu, la, 1);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 1);
+    la += __shfl_xor_sync(0xffffffffu, la, 2);
+    lb += __shfl_xor_sync(0xffffffffu, lb, 2);
+    // a row with nothing attendable keeps l == 0 and writes zeros
+    const float inv_a = 1.f / fmaxf(la, 1e-30f), inv_b = 1.f / fmaxf(lb, 1e-30f);
+    const int row_a = r0 + mt * 16 + g, row_b = row_a + 8;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const int col = dt * 8 + 2 * t;
+      if (row_a < a.sq)
+        *reinterpret_cast<float2*>(og + (size_t)row_a * HD + col) =
+            make_float2(o[mt][dt][0] * inv_a, o[mt][dt][1] * inv_a);
+      if (row_b < a.sq)
+        *reinterpret_cast<float2*>(og + (size_t)row_b * HD + col) =
+            make_float2(o[mt][dt][2] * inv_b, o[mt][dt][3] * inv_b);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (the library
 // links no libcuda).
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -815,19 +992,18 @@ cudaError_t run_wgmma(const Args& a, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int HD, int R>
+template <int HD>
 cudaError_t run_f32(const Args& a, int bh, cudaStream_t stream) {
-  constexpr int BQ = kWarps * R;
-  const size_t smem = sizeof(float) * smem_floats<HD, R>();
-  auto kernel = flash_f32_kernel<HD, R>;
-  if (smem > 48 * 1024) {
+  using C = F32Cfg<HD>;
+  auto kernel = flash_f32_kernel<HD>;
+  if (C::SMEM > 48 * 1024) {
     const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (e != cudaSuccess) return e;
   }
-  const int n_q_tiles = (a.sq + BQ - 1) / BQ;
+  const int n_q_tiles = (a.sq + C::BM - 1) / C::BM;
   if (n_q_tiles > 65535) return cudaErrorInvalidValue;
-  kernel<<<dim3(bh, n_q_tiles), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(bh, n_q_tiles), kF32Threads, C::SMEM, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -846,9 +1022,9 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   const Args a{q, k, v, out, sq, skv, scale, causal, window, bh};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (hd == 64) return run_f32<64, 16>(a, bh, s);
-    if (hd == 128) return run_f32<128, 16>(a, bh, s);
-    if (hd == 192) return run_f32<192, 8>(a, bh, s);
+    if (hd == 64) return run_f32<64>(a, bh, s);
+    if (hd == 128) return run_f32<128>(a, bh, s);
+    if (hd == 192) return run_f32<192>(a, bh, s);
   } else if (dtype == 1) {
     // HD 64 takes three consumer groups (192 rows a block, so K and V are
     // read from L2 a third fewer times) from 1024 queries on; below that a

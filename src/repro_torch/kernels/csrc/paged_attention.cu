@@ -8,8 +8,37 @@
 // tanh softcap, values from the first v_width columns of a page (MLA),
 // and zeros for a query with nothing to attend.
 //
-// Two paths, chosen by the caller (kernels/flash_decode.py::kernel_path)
+// Three paths, chosen by the caller (kernels/flash_decode.py::kernel_path)
 // and passed in as `path`; the C entry refuses a path that does not apply.
+//
+// Split-KV decode path (path 2: G*T <= 8, dk and dv in {64, 128}, f32 or
+// bf16: serve and parity decode, GQA decode up to G 8).  At decode only one
+// block per (batch row, kv head) would leave the card short of blocks (192
+// at the serve shape, 1.45 per SM) and each block's page walk one
+// dependent load after another.  Here the grid is (splits, Hkv, B): the
+// host (flash_decode.py::decode_plan) picks the split count (about 2
+// blocks an SM, more where a split would take over 8 rounds) and the
+// round size (K and V rows within 32 KiB).  A block reads the row's offset,
+// its page-table entries and Q in one round trip, turns its share of the
+// row's live pages into one cache row per key, and issues the first two
+// rounds of K and V rows at once as 16-byte cp.async copies in the cache's
+// dtype (zero fill for unallocated pages; element loads where rows are off
+// the 16-byte grid), each later round as soon as its stage of the 2-stage
+// ring is free.  A round is scored from shared memory (a thread a key, Q
+// in fp32 broadcast from shared memory), its probabilities taken with
+// ex2.approx against the running row max, and P.V summed by (key group,
+// 16-byte column group) threads in registers across rounds.  With more
+// than one split, each writes (m, l, acc) to an f32 workspace; the last
+// block of a (b, h) to finish (a __threadfence, then an atomic counter that
+// it resets to 0) merges them, so the op stays one launch.  A query with
+// nothing attendable writes zeros, an empty split contributes l = 0.
+// tools/kernel_variants.py times other plans and the phases' shares
+// (NVIDIA H100 80GB HBM3, 700 W; B 16, Hkv 12, dk 64, page 16): at 128-576
+// keys 0.0223 ms with 2 splits of 32 KiB rounds, 0.0330 with every page of
+// 3 splits in one round; at 2048-4096 keys 0.0856 ms with 5 splits of 7
+// rounds.  Splits run as one thread-block cluster merging through
+// distributed shared memory measured no faster at 128-576 keys and slower
+// at 2048-4096: a cluster's blocks wait for its slowest split.
 //
 // Tensor-core path (path 1: bf16, G*T >= 16, dk and dv in {64, 128}: serve
 // prefill, speculative verify at G 8).  Why mma.sync and not wgmma: only
@@ -40,9 +69,9 @@
 // ptxas -v (sm_90a, nvcc 12.9): 114 registers at dk = dv = 64, 174 at 128,
 // no spills.
 //
-// CUDA-core path (path 0: every other call -- f32, decode, GQA decode at
-// G*T 8, MLA's dk 576 / dv 512).  One thread block per (query tile, kv
-// head, batch row).  The
+// CUDA-core path (path 0: every other call -- f32 chunk-extend, MLA's dk
+// 576 / dv 512, widths outside {64, 128}).  One thread block per (query
+// tile, kv head, batch row).  The
 // tile holds up to 32 / NV folded query rows (NV value columns per lane),
 // and the host shrinks it while the grid would leave the card's SMs
 // idle, so chunk-extend spreads over more blocks.  The block's warps
@@ -71,8 +100,8 @@
 // which the tensor cores would bound it; at the serve prefill (G*T 16) it
 // is ~16 flops a byte, still memory-bound.  The CUDA-core path stages
 // pages synchronously (no cp.async pipeline, fp32 math); the tensor-core
-// path pipelines them.  Both paths' times on the card are recorded against
-// that byte bound in PERF.md.
+// and decode paths pipeline them.  The paths' times on the card are
+// recorded against that byte bound in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -750,17 +779,393 @@ cudaError_t launch_tc(const Args& a, int dtype, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------- decode: split-KV, streamed pages
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__host__ __device__ constexpr size_t up16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// Byte offsets into a decode block's shared memory: the row's page-table
+// entries; a 2-stage ring of rounds of K and V rows (in the cache's dtype,
+// rows padded by 16 bytes so a quarter warp's 16-byte reads of 8 rows hit
+// distinct banks), reused for the P.V partial sums after the last round;
+// a round's scores, then probabilities [QLT][round_keys]; Q in fp32
+// [QLT][DK]; per-warp row maxima and sums; the running row max and sum;
+// each of the split's keys' cache rows; the last-block flag.
+template <typename T, int QLT, int DK, int DV>
+struct DecLayout {
+  static constexpr int E = 16 / (int)sizeof(T);     // elements of a 16-byte chunk
+  static constexpr int KROW = DK + E, VROW = DV + E;  // padded rows, in elements
+  static constexpr int NCG = DV / E;                  // P.V: 16-byte column groups
+  static constexpr int NKG = kDecThreads / NCG;       // P.V: key groups
+  size_t stage, ring, s, q, stats, run, rows, flag, total;
+  __host__ __device__ DecLayout(int pages_per_slot, int round_keys, int split_keys) {
+    stage = (size_t)round_keys * (KROW + VROW) * sizeof(T);  // bytes of one stage
+    const size_t rbytes = (size_t)NKG * QLT * DV * sizeof(float);
+    ring = up16((size_t)pages_per_slot * sizeof(int));
+    s = ring + up16(2 * stage > rbytes ? 2 * stage : rbytes);
+    q = s + up16((size_t)QLT * round_keys * sizeof(float));
+    stats = q + up16((size_t)QLT * DK * sizeof(float));
+    run = stats + up16((size_t)2 * kDecWarps * QLT * sizeof(float));
+    rows = run + up16((size_t)2 * QLT * sizeof(float));
+    flag = rows + up16((size_t)split_keys * sizeof(int));
+    total = flag + 16;
+  }
+};
+
+// One block per (split, kv head, batch row).  The split takes an equal
+// share of the row's live pages (those at or below its last query: split
+// s of n takes pages [s c, s c + c) with c = ceil(live / n)) and streams
+// them in rounds of round_pages pages through a 2-stage cp.async ring: the
+// first two rounds are issued at once (at the serve decode shape that is
+// every page of the split), and each later one as soon as its stage is
+// free, so a round's loads overlap the scoring of the one before.  The
+// online softmax carries each row's max and sum across rounds; the P.V
+// sums stay in registers.  QLT: the folded query rows a block computes (ql
+// <= QLT; rows past ql repeat the last).
+template <typename T, int QLT, int DK, int DV>
+__global__ void __launch_bounds__(kDecThreads, 1)
+    paged_decode_kernel(const Args a, int splits, int round_pages, int split_pages,
+                        float* __restrict__ ws, int* __restrict__ counters) {
+  using L = DecLayout<T, QLT, DK, DV>;
+  constexpr int E = L::E, KROW = L::KROW, VROW = L::VROW, NCG = L::NCG, NKG = L::NKG;
+  constexpr int KC = DK / E, VC = DV / E;  // 16-byte chunks of a K and a V row
+  const int ps = a.page_size, P = a.pages_per_slot, ql = a.ql;
+  const int rk = round_pages * ps;  // keys a round
+  const L lay(P, rk, split_pages * ps);
+  extern __shared__ float4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  int* tab = reinterpret_cast<int*>(sm);
+  float* red = reinterpret_cast<float*>(sm + lay.ring);  // after the last round: [NKG][QLT][DV]
+  float* ss = reinterpret_cast<float*>(sm + lay.s);
+  float* qs = reinterpret_cast<float*>(sm + lay.q);
+  float* wmax = reinterpret_cast<float*>(sm + lay.stats);  // [kDecWarps][QLT]
+  float* wsum = wmax + kDecWarps * QLT;
+  float* mrun = reinterpret_cast<float*>(sm + lay.run);  // [QLT] running row max, then sum
+  float* lrun = mrun + QLT;
+  int* rows = reinterpret_cast<int*>(sm + lay.rows);  // cache row of each key, -1 unread
+  int* flag = reinterpret_cast<int*>(sm + lay.flag);
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * a.hkv + h;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* __restrict__ q = static_cast<const T*>(a.q) + (size_t)bh * ql * DK;
+  const T* kh = static_cast<const T*>(a.k_pages) + (size_t)h * DK;
+  const T* vh = static_cast<const T*>(a.v_pages) + (size_t)h * a.dv_store;
+  const size_t k_stride = (size_t)a.hkv * DK, v_stride = (size_t)a.hkv * a.dv_store;
+
+  // 1. the row's offset, its page-table entries and Q in one round trip
+  const int off = a.offsets[b];
+  for (int i = tid; i < P; i += kDecThreads) tab[i] = a.table[(size_t)b * P + i];
+  for (int i = tid; i < QLT * DK; i += kDecThreads) {
+    const int r = i / DK;
+    qs[i] = to_f32(q[min(r, ql - 1) * DK + (i - r * DK)]);
+  }
+  if (tid < QLT) {
+    mrun[tid] = kNegInf;
+    lrun[tid] = 0.f;
+  }
+  __syncthreads();
+  const int last_q = off + a.tokens_per_row - 1;
+  const int live = last_q < 0 ? 0 : min(P, last_q / ps + 1);
+  const int chunk = (live + splits - 1) / splits;  // at most split_pages
+  const int j0 = min(live, split * chunk), j1 = min(live, j0 + chunk);
+  const int nk = (j1 - j0) * ps;
+  const int n_rounds = (nk + rk - 1) / rk;
+
+  // 2. each key's cache row (-1 on an unallocated page: negative or >=
+  // n_pages), so the copy loops divide by nothing but constants; then the
+  // first two rounds' K and V rows, zero-filled where unallocated
+  for (int key = tid; key < nk; key += kDecThreads) {
+    const int pid = tab[j0 + key / ps];
+    rows[key] = pid >= 0 && pid < a.n_pages ? pid * ps + key % ps : -1;
+  }
+  __syncthreads();
+  auto issue = [&](int r) {  // round r into stage r % 2
+    const int kb = r * rk, n = min(rk, nk - kb);
+    T* ks = reinterpret_cast<T*>(sm + lay.ring + (r & 1) * lay.stage);
+    T* vs = ks + rk * KROW;
+    if (a.vec) {
+      for (int i = tid; i < n * (KC + VC); i += kDecThreads) {
+        const int key = i / (KC + VC), c = i - key * (KC + VC);
+        const int row = rows[kb + key];
+        if (c < KC)
+          cp_async16(ks + key * KROW + c * E, kh + (row >= 0 ? row * k_stride + c * E : 0),
+                     row >= 0);
+        else
+          cp_async16(vs + key * VROW + (c - KC) * E,
+                     vh + (row >= 0 ? row * v_stride + (c - KC) * E : 0), row >= 0);
+      }
+    } else {  // rows off the 16-byte grid: element loads
+      for (int i = tid; i < n * (DK + DV); i += kDecThreads) {
+        const int key = i / (DK + DV), c = i - key * (DK + DV);
+        const int row = rows[kb + key];
+        if (c < DK)
+          ks[key * KROW + c] = row >= 0 ? kh[row * k_stride + c] : from_f32<T>(0.f);
+        else
+          vs[key * VROW + c - DK] = row >= 0 ? vh[row * v_stride + c - DK] : from_f32<T>(0.f);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+
+  int q_pos[QLT];
+#pragma unroll
+  for (int r = 0; r < QLT; ++r) q_pos[r] = off + min(r, ql - 1) % a.tokens_per_row;
+  const int cg = tid % NCG, kg = tid / NCG;  // P.V: this thread's columns and keys
+  float acc[QLT][E];
+#pragma unroll
+  for (int r = 0; r < QLT; ++r)
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+
+  for (int rd = 0; rd < n_rounds; ++rd) {
+    cp_async_wait<1>();  // this round has landed; the next may be in flight
+    __syncthreads();
+    const T* ks = reinterpret_cast<const T*>(sm + lay.ring + (rd & 1) * lay.stage);
+    const T* vs = ks + rk * KROW;
+    const int kb = rd * rk, n = min(rk, nk - kb);
+
+    // 3. scores: thread i takes keys i, i + 256, ...; a masked key scores -inf
+    float mloc[QLT];
+#pragma unroll
+    for (int r = 0; r < QLT; ++r) mloc[r] = kNegInf;
+    for (int key = tid; key < n; key += kDecThreads) {
+      const T* kr = ks + key * KROW;
+      float d[QLT][2];
+#pragma unroll
+      for (int r = 0; r < QLT; ++r) d[r][0] = d[r][1] = 0.f;
+#pragma unroll
+      for (int c = 0; c < DK; c += E) {
+        float f[E];
+        unpack(*reinterpret_cast<const uint4*>(kr + c), f, kr);
+#pragma unroll
+        for (int r = 0; r < QLT; ++r)
+#pragma unroll
+          for (int e = 0; e < E; e += 4) {
+            const float4 qv = *reinterpret_cast<const float4*>(qs + r * DK + c + e);
+            d[r][0] = fmaf(qv.x, f[e], d[r][0]);
+            d[r][1] = fmaf(qv.y, f[e + 1], d[r][1]);
+            d[r][0] = fmaf(qv.z, f[e + 2], d[r][0]);
+            d[r][1] = fmaf(qv.w, f[e + 3], d[r][1]);
+          }
+      }
+      const bool in = rows[kb + key] >= 0;
+      const int kv_pos = j0 * ps + kb + key;
+#pragma unroll
+      for (int r = 0; r < QLT; ++r) {
+        float s = (d[r][0] + d[r][1]) * a.scale;
+        if (a.softcap > 0.f) s = tanhf(s / a.softcap) * a.softcap;
+        s = in && kv_pos <= q_pos[r] ? s : -INFINITY;
+        ss[r * rk + key] = s;
+        mloc[r] = fmaxf(mloc[r], s);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < QLT; ++r) {
+      const float m = warp_max(mloc[r]);
+      if (lane == 0) wmax[warp * QLT + r] = m;
+    }
+    __syncthreads();
+
+    // 4. probabilities against the running max (>= -1e30, so a masked key
+    // gives p = 0 and rows that have seen nothing keep l = 0)
+    float m_new[QLT], corr[QLT], lloc[QLT];
+#pragma unroll
+    for (int r = 0; r < QLT; ++r) {
+      m_new[r] = mrun[r];
+#pragma unroll
+      for (int w = 0; w < kDecWarps; ++w) m_new[r] = fmaxf(m_new[r], wmax[w * QLT + r]);
+      corr[r] = ex2_ftz((mrun[r] - m_new[r]) * kLog2e);
+      lloc[r] = 0.f;
+    }
+    for (int key = tid; key < n; key += kDecThreads) {
+#pragma unroll
+      for (int r = 0; r < QLT; ++r) {
+        const float p = ex2_ftz((ss[r * rk + key] - m_new[r]) * kLog2e);
+        ss[r * rk + key] = p;
+        lloc[r] += p;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < QLT; ++r) {
+      const float l = warp_sum(lloc[r]);
+      if (lane == 0) wsum[warp * QLT + r] = l;
+    }
+    __syncthreads();
+
+    // 5. P.V: thread (kg, cg) rescales and adds keys kg, kg + NKG, ... of
+    // the round over its 16 bytes of value columns
+#pragma unroll
+    for (int r = 0; r < QLT; ++r)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] *= corr[r];
+    for (int key = kg; key < n; key += NKG) {
+      float f[E];
+      unpack(*reinterpret_cast<const uint4*>(vs + key * VROW + cg * E), f, vs);
+#pragma unroll
+      for (int r = 0; r < QLT; ++r) {
+        const float p = ss[r * rk + key];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(p, f[e], acc[r][e]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < QLT; ++r) {
+      if (tid == r) {
+        float l = lrun[r] * corr[r];
+#pragma unroll
+        for (int w = 0; w < kDecWarps; ++w) l += wsum[w * QLT + r];
+        lrun[r] = l;
+        mrun[r] = m_new[r];
+      }
+    }
+    __syncthreads();  // the stage and the probabilities are consumed
+    if (rd + 2 < n_rounds) issue(rd + 2);
+    else cp_async_commit();  // keeps one group a round for the wait above
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 6. the key groups' sums meet in shared memory (over the ring); the
+  // split's (m, l, acc) go straight to out when there is one split, else to
+  // the workspace
+#pragma unroll
+  for (int r = 0; r < QLT; ++r)
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      *reinterpret_cast<float4*>(red + (kg * QLT + r) * DV + cg * E + e) =
+          make_float4(acc[r][e], acc[r][e + 1], acc[r][e + 2], acc[r][e + 3]);
+  __syncthreads();
+  T* __restrict__ out = static_cast<T*>(a.out) + (size_t)bh * ql * DV;
+  float* wsp = splits > 1 ? ws + (size_t)bh * splits * ql * (DV + 2) : nullptr;
+  for (int i = tid; i < ql * DV; i += kDecThreads) {
+    const int r = i / DV, d = i - r * DV;
+    float o = 0.f;
+#pragma unroll
+    for (int g = 0; g < NKG; ++g) o += red[(g * QLT + r) * DV + d];
+    if (splits == 1) {
+      // a query with nothing attendable keeps l == 0 and writes zeros
+      out[i] = from_f32<T>(o / fmaxf(lrun[r], 1e-30f));
+    } else {
+      float* slot = wsp + ((size_t)split * ql + r) * (DV + 2);
+      slot[2 + d] = o;
+      if (d == 0) {
+        slot[0] = mrun[r];
+        slot[1] = lrun[r];
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // 7. the last split of (b, h) to finish merges them all and resets the
+  // counter for the next launch on the stream
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *flag = atomicAdd(counters + bh, 1) == splits - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  for (int i = tid; i < ql * DV; i += kDecThreads) {
+    const int r = i / DV, d = i - r * DV;
+    float mx = kNegInf;
+    for (int sp = 0; sp < splits; ++sp)
+      mx = fmaxf(mx, __ldcg(wsp + ((size_t)sp * ql + r) * (DV + 2)));
+    float l = 0.f, o = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* slot = wsp + ((size_t)sp * ql + r) * (DV + 2);
+      // an empty split has m = -1e30 and l = 0: weight 0, or 1 times 0
+      const float f = ex2_ftz((__ldcg(slot) - mx) * kLog2e);
+      l = fmaf(__ldcg(slot + 1), f, l);
+      o = fmaf(__ldcg(slot + 2 + d), f, o);
+    }
+    out[i] = from_f32<T>(o / fmaxf(l, 1e-30f));
+  }
+  if (tid == 0) counters[bh] = 0;
+}
+
+template <typename T, int QLT, int DK, int DV>
+cudaError_t run_decode(Args a, int splits, int round_pages, float* ws, int* counters,
+                       cudaStream_t stream) {
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  constexpr int E = 16 / (int)sizeof(T);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(a.k_pages) |
+                         reinterpret_cast<uintptr_t>(a.v_pages)) & 15) == 0;
+  a.vec = aligned && a.dv_store % E == 0;
+  const int split_pages = (a.pages_per_slot + splits - 1) / splits;  // the most a split takes
+  const DecLayout<T, QLT, DK, DV> lay(a.pages_per_slot, round_pages * a.page_size,
+                                      split_pages * a.page_size);
+  if (lay.total > (size_t)smem_max) return cudaErrorInvalidValue;
+  auto kernel = paged_decode_kernel<T, QLT, DK, DV>;
+  if (lay.total > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.total);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3(splits, a.hkv, a.batch), kDecThreads, lay.total, stream>>>(
+      a, splits, round_pages, split_pages, ws, counters);
+  return cudaGetLastError();
+}
+
+template <typename T, int QLT>
+cudaError_t launch_decode_dims(const Args& a, int splits, int rp, float* ws, int* counters,
+                               cudaStream_t s) {
+  if (a.dk == 64 && a.dv == 64) return run_decode<T, QLT, 64, 64>(a, splits, rp, ws, counters, s);
+  if (a.dk == 64 && a.dv == 128)
+    return run_decode<T, QLT, 64, 128>(a, splits, rp, ws, counters, s);
+  if (a.dk == 128 && a.dv == 64)
+    return run_decode<T, QLT, 128, 64>(a, splits, rp, ws, counters, s);
+  if (a.dk == 128 && a.dv == 128)
+    return run_decode<T, QLT, 128, 128>(a, splits, rp, ws, counters, s);
+  return cudaErrorInvalidValue;
+}
+
+// The decode path takes G*T <= 8 and dk, dv in {64, 128}, f32 or bf16, in
+// rounds of round_pages pages; with more than one split it needs the
+// workspace and the zeroed counters.
+cudaError_t launch_decode(const Args& a, int dtype, int splits, int round_pages, void* ws,
+                          void* counters, cudaStream_t s) {
+  if (a.ql > 8 || splits < 1 || splits > (a.pages_per_slot > 1 ? a.pages_per_slot : 1) ||
+      round_pages < 1 || (splits > 1 && (ws == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
+  if (dtype == 0)
+    return a.ql == 1 ? launch_decode_dims<float, 1>(a, splits, round_pages, w, c, s)
+                     : launch_decode_dims<float, 8>(a, splits, round_pages, w, c, s);
+  return a.ql == 1 ? launch_decode_dims<__nv_bfloat16, 1>(a, splits, round_pages, w, c, s)
+                   : launch_decode_dims<__nv_bfloat16, 8>(a, splits, round_pages, w, c, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).  table and
 // offsets are int32.  path: 0 = the CUDA-core kernel (every shape), 1 = the
-// bf16 tensor-core chunk-extend kernel (refused with cudaErrorInvalidValue
-// where it does not apply).  Returns cudaGetLastError() after the launch.
+// bf16 tensor-core chunk-extend kernel, 2 = the split-KV decode kernel
+// (paths 1 and 2 are refused with cudaErrorInvalidValue where they do not
+// apply).  splits, round_pages, workspace and counters serve path 2 only:
+// the split count, the pages a split loads a round, an f32 workspace of
+// batch * hkv * splits * ql * (dv + 2) floats and batch * hkv int32
+// counters that are zero before the launch and zero again after it (both
+// may be null with one split).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int paged_attention_fwd(int dtype, const void* q, const void* k_pages,
                                    const void* v_pages, const void* table, const void* offsets,
                                    void* out, int batch, int hkv, int ql, int dk, int n_pages,
                                    int page_size, int pages_per_slot, int dv_store, int dv,
                                    int tokens_per_row, float scale, float softcap, int path,
+                                   int splits, int round_pages, void* workspace, void* counters,
                                    void* stream) {
   if (batch <= 0 || hkv <= 0 || ql <= 0 || dk <= 0 || dv <= 0 || page_size <= 0 ||
       tokens_per_row <= 0 || dv > dv_store)
@@ -771,6 +1176,7 @@ extern "C" int paged_attention_fwd(int dtype, const void* q, const void* k_pages
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   if (path == 1) return launch_tc(a, dtype, s);
+  if (path == 2) return launch_decode(a, dtype, splits, round_pages, workspace, counters, s);
   if (path != 0) return cudaErrorInvalidValue;
 #define PAGED_LAUNCH(NV) \
   return dtype == 0 ? launch<float, NV>(a, s) : launch<__nv_bfloat16, NV>(a, s)

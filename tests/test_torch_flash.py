@@ -5,6 +5,8 @@ oracles, at its tolerances (2e-5 f32, 2e-2 bf16, 3e-5 in the model
 layout); direct attention's options; the block contract and the missing
 gradient."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,3 +126,61 @@ def test_flash_wrapper_keeps_the_block_contract_and_has_no_gradient():
     out = flash_attention.flash_attention_bhsd(q, q, q)
     with pytest.raises(NotImplementedError, match="no backward"):
         out.sum().backward()
+
+
+# ---------------------------------------------- the f32 kernel's arithmetic
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero (half of the last kept bit is added to the
+    magnitude, then the 13 low mantissa bits are cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel forms it: each operand split into hi (its
+    TF32 rounding) and lo (the rest, rounded to TF32), and the products
+    lo.hi + hi.lo + hi.hi summed in fp32 (lo.lo dropped)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_3xtf32(q, k, v, causal, window=0, tf32_only=False):
+    """Masked softmax attention with both products in 3xTF32 (or in plain
+    TF32 with ``tf32_only``), the probabilities unnormalised through P.V
+    and divided by the fp32 row sum after, as the f32 kernel does."""
+    mm = (lambda a, b: _tf32(a) @ _tf32(b)) if tf32_only else _mm_3xtf32
+    sq, hd = q.shape[1], q.shape[2]
+    s = mm(q, k.transpose(1, 2)) * (1.0 / math.sqrt(hd))
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(k.shape[1])[None, :]
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+F32_ARITH_CASES = [(bh, s, hd, causal, 0) for bh, s, hd in ((2, 128, 64), (1, 256, 128),
+                                                           (3, 512, 64), (2, 128, 192),
+                                                           (2, 192, 64), (1, 320, 64))
+                   for causal in (True, False)]
+F32_ARITH_CASES += [(2, 320, 64, True, 128), (1, 1024, 64, True, 0)]
+
+
+@pytest.mark.parametrize("bh,s,hd,causal,window", F32_ARITH_CASES)
+def test_flash_f32_3xtf32_arithmetic_meets_the_gate(bh, s, hd, causal, window):
+    """The f32 kernel's 3xTF32 split, emulated on the CPU with TF32 rounding
+    by integer bit arithmetic, holds the reference at the f32 gate (2e-5)
+    over the sweep's f32 shapes, a window and causal S 1024; plain TF32
+    misses it."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv((bh, s, hd), "float32", seed=s + hd + window)
+    want = f32(jref.attention_reference(jq, jk, jv, causal=causal, window=window))
+    got = _attention_3xtf32(tq, tk, tv, causal, window)
+    np.testing.assert_allclose(f32(got), want, rtol=2e-5, atol=2e-5)
+    rough = _attention_3xtf32(tq, tk, tv, causal, window, tf32_only=True)
+    assert not np.allclose(f32(rough), want, rtol=2e-5, atol=2e-5)

@@ -1,8 +1,10 @@
-"""The paged-attention kernel's two paths: which calls take the bf16
-tensor-core path (``flash_decode.kernel_path``), and the plain version
-that ``chip_smoke.py`` holds that path to, against the reference package
-(its kernel in interpret mode and its oracle) at the path's shapes, on
-identical numpy inputs, at the bf16 tolerance (2e-2)."""
+"""The paged-attention kernel's three paths: which calls take the bf16
+tensor-core path and which the split-KV decode path
+(``flash_decode.kernel_path``), how a decode call is split and streamed
+(``flash_decode.decode_plan``), and the plain version that
+``chip_smoke.py`` holds those paths to, against the reference package
+(its kernel in interpret mode and its oracle) at the paths' shapes, on
+identical numpy inputs, at the f32 (2e-5) and bf16 (2e-2) tolerances."""
 
 import numpy as np
 import pytest
@@ -41,8 +43,21 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.bfloat16, 40, 128, 128, "tensor_core"),   # verify T 5 at G 8
     (torch.bfloat16, 16, 128, 64, "tensor_core"),
     (torch.bfloat16, 128, 64, 64, "tensor_core"),    # 8 M-tiles, the most a block takes
-    (torch.bfloat16, 1, 64, 64, "cuda_core"),        # decode
-    (torch.bfloat16, 8, 128, 128, "cuda_core"),      # GQA decode, G 8
+    (torch.bfloat16, 1, 64, 64, "decode"),           # decode
+    (torch.bfloat16, 8, 128, 128, "decode"),         # GQA decode, G 8
+    (torch.bfloat16, 1, 128, 128, "decode"),
+    (torch.bfloat16, 8, 64, 64, "decode"),
+    (torch.bfloat16, 1, 64, 128, "decode"),
+    (torch.float32, 1, 64, 64, "decode"),            # f32 parity decode
+    (torch.float32, 8, 128, 128, "decode"),
+    (torch.float32, 1, 128, 128, "decode"),
+    (torch.float32, 8, 64, 64, "decode"),
+    (torch.float32, 5, 128, 64, "decode"),           # verify T 5 at G 1
+    (torch.bfloat16, 9, 64, 64, "cuda_core"),
+    (torch.bfloat16, 1, 576, 512, "cuda_core"),      # MLA decode
+    (torch.float32, 1, 576, 512, "cuda_core"),
+    (torch.bfloat16, 1, 32, 32, "cuda_core"),
+    (torch.float32, 16, 128, 128, "cuda_core"),      # f32 chunk-extend
     (torch.bfloat16, 15, 64, 64, "cuda_core"),
     (torch.bfloat16, 136, 64, 64, "cuda_core"),
     (torch.bfloat16, 16, 576, 512, "cuda_core"),     # MLA
@@ -53,3 +68,43 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
+
+
+# The decode path's shapes (G*T <= 8, dk and dv in {64, 128}, f32 and
+# bf16): decode at G 1 and GQA G 8, a verify fold of G 1 x T 5, pages of 8
+# to 64 keys, a context of 1 key (offset 0), a softcap.
+DECODE_CASES = [(1, 1, ps, dk, 0.0) for ps in (8, 16, 64) for dk in (64, 128)]
+DECODE_CASES += [(8, 1, 16, 128, 0.0), (4, 2, 16, 64, 0.0), (1, 5, 16, 64, 0.0),
+                 (1, 1, 16, 64, 30.0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,T,ps,dk,softcap", DECODE_CASES)
+def test_paged_attention_decode_shapes_vs_reference(g, T, ps, dk, softcap, dtype):
+    hkv = 2
+    case = _paged_case(B=3, T=T, hkv=hkv, g=g, dk=dk, ps=ps, P=128 // ps,
+                       n_pages=3 * 128 // ps + 2, offsets=[0, ps + 3, 128 - T], seed=ps + dk + g)
+    tdtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    assert flash_decode.kernel_path(tdtype, g * T, dk, dk) == "decode"
+    got, want_kernel, want_ref, port_ref = _run_both(*case, dtype=dtype, softcap=softcap)
+    assert got.shape == (3, T, hkv * g, dk)
+    for want in (want_kernel, want_ref, port_ref):
+        np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("batch,hkv,P,ps,dk,itemsize,want", [
+    (16, 12, 40, 16, 64, 2, (2, 7)),    # serve decode: ~2 blocks an SM on 132 SMs
+    (16, 12, 256, 16, 64, 2, (5, 7)),   # 4096 keys: at most 8 rounds of 7 pages a split
+    (1, 12, 8, 16, 64, 2, (2, 4)),      # one row: at least 4 pages a split
+    (1, 12, 2, 16, 64, 2, (1, 2)),
+    (4, 12, 8, 16, 64, 4, (2, 3)),      # the f32 parity engine's slots
+    (3, 8, 40, 16, 128, 2, (10, 3)),    # GQA G 8 at dk 128
+    (1, 12, 256, 16, 64, 2, (22, 7)),   # one row over 4096 keys: ~2 blocks an SM
+    (16, 12, 1, 64, 128, 4, (1, 1)),    # a page larger than a round's budget
+])
+def test_decode_plan(batch, hkv, P, ps, dk, itemsize, want):
+    splits, round_pages = flash_decode.decode_plan(batch, hkv, P, ps, dk, dk, itemsize, sms=132)
+    assert (splits, round_pages) == want
+    assert 1 <= splits <= max(1, P) and 1 <= round_pages <= -(-P // splits)
+    page_bytes = ps * (2 * dk * itemsize + 32)
+    assert round_pages * page_bytes <= max(flash_decode.DECODE_ROUND_BYTES, page_bytes)
