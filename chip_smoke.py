@@ -45,9 +45,11 @@ Phases, each printing one JSON line:
   launches per prefill dispatch, 12 decode-path ones per decode dispatch
   and none on the CUDA-core path, and each kernel at the decode and
   prefill shapes (the paged kernel also at ``decode_long``: 16 rows of
-  2048-4096 keys), held against its plain
-  version (bf16 tolerance) and timed beside its bound, its plain version
-  and one PyTorch call as a yardstick;
+  2048-4096 keys, and on its CUDA-core path at parity's f32 chunk-extend
+  shape: 4 rows of 16 tokens, 8 pages a slot), held against its plain
+  version and timed beside its bound, its plain version and one PyTorch
+  call as a yardstick (RMSNorm also beside an empty launch through the
+  same library, ``launch_floor_ms``);
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
   idle share against the unprofiled wall time, top device ops;
@@ -79,7 +81,10 @@ Phases, each printing one JSON line:
   written with the port's ``save_state``, bf16 and f32 at 8 x 512 and
   2 x 4096: finite loss, 48 SSD and 49 RMSNorm launches per forward,
   logits with the SSD kernel against the plain chunked scan, a traced
-  forward, and the SSD kernel timed at both shapes.
+  forward, and the SSD kernel timed at both shapes beside its bound
+  (``bound_route``: f32 on the route it takes, C.B^T on the CUDA cores
+  and the rest 3xTF32; bf16 on the tensor cores, though the kernel takes
+  bf16 in order on the CUDA cores), the CUDA-core figure beside it.
 
 Then a ``kernels`` summary line (the paged kernel's launches also per
 path), the card's ``nvidia-smi`` name and power
@@ -354,6 +359,9 @@ def check_rmsnorm() -> dict:
     cases += [(37, 768, torch.float32, "misaligned"), (37, 768, torch.bfloat16, "misaligned")]
     # mamba2-1.3b's width: a decode dispatch (16 rows) and a prefill one (16 x 16)
     cases += [(r, 2048, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
+    # widths past the compiled ones (qwen2-72b's 8192, nemotron-4-340b's 18432): the generic path
+    cases += [(37, 8192, torch.float32, torch.float32), (37, 8192, torch.bfloat16, torch.bfloat16),
+              (5, 18432, torch.bfloat16, torch.float32)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(xdt)
@@ -962,7 +970,17 @@ def time_rmsnorm(label, rows, d, dtype):
             "plain_ms": time_ms(lambda: rmsnorm_plain(x, w, 1e-5)),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-5)),
-            "library_call": "F.rms_norm"}
+            "library_call": "F.rms_norm", "launch_floor_ms": time_launch_floor()}
+
+
+def time_launch_floor() -> float:
+    """An empty kernel launched through the kernel library on the current
+    stream, timed as the kernels are: the floor of a launch on this path."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    return time_ms(lambda: _build.check(
+        lib.empty_launch(torch.cuda.current_stream().cuda_stream), "empty_launch"))
 
 
 def phase_serve() -> dict:
@@ -1034,6 +1052,10 @@ def phase_serve() -> dict:
             # long contexts on the decode path: 2048-4096 keys, 256 pages a slot
             "decode_long": time_paged("decode_long", 16, 1,
                                       rng.integers(2047, 4096, 16).tolist(), dtype, P=256),
+            # the CUDA-core path at parity's f32 prefill: 4 rows of 16 tokens
+            # at page-aligned offsets, 8 pages a slot (max_len 128)
+            "f32_chunk_extend": time_paged("f32_chunk_extend", 4, 16, [0, 16, 32, 48],
+                                           torch.float32, P=8),
         },
         "rmsnorm": {
             "decode": time_rmsnorm("decode", 16, cfg.d_model, dtype),
@@ -1044,12 +1066,14 @@ def phase_serve() -> dict:
     return rec
 
 
-def trace(fn, reps: int, unit: str) -> dict:
+def trace(fn, reps: int, unit: str, watch: tuple = ()) -> dict:
     """Where the time of ``fn`` goes: ``reps`` calls timed on the host clock
     without the profiler, then ``reps`` more traced with torch.profiler.
     Device busy time is the sum of the traced kernels and copies (one
     stream); the idle share is 1 - busy / the unprofiled wall time, so the
-    profiler's own host overhead is not counted as idle."""
+    profiler's own host overhead is not counted as idle.  ``watch`` names
+    substrings of device ops reported whether or not they are in the top
+    8."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -1080,7 +1104,11 @@ def trace(fn, reps: int, unit: str) -> dict:
             "device_idle_share": (1 - busy_ms / wall_ms) if dev else None,
             f"device_ops_per_{unit}": len(dev) / reps,
             "top_device_ops": [{"name": n[:80], f"ms_per_{unit}": v[0] / reps,
-                                f"count_per_{unit}": v[1] / reps} for n, v in top]}
+                                f"count_per_{unit}": v[1] / reps} for n, v in top],
+            "watched_ops": {w: {f"ms_per_{unit}": sum(v[0] for n, v in by_name.items() if w in n)
+                                / reps,
+                                f"count_per_{unit}": sum(v[1] for n, v in by_name.items() if w in n)
+                                / reps} for w in watch}}
 
 
 def phase_profile() -> dict:
@@ -1450,12 +1478,35 @@ def phase_ssm_parity(cfg, params_cpu) -> dict:
 def ssd_work(b, nc, q, h, p, n, item) -> tuple:
     """Bytes (x, B, C in their type, dA and dt in f32 read once; Y_diag and
     the states written once in f32) and operations (2 per multiply-add of
-    C.B^T and of Y_diag over the causal triangle, and of the states)."""
+    C.B^T and of Y_diag over the causal triangle, and of the states):
+    ``(bytes, flops of C.B^T, flops of Y_diag and the states)``."""
     tri = q * (q + 1) // 2
     nbytes = (b * nc * q * (h * p + 2 * n) * item + 2 * b * nc * q * h * 4
               + b * nc * q * h * p * 4 + b * nc * h * p * n * 4)
-    flops = 2 * b * nc * (tri * n + h * tri * p + h * q * p * n)
-    return nbytes, flops
+    return nbytes, 2 * b * nc * tri * n, 2 * b * nc * (h * tri * p + h * q * p * n)
+
+
+def ssd_bound(nbytes, s_flops, yst_flops, dtype) -> dict:
+    """The kernel's bound: bf16, every product on the tensor cores at the
+    card's bf16 peak (the kernel itself takes them in order on the fp32
+    CUDA cores, the plain version's rounding, which mamba2's bf16 eval gate
+    needs); f32, on the route it takes, C.B^T in order on the fp32 CUDA
+    cores and Y_diag and the states as three TF32 passes on the tensor
+    cores.  The all-CUDA-core figure (the bf16 route's own) stands beside
+    it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    if dtype == torch.bfloat16:
+        t_ops = (s_flops + yst_flops) / PEAK_OPS[torch.bfloat16]
+        route = ("bf16 tensor cores (989 TFLOP/s); the kernel runs in-order fp32 FMA on the "
+                 "CUDA cores: bound_ms_cuda_core")
+    else:
+        t_ops = max(s_flops / PEAK_OPS[torch.float32], 3 * yst_flops / TF32_OPS)
+        route = ("C.B^T on the fp32 CUDA cores (67 TFLOP/s); Y_diag and states 3xTF32: "
+                 "3 passes at 494.7 TFLOP/s")
+    cc_ms, cc_by = bound(nbytes, s_flops + yst_flops, torch.float32)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bound_route": route,
+            "bound_ms_cuda_core": cc_ms, "bound_by_cuda_core": cc_by}
 
 
 def time_ssd(label, b, nc, q, dtype, lengths=None) -> dict:
@@ -1474,12 +1525,11 @@ def time_ssd(label, b, nc, q, dtype, lengths=None) -> dict:
     require(all(bool(torch.allclose(g, w, atol=t, rtol=t)) for g, w in zip(got, want)),
             f"ssd ({label}) disagrees with its plain version (max err {err})")
     del got, want
-    nbytes, flops = ssd_work(b, nc, q, h, p, n, x.element_size())
-    bms, by = bound(nbytes, flops, torch.float32)  # all math on the fp32 CUDA cores
+    bounds = ssd_bound(*ssd_work(b, nc, q, h, p, n, x.element_size()), dtype)
     return {"at": label, "shape": {"b": b, "nc": nc, "q": q, "h": h, "p": p, "n": n},
             "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10), "bound_ms": bms,
-            "bound_by": by, "library_ms": None,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10), **bounds,
+            "library_ms": None,
             "library_call": "none: no one PyTorch call computes the SSD chunk term"}
 
 
@@ -1610,7 +1660,8 @@ def phase_ssm_eval(cfg, params, store_root: Path) -> dict:
             del logits
             evaluator = Model(cfg, ModelRuntime(dtype=dtype))
             with torch.no_grad():
-                profile = trace(lambda: float(evaluator.loss(restored, batch)[0]), 1, "forward")
+                profile = trace(lambda: float(evaluator.loss(restored, batch)[0]), 1, "forward",
+                                watch=("ssd_chunk_kernel",))
             rec["runs"].append({
                 "dtype": name, "batch": b, "seq_len": s, "loss": out["loss"], "ppl": out["ppl"],
                 "forward_ms": summary(ms), "tokens_per_s": b * s / (summary(ms)["median"] / 1e3),
@@ -1674,9 +1725,12 @@ def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve:
             **({"launches_by_kernel_path": {k.removeprefix("paged_attention_"): v
                                             for k, v in kernel_paths.items()}}
                if name == "paged_attention" else {}),
+            **{f: first[f] for f in ("bound_route", "bound_ms_cuda_core", "launch_floor_ms")
+               if f in first},
             "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "bound_route", "bound_ms_cuda_core",
-                                                   "library_ms", "max_abs_err") if f in t}
+                                                   "library_ms", "launch_floor_ms", "path",
+                                                   "max_abs_err") if f in t}
                              for k, t in list(timed.items())[1:]},
         })
     return {"kernels": rows}

@@ -10,9 +10,14 @@ chunk's ``q`` positions::
 
 with ``cum`` the running sum of ``dA`` over the chunk.  Inputs: ``x``
 ``(b, nc, q, h, p)``, ``dA``/``dt`` ``(b, nc, q, h)`` float32, ``B``/``C``
-``(b, nc, q, n)``; ``x``, ``B`` and ``C`` float32 or bfloat16 (one type),
-upcast at load; every product and sum in fp32.  Outputs ``Y_diag``
-``(b, nc, q, h, p)`` and ``states`` ``(b, nc, h, p, n)``, both float32.
+``(b, nc, q, n)``; ``x``, ``B`` and ``C`` float32 or bfloat16 (one type).
+Outputs ``Y_diag`` ``(b, nc, q, h, p)`` and ``states`` ``(b, nc, h, p,
+n)``, both float32.  The plain version
+upcasts at load and takes every product and sum in fp32; the kernel
+takes them in f32 on the tensor cores in 3xTF32 (``C.B^T`` excepted: an
+in-order fp32 FMA on the CUDA cores), and in bf16 every product as
+in-order fp32 FMA on the CUDA cores, the plain version's rounding bit for
+bit, which mamba2's bf16 eval needs (``csrc/ssd.cu`` says why).
 
 ``cum`` is taken in the reference's rounding (:func:`blocked_cumsum`):
 the reference's ``jnp.cumsum`` runs, on its CPU backend, as an in-order
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CHUNK = 128  # the kernel's largest q (S = C.B^T is q x q fp32 in shared memory)
+MAX_CHUNK = 128  # the kernel's largest q: 8 warps of 16 rows of S = C.B^T
 HEAD_DIMS = (16, 32, 64)  # p instantiations
 STATE_DIMS = (16, 32, 64, 128)  # n instantiations
 SMEM_LIMIT = 232_448  # bytes of shared memory one block may take on an H100
@@ -87,13 +92,35 @@ def ssd_chunk_plain(
     return y, s
 
 
-def smem_bytes(q: int, p: int, n: int, block_h: int) -> int:
-    """Dynamic shared memory of one block (mirrors ``csrc/ssd.cu``): B and
-    C (then one head's x) at pitch n + 4, S at pitch q + 1, and the
-    heads' running sums, dt and state weights."""
-    qp = -(-q // 4) * 4
-    floats = qp * (n + 4) + qp * max(n + 4, p) + qp * (qp + 1) + 2 * block_h * qp + qp
-    return 4 * floats
+def head_slots(q: int, p: int, n: int, dtype: torch.dtype, block_h: int) -> int:
+    """Head slots a block takes (mirrors ``csrc/ssd.cu``): one a head where
+    all of the block's heads fit (short chunks: serving prefill), else two
+    that the heads stream through."""
+    if block_h <= 2 or _smem(q, p, n, _itemsize(dtype), block_h) <= SMEM_LIMIT:
+        return block_h
+    return 2
+
+
+def smem_bytes(q: int, p: int, n: int, dtype: torch.dtype, block_h: int) -> int:
+    """Dynamic shared memory of one block (mirrors ``csrc/ssd.cu``): q
+    rounded up to 16-row tiles; B and C at n + pad elements a row (pad 8
+    in bf16, 4 in f32), each head slot one head's x at p + pad and its
+    running sums, dt and state weights in f32, and in bf16 S (q rows of
+    q + 1 floats) and one head's x in f32 (q rows of p + 4) for the
+    in-order route."""
+    return _smem(q, p, n, _itemsize(dtype), head_slots(q, p, n, dtype, block_h))
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _smem(q: int, p: int, n: int, item: int, slots: int) -> int:
+    pad = 4 if item == 4 else 8
+    qp = -(-q // 16) * 16
+    # the in-order bf16 route's S and one head's x in fp32
+    in_order = qp * (qp + 1 + p + 4) * 4 if item == 2 else 0
+    return qp * (2 * (n + pad) * item + slots * ((p + pad) * item + 3 * 4)) + in_order
 
 
 def _check(x, dA, dt, B, C, block_h: int) -> int:
@@ -126,9 +153,9 @@ def _launch(x, dA, dt, B, C, block_h: int):
     if p not in HEAD_DIMS or n not in STATE_DIMS:
         raise ValueError(f"the SSD kernel is built for head width {HEAD_DIMS} and state "
                          f"{STATE_DIMS}, got p={p}, n={n}")
-    if smem_bytes(q, p, n, block_h) > SMEM_LIMIT:
-        raise ValueError(f"block_h {block_h} at q={q}, n={n} needs "
-                         f"{smem_bytes(q, p, n, block_h)} bytes of shared memory")
+    if smem_bytes(q, p, n, x.dtype, block_h) > SMEM_LIMIT:
+        raise ValueError(f"q={q}, p={p}, n={n} needs {smem_bytes(q, p, n, x.dtype, block_h)} "
+                         "bytes of shared memory")
     x, dA, dt, B, C = (t.contiguous() for t in (x, dA, dt, B, C))
     y = torch.empty((b, nc, q, h, p), dtype=torch.float32, device=x.device)
     states = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)

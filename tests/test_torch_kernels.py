@@ -168,7 +168,7 @@ def test_paged_wrapper_rejects_bad_fold():
 
 # ------------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 256), (2, 8, 512), (3, 5, 128), (37, 100)])
+@pytest.mark.parametrize("shape", [(4, 256), (2, 8, 512), (3, 5, 128), (37, 100), (3, 8192)])
 def test_rmsnorm_sweep(shape, dtype):
     rng = np.random.default_rng(5)
     x = rng.standard_normal(shape).astype(np.float32)

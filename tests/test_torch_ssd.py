@@ -193,11 +193,123 @@ def test_ssd_wrapper_refuses_what_it_does_not_take():
 
 
 def test_ssd_shared_memory_matches_the_kernel_budget():
-    """The wrapper's shared-memory count admits mamba2-1.3b's tile (q 128,
-    p 64, n 128, 8 heads a block) and refuses what the card cannot hold."""
-    assert ssd_mod.smem_bytes(128, 64, 128, 8) <= ssd_mod.SMEM_LIMIT
-    assert ssd_mod.smem_bytes(128, 64, 128, 64) > ssd_mod.SMEM_LIMIT
-    assert ssd_mod.smem_bytes(16, 64, 128, 8) < 48 * 1024
+    """The wrapper's shared-memory count (csrc/ssd.cu's layout: B and C,
+    head slots of one head's x and sums, rows padded, and S and one head's
+    x in f32 for the bf16 route) admits mamba2-1.3b's tile (q 128, p 64, n 128, 8 heads a block)
+    in both types, one block an SM (the kernel's register bound runs one),
+    and every instantiation at the largest chunk; a short chunk (serving
+    prefill, q 16) gives every head its slot, a long one streams through
+    two, so ``ops.ssd``'s fallback ``block_h = h`` launches at h = 64."""
+    bf16, f32_ = torch.bfloat16, torch.float32
+
+    def blocks_per_sm(*args):  # an H100 SM's 233,472 bytes, 1,024 kept a block
+        return 233_472 // (ssd_mod.smem_bytes(*args) + 1_024)
+
+    assert ssd_mod.head_slots(128, 64, 128, bf16, 8) == 2
+    assert ssd_mod.smem_bytes(128, 64, 128, bf16, 8) == (128 * (2 * 136 * 2 + 2 * (72 * 2 + 12))
+                                                         + 128 * (129 + 68) * 4)
+    assert ssd_mod.smem_bytes(128, 64, 128, f32_, 8) == 128 * (2 * 132 * 4 + 2 * (68 * 4 + 12))
+    assert blocks_per_sm(128, 64, 128, bf16, 8) == 1
+    assert blocks_per_sm(128, 64, 128, f32_, 8) == 1
+    assert ssd_mod.head_slots(16, 64, 128, bf16, 8) == 8
+    assert blocks_per_sm(16, 64, 128, bf16, 8) >= 2
+    for dtype in (bf16, f32_):
+        assert ssd_mod.smem_bytes(128, 64, 128, dtype, 64) == ssd_mod.smem_bytes(128, 64, 128,
+                                                                                  dtype, 8)
+        for p in ssd_mod.HEAD_DIMS:
+            for n in ssd_mod.STATE_DIMS:
+                for block_h in (1, 2, 8, 64):
+                    assert ssd_mod.smem_bytes(ssd_mod.MAX_CHUNK, p, n, dtype,
+                                              block_h) <= ssd_mod.SMEM_LIMIT
+    assert ssd_mod.smem_bytes(16, 64, 128, bf16, 8) < 48 * 1024
+    assert ssd_mod.smem_bytes(7, 64, 128, bf16, 8) == ssd_mod.smem_bytes(16, 64, 128, bf16, 8)
+
+
+# ---------------------------------------------- the kernel's arithmetic
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as the kernel's integer split rounds it: to
+    nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _products(eq: str, a: torch.Tensor, b: torch.Tensor, how: str) -> torch.Tensor:
+    """``einsum(eq, a, b)`` over one summed index as the kernel forms it:
+    ``in_order`` a chain of fp32 fused multiply-adds in order (each step
+    exact in float64, then rounded once to fp32) on the CUDA cores; on the
+    tensor cores ``3xtf32`` with both split into TF32 hi and lo (lo.hi +
+    hi.lo + hi.hi), ``tf32`` one plain TF32 pass, sums in fp32."""
+    if how == "in_order":
+        ins, out = eq.split("->")
+        ea, eb = ins.split(",")
+        k = next(ch for ch in ea if ch in eb and ch not in out)
+        a_, b_ = a.movedim(ea.index(k), 0), b.movedim(eb.index(k), 0)
+        inner = f"{ea.replace(k, '')},{eb.replace(k, '')}->{out}"
+        acc = None
+        for i in range(a_.shape[0]):
+            term = torch.einsum(inner, a_[i].double(), b_[i].double())
+            acc = term.float() if acc is None else (acc.double() + term).float()
+        return acc
+    if how == "tf32":
+        return torch.einsum(eq, _tf32(a), _tf32(b))
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
+# csrc/ssd.cu's routes: (how S = C.B^T is formed, how M.x and (w x)^T.B are)
+ROUTES = {
+    "f32": ("in_order", "3xtf32"),  # the kernel's f32 route
+    "f32_plain_tf32": ("in_order", "tf32"),  # one TF32 pass: misses the f32 gate
+    "bf16": ("in_order", "in_order"),  # the kernel's bf16 route, the plain rounding
+}
+
+
+def _ssd_kernel_arithmetic(x, dA, dt, B, C, route):
+    """``(Y_diag, states)`` with the rounding of one of csrc/ssd.cu's routes
+    (``ROUTES``): M = S exp(cum_i - cum_j) dt_j and w x in fp32, then the
+    products as the route forms them."""
+    s_how, how = ROUTES[route]
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    cum = ssd_mod.blocked_cumsum(dA, 2)
+    q = x.shape[2]
+    S = _products("bcin,bcjn->bcij", Cf, Bf, s_how)
+    ar = torch.arange(q)
+    tri = (ar[None, :] <= ar[:, None])[None, None, :, :, None]
+    L = torch.where(tri, torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]),
+                    torch.zeros(()))
+    M = S[..., None] * L * dt[:, :, None, :, :]
+    y = _products("bcijh,bcjhp->bcihp", M, xf, how)
+    w = torch.exp(cum[:, :, -1:, :] - cum) * dt
+    st = _products("bcjhp,bcjn->bchpn", xf * w[..., None], Bf, how)
+    return y, st
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,p,n,chunk,block_h", SWEEP + [(1, 128, 2, 64, 128, 128, 2)])
+def test_ssd_kernel_arithmetic_meets_the_gate(b, l, h, p, n, chunk, block_h, dtype):
+    """The Hopper kernel's rounding, emulated in plain torch, against the
+    reference kernel (interpret mode) at the gate the card holds it to
+    (2e-5 f32, 2e-2 bf16): f32 (in-order C.B^T, 3xTF32 products) and bf16
+    (every product in order).  In f32 one
+    plain TF32 pass would miss the gate; the bf16 route equals the plain
+    version bit for bit."""
+    xr, dAr, dtr, Br, Cr = chunked(*inputs(b, l, h, p, n, seed=9), chunk)
+    jargs = (as_jax(xr, dtype), as_jax(dAr), as_jax(dtr), as_jax(Br, dtype), as_jax(Cr, dtype))
+    want = ssd_chunk_pallas(*jargs, block_h=block_h, interpret=True)
+    targs = (as_torch(xr, dtype), as_torch(dAr), as_torch(dtr), as_torch(Br, dtype),
+             as_torch(Cr, dtype))
+    route = "f32" if dtype == "float32" else "bf16"
+    for got, ref_out in zip(_ssd_kernel_arithmetic(*targs, route), want):
+        np.testing.assert_allclose(f32(got), f32(ref_out), **tol(dtype))
+    if dtype == "float32":
+        plain_tf32 = _ssd_kernel_arithmetic(*targs, "f32_plain_tf32")
+        assert not all(np.allclose(f32(g), f32(r), **tol(dtype))
+                       for g, r in zip(plain_tf32, want))
+    else:
+        for got, plain in zip(_ssd_kernel_arithmetic(*targs, "bf16"),
+                              ssd_mod.ssd_chunk_plain(*targs)):
+            np.testing.assert_array_equal(f32(got), f32(plain))
 
 
 def test_ssd_backward_raises_and_plain_path_launches_nothing(monkeypatch):

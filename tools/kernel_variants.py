@@ -1,10 +1,11 @@
-"""Design measurements behind the f32 flash kernel and the paged decode path,
-on one CUDA card.
+"""Design measurements behind the f32 flash kernel, the paged decode path,
+the SSD chunk kernel and RMSNorm, on one CUDA card.
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py [flash] [decode] [ssd] [rmsnorm] [mma] [ssd_logits]
 
-Each variant is the committed source with one design choice undone by a
-text substitution, built with the port's own nvcc flags into
+(no argument: every group).  Each variant is the committed source (its
+``mma_sm80.cuh`` inlined) with one design choice undone by a text
+substitution, built with the port's own nvcc flags into
 ``build/variants/`` and called through the same C entry as the committed
 kernel, so the two are timed in turns in one process (committed, variant,
 variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
@@ -17,8 +18,25 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   counts and round sizes (module constants of ``flash_decode``), and
   copies that stream the pages and compute nothing, or stop before the
   splits' merge;
+- the SSD chunk kernel at mamba2-1.3b's eval shapes (b 8 x nc 4 and b 2 x
+  nc 32 chunks of 128, h 64, p 64, n 128) and the serve prefill shape (b
+  16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate
+  is reported with its error, not timed): heads streamed through two
+  slots even where all fit one each; the in-order states' loop over j not unrolled (bf16);
+  16-byte stores after a lane swap instead of 8-byte ones straight from
+  the fragments (f32); expf as __expf (f32); copies that
+  stop after C.B^T, or skip Y_diag or the states, for the phases'
+  shares; and a zero fill of the f32 outputs (what writing them alone
+  takes);
+- RMSNorm at 16 and 256 rows of 768 and 2048 (bf16): up to 8 vectors a
+  lane (a warp a row at these widths) instead of 2; at least 128 threads
+  a row; one warp a block instead of 256 threads; w loaded after the
+  reduction (a second round trip), beside an empty launch;
 - the ``mma.sync`` ceilings: m16n8k8 TF32 and m16n8k16 bf16 with 4
-  independent accumulators a warp and 32 warps an SM.
+  independent accumulators a warp and 32 warps an SM;
+- ``ssd_logits`` (not in the default run): mamba2-1.3b's bf16 eval logits
+  against the plain chunked scan for the committed SSD kernel and for the
+  plain scan with its products in float64.
 
 Every variant is held against the plain version first.  Prints one JSON
 line per measurement, then the card's name and power limit.
@@ -54,6 +72,13 @@ def substitute(src: str, edits) -> str:
     return src
 
 
+def source(name: str) -> str:
+    """A committed source with the shared header inlined, so an edit may
+    reach either."""
+    header = (_build.CSRC / "mma_sm80.cuh").read_text().replace("#pragma once\n", "")
+    return (_build.CSRC / name).read_text().replace('#include "mma_sm80.cuh"\n', header)
+
+
 FLASH_EDITS = {
     "one_mtile": [("static constexpr int MT = HD == 64 ? 2 : 1;", "static constexpr int MT = 1;")],
     "cvt_split": [("  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
@@ -75,6 +100,49 @@ DECODE_STOPS = {
                    ("  // 6. the key groups' sums meet", "  return;\n  // 6. the key groups' sums meet")],
     "before_merge": [("  // 7. the last split of (b, h) to finish merges them all",
                       "  return;\n  // 7. the last split of (b, h) to finish merges them all")],
+}
+
+SSD_EDITS = {  # name: (edits, the dtypes it is timed in)
+    "two_slots": ([("return hb <= 2 || smem_bytes(q, p, n, item, hb) <= kSmemLimit ? hb : 2;",
+                    "return hb <= 2 ? hb : 2;")], ("bfloat16",)),
+    "states_loop_rolled": ([("#pragma unroll 2\n    for (int j = 0; j < q; ++j) {",
+                              "#pragma unroll 1\n    for (int j = 0; j < q; ++j) {")], ("bfloat16",)),
+    "float4_lane_swap": ([
+        ("  if (ok_a) *reinterpret_cast<float2*>(row_a + 2 * t) = make_float2(c[0], c[1]);\n"
+         "  if (ok_b) *reinterpret_cast<float2*>(row_b + 2 * t) = make_float2(c[2], c[3]);\n",
+         "  const bool odd = t & 1;\n"
+         "  const float r0 = __shfl_xor_sync(kFull, odd ? c[0] : c[2], 1);\n"
+         "  const float r1 = __shfl_xor_sync(kFull, odd ? c[1] : c[3], 1);\n"
+         "  if (!odd) {\n"
+         "    if (ok_a) *reinterpret_cast<float4*>(row_a + 2 * t) = make_float4(c[0], c[1], r0, r1);\n"
+         "  } else if (ok_b) {\n"
+         "    *reinterpret_cast<float4*>(row_b + 2 * t - 2) = make_float4(r0, r1, c[2], c[3]);\n"
+         "  }\n")], ("float32",)),
+    "fast_exp": ([("  m[0] = s[0] * expf(ca - cj.x) * dj.x;\n  m[1] = s[1] * expf(ca - cj.y) * dj.y;\n"
+                   "  m[2] = s[2] * expf(cb - cj.x) * dj.x;\n  m[3] = s[3] * expf(cb - cj.y) * dj.y;\n",
+                   "  m[0] = s[0] * __expf(ca - cj.x) * dj.x;\n  m[1] = s[1] * __expf(ca - cj.y) * dj.y;\n"
+                   "  m[2] = s[2] * __expf(cb - cj.x) * dj.x;\n  m[3] = s[3] * __expf(cb - cj.y) * dj.y;\n")],
+                 ("float32",)),
+}
+# copies that stop short (their output is then not the op's), timed in both types
+_HEAD_LOOP = "  for (int hh = 0; hh < hb; ++hh) {\n    const int h = h0 + hh, buf = slot_of(hh);"
+SSD_STOPS = {
+    "s_only": [(_HEAD_LOOP, "  float z = 0.f;\n  for (int i = 0; i < 16; ++i) z += s[i][0] + s[i][1] + s[i][2] + s[i][3];\n"
+                            "  if (z == 1234.5f) y[0] = z + Ss[0];\n  cp_async_wait<0>();\n  return;\n" + _HEAD_LOOP)],
+    "no_y": [("        y_in_order<P>(Ss, qp + 1, Xf, hv, q, qp, tid, yh, H * P);\n", ";\n"),
+             ("      if (warp < qt) y_head<P>(s, xs, hv, qp, q, warp, lane, yh, H * P);\n", "")],
+    "no_states": [("        state_in_order<P, N>(Xf, Bs, hv + 2 * qp, q, tid - kHalf, sh);\n", ";\n"),
+                  ("      state_head<P, N>(xs, Bs, hv + 2 * qp, qt, warp, lane, sh);\n", "")],
+}
+RMSNORM_EDITS = {
+    "eight_vectors_a_lane": [("constexpr int kMaxVecPerLane = 2;", "constexpr int kMaxVecPerLane = 8;")],
+    "block_of_128_a_row": [("  int t = 32;\n", "  int t = 128;\n")],
+    "one_warp_a_block": [("constexpr int kBlockThreads = 256;", "constexpr int kBlockThreads = 32;")],
+    "w_after_reduction": [("      xv[k] = xr[v];\n      wv[k].load(w, v * kVec);\n", "      xv[k] = xr[v];\n"),
+                          ("  const float inv = rsqrtf(ss / (float)D + eps);\n",
+                           "  const float inv = rsqrtf(ss / (float)D + eps);\n#pragma unroll\n"
+                           "  for (int k = 0; k < VPT; ++k)\n"
+                           "    if (k * TPR + sub < NVEC) wv[k].load(w, (k * TPR + sub) * kVec);\n")],
 }
 
 MMA_BENCH = r"""
@@ -222,6 +290,132 @@ def decode_variants(libs: dict) -> None:
         c.emit({"what": "empty_launch", "ms": c.time_ms(lambda: torch.cuda._sleep(0))})
 
 
+def ssd_variants(libs: dict) -> None:
+    from repro_torch.kernels.ssd import _DTYPES, ssd_chunk_plain
+
+    names = ["committed", *SSD_EDITS, *SSD_STOPS]
+    for n in names:
+        libs[f"ssd_{n}"].ssd_chunk_fwd.argtypes = _build.SIGNATURES["ssd_chunk_fwd"]
+    serve_lengths = [16, 0, 5, 16, 1, 0, 9, 16, 16, 3, 16, 0, 12, 16, 7, 16]
+    shapes = [("eval_8x512", 8, 4, 128, torch.bfloat16, None),
+              ("eval_2x4096", 2, 32, 128, torch.bfloat16, None),
+              ("serve_prefill", 16, 1, 16, torch.bfloat16, serve_lengths),
+              ("eval_8x512", 8, 4, 128, torch.float32, None)]
+    h, p, n = 64, 64, 128
+    for label, b, nc, q, dtype, lengths in shapes:
+        x, dt, A, B, C = c.ssd_inputs(b, nc, q, h, p, n, dtype, 70, lengths)
+        dA = dt * A
+        y = torch.empty((b, nc, q, h, p), device="cuda")
+        st = torch.empty((b, nc, h, p, n), device="cuda")
+        tag = str(dtype).removeprefix("torch.")
+
+        def call(lib):
+            status = lib.ssd_chunk_fwd(_DTYPES[dtype], x.data_ptr(), dA.data_ptr(), dt.data_ptr(),
+                                       B.data_ptr(), C.data_ptr(), y.data_ptr(), st.data_ptr(),
+                                       b * nc, q, h, p, n, 8,
+                                       torch.cuda.current_stream().cuda_stream)
+            _build.check(status, "ssd_chunk_fwd (variant)")
+
+        want = ssd_chunk_plain(x, dA, dt, B, C)
+        t = c.tol(dtype)
+        errs, run = {}, ["committed"] + [k for k, (_, tags) in SSD_EDITS.items() if tag in tags]
+        for name in list(run):
+            call(libs[f"ssd_{name}"])
+            torch.cuda.synchronize()
+            errs[name] = max((y - want[0]).abs().max().item(), (st - want[1]).abs().max().item())
+            ok = torch.allclose(y, want[0], atol=t, rtol=t) and torch.allclose(st, want[1], atol=t,
+                                                                              rtol=t)
+            c.require(ok or name != "committed", f"ssd misses its gate at {label}")
+            if not ok:  # a variant that is not the op is reported, not timed
+                c.emit({"what": "ssd", "variant": name, "at": label, "misses_gate": t,
+                        "dtype": tag, "max_abs_err": errs[name]})
+                run.remove(name)
+        timed = run + list(SSD_STOPS)
+        ms = in_turns({name: (lambda lib=libs[f"ssd_{name}"]: call(lib)) for name in timed})
+        for name in timed:
+            c.emit({"what": "ssd", "variant": name, "at": label, "dtype": tag, "ms": ms[name],
+                    "max_abs_err": errs.get(name)})
+        # what writing the f32 outputs alone takes under the same timing
+        c.emit({"what": "ssd_outputs_zero_fill", "at": label, "bytes": 4 * (y.numel() + st.numel()),
+                "ms": c.time_ms(lambda: (y.zero_(), st.zero_()))})
+
+
+def ssd_logits(_libs: dict) -> None:
+    """mamba2-1.3b's bf16 eval logits (seed-0 weights, 8 x 512 and 2 x 4096)
+    against the plain chunked scan (fp32 FMA in order) for the committed
+    kernel and for the plain scan with its two products (C.B^T, M.x) in
+    float64, rounded once: how far a rounding other than the plain one
+    moves them against the eval gate."""
+    import repro_torch.models.ssm as ssm
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    einsum = torch.einsum
+
+    def einsum_f64(eq, *ops):
+        if eq in ("bcqkh,bckhp->bcqhp", "bcqn,bckn->bcqk"):
+            return einsum(eq, *(o.double() for o in ops)).float()
+        return einsum(eq, *ops)
+
+    cfg, params_cpu = c.ssm_weights()
+    params = c.cast_params(params_cpu, torch.bfloat16, "cuda")
+    del params_cpu
+    gate = c.SSM_LOGIT_TOL[torch.bfloat16]
+    for b, s in c.EVAL_SHAPES:
+        tokens = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=b, seed=1234),
+                             device="cuda").batch(0)["tokens"]
+        plain = Model(cfg, ModelRuntime(dtype=torch.bfloat16, use_ssd_kernel=False))
+        kern = Model(cfg, ModelRuntime(dtype=torch.bfloat16, use_ssd_kernel=True))
+        with torch.no_grad():
+            base = plain.forward(params, tokens).float()
+            got = {}
+            ssm.torch.einsum = einsum_f64
+            try:
+                got["plain_scan_f64_products"] = plain.forward(params, tokens).float()
+            finally:
+                ssm.torch.einsum = einsum
+            got["committed"] = kern.forward(params, tokens).float()
+        for name, out in got.items():
+            d = (out - base).abs()
+            c.emit({"what": "ssd_logits", "at": f"bf16_{b}x{s}", "route": name,
+                    "against": "plain chunked scan", "max_abs": d.max().item(),
+                    "mean_abs": d.mean().item(),
+                    "worst_over_gate": (d / (gate + gate * base.abs())).max().item()})
+        del base, got
+
+
+def rmsnorm_variants(libs: dict) -> None:
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+
+    names = ["committed", *RMSNORM_EDITS]
+    for n in names:
+        libs[f"rmsnorm_{n}"].rmsnorm_fwd.argtypes = _build.SIGNATURES["rmsnorm_fwd"]
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for rows, d in ((16, 768), (256, 768), (16, 2048), (256, 2048)):
+        x = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((d,), generator=gen, device="cuda") + 1.0).bfloat16()
+        out = torch.empty_like(x)
+
+        def call(lib):
+            status = lib.rmsnorm_fwd(1, 1, x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
+                                     1e-5, torch.cuda.current_stream().cuda_stream)
+            _build.check(status, "rmsnorm_fwd (variant)")
+
+        want = rmsnorm_plain(x, w, 1e-5).float()
+        errs = {}
+        for name in names:
+            call(libs[f"rmsnorm_{name}"])
+            torch.cuda.synchronize()
+            errs[name] = (out.float() - want).abs().max().item()
+            c.require(torch.allclose(out.float(), want, atol=2e-2, rtol=2e-2),
+                      f"rmsnorm variant {name} misses 2e-2 at {rows} x {d} ({errs[name]})")
+        ms = in_turns({name: (lambda lib=libs[f"rmsnorm_{name}"]: call(lib)) for name in names})
+        for name in names:
+            c.emit({"what": "rmsnorm", "variant": name, "rows": rows, "d": d, "ms": ms[name],
+                    "max_abs_err": errs[name]})
+    c.emit({"what": "empty_launch", "ms": c.time_launch_floor()})
+
+
 def mma_ceilings(lib) -> None:
     lib.mma_run.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                             ctypes.c_void_p]
@@ -235,21 +429,47 @@ def mma_ceilings(lib) -> None:
                 "tflops": 2 * macs * n_mma / (ms * 1e-3) / 1e12})
 
 
+GROUPS = ("flash", "decode", "ssd", "rmsnorm", "mma", "ssd_logits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device is available", file=sys.stderr)
         return 2
+    groups = sys.argv[1:] or [g for g in GROUPS if g != "ssd_logits"]
+    if any(g not in GROUPS for g in groups):
+        print(f"kernel_variants: groups are {GROUPS}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
-    flash = (_build.CSRC / "flash_attention.cu").read_text()
-    paged = (_build.CSRC / "paged_attention.cu").read_text()
-    sources = {"flash_committed": flash, "paged_committed": paged, "mma": MMA_BENCH}
-    sources.update({f"flash_{n}": substitute(flash, e) for n, e in FLASH_EDITS.items()})
-    sources.update({f"paged_{n}": substitute(paged, e) for n, e in DECODE_STOPS.items()})
+    sources = {}
+    if "flash" in groups:
+        flash = source("flash_attention.cu")
+        sources["flash_committed"] = flash
+        sources.update({f"flash_{n}": substitute(flash, e) for n, e in FLASH_EDITS.items()})
+    if "decode" in groups:
+        paged = source("paged_attention.cu")
+        sources["paged_committed"] = paged
+        sources.update({f"paged_{n}": substitute(paged, e) for n, e in DECODE_STOPS.items()})
+    if "ssd" in groups:
+        ssd = source("ssd.cu")
+        sources["ssd_committed"] = ssd
+        sources.update({f"ssd_{n}": substitute(ssd, e) for n, (e, _) in SSD_EDITS.items()})
+        sources.update({f"ssd_{n}": substitute(ssd, e) for n, e in SSD_STOPS.items()})
+    if "rmsnorm" in groups:
+        rms = source("rmsnorm.cu")
+        sources["rmsnorm_committed"] = rms
+        sources.update({f"rmsnorm_{n}": substitute(rms, e) for n, e in RMSNORM_EDITS.items()})
+    if "mma" in groups:
+        sources["mma"] = MMA_BENCH
     _build.library()
     libs = build_all(sources)
-    flash_variants(libs)
-    decode_variants(libs)
-    mma_ceilings(libs["mma"])
+    for group, fn in (("flash", flash_variants), ("decode", decode_variants),
+                      ("ssd", ssd_variants), ("rmsnorm", rmsnorm_variants),
+                      ("ssd_logits", ssd_logits)):
+        if group in groups:
+            fn(libs)
+    if "mma" in groups:
+        mma_ceilings(libs["mma"])
     print(c.smi_line(), flush=True)
     return 0
 
