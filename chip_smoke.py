@@ -13,7 +13,8 @@ Phases, each printing one JSON line:
   per source, in parallel) into ``build/kernels/``;
 - ``kernels``: each kernel against its plain version on the card, f32
   (atol/rtol 2e-5) and bf16 (2e-2): paged attention over the serving
-  slice's shapes and the GQA/MQA/MLA/softcap/verify/aliased/parked cases,
+  slice's shapes and the GQA/MQA/MLA/softcap/verify (G 8 x T 5, and
+  ds-paper-100m's G 1 x T 5 and T 9)/aliased/parked cases,
   and its bf16 tensor-core path's edges (G*T 16 at pages of 8-64 with
   offsets 0 and straddling a page, G 2 x T 16, a ragged G 3 x T 8 fold,
   dk = dv = 128, a parked row held exactly zero, aliased first pages,
@@ -53,6 +54,23 @@ Phases, each printing one JSON line:
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
   idle share against the unprofiled wall time, top device ops;
+- ``spec_parity``: f32, the speculative engines (paged ``ngram`` and
+  ``draft``, dense ``ngram``, ``spec_k`` 4: verify at T 5; the draft is
+  the same arch from seed 7) and the grouped engine on the card against
+  the same engines on the CPU: equal greedy tokens (the near-tie
+  exception) and counters, speculative ones included, tokens equal to
+  ``parity``'s non-speculative card runs, 12 decode-path paged launches
+  and 25 RMSNorm per verify dispatch, 25 RMSNorm per dispatch draft
+  dispatches included, and a draft run that rolls back;
+- ``spec_serve``: bf16, paged, 8 decode-heavy requests of 256 new tokens
+  through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9: the
+  CUDA-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode path):
+  tokens/s, dispatches per token, accepted per dispatch, verify dispatch
+  times from CUDA events, launches by path, peak memory, tokens against
+  the plain run (reported, not gated: bf16 verify rounds unlike T
+  sequential decodes), a traced verify tick each, and the paged kernel at
+  the verify shapes (B 16, T 5 and 9, 128-576 keys) beside its bound,
+  plain version and SDPA;
 - ``train_parity``: full-width f32 training at 4 of the 12 layers (the
   depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
   the card against the same steps on the CPU from the same weights and
@@ -235,6 +253,12 @@ def paged_cases():
                                       offsets=[0, 48, 200], seed=6, **d), 30.0, 0),
             (f"verify_T5_{tag}", dict(B=3, hkv=8, g=8, T=5, dk=128, ps=16, P=40,
                                       offsets=[17, 0, 250], seed=7, **d), 0.0, 0),
+            # ds-paper-100m's verify dispatch (G 1): spec_k 4 on the decode
+            # path, spec_k 8 on the CUDA-core one; page-crossing offsets
+            (f"verify_g1_T5_{tag}", dict(B=4, hkv=12, g=1, T=5, dk=64, ps=16, P=40,
+                                         offsets=[0, 13, 130, 571], seed=14, **d), 0.0, 0),
+            (f"verify_g1_T9_{tag}", dict(B=4, hkv=12, g=1, T=9, dk=64, ps=16, P=40,
+                                         offsets=[0, 9, 128, 567], seed=15, **d), 0.0, 0),
             (f"aliased_{tag}", dict(B=3, hkv=12, g=1, T=1, dk=64, ps=16, P=40,
                                     offsets=[20, 20, 40], seed=8, alias=True, **d), 0.0, 0),
             (f"parked_{tag}", dict(B=3, hkv=12, g=1, T=1, dk=64, ps=16, P=40,
@@ -729,41 +753,51 @@ PARITY_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches", "tok
                    "prefix_hit_tokens", "peak_pages")
 
 
+def divergences(model, params_cpu, a, b, what: str) -> list:
+    """The first differing token of each request two engine runs finished
+    (their finished requests and output lengths must be equal) and the
+    CPU's top-2 logit gap after ``b``'s prefix there."""
+    got = {r.uid: r.output for r in a.finished}
+    want = {r.uid: r.output for r in b.finished}
+    require(sorted(got) == sorted(want), f"{what}: the runs finished different requests")
+    prompts = {r.uid: r.prompt for r in b.finished}
+    out = []
+    for uid in sorted(want):
+        x, y = got[uid], want[uid]
+        require(len(x) == len(y), f"{what}: {uid}: output lengths differ")
+        k = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), None)
+        if k is None:
+            continue
+        lg = next_token_logits(model, params_cpu, prompts[uid] + y[:k], "cpu")
+        top2 = torch.topk(lg, 2).values
+        out.append({"uid": uid, "index": k, "cpu_top2_gap": float(top2[0] - top2[1])})
+    return out
+
+
 def compare_greedy(model, params_cpu, gpu, cpu, what: str) -> list:
     """Require equal finished requests and greedy outputs of two engine
     runs, a near-tie at the first difference (a CPU top-2 logit gap below
     ``NEAR_TIE_GAP``) being the one allowed exception; the divergences."""
-    got = {r.uid: r.output for r in gpu.finished}
-    want = {r.uid: r.output for r in cpu.finished}
-    require(sorted(got) == sorted(want), f"{what}: the runs finished different requests")
-    prompts = {r.uid: r.prompt for r in cpu.finished}
-    divergences = []
-    for uid in sorted(want):
-        a, b = got[uid], want[uid]
-        require(len(a) == len(b), f"{what}: {uid}: output lengths differ")
-        k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if k is None:
-            continue
-        lg = next_token_logits(model, params_cpu, prompts[uid] + b[:k], "cpu")
-        top2 = torch.topk(lg, 2).values
-        gap = float(top2[0] - top2[1])
-        divergences.append({"uid": uid, "index": k, "cpu_top2_gap": gap})
-        require(gap < NEAR_TIE_GAP,
-                f"{what}: {uid}: the runs diverge at token {k} with a CPU top-2 gap of {gap}")
-    return divergences
+    divs = divergences(model, params_cpu, gpu, cpu, what)
+    for d in divs:
+        require(d["cpu_top2_gap"] < NEAR_TIE_GAP,
+                f"{what}: {d['uid']}: the runs diverge at token {d['index']} with a CPU "
+                f"top-2 gap of {d['cpu_top2_gap']}")
+    return divs
 
 
-def compare_counters(a, b, what: str) -> dict:
-    counters = {c: [getattr(a, c), getattr(b, c)] for c in PARITY_COUNTERS}
+def compare_counters(a, b, what: str, names=PARITY_COUNTERS) -> dict:
+    counters = {c: [getattr(a, c), getattr(b, c)] for c in names}
     for c, (g, h) in counters.items():
         require(g == h, f"{what}: counter {c} differs: {g} against {h}")
     return counters
 
 
-def phase_parity() -> dict:
+def phase_parity() -> tuple:
     """Full-width ds-paper-100m in f32, card against CPU, in paged mode
     (paged kernel, RMSNorm) and in dense mode (RMSNorm, plain attention
-    over the per-slot cache), and dense against paged on the card."""
+    over the per-slot cache), and dense against paged on the card.
+    Returns the record and the card's engines by mode."""
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, ModelRuntime
 
@@ -811,7 +845,7 @@ def phase_parity() -> dict:
     rec["dense_vs_paged_divergences"] = compare_greedy(
         model, params_cpu, card["dense"], card["paged"], "parity, dense against paged")
     emit(rec)
-    return rec
+    return rec, card
 
 
 # ------------------------------------------------------------------ serve
@@ -1134,6 +1168,273 @@ def phase_profile() -> dict:
     require(eng.decode_dispatches - d0 == 2 * ticks, "timed ticks were not all decode dispatches")
     rec = {"phase": "profile", "what": "decode dispatch, 16 rows, prompts 256", "ticks": ticks,
            **traced}
+    emit(rec)
+    return rec
+
+
+# ------------------------------------------------------------------ speculative decoding
+SPEC_COUNTERS = ("spec_dispatches", "draft_dispatches", "draft_tokens_proposed",
+                 "draft_tokens_accepted", "spec_tokens_emitted")
+DRAFT_SEED = 7  # the reference bench's draft model: the same arch from seed 7
+
+
+class LaunchesPerCall:
+    """Wraps a dispatch callable; records the kernel launches each call
+    made (the launch counters' growth across it)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args):
+        before = read_launches()
+        out = self.fn(*args)
+        after = read_launches()
+        self.calls.append({k: after[k] - before[k] for k in after})
+        return out
+
+
+def require_verify_launches(eng, paged: bool, path: str, what: str) -> None:
+    """Every verify dispatch of ``eng`` (wrapped in ``LaunchesPerCall``)
+    launched 12 paged kernels, all on ``path`` (none on the dense cache),
+    and 25 RMSNorm."""
+    calls = eng._verify.calls
+    require(len(calls) == eng.spec_dispatches > 0,
+            f"{what}: {len(calls)} verify calls for {eng.spec_dispatches} spec dispatches")
+    want = 12 if paged else 0
+    for c in calls:
+        require(c["paged_attention"] == want and c[f"paged_attention_{path}"] == want
+                and c["rmsnorm"] == 25,
+                f"{what}: a verify dispatch launched {c}, not {want} paged on the {path} "
+                "path and 25 RMSNorm")
+
+
+def phase_spec_parity(plain: dict) -> dict:
+    """Full-width ds-paper-100m in f32: the speculative engines (paged
+    ``ngram`` at ``spec_k`` 4 and 8, paged ``draft`` from seed 7 and from
+    the target's own params, dense ``ngram``; ``spec_k`` 4 unless named)
+    and the grouped engine on the card against the same engines on the
+    CPU: equal greedy tokens (near-tie exception) and counters, tokens
+    equal to the non-speculative card runs of ``parity`` (``plain``), 12
+    paged launches and 25 RMSNorm a verify dispatch (T 5 on the decode
+    path, T 9 on the CUDA-core path), 25 RMSNorm a dispatch draft
+    dispatches included, and rollback exercised: the seed-7 draft rejects,
+    the self-draft keeps some drafts and loses the rest."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.serving.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch("ds-paper-100m")
+    model = Model(cfg, ModelRuntime(dtype=torch.float32))
+    draft = Model(cfg, ModelRuntime(dtype=torch.float32))
+    params = {d: model.init(0, device=d) for d in ("cuda", "cpu")}
+    draft_params = {d: draft.init(DRAFT_SEED, device=d) for d in ("cuda", "cpu")}
+    base = dict(max_batch=4, max_len=128, prefill_chunk=16)
+    paged = dict(base, page_size=16, cache_mode="paged")
+    engines = {
+        "paged_ngram": (dict(paged, speculative="ngram", spec_k=4), "paged"),
+        "paged_ngram_k8": (dict(paged, speculative="ngram", spec_k=8), "paged"),
+        "paged_draft": (dict(paged, speculative="draft", spec_k=4), "paged"),
+        "paged_draft_self": (dict(paged, speculative="draft", spec_k=4), "paged"),
+        "dense_ngram": (dict(base, cache_mode="dense", speculative="ngram", spec_k=4), "dense"),
+        "paged_grouped": (dict(paged, dispatch_mode="grouped"), "paged"),
+    }
+    # the seed-7 draft seldom agrees with the target; the target drafting
+    # for itself lands its greedy drafts until a row reaches its budget, so
+    # its verify keeps a run of drafts and rewinds the rest
+    drafts = {"paged_draft": (draft, draft_params), "paged_draft_self": (model, params)}
+    t_phase = time.perf_counter()
+    rec = {"phase": "spec_parity", "arch": cfg.name, "dtype": "float32",
+           "draft_init_seed": DRAFT_SEED, "engines": {}}
+    for name, (kw, mode) in engines.items():
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            extra = ({"draft_model": drafts[name][0], "draft_params": drafts[name][1][dev]}
+                     if name in drafts else {})
+            eng = ServeEngine(model, params[dev], device=dev, **kw, **extra)
+            if eng._verify is not None:
+                eng._verify = LaunchesPerCall(eng._verify)
+            eng.submit(parity_requests(cfg.vocab_size))
+            reset_launches()
+            t0 = time.perf_counter()
+            eng.run_to_completion()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = read_launches()
+            runs[dev] = (eng, time.perf_counter() - t0)
+        gpu, cpu = runs["cuda"][0], runs["cpu"][0]
+        what = f"spec_parity {name}"
+        divs = compare_greedy(model, params["cpu"], gpu, cpu, f"{what}, card against CPU")
+        counters = compare_counters(gpu, cpu, f"{what}, card against CPU",
+                                    PARITY_COUNTERS + SPEC_COUNTERS)
+        vs_plain = compare_greedy(model, params["cpu"], gpu, plain[mode],
+                                  f"{what} against parity's {mode} card run")
+        n = gpu.dispatches + gpu.draft_dispatches
+        require(launches["rmsnorm"] == 25 * n,
+                f"{what}: rmsnorm launched {launches['rmsnorm']} times for {n} dispatches")
+        require(launches["paged_attention"] == (12 * n if mode == "paged" else 0),
+                f"{what}: paged attention launched {launches['paged_attention']} times for "
+                f"{n} dispatches")
+        require(launches["paged_attention_tensor_core"] == 0,
+                f"{what}: f32 paged attention took the bf16 tensor-core path")
+        if kw.get("speculative"):
+            require(gpu.decode_dispatches == gpu.spec_dispatches > 0,
+                    f"{what}: not every decode dispatch was a verify dispatch")
+            # G 1: T = spec_k + 1 up to 8 takes the decode path, 9-15 the CUDA-core one
+            path = "decode" if kw["spec_k"] + 1 <= 8 else "cuda_core"
+            require_verify_launches(gpu, mode == "paged", path, what)
+        else:
+            require(gpu.prefill_dispatches == 0 and gpu.decode_dispatches > gpu.scheduler.tick,
+                    f"{what}: grouped dispatch ran fused prefill or one dispatch a tick")
+            require(launches["paged_attention_decode"] == 12 * gpu.decode_dispatches,
+                    f"{what}: decode-path launches {launches['paged_attention_decode']} != 12 "
+                    f"per decode dispatch ({gpu.decode_dispatches})")
+        if name in drafts:
+            require(gpu.draft_dispatches > 0
+                    and gpu.draft_tokens_accepted < gpu.draft_tokens_proposed,
+                    f"{what}: the draft run never rolled back")
+        if name == "paged_draft_self":
+            require(gpu.draft_tokens_accepted > 0,
+                    f"{what}: the self-draft had no draft accepted")
+        rec["engines"][name] = {
+            "spec_k": kw.get("spec_k"), "tokens_equal": not divs, "divergences": divs,
+            "tokens_equal_to_plain": not vs_plain, "divergences_from_plain": vs_plain,
+            "counters_card_cpu": counters, "launches": launches,
+            "accepted_per_dispatch": gpu.stats.snapshot()["accepted_per_dispatch"],
+            "card_s": runs["cuda"][1], "cpu_s": runs["cpu"][1]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def decode_heavy_requests(n_requests: int, max_new: int, seed: int = 11):
+    """Short prompts, long generations (a copy of the reference bench's
+    ``decode_heavy_requests``): almost every dispatch is a decode tick."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=f"d{i}",
+                    prompt=[int(t) for t in rng.integers(1, 200, size=int(rng.integers(4, 12)))],
+                    max_new_tokens=max_new)
+            for i in range(n_requests)]
+
+
+SPEC_SERVE_KW = dict(max_batch=8, max_len=288, prefill_chunk=16, page_size=16,
+                     cache_mode="paged")
+SPEC_SERVE_NEW = 256
+
+
+def phase_spec_serve() -> dict:
+    """Full-width ds-paper-100m in bf16, 8 decode-heavy requests of 256 new
+    tokens through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9:
+    the CUDA-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode
+    path): tokens/s, dispatches per token, accepted per dispatch, verify
+    dispatch times, launches by path (12 a verify dispatch on its path),
+    peak memory, one traced verify tick each, tokens against the plain run
+    reported (bf16 verify rounds unlike T sequential decodes: not gated),
+    and the paged kernel at the verify shapes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_arch("ds-paper-100m")
+    dtype = torch.bfloat16
+    model = Model(cfg, ModelRuntime(dtype=dtype))
+    params = model.init(0, device="cuda")
+    draft = Model(cfg, ModelRuntime(dtype=dtype))
+    draft_params = draft.init(DRAFT_SEED, device="cuda")
+    modes = {
+        "off": ({}, None),
+        "ngram": (dict(speculative="ngram", spec_k=8), "cuda_core"),
+        "draft": (dict(speculative="draft", spec_k=4, draft_model=draft,
+                       draft_params=draft_params), "decode"),
+    }
+    # the gap of a divergence: f32 on the CPU with the same (bf16) weights
+    f32_model = Model(cfg, ModelRuntime(dtype=torch.float32))
+    params_cpu = cast_params(params, torch.float32, "cpu")
+    t_phase = time.perf_counter()
+    rec = {"phase": "spec_serve", "arch": cfg.name, "dtype": "bfloat16",
+           "requests": 8, "max_new_tokens": SPEC_SERVE_NEW, **SPEC_SERVE_KW,
+           "draft_init_seed": DRAFT_SEED, "engines": {}}
+    launches_total: dict = {}
+    engines = {}
+    for name, (extra, path) in modes.items():
+        run_engine(model, params, decode_heavy_requests(2, 8, seed=5), "cuda",
+                   **SPEC_SERVE_KW, **extra)  # warm the shapes
+        reqs = decode_heavy_requests(8, SPEC_SERVE_NEW)
+        eng = ServeEngine(model, params, device="cuda", **SPEC_SERVE_KW, **extra)
+        eng._decode, eng._prefill = DispatchTimer(eng._decode), DispatchTimer(eng._prefill)
+        if eng._verify is not None:
+            eng._verify = LaunchesPerCall(DispatchTimer(eng._verify))
+        eng.submit(reqs)
+        release_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        for k, v in launches.items():
+            launches_total[k] = launches_total.get(k, 0) + v
+        outs = {r.uid: r.output for r in eng.finished}
+        require(len(outs) == 8 and all(len(o) == SPEC_SERVE_NEW
+                                       and all(0 <= t < cfg.vocab_size for t in o)
+                                       for o in outs.values()),
+                f"spec_serve {name}: a request did not finish with {SPEC_SERVE_NEW} tokens in "
+                "the vocab")
+        n = eng.dispatches + eng.draft_dispatches
+        require(launches["paged_attention"] == 12 * n and launches["rmsnorm"] == 25 * n,
+                f"spec_serve {name}: launches {launches} for {n} dispatches")
+        if path is not None:
+            require_verify_launches(eng, True, path, f"spec_serve {name}")
+        engines[name] = eng
+        snap = eng.stats.snapshot()
+        rec["engines"][name] = {
+            "spec_k": extra.get("spec_k"), "verify_path": path, "wall_s": wall,
+            "tokens_emitted": eng.tokens_emitted, "tokens_per_s": eng.tokens_emitted / wall,
+            "dispatches": eng.dispatches, "decode_dispatches": eng.decode_dispatches,
+            "prefill_dispatches": eng.prefill_dispatches,
+            "dispatches_per_token": eng.dispatches / eng.tokens_emitted,
+            "spec_dispatches": eng.spec_dispatches, "draft_dispatches": eng.draft_dispatches,
+            "draft_tokens_proposed": eng.draft_tokens_proposed,
+            "draft_tokens_accepted": eng.draft_tokens_accepted,
+            "accepted_per_dispatch": snap["accepted_per_dispatch"],
+            "verify_dispatch_ms": summary(eng._verify.fn.ms()) if path else None,
+            "decode_dispatch_ms": summary(eng._decode.ms()),
+            "prefill_dispatch_ms": summary(eng._prefill.ms()),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches}
+        if name != "off":
+            t0 = time.perf_counter()
+            rec["engines"][name]["divergences_from_off"] = divergences(
+                f32_model, params_cpu, eng, engines["off"], f"spec_serve {name} against off")
+            rec["engines"][name]["divergences_s"] = time.perf_counter() - t0
+    rec["launches"] = launches_total
+    # one verify tick each, traced: 8 rows decoding, prompts ingested first
+    rec["profile"] = {}
+    for name in ("ngram", "draft"):
+        eng = ServeEngine(model, params, device="cuda", **dict(SPEC_SERVE_KW, max_len=640),
+                          **modes[name][0])
+        eng.submit(decode_heavy_requests(8, 600, seed=13))
+        for _ in range(4):
+            eng.step()
+        d0 = eng.spec_dispatches
+        traced = trace(eng.step, 16, "tick", watch=("paged_", "rmsnorm"))
+        require(eng.spec_dispatches - d0 == 32, f"spec_serve {name}: a traced tick was not "
+                "one verify dispatch")
+        rec["profile"][name] = {"what": f"verify tick, 8 rows, {name} spec_k "
+                                        f"{modes[name][0]['spec_k']}", **traced}
+    del engines
+    release_device_memory()
+    rng = np.random.default_rng(6)
+    rec["kernel_times"] = {"paged_attention": {
+        f"verify_T{T}": time_paged(f"verify_T{T}", 16, T,
+                                   rng.integers(128, 576 - T + 1, 16).tolist(), dtype)
+        for T in (5, 9)}}
+    rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
 
@@ -1684,19 +1985,22 @@ KERNELS = {
 }
 
 
-def kernels_line(checks: dict, serve: dict, train: dict, evals: dict, ssm_serve: dict,
-                 ssm_eval: dict) -> dict:
-    """One row per kernel: its launches on the main paths (serve, train,
-    eval, ssm_serve, ssm_eval: counts set to 0 before each and read after),
+def kernels_line(checks: dict, serve: dict, spec_serve: dict, train: dict, evals: dict,
+                 ssm_serve: dict, ssm_eval: dict) -> dict:
+    """One row per kernel: its launches on the main paths (serve,
+    spec_serve, train, eval, ssm_serve, ssm_eval: counts set to 0 before
+    each run and read after),
     its worst error, and its times at its first timed shape with the
     others beside."""
     def total(runs):
         return {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
 
-    paths = {"serve": serve["launches"], "train": train["launches"], "eval": total(evals["runs"]),
+    paths = {"serve": serve["launches"], "spec_serve": spec_serve["launches"],
+             "train": train["launches"], "eval": total(evals["runs"]),
              "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"])}
     timed_by_kernel = {
-        "paged_attention": serve["kernel_times"]["paged_attention"],
+        "paged_attention": {**serve["kernel_times"]["paged_attention"],
+                            **spec_serve["kernel_times"]["paged_attention"]},
         "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
                     **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()}},
         "flash_attention": {f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
@@ -1748,9 +2052,11 @@ def main() -> int:
     phase_env()
     phase_build()
     checks = phase_kernels()
-    phase_parity()
+    _, plain = phase_parity()
     serve = phase_serve()
     phase_profile()
+    phase_spec_parity(plain)
+    spec_serve = phase_spec_serve()
     phase_train_parity()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
@@ -1761,7 +2067,7 @@ def main() -> int:
         del params_cpu
         ssm_serve = phase_ssm_serve(cfg, params)
         ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
-    emit(kernels_line(checks, serve, train, evals, ssm_serve, ssm_eval))
+    emit(kernels_line(checks, serve, spec_serve, train, evals, ssm_serve, ssm_eval))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,6 +12,7 @@ the dense and SSM families:
     cache = model.init_cache(batch, max_len, paged=True, page_size=16, n_pages=N)
     logits, cache = model.decode_step(params, cache, tokens, pos)
     logits, cache = model.prefill_chunk(params, cache, tokens, offsets, lengths)
+    logits, cache = model.verify_chunk(params, cache, tokens, offsets, lengths)  # (B, T, Vp)
 
 The full-sequence path chooses its attention by ``ModelRuntime``
 (``resolve_attn``): ``direct`` (``layers.attention_scores``),
@@ -465,6 +466,22 @@ class Model:
         last = (lengths - 1).clamp(0, T - 1)
         h_last = h[torch.arange(b, device=h.device), last][:, None]  # (b, 1, d)
         return self._logits(params, h_last)[:, 0], cache
+
+    def verify_chunk(
+        self,
+        params: Params,
+        cache: Params,
+        tokens: torch.Tensor,  # (B, T) right-padded [last accepted, k drafts]
+        offsets: torch.Tensor,  # (B,) cache position of each row's first token
+        lengths: torch.Tensor,  # (B,) valid tokens per row; 0 = inactive row
+    ) -> Tuple[torch.Tensor, Params]:
+        """Speculative-verify forward: the chunk-extend of
+        :meth:`prefill_chunk`, returning every position's logits ``(B, T,
+        Vp)``.  Position ``t``'s logits condition on the cache plus
+        ``tokens[b, :t+1]``, what ``t + 1`` sequential decode steps would
+        see; padded positions write nothing and their logits are garbage."""
+        h = self._prefill_hidden(params, cache, tokens, offsets, lengths.long())
+        return self._logits(params, h), cache
 
     def _prefill_hidden(self, params, cache, tokens, offsets, lengths) -> torch.Tensor:
         T = tokens.shape[1]

@@ -21,7 +21,10 @@ Contracts with the other layers:
   the host shadow (the sentinel moves when the pool grows);
 - :meth:`ensure_pages` is called ahead of every dispatch that will write
   a row's positions; ``False`` means the row was requeued and must be
-  dropped from the dispatch;
+  dropped from the dispatch.  A speculative verify dispatch calls
+  :meth:`reserve_speculative` instead (its draft positions are backed
+  best-effort) and :meth:`rewind_slot` after it, to drop the pages past
+  the accepted frontier;
 - at admission the scheduler calls :meth:`stitch_prefix`; when a prompt
   becomes fully resident the executor calls :meth:`prefix_insert`.
 
@@ -335,6 +338,45 @@ class KVCacheManager:
             self.stats.peak_pages = self.stats.pages_in_use
         return True
 
+    def reserve_speculative(
+        self, row: int, base_tokens: int, want_tokens: int,
+        write_start: Optional[int] = None,
+    ) -> Optional[int]:
+        """Back ``base_tokens`` positions with full :meth:`ensure_pages`
+        recovery (eviction, preemption, yield: what the non-speculative
+        dispatch would have demanded), then extend the backing toward
+        ``want_tokens`` best-effort, from free pages and prefix eviction
+        only: draft positions are optional, so their pages never preempt
+        another slot or raise pool exhaustion.
+
+        Returns the number of positions backed (``>= base_tokens``), or
+        ``None`` when the row could not get its base demand and was
+        yielded or preempted; the caller drops it from the dispatch."""
+        if not self.ensure_pages(row, base_tokens, write_start=write_start):
+            return None
+        pages = self._slot_pages[row]
+        want = min(-(-want_tokens // self.page_size), self.pages_per_slot)
+        while len(pages) < want:
+            pid = self._take_free_page()
+            if pid is None and self.prefix is not None:
+                self._evict(1)
+                pid = self._take_free_page()
+            if pid is None:
+                break
+            self._table[row, len(pages)] = pid
+            pages.append(pid)
+            self._table_dirty = True
+        # a trailing page the row holds but shares caps the drafts at its
+        # boundary: writing it would force a copy, which drafts are not worth
+        backed = len(pages)
+        for j in range(-(-base_tokens // self.page_size), len(pages)):
+            if self._page_refs[pages[j]] > 1:
+                backed = j
+                break
+        if self.stats.pages_in_use > self.stats.peak_pages:
+            self.stats.peak_pages = self.stats.pages_in_use
+        return max(base_tokens, backed * self.page_size)
+
     def _yield_row(self, row: int) -> bool:
         """The requester is the youngest active slot and nothing could be
         freed for it: it yields, after the allocation loop unwound.  The
@@ -367,6 +409,24 @@ class KVCacheManager:
         self._slot_pages[row] = []
         self._table[row, :] = self.n_pages
         self._table_dirty = True
+
+    def rewind_slot(self, row: int, n_tokens: int) -> None:
+        """Speculative rollback: shrink the row's backing to its first
+        ``n_tokens`` positions after a verify dispatch accepted fewer
+        tokens than it wrote.  Whole pages past the new frontier are
+        dropped (decref) and their table entries set to the sentinel;
+        rejected tokens inside the kept tail page sit past the rewound
+        frontier, where the causal mask excludes them, until the next
+        dispatch overwrites them.  The dense cache has nothing to do."""
+        if self.cache_mode != "paged" or self.cache is None:
+            return
+        keep = -(-n_tokens // self.page_size)
+        pages = self._slot_pages[row]
+        while len(pages) > keep:
+            pid = pages.pop()
+            self._table[row, len(pages)] = self.n_pages
+            self._table_dirty = True
+            self._decref(pid)
 
     def reset_row(self, row: int) -> None:
         """Prepare a row for a fresh admission.  Dense mode zeroes the row

@@ -1,25 +1,36 @@
 """Serving executor: the device-dispatch layer of the serving tier.
 
-Counterpart of the reference package's ``serving/engine.py`` with fused
-dispatch, on the dense (per-slot, the default) or the paged cache:
+Counterpart of the reference package's ``serving/engine.py``, on the
+dense (per-slot, the default) or the paged cache:
 :class:`~repro_torch.serving.scheduler.RequestScheduler` admits requests
 into freed rows (continuous batching), the
 :class:`~repro_torch.serving.cache_manager.KVCacheManager` zeroes an
 admitted row (dense) or backs the positions each dispatch will write
 (paged: radix prefix cache, copy-on-write), and :class:`ServeEngine`
-dispatches: fused chunked prefill (``prefill_chunk`` tokens per row per
-dispatch) and ONE decode dispatch per tick for any mix of row positions,
-with sampling and the done mask on the device.  Finished rows are parked
-(pages freed) before the next dispatch.  The SSM family serves from the
-dense cache only, as in the reference.
+dispatches.  A tick runs fused chunked prefill (``prefill_chunk`` tokens
+per row per dispatch), then one of:
+
+- ``dispatch_mode="fused"`` (default): ONE decode dispatch for any mix
+  of row positions, sampling and the done mask on the device;
+- ``speculative="ngram"|"draft"``: a proposer
+  (:mod:`repro_torch.serving.speculate`) guesses up to ``spec_k`` tokens
+  a row and ONE verify dispatch (``Model.verify_chunk``, ``T = spec_k +
+  1``) accepts the longest consistent run on the device; rejected
+  positions are rewound (paged: trailing pages dropped);
+- ``dispatch_mode="grouped"``: one decode dispatch per distinct row
+  position, the reference's per-position baseline (prompts then ingest
+  through the decode path, as in the reference).
+
+Finished rows are parked (pages freed) before the next dispatch.  The
+SSM family serves from the dense cache only, as in the reference.
 
 Knob names, refusals and the :class:`EngineStats` counters are the
 reference's; ``device`` (default ``cuda``) picks where the cache lives
-and must hold the parameters.  The reference's refusals for recurrent
-families come first; then what is not ported yet is refused with
-``NotImplementedError`` naming its ROADMAP Queue 1 item: grouped
-dispatch, speculative decoding, the prefix store, disaggregated roles,
-checkpoint resume and handoff admission.
+and must hold the parameters (and the draft model's).  The reference's
+refusals come first, with its messages; then what is not ported yet is
+refused with ``NotImplementedError`` naming its ROADMAP Queue 1 item:
+the prefix store, disaggregated roles, checkpoint resume and handoff
+admission.
 """
 
 from __future__ import annotations
@@ -31,8 +42,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.serving.cache_manager import KVCacheManager
-from repro_torch.serving.sampling import make_decode_step, make_prefill_step
+from repro_torch.serving.sampling import make_decode_step, make_prefill_step, make_verify_step
 from repro_torch.serving.scheduler import RequestScheduler
+from repro_torch.serving.speculate import DraftProposer, NgramProposer
 from repro_torch.serving.types import EngineStats, Request, Slot
 
 __all__ = ["Request", "ServeEngine", "Slot"]
@@ -40,40 +52,6 @@ __all__ = ["Request", "ServeEngine", "Slot"]
 
 def _unported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
-
-
-def _refuse_for_recurrent(model, cache_mode: str, dispatch_mode: str, speculative: str,
-                          prefill_token_budget: Optional[int]) -> None:
-    """The reference's refusals for architectures without a pageable
-    cache and for recurrent (SSM/hybrid) state, with its messages."""
-    family = model.cfg.family
-    if cache_mode == "paged" and not model.supports_paged_cache:
-        raise ValueError(
-            "cache_mode='paged' unsupported for arch "
-            f"{model.cfg.name!r} (no pageable KV cache)"
-        )
-    if family not in ("ssm", "hybrid"):
-        return
-    if dispatch_mode == "grouped":
-        # per-group re-dispatch re-advances recurrent state every extra
-        # call per tick (KV writes are idempotent, recurrences are not)
-        raise ValueError(
-            "dispatch_mode='grouped' corrupts recurrent SSM/hybrid state; "
-            f"use the fused engine for family {family!r}"
-        )
-    if speculative != "off":
-        raise ValueError(
-            "speculative decoding cannot roll back recurrent "
-            f"(family {family!r}) state; rejected draft "
-            "tokens would corrupt the recurrence"
-        )
-    if prefill_token_budget is not None:
-        raise ValueError(
-            "prefill_token_budget is unsupported for recurrent "
-            f"(family {family!r}) models: a mid-prefill "
-            "row's recurrence would be advanced by the decode "
-            "dispatch it sits out"
-        )
 
 
 def _param_devices(tree) -> set:
@@ -106,6 +84,7 @@ class ServeEngine:
         prefill_token_budget: Optional[int] = None,
         worker_role: str = "unified",
         speculative: str = "off",
+        spec_k: int = 4,
         draft_model=None,
         draft_params=None,
         device=None,
@@ -114,18 +93,23 @@ class ServeEngine:
             raise ValueError(f"dispatch_mode must be fused|grouped, got {dispatch_mode!r}")
         if cache_mode not in ("dense", "paged"):
             raise ValueError(f"cache_mode must be dense|paged, got {cache_mode!r}")
+        if cache_mode == "paged" and not model.supports_paged_cache:
+            raise ValueError(
+                "cache_mode='paged' unsupported for arch "
+                f"{model.cfg.name!r} (no pageable KV cache)"
+            )
         if worker_role not in ("unified", "prefill", "decode"):
             raise ValueError(
                 f"worker_role must be unified|prefill|decode, got {worker_role!r}"
             )
-        if speculative not in ("off", "ngram", "draft"):
-            raise ValueError(f"speculative must be off|ngram|draft, got {speculative!r}")
-        _refuse_for_recurrent(model, cache_mode, dispatch_mode, speculative,
-                              prefill_token_budget)
-        if dispatch_mode == "grouped":
-            raise _unported("dispatch_mode='grouped'", "grouped dispatch")
-        if speculative != "off" or draft_model is not None or draft_params is not None:
-            raise _unported("speculative decoding", "speculative + DraftProposer")
+        recurrent = model.cfg.family in ("ssm", "hybrid")
+        if dispatch_mode == "grouped" and recurrent:
+            # per-group re-dispatch re-advances recurrent state every extra
+            # call per tick (KV writes are idempotent, recurrences are not)
+            raise ValueError(
+                "dispatch_mode='grouped' corrupts recurrent SSM/hybrid state; "
+                f"use the fused engine for family {model.cfg.family!r}"
+            )
         if prefix_store is not None:
             raise _unported("prefix_store", "prefix store and payload")
         if worker_role != "unified":
@@ -142,6 +126,7 @@ class ServeEngine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_chunk = int(prefill_chunk)
+        self.dispatch_mode = dispatch_mode
         self.sample_on_device = sample_on_device
         self.cache_mode = cache_mode
 
@@ -179,16 +164,84 @@ class ServeEngine:
 
         self._rng_seed = rng_seed
         self._decode = make_decode_step(model, rng_seed, sample_on_device)
-        self._use_prefill = self.prefill_chunk > 0 and model.supports_fused_prefill
+        self._use_prefill = (
+            dispatch_mode == "fused" and self.prefill_chunk > 0 and model.supports_fused_prefill
+        )
         self._prefill = (
             make_prefill_step(model, rng_seed, sample_on_device)
             if self._use_prefill else None
         )
-        if prefill_token_budget is not None and not self._use_prefill:
+        self.speculative = speculative
+        self.spec_k = int(spec_k)
+        self.proposer = None
+        self._verify = None
+        if speculative not in ("off", "ngram", "draft"):
+            raise ValueError(f"speculative must be off|ngram|draft, got {speculative!r}")
+        if speculative == "off" and (draft_model is not None or draft_params is not None):
             raise ValueError(
-                "prefill_token_budget requires the fused prefill path "
-                "(prefill_chunk > 0); it would be silently inert here"
+                "draft_model/draft_params require speculative='draft'; they "
+                "would be silently inert here"
             )
+        if speculative != "off":
+            self._init_speculative(recurrent, draft_model, draft_params, page_size)
+        if prefill_token_budget is not None:
+            # a finite budget holds rows mid-prefill across decode ticks: a
+            # recurrence would be advanced by the decode dispatch it sits out
+            if recurrent:
+                raise ValueError(
+                    "prefill_token_budget is unsupported for recurrent "
+                    f"(family {model.cfg.family!r}) models: a mid-prefill "
+                    "row's recurrence would be advanced by the decode "
+                    "dispatch it sits out"
+                )
+            if not self._use_prefill:
+                raise ValueError(
+                    "prefill_token_budget requires the fused prefill path "
+                    "(dispatch_mode='fused', prefill_chunk > 0, fused-"
+                    "prefill-capable arch); it would be silently inert here"
+                )
+
+    def _init_speculative(self, recurrent: bool, draft_model, draft_params,
+                          page_size: int) -> None:
+        """The reference's speculative knob checks, in its order, then the
+        verify dispatch and the proposer."""
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if not self.sample_on_device:
+            raise ValueError(
+                "speculative decoding verifies and accepts on device; "
+                "sample_on_device=False would make the verify dispatch "
+                "round-trip (B, k+1, vocab) logits — unsupported"
+            )
+        if recurrent:
+            # KV rollback drops pages past the frontier; a recurrent state
+            # advanced by rejected tokens cannot be rewound
+            raise ValueError(
+                "speculative decoding cannot roll back recurrent "
+                f"(family {self.model.cfg.family!r}) state; rejected draft "
+                "tokens would corrupt the recurrence"
+            )
+        if not self._use_prefill:
+            raise ValueError(
+                "speculative decoding verifies k+1 positions through the "
+                "fused chunk-extend path (dispatch_mode='fused', "
+                "prefill_chunk > 0, fused-prefill-capable arch, "
+                "non-rolling cache); it cannot run here"
+            )
+        self._verify = make_verify_step(self.model, self._rng_seed)
+        if self.speculative == "ngram":
+            self.proposer = NgramProposer()
+            return
+        if draft_model is None or draft_params is None:
+            raise ValueError("speculative='draft' needs draft_model and draft_params")
+        held = _param_devices(draft_params)
+        if held != {self.device}:
+            raise ValueError(f"draft_params live on {sorted(map(str, held))}, the engine "
+                             f"runs on {self.device}; move them first")
+        self.proposer = DraftProposer(
+            draft_model, draft_params, max_batch=self.max_batch, max_len=self.max_len,
+            spec_k=self.spec_k, device=self.device, page_size=page_size, stats=self.stats,
+        )
 
     # ---------------------------------------------- layer-delegation surface
     @property
@@ -241,15 +294,22 @@ class ServeEngine:
     def step(self) -> int:
         """One engine tick: admit queued requests into freed rows, ingest
         pending prompt chunks (bounded by the tick's prefill token budget),
-        then advance every decode-ready row one token in a single decode
-        dispatch."""
+        then advance the decode-ready rows: one decode dispatch (fused),
+        one verify dispatch (speculative) or one decode dispatch per
+        distinct row position (grouped; attention families only, since
+        every extra dispatch would re-advance a recurrence)."""
         self.scheduler.begin_tick()
         if not self.scheduler.has_active():
             return 0
         emitted = 0
         if self._use_prefill:
             emitted += self._ingest_prompts()
-        emitted += self._decode_tick()
+        if self.dispatch_mode == "grouped":
+            emitted += self._decode_tick_grouped()
+        elif self.speculative != "off":
+            emitted += self._decode_tick_spec()
+        else:
+            emitted += self._decode_tick_fused()
         return emitted
 
     # -- prompt ingestion (fused chunked prefill) ---------------------------
@@ -361,7 +421,7 @@ class ServeEngine:
             stops[i] = slot.req.stop_token
         max_news[i] = slot.req.max_new_tokens
 
-    def _decode_tick(self) -> int:
+    def _build_decode_inputs(self):
         B = self.max_batch
         slots = self.scheduler.slots
         if self.cache_mode == "paged":
@@ -384,30 +444,41 @@ class ServeEngine:
             # masks the write out of a paged dispatch; a dense row is
             # zeroed at its next admission
             pos[i] = slot.pos
-            if slot.req is None or (self._use_prefill and slot.remaining_prompt):
+            if slot.req is None or self._mid_prefill(slot):
                 continue
             active.append(i)
-            if slot.remaining_prompt:  # decode-path ingestion (prefill_chunk=0)
+            if slot.remaining_prompt:  # decode-path ingestion
                 tokens[i, 0] = slot.remaining_prompt[0]
             elif slot.req.output:
                 tokens[i, 0] = slot.req.output[-1]
             else:
                 tokens[i, 0] = slot.req.prompt[-1]
             self._fill_meta(meta, i, slot)
-        if not active:
-            return 0
+        return active, tokens, pos, meta
+
+    def _mid_prefill(self, slot: Slot) -> bool:
+        """Under a finite prefill budget a fused-prefill row can reach the
+        decode tick with prompt tokens pending; it sits the decode out.
+        (Without fused prefill, such rows are the decode-path ingestion.)"""
+        return bool(self._use_prefill and slot.remaining_prompt)
+
+    def _decode_dispatch(self, tokens, pos, meta):
         self.cache_mgr.push_table()
         if self.sample_on_device:
             nxt, done, _ = self._decode(self.params, self.cache_mgr.cache, tokens, pos, *meta)
-            nxt, done, lg = nxt.cpu().numpy(), done.cpu().numpy(), None
+            out = nxt.cpu().numpy(), done.cpu().numpy(), None
         else:
             logits, _ = self._decode(self.params, self.cache_mgr.cache, tokens, pos)
-            nxt, done, lg = None, None, logits.float().cpu().numpy()
+            out = None, None, logits.float().cpu().numpy()
         self.stats.decode_dispatches += 1
         self.stats.steps_executed += 1
         self.stats.dispatches += 1
+        return out
+
+    def _advance_rows(self, rows, nxt, done, lg) -> int:
         emitted = 0
-        for i in active:
+        slots = self.scheduler.slots
+        for i in rows:
             slot = slots[i]
             slot.pos += 1
             if slot.remaining_prompt:
@@ -419,6 +490,108 @@ class ServeEngine:
             self._accept_token(i, self._token(i, nxt, lg),
                                bool(done[i]) if done is not None else None)
             emitted += 1
+        return emitted
+
+    def _decode_tick_fused(self) -> int:
+        active, tokens, pos, meta = self._build_decode_inputs()
+        if not active:
+            return 0
+        return self._advance_rows(active, *self._decode_dispatch(tokens, pos, meta))
+
+    def _decode_tick_spec(self) -> int:
+        """Speculative decode tick: propose up to ``spec_k`` drafts per
+        decode-ready row, verify them and the bonus position in ONE
+        chunk-extend dispatch, accept the longest consistent run and rewind
+        the rejected positions.  Position ``t`` samples from the key
+        ``(stream, len(output) + t)`` and emission stops at the first
+        per-position done, so a request's output equals the
+        non-speculative engine's; speculation only changes how many tokens
+        land per dispatch.  A row with no drafts is a plain one-token
+        decode inside the same dispatch."""
+        B, T = self.max_batch, self.spec_k + 1
+        slots = self.scheduler.slots
+        ready = [i for i, s in enumerate(slots) if s.req is not None and not s.remaining_prompt]
+        if not ready:
+            return 0
+        hists = {i: slots[i].req.prompt + slots[i].req.output for i in ready}
+        drafts = self.proposer.propose(ready, hists, self.spec_k)
+        plan: Dict[int, List[int]] = {}
+        for i in ready:
+            # cap drafts so a row never advances past the max_len - 1 point
+            # where the non-speculative engine finishes it
+            room = self.max_len - 2 - slots[i].pos
+            plan[i] = list(drafts.get(i, []))[:max(0, room)]
+        if self.cache_mode == "paged":
+            # reservation pass first (see _build_decode_inputs).  Only the
+            # base position carries full recovery; draft positions are
+            # best-effort and shrink the plan under pool pressure, so
+            # speculation never fails a workload the plain engine serves
+            for i in ready:
+                s = slots[i]
+                if s.req is not None:
+                    got = self.cache_mgr.reserve_speculative(
+                        i, s.pos + 1, s.pos + 1 + len(plan[i]), write_start=s.pos)
+                    if got is not None:
+                        plan[i] = plan[i][:max(0, got - (s.pos + 1))]
+        live = [i for i in ready if slots[i].req is not None]
+        if not live:
+            return 0
+        tokens = np.zeros((B, T), np.int64)
+        offsets = np.zeros((B,), np.int64)
+        lengths = np.zeros((B,), np.int64)
+        meta = self._row_meta()
+        for i in live:
+            s, d = slots[i], plan[i]
+            tokens[i, 0] = s.req.output[-1] if s.req.output else s.req.prompt[-1]
+            tokens[i, 1:1 + len(d)] = d
+            offsets[i] = s.pos
+            lengths[i] = 1 + len(d)
+            self._fill_meta(meta, i, s)
+            self.stats.draft_tokens_proposed += len(d)
+        self.cache_mgr.push_table()
+        tgt, n_emit, done, _ = self._verify(self.params, self.cache_mgr.cache, tokens,
+                                            offsets, lengths, *meta)
+        tgt, n_emit, done = tgt.cpu().numpy(), n_emit.cpu().numpy(), done.cpu().numpy()
+        self.stats.decode_dispatches += 1
+        self.stats.steps_executed += 1
+        self.stats.dispatches += 1
+        self.stats.spec_dispatches += 1
+        emitted = 0
+        for i in live:
+            s = slots[i]
+            n = int(n_emit[i])
+            new_pos = s.pos + n
+            if n < int(lengths[i]):
+                # rejected positions: trailing whole pages go back to the
+                # pool; stale KV inside the kept page sits past the frontier
+                self.cache_mgr.rewind_slot(i, new_pos)
+            s.pos = new_pos
+            self.stats.draft_tokens_accepted += n - 1
+            self.stats.spec_tokens_emitted += n
+            for t in range(n):
+                s.req.output.append(int(tgt[i, t]))
+                self.stats.tokens_emitted += 1
+                self.scheduler.on_token(i)
+            emitted += n
+            if bool(done[i]) or new_pos >= self.max_len - 1:
+                self.scheduler.finish(i)
+                self.proposer.release(i)
+        return emitted
+
+    def _decode_tick_grouped(self) -> int:
+        """The per-position baseline: one decode dispatch per distinct row
+        position.  Every dispatch carries the full position vector, so its
+        cache writes are idempotent across the tick's dispatches; only the
+        group's rows consume its outputs."""
+        active, tokens, pos, meta = self._build_decode_inputs()
+        if not active:
+            return 0
+        groups: Dict[int, List[int]] = {}
+        for i in active:
+            groups.setdefault(self.scheduler.slots[i].pos, []).append(i)
+        emitted = 0
+        for _, rows in sorted(groups.items()):
+            emitted += self._advance_rows(rows, *self._decode_dispatch(tokens, pos, meta))
         return emitted
 
     # -- bookkeeping ---------------------------------------------------------
@@ -485,6 +658,8 @@ for _name in (
     "prefix_hit_tokens", "prompt_tokens_skipped", "pages_shared_peak",
     "prefix_hit_tokens_partial", "cow_partial_stitches",
     "cow_copies", "prefix_evictions", "preemptions", "tokens_discarded",
+    "spec_dispatches", "draft_dispatches",
+    "draft_tokens_proposed", "draft_tokens_accepted", "spec_tokens_emitted",
 ):
     setattr(ServeEngine, _name, _stats_alias(_name))
 for _name in (

@@ -1,7 +1,9 @@
 """Token sampling and the done mask, run on the dispatch's device.
 
 Counterpart of the reference package's ``serving/sampling.py``.  Only
-``B`` token ids and ``B`` done flags leave the device per dispatch.
+``B`` token ids and ``B`` done flags leave the device per dispatch; a
+speculative verify dispatch (:func:`make_verify_step`) sends ``(B, T)``
+ids, ``B`` emit counts and ``B`` done flags.
 
 Determinism contract: each request owns a sampling *stream* (assigned
 at submit) and each emitted token a *step* (tokens already generated),
@@ -66,6 +68,30 @@ def done_mask(
     return hit_stop | (steps + 1 >= max_news)
 
 
+def sample_tokens_chunk(
+    logits: torch.Tensor,  # (B, T, V) unnormalized, one position per draft slot
+    temps: np.ndarray,  # (B,)
+    streams: np.ndarray,  # (B,)
+    steps: np.ndarray,  # (B,) tokens already generated BEFORE this chunk
+    *,
+    base_seed: int,
+) -> torch.Tensor:
+    """Per-position sampling for the speculative verify dispatch: position
+    ``t`` of row ``b`` draws from the key ``(streams[b], steps[b] + t)``,
+    the key sequential decoding would use for that token, so the verified
+    tokens are the ones ``T`` decode dispatches would have sampled, greedy
+    and temperature rows alike."""
+    B, T, V = logits.shape
+    flat = sample_tokens(
+        logits.reshape(B * T, V),
+        np.repeat(np.asarray(temps, np.float32), T),
+        np.repeat(np.asarray(streams, np.int64), T),
+        (np.asarray(steps, np.int64)[:, None] + np.arange(T)[None, :]).reshape(-1),
+        base_seed=base_seed,
+    )
+    return flat.reshape(B, T)
+
+
 def _on(device, *arrays, dtype=torch.long):
     return [torch.as_tensor(np.asarray(a), dtype=dtype).to(device) for a in arrays]
 
@@ -115,5 +141,46 @@ def make_prefill_step(model, base_seed: int, on_device: bool) -> Callable:
         nxt = sample_tokens(logits, temps, streams, steps, base_seed=base_seed)
         st, sp, mx = _on(logits.device, steps, stops, max_news)
         return nxt, done_mask(nxt, st, sp, mx), cache
+
+    return step
+
+
+def make_verify_step(model, base_seed: int) -> Callable:
+    """The speculative verify dispatch: one chunk-extend scores all ``k+1``
+    positions (the last accepted token and ``k`` drafts), samples the
+    target token at each, and applies the acceptance rule on the device.
+
+    Row ``b`` carries ``tokens[b] = [x0, d1 .. dm, pad...]`` with
+    ``lengths[b] = 1 + m`` (``0`` parks the row).  Draft ``d_{t+1}`` is
+    consistent iff it equals the target sampled at position ``t``; the
+    row emits ``tgt[b, :n_emit[b]]``: the longest consistent run plus one
+    bonus target, cut after the first position whose token finishes the
+    request (stop token or new-token budget).
+
+    Returns ``(tgt (B, T), n_emit (B,), done (B,), cache)`` on the device."""
+    vocab = model.cfg.vocab_size
+
+    def step(params, cache, tokens, offsets, lengths, temps, streams, steps, stops,
+             max_news):
+        device = params["embed"].device
+        tok, off, ln, st, sp, mx = _on(device, tokens, offsets, lengths, steps, stops,
+                                       max_news)
+        logits, cache = model.verify_chunk(params, cache, tok, off, ln)
+        T = tok.shape[1]
+        t_idx = torch.arange(T, device=device)
+        tgt = sample_tokens_chunk(logits[:, :, :vocab], temps, streams, steps,
+                                  base_seed=base_seed)
+        # longest consistent run: draft t+1 survives iff it exists and every
+        # draft before it survived
+        match = (tok[:, 1:] == tgt[:, :-1]) & (t_idx[None, 1:] < ln[:, None])
+        emit_cap = torch.cumprod(match.long(), dim=1).sum(dim=1) + 1  # + the bonus token
+        # per-position done: tgt[b, t] is the request's (steps[b] + t + 1)-th token
+        hit_stop = (sp[:, None] >= 0) & (tgt == sp[:, None])
+        over = st[:, None] + t_idx[None, :] + 1 >= mx[:, None]
+        pos_done = (hit_stop | over) & (t_idx[None, :] < emit_cap[:, None])
+        done = pos_done.any(dim=1)
+        n_emit = torch.where(done, pos_done.long().argmax(dim=1) + 1, emit_cap)
+        n_emit = torch.where(ln > 0, n_emit, torch.zeros_like(n_emit))
+        return tgt, n_emit, done, cache
 
     return step

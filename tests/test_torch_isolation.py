@@ -51,9 +51,6 @@ def tiny():
 
 
 UNPORTED_KNOBS = [
-    dict(dispatch_mode="grouped"),
-    dict(speculative="ngram"),
-    dict(speculative="draft"),
     dict(prefix_store="a-store"),
     dict(worker_role="prefill"),
     dict(worker_role="decode"),

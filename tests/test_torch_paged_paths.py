@@ -53,7 +53,7 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.float32, 1, 128, 128, "decode"),
     (torch.float32, 8, 64, 64, "decode"),
     (torch.float32, 5, 128, 64, "decode"),           # verify T 5 at G 1
-    (torch.bfloat16, 9, 64, 64, "cuda_core"),
+    (torch.bfloat16, 9, 64, 64, "cuda_core"),        # verify spec_k 8, the reference bench's
     (torch.bfloat16, 1, 576, 512, "cuda_core"),      # MLA decode
     (torch.float32, 1, 576, 512, "cuda_core"),
     (torch.bfloat16, 1, 32, 32, "cuda_core"),
@@ -65,6 +65,13 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.bfloat16, 16, 64, 48, "cuda_core"),
     (torch.float32, 16, 64, 64, "cuda_core"),        # f32 parity
     (torch.float32, 40, 128, 128, "cuda_core"),
+    # ds-paper-100m's verify (G 1, T = spec_k + 1) and its draft's catch-up
+    (torch.bfloat16, 5, 64, 64, "decode"),           # spec_k 4
+    (torch.float32, 5, 64, 64, "decode"),
+    (torch.bfloat16, 8, 64, 64, "decode"),           # spec_k 7, the decode path's last
+    (torch.float32, 9, 64, 64, "cuda_core"),         # spec_k 8; its bf16 row is listed earlier
+    (torch.bfloat16, 32, 64, 64, "tensor_core"),     # the draft's catch-up chunk
+    (torch.float32, 32, 64, 64, "cuda_core"),
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
@@ -75,7 +82,7 @@ def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
 # to 64 keys, a context of 1 key (offset 0), a softcap.
 DECODE_CASES = [(1, 1, ps, dk, 0.0) for ps in (8, 16, 64) for dk in (64, 128)]
 DECODE_CASES += [(8, 1, 16, 128, 0.0), (4, 2, 16, 64, 0.0), (1, 5, 16, 64, 0.0),
-                 (1, 1, 16, 64, 30.0)]
+                 (1, 1, 16, 64, 30.0), (1, 5, 8, 64, 0.0)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

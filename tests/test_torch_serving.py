@@ -1,9 +1,10 @@
 """The port's paged ``ServeEngine`` (plain path on the CPU) against the
-reference ``ServeEngine(cache_mode="paged")`` on shared weights: greedy
-outputs and the dispatch, page and prefix counters must be exactly equal
-on the ragged, shared-prefix, mid-page-divergence, small-pool
-preemption, eviction, budget, adaptive-pool and decode-path-ingestion
-workloads.  The allocator invariants are checked after every tick."""
+reference ``ServeEngine(cache_mode="paged")`` on shared weights: outputs
+and the dispatch, page and prefix counters must be exactly equal on the
+ragged, shared-prefix, mid-page-divergence, small-pool preemption,
+eviction, budget, adaptive-pool and decode-path-ingestion workloads, and
+on stop tokens (device and host sampling), temperature rows under
+preemption, ``prefix_cache=False`` and rows cut at ``max_len``.  The allocator invariants are checked after every tick."""
 
 import jax
 import numpy as np
@@ -60,7 +61,16 @@ def eviction():
     return [(f"r{i}", [100 + (i % 3)] * 8 + [30 + i], 4) for i in range(4)]
 
 
+def temperature_rows(reqs, temperature=0.7):
+    """Every other request samples at ``temperature``."""
+    return [(u, p, n, {"temperature": temperature if i % 2 else 0.0})
+            for i, (u, p, n) in enumerate(reqs)]
+
+
 BASE = dict(max_batch=2, max_len=32, prefill_chunk=4, page_size=8, cache_mode="paged")
+# workloads whose even requests stop on their second greedy token
+# (learned from a reference run without stop tokens)
+STOP_WORKLOADS = ("stop_token", "stop_token_host_sampling")
 WORKLOADS = {
     "ragged": ([ragged()], dict(BASE, total_pages=4)),
     "shared_prefix": ([shared_prefix()], dict(BASE, total_pages=10)),
@@ -75,6 +85,12 @@ WORKLOADS = {
     "decode_path_ingest": ([shared_prefix()], dict(BASE, prefill_chunk=0, total_pages=10)),
     "host_sampling": ([ragged()], dict(BASE, total_pages=4, sample_on_device=False)),
     "drain_refill": ([ragged()], dict(BASE, total_pages=6, refill_policy="drain")),
+    "stop_token": ([ragged()], dict(BASE, total_pages=4)),
+    "stop_token_host_sampling": ([ragged()], dict(BASE, total_pages=4, sample_on_device=False)),
+    "temperature_preemption": ([temperature_rows(preemption())],
+                               dict(BASE, total_pages=3, rng_seed=5)),
+    "no_prefix_cache": ([shared_prefix()], dict(BASE, total_pages=10, prefix_cache=False)),
+    "max_len_cut": ([[(u, p, 40) for u, p, _ in ragged()]], dict(BASE, total_pages=8)),
 }
 
 
@@ -86,9 +102,15 @@ def models():
     return jm, jp, m, params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
 
 
+def requests(cls, batch):
+    """Requests of one batch: ``(uid, prompt, max_new_tokens[, fields])``."""
+    return [cls(uid=u, prompt=list(p), max_new_tokens=n, **(x[0] if x else {}))
+            for u, p, n, *x in batch]
+
+
 def run_port(engine, batches):
     for batch in batches:
-        engine.submit([Request(uid=u, prompt=list(p), max_new_tokens=n) for u, p, n in batch])
+        engine.submit(requests(Request, batch))
         while engine.pending or engine.scheduler.has_active():
             engine.step()
             engine.cache_mgr.check_invariants()
@@ -97,15 +119,29 @@ def run_port(engine, batches):
 
 def run_jax(engine, batches):
     for batch in batches:
-        engine.submit([JRequest(uid=u, prompt=list(p), max_new_tokens=n) for u, p, n in batch])
+        engine.submit(requests(JRequest, batch))
         engine.run_to_completion()
     return {r.uid: r.output for r in engine.finished}
+
+
+def with_stops(outs, batches):
+    """Even requests stop on the second token ``outs`` gave them."""
+    return [[(u, p, n, {"stop_token": outs[u][1]} if i % 2 == 0 else {})
+             for i, (u, p, n, *_) in enumerate(batch)] for batch in batches]
+
+
+def workload_inputs(models, workload):
+    batches, kw = WORKLOADS[workload]
+    if workload in STOP_WORKLOADS:
+        jm, jp, _, _ = models
+        batches = with_stops(run_jax(JEngine(jm, jp, **kw), batches), batches)
+    return batches, kw
 
 
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))
 def test_engine_matches_reference(models, workload):
     jm, jp, m, p = models
-    batches, kw = WORKLOADS[workload]
+    batches, kw = workload_inputs(models, workload)
     jeng = JEngine(jm, jp, **kw)
     want = run_jax(jeng, batches)
     eng = ServeEngine(m, p, device="cpu", **kw)
@@ -122,7 +158,7 @@ def test_workloads_exercise_their_paths(models):
     _, _, m, p = models
 
     def run(name):
-        batches, kw = WORKLOADS[name]
+        batches, kw = workload_inputs(models, name)
         eng = ServeEngine(m, p, device="cpu", **kw)
         run_port(eng, batches)
         return eng
@@ -142,6 +178,14 @@ def test_workloads_exercise_their_paths(models):
     assert ag.cache["k_pages"].shape[1] == ag.n_pages
     assert (ag._table == ag.n_pages).all()  # drained rows hold the moved sentinel
     assert run("decode_path_ingest").prefill_dispatches == 0
+    for name in STOP_WORKLOADS:  # the stop tokens end their requests early
+        stopped = [r for r in run(name).finished if r.stop_token is not None]
+        assert stopped and all(r.output[-1] == r.stop_token and len(r.output) <= 2
+                               for r in stopped)
+    assert run("temperature_preemption").preemptions > 0
+    nopc = run("no_prefix_cache")
+    assert nopc.prefix is None and nopc.prefix_hit_tokens == 0
+    assert all(len(r.output) < 40 for r in run("max_len_cut").finished)
 
 
 def test_temperature_rows_are_placement_independent(models):

@@ -3,7 +3,8 @@ the CPU, against the reference's dense engine (its default) on shared
 weights, for reduced ``ds-paper-100m`` (KV rows) and reduced
 ``mamba2-1.3b`` (SSM state rows): greedy outputs and every counter
 exactly equal over refills into freed rows, decode-path ingestion, host
-sampling and drain refill; the SSM engine's fused prefill against the
+sampling, drain refill, stop tokens and temperature rows (device and host
+sampling) and rows cut at ``max_len``; the SSM engine's fused prefill against the
 sequential greedy oracle (``tests/test_serving.py``'s case); and the
 reference's four refusals for recurrent families."""
 
@@ -36,7 +37,21 @@ WORKLOADS = {  # max_batch 2 over 5 requests: every row is refilled after a fini
     "decode_path_ingest": dict(BASE, prefill_chunk=0),
     "host_sampling": dict(BASE, sample_on_device=False),
     "drain_refill": dict(BASE, max_batch=3, refill_policy="drain"),
+    "stop_token": dict(BASE),
+    "stop_token_host_sampling": dict(BASE, sample_on_device=False),
+    "temperature": dict(BASE, rng_seed=5),
+    "temperature_host_sampling": dict(BASE, rng_seed=5, sample_on_device=False),
+    "max_len_cut": dict(BASE, max_len=16),
 }
+# per-workload request fields, by request index; the stop workloads' even
+# requests stop on their second greedy token (learned from a reference
+# run without stop tokens)
+FIELDS = {
+    "temperature": lambda i: {"temperature": (0.0, 0.8, 1.3, 0.0, 0.6)[i]},
+    "temperature_host_sampling": lambda i: {"temperature": (0.0, 0.8, 1.3, 0.0, 0.6)[i]},
+    "max_len_cut": lambda i: {"max_new_tokens": 24},
+}
+STOP_WORKLOADS = ("stop_token", "stop_token_host_sampling")
 ARCHS = ("ds-paper-100m", "mamba2-1.3b")
 
 
@@ -51,8 +66,8 @@ def models():
     return out
 
 
-def requests(cls, max_new=4):
-    return [cls(uid=f"r{i}", prompt=list(p), max_new_tokens=max_new)
+def requests(cls, max_new=4, fields=lambda i: {}):
+    return [cls(uid=f"r{i}", prompt=list(p), **{"max_new_tokens": max_new, **fields(i)})
             for i, p in enumerate(PROMPTS)]
 
 
@@ -61,14 +76,24 @@ def requests(cls, max_new=4):
 def test_dense_engine_matches_reference(models, arch, workload):
     jm, jp, m, p = models[arch]
     kw = WORKLOADS[workload]
+    fields = FIELDS.get(workload, lambda i: {})
+    if workload in STOP_WORKLOADS:
+        probe = JEngine(jm, jp, **kw)
+        probe.submit(requests(JRequest))
+        outs = {r.uid: r.output for r in probe.run_to_completion()}
+        fields = lambda i: {"stop_token": outs[f"r{i}"][1]} if i % 2 == 0 else {}  # noqa: E731
     jeng = JEngine(jm, jp, **kw)
-    jeng.submit(requests(JRequest))
+    jeng.submit(requests(JRequest, fields=fields))
     want = {r.uid: r.output for r in jeng.run_to_completion()}
     eng = ServeEngine(m, p, device="cpu", **kw)
     assert eng.cache_mode == "dense" and eng._use_prefill == jeng._use_prefill
-    eng.submit(requests(Request))
+    eng.submit(requests(Request, fields=fields))
     got = {r.uid: r.output for r in eng.run_to_completion()}
     assert got == want
+    if workload in STOP_WORKLOADS:
+        assert all(len(got[f"r{i}"]) <= 2 for i in range(0, len(PROMPTS), 2))
+    if workload == "max_len_cut":
+        assert all(len(o) < 24 for o in got.values())
     for name in COUNTERS:
         assert getattr(eng, name) == getattr(jeng, name), name
     assert eng.snapshot()["timing"] == jeng.snapshot()["timing"]
