@@ -71,6 +71,32 @@ Phases, each printing one JSON line:
   sequential decodes), a traced verify tick each, and the paged kernel at
   the verify shapes (B 16, T 5 and 9, 128-576 keys) beside its bound,
   plain version and SDPA;
+- ``ds_parity``: the control plane and its payloads on the card, f32
+  full-width ``ds-paper-100m`` from seed 0, through the paper's four
+  commands (``run_ds.main``, ``startCluster --foreground`` so the worker
+  threads' launches are counted; no job names a device, so each runs on
+  cuda): 2 train spans of 2 steps at 4 x 256 against one direct 4-step
+  span (losses, parameters at ``train_parity``'s tolerances), 2 eval shards
+  against direct ``run_eval`` (12 flash and 25 RMSNorm a shard), a static
+  serve job and a streaming lease of ``parity``'s 6 requests against
+  ``parity``'s card engine (tokens, counters; 12 paged and 25 RMSNorm a
+  dispatch; the request queue ends empty), two streaming leases of 3
+  requests at once on the card (launches the exact sum of both), a seeded
+  revocation drill on the ``SimRunner`` (one notice; every request served
+  once, checkpoint resumes, tokens equal an uninterrupted run's) and a
+  static ``mamba2-1.3b`` job against a direct engine (48 SSD launches a
+  prefill dispatch);
+- ``ds_serve``: ``serve``'s 32 requests in bf16 in one call: the bare
+  engine, the lease payload called directly (no runner) and one streaming
+  lease in the foreground, in turns (the queue's, the object store's, the
+  engine's and the rest's shares of each foreground lease's wall time,
+  timed in its worker thread; queue transactions per engine tick; one
+  more lease under cProfile for its top self-time functions) and the
+  detached flow (``startCluster`` spawns the worker
+  host, ``monitor`` polls until the queue drains, the host's summary);
+  tokens/s of each, peak memory of the lease beside the bare engine's;
+  every request served and acked, detached completions equal to the
+  foreground's;
 - ``train_parity``: full-width f32 training at 4 of the 12 layers (the
   depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
   the card against the same steps on the CPU from the same weights and
@@ -1708,6 +1734,799 @@ def phase_eval(store_root: Path) -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ the control plane
+DS_CONFIG = {"tasks_per_machine": 1, "cluster_machines": 1, "machine_type": ["sim.large"],
+             "machine_price": 1.0, "sqs_message_visibility": 600.0, "max_receive_count": 3,
+             "check_if_done": False}
+DS_TRAIN = {"arch": "ds-paper-100m", "seq_len": 256, "global_batch": 4}
+# parity's engine knobs as a distributed-serve job (no "device": it runs on cuda)
+DS_SERVE_F32 = {"arch": "ds-paper-100m", "max_new_tokens": 24, "max_batch": 4, "max_len": 128,
+                "prefill_chunk": 16, "cache_mode": "paged", "page_size": 16}
+# the reference's revocation-drill workload (tests/test_elastic_serving.py), no prefix store
+DS_DRILL = {"arch": "ds-paper-100m", "max_new_tokens": 12, "max_len": 32, "max_batch": 2,
+            "prefill_chunk": 4, "cache_mode": "paged", "page_size": 8, "prefix_cache": True}
+DS_TICK = 30.0
+
+
+def ds_commands(workdir: Path, app: str, config: dict, job: dict, *, foreground: bool = True):
+    """The paper's four commands through ``run_ds.main`` (their printed
+    lines kept off this script's output): setup, submitJob, startCluster
+    (``--foreground``: the worker host's ThreadRunner runs here, so its
+    launches are counted) and monitor.  Returns the workdir's store."""
+    import contextlib
+    import io
+
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch import run_ds
+
+    files = workdir / "files"
+    files.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for name, obj in (("config", {"app_name": app, **DS_CONFIG, **config}), ("job", job),
+                      ("fleet", {"startup_seconds": 0.0})):
+        paths[name] = str(files / f"{name}.json")
+        Path(paths[name]).write_text(json.dumps(obj))
+    wd = str(workdir / "wd")
+    steps = [["setup", "--config", paths["config"]], ["submitJob", paths["job"]],
+             ["startCluster", paths["fleet"], *(["--foreground"] if foreground else [])]]
+    if foreground:
+        steps.append(["monitor", "--poll", "0.05"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        for argv in steps:
+            require(run_ds.main(["--workdir", wd, *argv]) == 0, f"{app}: run_ds {argv[0]} failed")
+    return ObjectStore(str(workdir / "wd" / "store"))
+
+
+def ds_request_queue(path: Path, bodies: list) -> str:
+    from repro_torch.core.queue import DurableQueue
+
+    q = DurableQueue(str(path))
+    q.send_batch(bodies)
+    q.close()
+    return str(path)
+
+
+def ds_queue_counts(path: str) -> dict:
+    from repro_torch.core.queue import DurableQueue
+
+    q = DurableQueue(path)
+    counts = q.counts()
+    q.close()
+    return counts
+
+
+def ds_completions(results: dict) -> dict:
+    return {uid: r["completion"] for uid, r in results["requests"].items()}
+
+
+def ds_job_results(store, app: str) -> list:
+    """The results of every completed job, from the worker host's exported
+    logs (``logs/<app>/``)."""
+    out = []
+    for info in store.list(f"logs/{app}/"):
+        for line in store.get_text(info.key).splitlines():
+            event = json.loads(line)
+            if event.get("message") == "job complete":
+                out.append(event["result"])
+    return out
+
+
+def as_finished(outputs: dict, prompts: dict):
+    """Completions in the shape ``divergences`` reads an engine run in."""
+    import types
+
+    return types.SimpleNamespace(finished=[
+        types.SimpleNamespace(uid=u, prompt=prompts[u], output=o) for u, o in outputs.items()])
+
+
+def ds_compare_greedy(model, got: dict, want: dict, prompts: dict, what: str) -> list:
+    """Equal greedy completions, or a near-tie (``compare_greedy``'s CPU
+    top-2 gap) at each first difference; the CPU weights are drawn only
+    when the completions differ."""
+    if got == want:
+        return []
+    params_cpu = model.init(0, device="cpu")
+    return compare_greedy(model, params_cpu, as_finished(got, prompts),
+                          as_finished(want, prompts), what)
+
+
+def ds_lease_counter(store, prefix: str, name: str) -> int:
+    """A counter summed over each worker's last record under ``prefix``:
+    its final ``RESULTS-<worker>.json`` supersedes its slice and drain
+    records under ``leases/`` (the reference's drill aggregation)."""
+    finals, slices = {}, {}
+    for info in store.list(prefix):
+        base = info.key.rsplit("/", 1)[-1][:-len(".json")]
+        if "/leases/" in info.key:
+            slices[base] = store.get_json(info.key)
+        elif "/RESULTS-" in info.key:
+            finals[base.split("RESULTS-", 1)[-1]] = store.get_json(info.key)
+    return sum(int(v.get(name, 0)) for v in {**slices, **finals}.values())
+
+
+def add_launches(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def phase_ds_parity(root: Path, plain: dict) -> dict:
+    """The control plane and its payloads on the card, f32 full-width
+    ds-paper-100m from seed 0, through the paper's four commands
+    (``startCluster --foreground``): train spans against a direct span run,
+    eval shards against direct ``run_eval``, a static serve job and a
+    streaming lease against ``parity``'s card engine, two streaming leases
+    at once, a seeded revocation drill on the ``SimRunner``, and a static
+    mamba2-1.3b serve job against a direct engine.  No job names a device:
+    each runs on cuda."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import DSConfig, DSRuntime, FleetFile, JobFile, SimRunner, VirtualClock
+    from repro_torch.core.chaos import ChaosMonkey
+    from repro_torch.core.jobs import step_span_job_file
+    from repro_torch.core.queue import DurableQueue
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import build_model, run_eval, run_train_span
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.train.checkpoint import latest_step, restore_state
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch("ds-paper-100m")
+    L = cfg.n_layers
+    rec = {"phase": "ds_parity", "arch": cfg.name, "dtype": "float32", "device_in_jobs": False,
+           "runs": {}}
+    total: dict = {}
+
+    # -- train: 2 spans of 2 steps at 4 x 256 against one direct 4-step span
+    jf = step_span_job_file(arch="ds-paper-100m", total_steps=4, span=2, run="ds",
+                            shared=dict(DS_TRAIN, total_steps=4))
+    t0 = time.perf_counter()
+    reset_launches()
+    store = ds_commands(root / "train", "DSTrain", {"payload": "distributed-train"},
+                        json.loads(jf.to_json()))
+    launches = read_launches()
+    total = add_launches(total, launches)
+    ds_s = time.perf_counter() - t0
+    spans = sorted(ds_job_results(store, "DSTrain"), key=lambda r: r["span"][0])
+    ds_losses = [x for r in spans for x in r["losses"]]
+    require(latest_step(store, "ds") == 4 and len(ds_losses) == 4,
+            f"ds_parity train: checkpoint at {latest_step(store, 'ds')}, losses {ds_losses}")
+    require(launches["rmsnorm"] == 4 * (2 * L + 1) and launches["flash_attention"] == 0
+            and launches["paged_attention"] == 0,
+            f"ds_parity train: launches {launches}, want 25 RMSNorm a step and no attention kernel")
+    direct_store = ObjectStore(str(root / "train_direct"))
+    direct = run_train_span({**DS_TRAIN, "total_steps": 4, "run": "ds", "start_step": 0,
+                             "num_steps": 4}, direct_store, lambda progress=None: None,
+                            device="cuda")
+    for step, (got, want) in enumerate(zip(ds_losses, direct["losses"])):
+        require(abs(got - want) <= PARITY_RTOL * abs(want),
+                f"ds_parity train: loss at step {step} {got} against direct {want}")
+    like = build_model(DS_TRAIN).abstract_params()
+    a, _ = restore_state(store, "ds", 4, like, device="cuda")
+    b, _ = restore_state(direct_store, "ds", 4, like, device="cuda")
+    worst = max((x - y).abs().max().item() for x, y in zip(tree_leaves(a), tree_leaves(b)))
+    require(all(bool(torch.allclose(x, y, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL))
+                for x, y in zip(tree_leaves(a), tree_leaves(b))),
+            f"ds_parity train: parameters at step 4 differ from the direct run by {worst}")
+    del a, b
+    rec["runs"]["train"] = {"losses": ds_losses, "direct_losses": direct["losses"],
+                            "param_max_abs_err": worst, "launches": launches, "wall_s": ds_s}
+
+    # -- eval: 2 shards on that checkpoint against direct run_eval
+    eval_root = root / "eval"
+    shutil.copytree(root / "train" / "wd" / "store" / "ckpt" / "ds" / "4",
+                    eval_root / "wd" / "store" / "ckpt" / "ds" / "4")
+    eval_job = {**DS_TRAIN, "run": "ds", "n_batches": 1}
+    t0 = time.perf_counter()
+    reset_launches()
+    store = ds_commands(eval_root, "DSEval", {"payload": "distributed-eval"},
+                        {**eval_job, "groups": [{"shard": 0}, {"shard": 1}]})
+    launches = read_launches()
+    total = add_launches(total, launches)
+    ds_s = time.perf_counter() - t0
+    require(launches["flash_attention"] == 2 * L and launches["rmsnorm"] == 2 * (2 * L + 1),
+            f"ds_parity eval: launches {launches}, want 12 flash and 25 RMSNorm a shard")
+    metrics = []
+    for shard in (0, 1):
+        got = store.get_json(f"runs/ds/eval/shard{shard}/METRICS.json")
+        want = run_eval({**eval_job, "shard": shard, "output_prefix": f"direct/shard{shard}"},
+                        store, lambda progress=None: None, device="cuda")
+        require(got["ckpt_step"] == want["ckpt_step"] == 4 and got["shard"] == shard
+                and abs(got["loss"] - want["loss"]) <= 1e-6 * abs(want["loss"])
+                and abs(got["ppl"] - want["ppl"]) <= 1e-6 * abs(want["ppl"]),
+                f"ds_parity eval shard {shard}: {got} against direct {want}")
+        metrics.append({"ds": got, "direct": want, "bitwise_equal": got == want})
+    rec["runs"]["eval"] = {"metrics": metrics, "launches": launches, "wall_s": ds_s}
+
+    # -- serve: parity's 6 requests, static batch and one streaming lease
+    reqs = parity_requests(cfg.vocab_size)
+    prompts = {r.uid: r.prompt for r in reqs}
+    card = {r.uid: r.output for r in plain["paged"].finished}
+    t0 = time.perf_counter()
+    reset_launches()
+    store = ds_commands(root / "serve_static", "DSServe", {"payload": "distributed-serve"},
+                        {**DS_SERVE_F32, "groups": [{"prompts": [r.prompt for r in reqs],
+                                                     "output_prefix": "serve/static"}]})
+    launches = read_launches()
+    total = add_launches(total, launches)
+    res = store.get_json("serve/static/RESULTS.json")
+    got = {f"p{u.removeprefix('req')}": o for u, o in ds_completions(res).items()}
+    require(got == card, "ds_parity serve: the static job's completions differ from parity's "
+                         "card engine")
+    counters = {c: [res[c], getattr(plain["paged"], c)] for c in PARITY_COUNTERS}
+    require(all(a == b for a, b in counters.values()),
+            f"ds_parity serve: counters differ from parity's card engine: {counters}")
+    d = res["dispatches"]
+    require(launches["paged_attention"] == L * d and launches["rmsnorm"] == (2 * L + 1) * d,
+            f"ds_parity serve: launches {launches} for {d} dispatches")
+    rec["runs"]["serve_static"] = {"tokens_equal": True, "counters": counters,
+                                   "launches": launches, "wall_s": time.perf_counter() - t0}
+
+    bodies = [{"uid": r.uid, "prompt": r.prompt, "max_new_tokens": 24} for r in reqs]
+    lease = {**DS_SERVE_F32, "expected_requests": 6, "stream_idle_polls": 200}
+    t0 = time.perf_counter()
+    rq = ds_request_queue(root / "stream_requests.sqlite", bodies)
+    reset_launches()
+    store = ds_commands(root / "serve_stream", "DSStream", {"payload": "distributed-serve"},
+                        {**lease, "groups": [{"request_queue": rq,
+                                              "output_prefix": "serve/stream"}]})
+    launches = read_launches()
+    total = add_launches(total, launches)
+    res = store.get_json("serve/stream/RESULTS.json")
+    counts = ds_queue_counts(rq)
+    require(ds_completions(res) == card, "ds_parity stream: completions differ from parity's "
+                                         "card engine")
+    require(counts == {"visible": 0, "in_flight": 0, "dead": 0},
+            f"ds_parity stream: request queue ends {counts}")
+    d = res["dispatches"]
+    require(launches["paged_attention"] == L * d and launches["rmsnorm"] == (2 * L + 1) * d,
+            f"ds_parity stream: launches {launches} for {d} dispatches")
+    rec["runs"]["serve_stream"] = {"tokens_equal": True, "queue": counts, "dispatches": d,
+                                   "launches": launches, "wall_s": time.perf_counter() - t0}
+
+    # -- two streaming leases at once on the one card, 3 requests each
+    t0 = time.perf_counter()
+    groups = []
+    for i, part in enumerate((bodies[:3], bodies[3:])):
+        groups.append({"request_queue": ds_request_queue(root / f"pair_{i}.sqlite", part),
+                       "output_prefix": f"serve/pair{i}", "expected_requests": 3})
+    reset_launches()
+    with LeaseProbe() as probe:
+        store = ds_commands(root / "serve_pair", "DSPair",
+                            {"payload": "distributed-serve", "tasks_per_machine": 2},
+                            {**lease, "groups": groups})
+    launches = read_launches()
+    total = add_launches(total, launches)
+    pair = [store.get_json(f"serve/pair{i}/RESULTS.json") for i in (0, 1)]
+    got = {**ds_completions(pair[0]), **ds_completions(pair[1])}
+    model = serve._cached_model(DS_SERVE_F32)
+    divs = ds_compare_greedy(model, got, card, prompts, "ds_parity two leases")
+    d = sum(r["dispatches"] for r in pair)
+    require(launches["paged_attention"] == L * d and launches["rmsnorm"] == (2 * L + 1) * d,
+            f"ds_parity two leases: launches {launches} are not the sum over both leases' "
+            f"{d} dispatches")
+    spans = sorted(probe.spans)
+    require(len(spans) == 2, f"ds_parity two leases: {len(spans)} lease calls")
+    for i in (0, 1):
+        counts = ds_queue_counts(groups[i]["request_queue"])
+        require(counts == {"visible": 0, "in_flight": 0, "dead": 0},
+                f"ds_parity two leases: request queue {i} ends {counts}")
+    rec["runs"]["two_leases"] = {
+        "tokens_equal": not divs, "divergences": divs,
+        "dispatches": [r["dispatches"] for r in pair], "launches": launches,
+        "lease_wall_s": [b - a for a, b in spans],
+        "overlap_s": max(0.0, min(b for _, b in spans) - max(a for a, _ in spans)),
+        "wall_s": time.perf_counter() - t0}
+
+    # -- a seeded revocation drill on the SimRunner: one revocation notice
+    t0 = time.perf_counter()
+    serve.reset_serve_state()
+    clk = VirtualClock()
+    drill_cfg = DSConfig(app_name="DSDrill", payload="distributed-serve", cluster_machines=1,
+                         tasks_per_machine=1, machine_type=["sim.large"], machine_price=1.0,
+                         cpu_shares=8192, memory_mb=16384, sqs_message_visibility=240.0,
+                         check_if_done=False, idle_alarm_seconds=100_000.0,
+                         monitor_poll_seconds=DS_TICK, autoscale="queue", min_workers=1,
+                         max_workers=2, autoscale_queue_per_worker=2,
+                         autoscale_up_cooldown_seconds=DS_TICK,
+                         autoscale_down_cooldown_seconds=3600.0)
+    rt = DSRuntime(drill_cfg, store_root=str(root / "drill" / "store"), clock=clk)
+    rt.setup()
+    sys_prompt = [11, 12, 13, 14, 15, 16, 17, 18, 21, 22, 23, 24, 25, 26, 27, 28]
+    drill_prompts = {f"q{i}": sys_prompt + [31 + i] for i in range(6)}
+    rq_path = str(root / "drill" / "requests.sqlite")
+    drq = DurableQueue(rq_path, default_visibility=240.0, max_receive_count=6, clock=clk)
+    drq.send_batch([{"uid": u, "prompt": p, "max_new_tokens": 12}
+                    for u, p in drill_prompts.items()])
+    rt.submit_job(JobFile(shared=dict(DS_DRILL, request_queue=rq_path, expected_requests=6,
+                                      output_prefix="serve/drill", stream_slice_ticks=2,
+                                      stream_idle_polls=8, request_visibility=240.0,
+                                      request_max_receive_count=6),
+                          groups=[{}, {}]))
+    rt.start_cluster(FleetFile(startup_seconds=DS_TICK, market_seed=7))
+    chaos = ChaosMonkey.revocation_drill(rt.fleet, clk, seed=1234, n_revocations=1,
+                                         start=3 * DS_TICK, spacing=2 * DS_TICK,
+                                         notice_seconds=2 * DS_TICK, store=rt.store,
+                                         logs=rt.logs)
+    reset_launches()
+    summary = SimRunner(rt, tick_seconds=DS_TICK, chaos=chaos).run(max_ticks=300)
+    launches = read_launches()
+    total = add_launches(total, launches)
+    counts = drq.counts()
+    drq.close()
+    served = {info.key.rsplit("/", 1)[-1][:-len(".json")]: rt.store.get_json(info.key)
+              for info in rt.store.list("serve/drill/requests/")}
+    drill_model = serve._cached_model(DS_DRILL)
+    whole = ServeEngine(drill_model, serve._seed_params(DS_DRILL, drill_model, 0,
+                                                        torch.device("cuda")),
+                        device="cuda", max_batch=2, max_len=32, prefill_chunk=4,
+                        cache_mode="paged", page_size=8)
+    whole.submit([Request(uid=u, prompt=p, max_new_tokens=12) for u, p in drill_prompts.items()])
+    want = {r.uid: r.output for r in whole.run_to_completion()}
+    del whole
+    got = {u: r["completion"] for u, r in served.items()}
+    drill_counters = {c: ds_lease_counter(rt.store, "serve/drill/", c)
+                      for c in ("revocation_notices", "drain_requeued_requests",
+                                "requests_resumed", "checkpoints_published",
+                                "checkpoint_resumes", "tokens_recovered")}
+    # one completion record per request, every message acked, none dead
+    require(counts == {"visible": 0, "in_flight": 0, "dead": 0} and sorted(got) == sorted(want),
+            f"ds_parity drill: queue ends {counts}, served {sorted(got)}")
+    require(drill_counters["revocation_notices"] >= 1 and drill_counters["checkpoint_resumes"] > 0,
+            f"ds_parity drill: no checkpoint resume {drill_counters}")
+    divs = ds_compare_greedy(drill_model, got, want, drill_prompts, "ds_parity drill")
+    require(launches["paged_attention"] * (2 * L + 1) == launches["rmsnorm"] * L
+            and launches["paged_attention"] > 0,
+            f"ds_parity drill: launches {launches} are not 12 paged and 25 RMSNorm a dispatch")
+    rec["runs"]["revocation_drill"] = {
+        "tokens_equal_uninterrupted": not divs, "divergences": divs, "queue": counts,
+        "counters": drill_counters, "chaos": [[c.kind, c.target, c.time] for c in chaos.log],
+        "summary": {k: getattr(summary, k) for k in ("jobs_done", "preemptions", "ticks")},
+        "launches": launches, "wall_s": time.perf_counter() - t0}
+    serve.reset_serve_state()
+
+    # -- a static mamba2-1.3b serve job (dense cache) against a direct engine
+    ssm_job = {"arch": SSM_ARCH, "max_new_tokens": 16, "max_batch": 4, "max_len": 128,
+               "prefill_chunk": 16, "cache_mode": "dense"}
+    ssm_cfg = get_arch(SSM_ARCH)
+    ssm_reqs = parity_requests(ssm_cfg.vocab_size)[:4]
+    t0 = time.perf_counter()
+    reset_launches()
+    store = ds_commands(root / "serve_ssm", "DSMamba", {"payload": "distributed-serve"},
+                        {**ssm_job, "groups": [{"prompts": [r.prompt for r in ssm_reqs],
+                                                "output_prefix": "serve/ssm"}]})
+    launches = read_launches()
+    total = add_launches(total, launches)
+    res = store.get_json("serve/ssm/RESULTS.json")
+    ssm_model = serve._cached_model(ssm_job)
+    eng = ServeEngine(ssm_model, serve._seed_params(ssm_job, ssm_model, 0, torch.device("cuda")),
+                      device="cuda", max_batch=4, max_len=128, prefill_chunk=16,
+                      cache_mode="dense")
+    eng.submit([Request(uid=f"req{i}", prompt=r.prompt, max_new_tokens=16)
+                for i, r in enumerate(ssm_reqs)])
+    want = {r.uid: r.output for r in eng.run_to_completion()}
+    require(ds_completions(res) == want, "ds_parity mamba2: completions differ from a direct "
+                                         "engine on the card")
+    counters = {c: [res[c], getattr(eng, c)] for c in PARITY_COUNTERS}
+    require(all(a == b for a, b in counters.values()),
+            f"ds_parity mamba2: counters differ from a direct engine: {counters}")
+    Ls, d, pd = ssm_cfg.n_layers, res["dispatches"], res["prefill_dispatches"]
+    require(launches["ssd"] == Ls * pd and launches["rmsnorm"] == (Ls + 1) * d,
+            f"ds_parity mamba2: launches {launches} for {pd} prefill / {d} dispatches, want "
+            f"{Ls} SSD a prefill dispatch and {Ls + 1} RMSNorm a dispatch")
+    rec["runs"]["serve_mamba2"] = {"tokens_equal": True, "counters": counters,
+                                   "ssd_per_prefill_dispatch": launches["ssd"] / pd,
+                                   "launches": launches, "wall_s": time.perf_counter() - t0}
+    del eng
+    serve._MODEL_CACHE.clear()
+    serve._PARAM_CACHE.clear()
+    release_device_memory()
+    rec["launches"] = total
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+class LeaseTimers:
+    """Wall time of one serving lease by layer, inside its thread: the
+    queue (``DurableQueue`` methods: each one sqlite transaction), the
+    object store (``ObjectStore`` methods), the engine's setup (building
+    it and submitting requests, which sizes and grows the page pool), the
+    engine's stepping (``ServeEngine`` and ``RequestScheduler`` methods
+    the lease calls) and the rest (the lease loop's own Python).  Each category's time is exclusive: a queue
+    call inside an engine call (the heartbeat's lease extension) counts as
+    queue time only.  Transactions count the outermost queue calls."""
+
+    def __init__(self):
+        from repro_torch.core.queue import DurableQueue
+        from repro_torch.core.storage import ObjectStore
+        from repro_torch.serving.engine import ServeEngine
+        from repro_torch.serving.scheduler import RequestScheduler
+
+        self.targets = [
+            ("queue", DurableQueue, ("__init__", "send", "send_batch", "receive",
+                                     "receive_batch", "delete", "delete_batch",
+                                     "change_visibility", "release", "counts", "close")),
+            ("store", ObjectStore, ("put_bytes", "put_text", "put_json", "get_bytes", "get_text",
+                                    "get_json", "exists", "head", "list", "delete")),
+            ("engine_setup", ServeEngine, ("__init__", "submit", "submit_resume")),
+            ("engine", ServeEngine, ("step", "checkpoint_slot", "snapshot")),
+            ("engine", RequestScheduler, ("drain_finished", "trim_samples", "timing",
+                                          "sample_marks")),
+        ]
+        self.seconds = {"queue": 0.0, "store": 0.0, "engine_setup": 0.0, "engine": 0.0}
+        self.calls = dict.fromkeys(self.seconds, 0)
+        self.thread = None
+        self._stack: list = []  # [category, time of nested timed calls]
+        self._saved: list = []
+
+    def _wrap(self, cat: str, name: str, fn):
+        import threading
+
+        def timed(*args, **kwargs):
+            if threading.get_ident() != self.thread:
+                return fn(*args, **kwargs)
+            outer = [c for c, _ in self._stack]
+            self._stack.append([cat, 0.0])
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                return iter(list(out)) if name == "list" else out
+            finally:
+                elapsed = time.perf_counter() - t0
+                _, inner = self._stack.pop()
+                self.seconds[cat] += elapsed - inner
+                if cat not in outer:
+                    self.calls[cat] += 1
+                if self._stack:
+                    self._stack[-1][1] += elapsed
+
+        return timed
+
+    def __enter__(self):
+        for cat, cls, names in self.targets:
+            for name in names:
+                fn = cls.__dict__[name]
+                self._saved.append((cls, name, fn))
+                setattr(cls, name, self._wrap(cat, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+    def split(self, wall_s: float, ticks: int) -> dict:
+        secs = dict(self.seconds, other=wall_s - sum(self.seconds.values()))
+        return {"wall_s": wall_s, "seconds": secs,
+                "share": {k: v / wall_s for k, v in secs.items()},
+                "queue_transactions": self.calls["queue"],
+                "store_operations": self.calls["store"], "engine_ticks": ticks,
+                "queue_transactions_per_tick": self.calls["queue"] / max(1, ticks)}
+
+
+def profile_top(prof, n: int = 10) -> list:
+    """The functions with the most self time in a cProfile."""
+    import pstats
+
+    rows = sorted(((tt, nc, f"{Path(key[0]).name}:{key[1]}:{key[2]}")
+                   for key, (_, nc, tt, _, _) in pstats.Stats(prof).stats.items()),
+                  reverse=True)[:n]
+    return [f"{name} {tt * 1e3:.1f} ms in {nc} calls" for tt, nc, name in rows]
+
+
+class LeaseProbe:
+    """Stands in for the ``distributed-serve`` payload around one run:
+    records each call's start and end (a lease's wall time, in its worker
+    thread) and, for a single lease, times its layers with
+    :class:`LeaseTimers` (``layers``) or runs it under cProfile
+    (``profile``)."""
+
+    def __init__(self, *, layers: bool = False, profile: bool = False):
+        from repro_torch.core.worker import PAYLOAD_REGISTRY
+
+        self.registry, self.profile = PAYLOAD_REGISTRY, profile
+        self.payload = PAYLOAD_REGISTRY["distributed-serve"]
+        self.timers = LeaseTimers() if layers else None
+        self.spans, self.wall_s, self.prof = [], [], None
+
+    def __call__(self, job, ctx):
+        import cProfile
+        import threading
+
+        prof = cProfile.Profile() if self.profile else None
+        if self.timers is not None:
+            self.timers.thread = threading.get_ident()
+        t0 = time.perf_counter()
+        if prof is not None:
+            prof.enable()
+        try:
+            return self.payload(job, ctx)
+        finally:
+            if prof is not None:
+                prof.disable()
+                self.prof = prof
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.spans.append((t0, t1))
+            self.wall_s.append(t1 - t0)
+
+    def __enter__(self):
+        self.registry["distributed-serve"] = self
+        if self.timers is not None:
+            self.timers.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.timers is not None:
+            self.timers.__exit__(*exc)
+        self.registry["distributed-serve"] = self.payload
+
+
+class GcClock:
+    """Seconds the cyclic garbage collector ran during a block (every
+    thread), from ``gc.callbacks``, and its collections by generation."""
+
+    def __enter__(self):
+        import gc
+
+        self.seconds, self.collections, self._t0 = 0.0, [0, 0, 0], 0.0
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+            self.collections[info["generation"]] += 1
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._callback)
+
+    def record(self) -> dict:
+        return {"gc_s": self.seconds, "gc_collections_by_generation": self.collections}
+
+
+def stop_process(pid: int, grace_s: float = 10.0):
+    """Reap a child that ends within ``grace_s`` (its exit status), or kill
+    it; ``None`` when something else reaped it first."""
+    import os
+    import signal
+
+    deadline = time.time() + grace_s
+    try:
+        while time.time() < deadline:
+            done, status = os.waitpid(pid, os.WNOHANG)
+            if done:
+                return status
+            time.sleep(0.2)
+        os.kill(pid, signal.SIGKILL)
+        return os.waitpid(pid, 0)[1]
+    except ChildProcessError:
+        return None
+
+
+def phase_ds_serve(root: Path) -> dict:
+    """``serve``'s 32 requests in bf16 at ``serve``'s knobs, in one call:
+    the bare engine (its requests submitted at once, and one by one as a
+    lease submits them), the lease payload called directly on this thread
+    (no runner: the lease loop's own cost), and one streaming lease
+    through the four commands in the foreground (a worker thread beside
+    the runner's monitor loop), in turns (bare, bare one by one, direct,
+    lease, lease under cProfile, then the four again; each unprofiled
+    lease's wall time split by :class:`LeaseTimers`, the profiled one's
+    top self-time functions; the garbage collector's time in each run),
+    and the paper's detached flow (``startCluster`` spawns the worker host,
+    ``monitor`` polls until the queue drains, the host's
+    ``summary/<app>.json``).  Gates: every request served and acked, and
+    the detached completions equal the foreground's."""
+    import contextlib
+    import io
+    import os
+    import threading
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import LogGroup, MetricRegistry, WallClock, WorkerContext
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch import run_ds, serve
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("ds-paper-100m")
+    L = cfg.n_layers
+    job = {"arch": "ds-paper-100m", "dtype": "bfloat16", "max_new_tokens": 64,
+           "max_batch": 16, "max_len": 640, "prefill_chunk": 16, "cache_mode": "paged",
+           "page_size": 16}
+    kw = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16, cache_mode="paged")
+    reqs = serve_requests(cfg.vocab_size)
+    bodies = [{"uid": r.uid, "prompt": r.prompt, "max_new_tokens": 64} for r in reqs]
+    model = serve._cached_model(job)
+    params = serve._seed_params(job, model, 0, torch.device("cuda"))
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 40 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **kw)
+    lease = {**job, "expected_requests": len(reqs), "stream_idle_polls": 200}
+    rec = {"phase": "ds_serve", "arch": cfg.name, "dtype": "bfloat16", "requests": len(reqs),
+           "max_new_tokens": 64, "max_batch": 16, "nvidia_smi": smi_line(),
+           "bare_engine": [], "bare_one_by_one": [], "direct": [], "foreground": []}
+    outputs = {}
+
+    def bare_run(one_by_one: bool) -> dict:
+        eng = ServeEngine(model, params, device="cuda", **kw)
+        for batch in ([[r] for r in serve_requests(cfg.vocab_size)] if one_by_one
+                      else [serve_requests(cfg.vocab_size)]):
+            eng.submit(batch)
+        release_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with GcClock() as gc_clock:
+            eng.run_to_completion()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outputs["bare_one_by_one" if one_by_one else "bare"] = {
+            r.uid: r.output for r in eng.finished}
+        return {"wall_s": wall, "tokens": eng.tokens_emitted,
+                "tokens_per_s": eng.tokens_emitted / wall, "ticks": eng.stats.ticks,
+                "dispatches": eng.dispatches, "total_pages": eng.n_pages,
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                **gc_clock.record()}
+
+    def direct_run(name: str) -> tuple:
+        rq = ds_request_queue(root / f"{name}_requests.sqlite", bodies)
+        store = ObjectStore(str(root / name / "store"))
+        ctx = WorkerContext(store=store, logs=LogGroup(name), metrics=MetricRegistry(),
+                            clock=WallClock(), task=None, worker_id=name)
+        release_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timers = LeaseTimers()
+        timers.thread = threading.get_ident()
+        t0 = time.perf_counter()
+        with GcClock() as gc_clock, timers:
+            serve.serve_payload({**lease, "request_queue": rq, "output_prefix": "serve/lease"},
+                                ctx)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        res = store.get_json("serve/lease/RESULTS.json")
+        counts = ds_queue_counts(rq)
+        require(len(res["requests"]) == len(reqs) and counts == {"visible": 0, "in_flight": 0,
+                                                                  "dead": 0},
+                f"ds_serve {name}: {len(res['requests'])} served, request queue ends {counts}")
+        d = res["dispatches"]
+        require(launches["paged_attention"] == L * d and launches["rmsnorm"] == (2 * L + 1) * d,
+                f"ds_serve {name}: launches {launches} for {d} dispatches")
+        outputs[name] = ds_completions(res)
+        return {"wall_s": wall, "tokens": res["tokens_emitted"],
+                "tokens_per_s": res["tokens_emitted"] / wall, "ticks": res["ticks"],
+                "dispatches": d, "total_pages": res["total_pages"],
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "split": timers.split(wall, res["ticks"]), **gc_clock.record()}, launches
+
+    def lease_run(name: str, profile: bool) -> tuple:
+        rq = ds_request_queue(root / f"{name}_requests.sqlite", bodies)
+        release_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with LeaseProbe(layers=not profile, profile=profile) as probe, GcClock() as gc_clock:
+            store = ds_commands(root / name, f"DS{name.title()}",
+                                {"payload": "distributed-serve"},
+                                {**lease, "groups": [{"request_queue": rq,
+                                                      "output_prefix": "serve/lease"}]})
+        commands_s = time.perf_counter() - t0
+        launches = read_launches()
+        res = store.get_json("serve/lease/RESULTS.json")
+        counts = ds_queue_counts(rq)
+        require(len(res["requests"]) == len(reqs) and counts == {"visible": 0, "in_flight": 0,
+                                                                  "dead": 0},
+                f"ds_serve {name}: {len(res['requests'])} served, request queue ends {counts}")
+        d = res["dispatches"]
+        require(launches["paged_attention"] == L * d and launches["rmsnorm"] == (2 * L + 1) * d,
+                f"ds_serve {name}: launches {launches} for {d} dispatches")
+        lease_s = probe.wall_s[0]
+        outputs[name] = ds_completions(res)
+        run = {"lease_wall_s": lease_s, "commands_wall_s": commands_s,
+               "tokens": res["tokens_emitted"], "tokens_per_s": res["tokens_emitted"] / lease_s,
+               "ticks": res["ticks"], "dispatches": d, "total_pages": res["total_pages"],
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "queue": counts, "launches": launches, **gc_clock.record()}
+        if profile:
+            run["top_self_time"] = profile_top(probe.prof)
+        else:
+            run["split"] = probe.timers.split(lease_s, res["ticks"])
+        return run, launches
+
+    total: dict = {}
+    for name in ("bare", "bare_one_by_one", "direct", "foreground", "profiled",
+                 "bare", "bare_one_by_one", "direct2", "foreground2"):
+        if name.startswith("bare"):
+            one_by_one = name == "bare_one_by_one"
+            rec["bare_one_by_one" if one_by_one else "bare_engine"].append(bare_run(one_by_one))
+            continue
+        if name.startswith("direct"):
+            run, launches = direct_run(name)
+            rec["direct"].append(run)
+        elif name == "profiled":
+            rec["profiled"], launches = lease_run(name, True)
+        else:
+            run, launches = lease_run(name, False)
+            rec["foreground"].append(run)
+        total = add_launches(total, launches)
+    fg = outputs["foreground"]
+    require(all(outputs[n] == fg for n in ("foreground2", "profiled", "direct", "direct2")),
+            "ds_serve: the leases' completions differ between runs")
+    rec["bare_one_by_one_equals_bare"] = outputs["bare_one_by_one"] == outputs["bare"]
+
+    def mean_tps(runs):
+        return sum(r["tokens_per_s"] for r in runs) / len(runs)
+
+    rec["one_by_one_over_bare_tokens_per_s"] = (mean_tps(rec["bare_one_by_one"])
+                                                 / mean_tps(rec["bare_engine"]))
+    rec["direct_over_bare_tokens_per_s"] = mean_tps(rec["direct"]) / mean_tps(rec["bare_engine"])
+    rec["lease_over_direct_tokens_per_s"] = mean_tps(rec["foreground"]) / mean_tps(rec["direct"])
+    rec["lease_over_bare_tokens_per_s"] = mean_tps(rec["foreground"]) / mean_tps(rec["bare_engine"])
+    rec["foreground_vs_bare_tokens_equal"] = fg == outputs["bare"]  # reported, not gated
+
+    # the paper's detached flow: the worker host is a second process
+    workdir = root / "detached"
+    rq = ds_request_queue(root / "detached_requests.sqlite", bodies)
+    src = str(ROOT / "src")
+    os.environ["PYTHONPATH"] = os.pathsep.join([src, *filter(None, [os.environ.get(
+        "PYTHONPATH")])])
+    t0 = time.perf_counter()
+    ds_commands(workdir, "DSDetached", {"payload": "distributed-serve"},
+                {**lease, "groups": [{"request_queue": rq, "output_prefix": "serve/lease"}]},
+                foreground=False)
+    pid = int((workdir / "wd" / "worker_host.pid").read_text())
+    monitor_out = io.StringIO()
+    store = ObjectStore(str(workdir / "wd" / "store"))
+    try:
+        with contextlib.redirect_stdout(monitor_out):
+            require(run_ds.main(["--workdir", str(workdir / "wd"), "monitor", "--poll",
+                                 "0.5"]) == 0, "ds_serve detached: monitor failed")
+        monitor_s = time.perf_counter() - t0
+        deadline = time.time() + 300
+        while not store.exists("summary/DSDetached.json") and time.time() < deadline:
+            time.sleep(0.2)
+        summary_s = time.perf_counter() - t0
+    finally:
+        status = stop_process(pid)
+    require(store.exists("summary/DSDetached.json"),
+            "ds_serve detached: the worker host wrote no summary within 300 s")
+    summary = store.get_json("summary/DSDetached.json")
+    res = store.get_json("serve/lease/RESULTS.json")
+    counts = ds_queue_counts(rq)
+    require(summary["jobs_done"] == 1 and len(res["requests"]) == len(reqs)
+            and counts == {"visible": 0, "in_flight": 0, "dead": 0},
+            f"ds_serve detached: summary {summary}, {len(res['requests'])} served, request "
+            f"queue ends {counts}")
+    require(ds_completions(res) == fg,
+            "ds_serve detached: completions differ from the foreground lease's")
+    rec["detached"] = {"tokens": res["tokens_emitted"], "summary": summary,
+                       "start_to_drained_s": monitor_s, "start_to_summary_s": summary_s,
+                       "tokens_per_s_start_to_summary": res["tokens_emitted"] / summary_s,
+                       "worker_host_exit_status": status, "queue": counts,
+                       "monitor_lines": len(monitor_out.getvalue().splitlines()),
+                       "completions_equal_foreground": True}
+    rec["launches"] = total
+    serve.reset_serve_state()
+    serve._MODEL_CACHE.clear()
+    serve._PARAM_CACHE.clear()
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 # ------------------------------------------------------------------ the SSM family
 SSM_ARCH = "mamba2-1.3b"
 
@@ -1985,17 +2804,18 @@ KERNELS = {
 }
 
 
-def kernels_line(checks: dict, serve: dict, spec_serve: dict, train: dict, evals: dict,
-                 ssm_serve: dict, ssm_eval: dict) -> dict:
+def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
+                 train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
-    spec_serve, train, eval, ssm_serve, ssm_eval: counts set to 0 before
-    each run and read after),
+    spec_serve, ds_parity's and ds_serve's payload runs, train, eval,
+    ssm_serve, ssm_eval: counts set to 0 before each run and read after),
     its worst error, and its times at its first timed shape with the
     others beside."""
     def total(runs):
         return {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
 
     paths = {"serve": serve["launches"], "spec_serve": spec_serve["launches"],
+             "ds_parity": ds_parity["launches"], "ds_serve": ds_serve["launches"],
              "train": train["launches"], "eval": total(evals["runs"]),
              "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"])}
     timed_by_kernel = {
@@ -2057,6 +2877,10 @@ def main() -> int:
     phase_profile()
     phase_spec_parity(plain)
     spec_serve = phase_spec_serve()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ds_parity = phase_ds_parity(Path(tmp), plain)
+        del plain
+        ds_serve = phase_ds_serve(Path(tmp))
     phase_train_parity()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
@@ -2067,7 +2891,8 @@ def main() -> int:
         del params_cpu
         ssm_serve = phase_ssm_serve(cfg, params)
         ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
-    emit(kernels_line(checks, serve, spec_serve, train, evals, ssm_serve, ssm_eval))
+    emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, train, evals, ssm_serve,
+                      ssm_eval))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -31,6 +31,7 @@ LINK_FLAGS = ["-shared", *ARCH_FLAGS]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_count_lock = threading.Lock()
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types: a pointer must be c_void_p, or
@@ -124,6 +125,18 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def count_launch(fn, path: Optional[str] = None) -> None:
+    """Add one to a wrapper's ``launches`` (and to ``launches_by_path[path]``)
+    under a lock.  Worker threads serving on one card at once launch
+    through the same wrappers, and ``+=`` on an attribute is a read and a
+    write that another thread may run between: unguarded, two leases'
+    counts could lose launches."""
+    with _count_lock:
+        fn.launches += 1
+        if path is not None:
+            fn.launches_by_path[path] += 1
 
 
 def check(status: int, what: str) -> None:

@@ -84,7 +84,7 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, "flash_attention_fwd")
-    flash_attention_bhsd.launches += 1
+    _build.count_launch(flash_attention_bhsd)
     return out
 
 

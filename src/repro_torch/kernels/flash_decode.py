@@ -34,6 +34,7 @@ kernel or raises.
 from __future__ import annotations
 
 import math
+import threading
 from functools import lru_cache
 from typing import Optional
 
@@ -99,18 +100,23 @@ def _sm_count(device_index: int) -> int:
 
 
 # The decode path's f32 workspace and int32 counters, one pair per device,
-# grown on demand (see paged_flash_attention_folded).
+# grown on demand (see paged_flash_attention_folded).  The lock makes the
+# lookup and the growth one step: worker threads serving on one card at
+# once would otherwise each grow the pair and one of them store a smaller
+# buffer over a larger one another thread's shapes need.
 _decode_scratch: dict = {}
+_decode_lock = threading.Lock()
 
 
 def _decode_buffers(device: torch.device, ws_floats: int, n_counters: int):
-    ws, counters = _decode_scratch.get(device, (None, None))
-    if ws is None or ws.numel() < ws_floats:
-        ws = torch.empty(ws_floats, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    _decode_scratch[device] = (ws, counters)
-    return ws, counters
+    with _decode_lock:
+        ws, counters = _decode_scratch.get(device, (None, None))
+        if ws is None or ws.numel() < ws_floats:
+            ws = torch.empty(ws_floats, dtype=torch.float32, device=device)
+        if counters is None or counters.numel() < n_counters:
+            counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+        _decode_scratch[device] = (ws, counters)
+        return ws, counters
 
 
 def paged_flash_attention_folded_plain(
@@ -167,7 +173,10 @@ def paged_flash_attention_folded(
     counter tells the last block of each to merge them; it resets the
     counter to 0.  Workspace and counters are one pair per device, kept
     here and reused by every call, so calls on one device must run on one
-    stream (or be ordered between streams by the caller)."""
+    stream (or be ordered between streams by the caller).  Threads may
+    call at once: the pair is looked up and grown under a lock, and worker
+    threads all launch on the device's default stream, which orders their
+    kernels on the card."""
     b, hkv, ql, dk = q.shape
     n_pages, page_size = k_pages.shape[0], k_pages.shape[1]
     dv_store = v_pages.shape[-1]
@@ -218,8 +227,7 @@ def paged_flash_attention_folded(
         ws_ptr, counters_ptr, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, f"paged_attention_fwd ({path} path)")
-    paged_flash_attention_folded.launches += 1
-    paged_flash_attention_folded.launches_by_path[path] += 1
+    _build.count_launch(paged_flash_attention_folded, path)
     return out
 
 

@@ -50,7 +50,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
         x.shape[0], x.shape[1], float(eps), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "rmsnorm_fwd")
-    rmsnorm.launches += 1
+    _build.count_launch(rmsnorm)
     return out
 
 

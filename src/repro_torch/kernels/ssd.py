@@ -167,7 +167,7 @@ def _launch(x, dA, dt, B, C, block_h: int):
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "ssd_chunk_fwd")
-    ssd_chunk.launches += 1
+    _build.count_launch(ssd_chunk)
     return y, states
 
 

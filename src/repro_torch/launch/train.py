@@ -1,8 +1,8 @@
-"""Training spans and evaluation over an object store.
+"""Training spans and evaluation over an object store, and the
+``distributed-train`` and ``distributed-eval`` payloads.
 
-Counterparts of the bodies of the reference package's ``launch/train.py``
-payloads ``distributed-train`` and ``distributed-eval``, with the same
-job keys and defaults:
+Counterparts of the reference package's ``launch/train.py`` payloads,
+with the same job keys and defaults:
 
 - :func:`run_train_span` trains the step span ``[start_step,
   start_step + num_steps)``: it restores the latest checkpoint (or
@@ -14,15 +14,17 @@ job keys and defaults:
   ``METRICS.json``.
 
 Both take an ``ObjectStore`` and a ``heartbeat(progress=...)`` callable,
-called after every step or batch.  Checkpoints are in the reference's
-format, so a span can resume from the reference's checkpoint and the
-other way round.  One job key is the port's own: ``dtype`` (``"float32"``,
+called after every step or batch; the payloads registered here pass the
+worker's store and ``ctx.heartbeat`` and run on the job's ``device``
+(``cuda`` when the job names none: on a host without a card the job
+fails, and is never run on the CPU unasked).  Checkpoints are in the
+reference's format, so a span can resume from the reference's checkpoint
+and the other way round.  One job key is the port's own: ``dtype`` (``"float32"``,
 the reference's default, or ``"bfloat16"``).  Attention follows
 ``ModelRuntime.resolve_attn`` and an SSM's scan ``resolve_ssd``: the plain
 paths while training, the flash and SSD kernels for eval on the card.  An
 SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a bf16 run, in its
-checkpoints as in its parameters.  Registering the runners as worker payloads
-waits for the port's queue and worker (ROADMAP Queue 1).
+checkpoints as in its parameters.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from repro_torch import prng, resolve_device
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core.storage import ObjectStore
+from repro_torch.core.worker import NotReady, WorkerContext, register_payload
 from repro_torch.models import Model, ModelRuntime
 from repro_torch.train.checkpoint import latest_step, restore_state, save_state
 from repro_torch.train.data import DataConfig, SyntheticLM
@@ -43,16 +46,6 @@ from repro_torch.train.optimizer import AdamWConfig, Schedule, init_opt_state
 from repro_torch.train.steps import TrainStepConfig, make_train_step
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-class NotReady(Exception):
-    """The span's prerequisite (an earlier span's checkpoint) is not there
-    yet; a worker releases the job to its queue for ``retry_in`` seconds
-    (the reference's ``core.worker.NotReady``)."""
-
-    def __init__(self, msg: str, retry_in: float = 10.0):
-        super().__init__(msg)
-        self.retry_in = retry_in
 
 
 def build_model(job: Dict) -> Model:
@@ -167,3 +160,16 @@ def run_eval(job: Dict, store: ObjectStore, heartbeat: Callable, device=None) ->
     out = job.get("output_prefix", f"runs/{run}/eval/shard{shard_idx}")
     store.put_json(f"{out}/METRICS.json", result)
     return result
+
+
+@register_payload("distributed-train")
+def train_payload(job: Dict, ctx: WorkerContext) -> Dict:
+    """One step span of a training run (see :func:`run_train_span`)."""
+    return run_train_span(job, ctx.store, ctx.heartbeat, device=job.get("device"))
+
+
+@register_payload("distributed-eval")
+def eval_payload(job: Dict, ctx: WorkerContext) -> Dict:
+    """Perplexity of one shard on the run's latest checkpoint (see
+    :func:`run_eval`)."""
+    return run_eval(job, ctx.store, ctx.heartbeat, device=job.get("device"))

@@ -538,10 +538,16 @@ class KVCacheManager:
             self._incref(pid)
 
     def publish_generation(self, row: int, tokens: List[int]) -> int:
-        raise NotImplementedError(
-            "the cross-host prefix store is not ported yet "
-            "(ROADMAP Queue 1: prefix store and payload)"
-        )
+        """Publish a drained slot's resident KV for a resuming worker: the
+        reference does it through its cross-host prefix store, which the
+        port does not have yet (ROADMAP Queue 1), so, as the reference
+        without a store, nothing is published.  Returns the number of
+        pages published: 0."""
+        return 0
+
+    def flush_store(self) -> None:
+        """The reference's drain seam for background prefix-store
+        publishes; a no-op without a store."""
 
     # ------------------------------------------------------------ debugging
     def check_invariants(self) -> None:

@@ -26,16 +26,23 @@ SSM family serves from the dense cache only, as in the reference.
 
 Knob names, refusals and the :class:`EngineStats` counters are the
 reference's; ``device`` (default ``cuda``) picks where the cache lives
-and must hold the parameters (and the draft model's).  The reference's
-refusals come first, with its messages; then what is not ported yet is
-refused with ``NotImplementedError`` naming its ROADMAP Queue 1 item:
-the prefix store, disaggregated roles, checkpoint resume and handoff
-admission.
+and must hold the parameters (and the draft model's).  ``heartbeat`` is
+called after every dispatch, at the reference's three sites (a serving
+lease extends its queue lease and notices preemption there).  The
+work-preserving recovery seam is the reference's too:
+:meth:`ServeEngine.checkpoint_slot` records an active row's generation
+and :meth:`ServeEngine.submit_resume` re-admits it for token-for-token
+continuation; with no prefix store nothing is published, so a resume
+re-prefills ``prompt + output[:-1]`` (the reference's behaviour without
+a store).  The reference's refusals come first, with its messages; then
+what is not ported yet is refused with ``NotImplementedError`` naming
+its ROADMAP Queue 1 item: the prefix store, disaggregated roles and
+handoff admission.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -83,6 +90,7 @@ class ServeEngine:
         refill_policy: str = "continuous",
         prefill_token_budget: Optional[int] = None,
         worker_role: str = "unified",
+        heartbeat: Callable[[], None] = lambda: None,
         speculative: str = "off",
         spec_k: int = 4,
         draft_model=None,
@@ -129,6 +137,8 @@ class ServeEngine:
         self.dispatch_mode = dispatch_mode
         self.sample_on_device = sample_on_device
         self.cache_mode = cache_mode
+        # called after every dispatch (a lease's liveness/extension hook)
+        self.heartbeat = heartbeat
 
         # the layers share one counter block and are cross-wired at exactly
         # two points: admission (scheduler -> cache: reset + stitch) and
@@ -284,8 +294,70 @@ class ServeEngine:
         # adaptive pool sizing sees the queue depth at submit
         self.cache_mgr.on_submit(self.scheduler.pending)
 
+    # ------------------------------------- work-preserving recovery seam
+    def checkpoint_slot(self, row: int) -> Optional[Dict]:
+        """Capture a resumable generation checkpoint for an active slot.
+
+        Called by a draining lease BEFORE it preempts the row.  Returns a
+        plain-dict record of the ORIGINAL prompt, the FULL output and the
+        sampling position, which the caller persists durably; ``None``
+        when there is nothing worth saving (empty row, prompt still
+        ingesting, or no tokens emitted yet: full replay costs the same
+        as a resume there).  The reference also publishes the resident KV
+        through its prefix store here; the port has none, so
+        ``publish_generation`` publishes nothing, as the reference's does
+        without a store."""
+        slot = self.scheduler.slots[row]
+        req = slot.req
+        if (req is None or slot.remaining_prompt
+                or len(req.output) <= req.resume_base):
+            return None
+        # a request that is itself a resume carries resume_base pre-seeded
+        # output tokens duplicated in its extended prompt: the record
+        # always stores the ORIGINAL prompt and the FULL output, so
+        # chained resumes never double-extend
+        base = len(req.prompt) - req.resume_base
+        resident = list(req.prompt[:base]) + req.output[:-1]
+        self.cache_mgr.publish_generation(row, resident)
+        self.stats.checkpoints_published += 1
+        return {
+            "uid": req.uid,
+            "prompt": list(req.prompt[:base]),
+            "output": list(req.output),
+            "sample_stream": int(req.sample_stream),
+            "max_new_tokens": int(req.max_new_tokens),
+            "temperature": float(req.temperature),
+            "stop_token": req.stop_token,
+        }
+
     def submit_resume(self, ckpt: Dict) -> Request:
-        raise _unported("submit_resume", "prefix store and payload")
+        """Admit a checkpointed generation for token-for-token continuation.
+
+        The resumed request re-enters through the normal admission path
+        with an *extended prompt* of ``prompt + output[:-1]`` and its
+        output pre-seeded to ``output[:-1]``; the prefill-completion
+        sample at the frontier re-derives ``output[-1]`` from the same
+        stream key ``(stream, len(output) - 1)`` the original emission
+        used, so the final output equals an uninterrupted run's and only
+        the frontier token is decoded again.  The extended prompt's
+        tokens are chunk-prefilled (less what the local radix cache
+        holds), writing the same KV the interrupted row held."""
+        output = [int(t) for t in ckpt["output"]]
+        req = Request(
+            uid=ckpt["uid"],
+            prompt=[int(t) for t in ckpt["prompt"]] + output[:-1],
+            max_new_tokens=int(ckpt["max_new_tokens"]),
+            temperature=float(ckpt["temperature"]),
+            stop_token=ckpt.get("stop_token"),
+        )
+        req.output = output[:-1]
+        req.resume_base = len(output) - 1
+        req.sample_stream = int(ckpt["sample_stream"])
+        self.scheduler.submit_resume(req)
+        self.cache_mgr.on_submit(self.scheduler.pending)
+        self.stats.checkpoint_resumes += 1
+        self.stats.tokens_recovered += len(output) - 1
+        return req
 
     def submit_handoff(self, rec: Dict) -> Request:
         raise _unported("submit_handoff", "prefix store and payload")
@@ -390,6 +462,7 @@ class ServeEngine:
                 nxt, done, lg = None, None, logits.float().cpu().numpy()
             self.stats.prefill_dispatches += 1
             self.stats.dispatches += 1
+            self.heartbeat()
             for i in rows:
                 slot = slots[i]
                 n = min(plan[i], len(slot.remaining_prompt))
@@ -473,6 +546,7 @@ class ServeEngine:
         self.stats.decode_dispatches += 1
         self.stats.steps_executed += 1
         self.stats.dispatches += 1
+        self.heartbeat()
         return out
 
     def _advance_rows(self, rows, nxt, done, lg) -> int:
@@ -556,6 +630,7 @@ class ServeEngine:
         self.stats.steps_executed += 1
         self.stats.dispatches += 1
         self.stats.spec_dispatches += 1
+        self.heartbeat()
         emitted = 0
         for i in live:
             s = slots[i]
@@ -660,6 +735,10 @@ for _name in (
     "cow_copies", "prefix_evictions", "preemptions", "tokens_discarded",
     "spec_dispatches", "draft_dispatches",
     "draft_tokens_proposed", "draft_tokens_accepted", "spec_tokens_emitted",
+    "revocation_notices", "drain_requeued_requests", "requests_resumed",
+    "lease_slices", "lease_resumes",
+    "checkpoints_published", "checkpoint_resumes", "tokens_recovered",
+    "checkpoint_fallbacks", "decode_tokens_discarded",
 ):
     setattr(ServeEngine, _name, _stats_alias(_name))
 for _name in (

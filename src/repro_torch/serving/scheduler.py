@@ -5,9 +5,11 @@ A copy of the reference package's framework-free ``serving/scheduler.py``
 the pending queue, the slot pool with continuous batching, the
 ``refill_policy`` and ``prefill_token_budget`` knobs, the preemption /
 requeue policy the allocator escalates to under pool pressure, and
-per-request latency accounting in engine ticks.  Disaggregated roles,
-handoff and checkpoint-resume admission and the streaming lease's
-sample trimming are not ported (ROADMAP Queue 1).
+per-request latency accounting in engine ticks, and the streaming
+lease's surface: checkpoint-resume admission (:meth:`submit_resume`),
+:meth:`drain_finished`, :meth:`trim_samples` and windowed
+:meth:`timing` over :meth:`sample_marks`.  Disaggregated roles and
+handoff admission are not ported (ROADMAP Queue 1).
 
 - ``refill_policy``: ``"continuous"`` (default) admits into every freed
   row at each tick; ``"drain"`` only admits when *all* slots are empty
@@ -62,10 +64,16 @@ class RequestScheduler:
         self.tick = 0  # engine steps begun; the unit of all latency stats
         self._admit_seq = 0
         self._n_submitted = 0
-        # latency samples in ticks (appended as events happen; None =
-        # sample voided by preemption rollback)
+        # latency samples in ticks (appended as events happen; consumers
+        # scope a measurement window with sample_marks()/timing(); None =
+        # sample voided by preemption rollback).  The lists are bounded by
+        # trim_samples; the *_dropped counters record how many samples
+        # fell off the front, so a mark recorded with sample_marks() stays
+        # an absolute sample id across trims
         self.queue_waits: List[Optional[int]] = []
         self.ttfts: List[Optional[int]] = []
+        self.waits_dropped = 0
+        self.ttfts_dropped = 0
         # wired by the engine to KVCacheManager: admission stitches
         # prefixes, finish/preempt release pages
         self.cache = None
@@ -80,6 +88,17 @@ class RequestScheduler:
             if r.submit_tick < 0:
                 r.submit_tick = self.tick
         self.pending.extend(reqs)
+
+    def submit_resume(self, req: Request) -> None:
+        """Queue a checkpoint-resumed request WITHOUT reassigning its
+        sampling stream: byte-identical continuation requires the stream
+        the original submission drew, not this worker's next id.  The
+        local stream counter still advances so later fresh submissions
+        on this scheduler cannot collide with the resumed stream."""
+        self._n_submitted = max(self._n_submitted, req.sample_stream + 1)
+        if req.submit_tick < 0:
+            req.submit_tick = self.tick
+        self.pending.insert(0, req)
 
     # ------------------------------------------------------------ admission
     def begin_tick(self) -> None:
@@ -149,6 +168,14 @@ class RequestScheduler:
         slot.remaining_prompt = []
         self.cache.release_slot(row)
 
+    def drain_finished(self) -> List[Request]:
+        """Hand over (and forget) the finished requests accumulated so
+        far.  Long-lived consumers (the queue-streaming lease) use this
+        instead of reading ``finished`` so served requests do not pile
+        up in memory for the lease's lifetime."""
+        done, self.finished = self.finished, []
+        return done
+
     # ----------------------------------------------------------- preemption
     def preempt_for(self, row: int) -> Optional[int]:
         """Pool-pressure escalation point (called by the cache manager's
@@ -214,8 +241,8 @@ class RequestScheduler:
         req.done = False
         req.admit_tick = -1
         req.first_token_tick = -1
-        # void the aborted attempt's latency samples (in place, so the
-        # recorded indices stay valid); the rerun records fresh ones
+        # void the aborted attempt's latency samples (in place: windowing
+        # by list index must stay stable); the rerun records fresh ones
         if slot.wait_idx >= 0:
             self.queue_waits[slot.wait_idx] = None
         if slot.ttft_idx >= 0:
@@ -232,9 +259,53 @@ class RequestScheduler:
         st.preemptions += 1
 
     # ------------------------------------------------------------- reporting
-    def timing(self) -> Dict[str, Dict[str, float]]:
-        """Queue-wait and TTFT percentile summaries (ticks)."""
+    def trim_samples(self, max_samples: int) -> None:
+        """Bound the latency-sample lists to their ``max_samples`` most
+        recent entries (long-lived streaming leases call this per loop;
+        their percentiles then describe the recent window).  Slots'
+        recorded sample indices are remapped so preemption rollback
+        keeps voiding the right entries; an index that falls off the
+        front is simply no longer voidable.  The cumulative
+        ``waits_dropped``/``ttfts_dropped`` offsets advance so marks
+        recorded with :meth:`sample_marks` before the trim keep
+        addressing the same samples through :meth:`timing`."""
+        for name, dropped in (("queue_waits", "waits_dropped"),
+                              ("ttfts", "ttfts_dropped")):
+            lst = getattr(self, name)
+            drop = len(lst) - max_samples
+            if drop <= 0:
+                continue
+            setattr(self, name, lst[drop:])
+            setattr(self, dropped, getattr(self, dropped) + drop)
+            attr = "wait_idx" if name == "queue_waits" else "ttft_idx"
+            for slot in self.slots:
+                idx = getattr(slot, attr)
+                if idx >= 0:
+                    setattr(slot, attr, idx - drop if idx >= drop else -1)
+
+    def sample_marks(self) -> Dict[str, int]:
+        """Absolute sample ids marking 'now' in each latency list.  Pass
+        them to :meth:`timing` to scope a measurement window; unlike raw
+        list lengths they survive :meth:`trim_samples` (the ids count
+        every sample ever recorded, including trimmed ones)."""
         return {
-            "queue_wait_ticks": percentiles(self.queue_waits),
-            "ttft_ticks": percentiles(self.ttfts),
+            "waits_since": self.waits_dropped + len(self.queue_waits),
+            "ttfts_since": self.ttfts_dropped + len(self.ttfts),
+        }
+
+    def timing(
+        self, waits_since: int = 0, ttfts_since: int = 0
+    ) -> Dict[str, Dict[str, float]]:
+        """Queue-wait and TTFT percentile summaries (ticks).  The
+        arguments are *absolute* sample ids (0 = everything ever
+        recorded) from :meth:`sample_marks`: samples a trim dropped are
+        no longer summarizable, but a pre-trim mark keeps addressing the
+        same window instead of silently sliding forward."""
+        return {
+            "queue_wait_ticks": percentiles(
+                self.queue_waits[max(0, waits_since - self.waits_dropped):]
+            ),
+            "ttft_ticks": percentiles(
+                self.ttfts[max(0, ttfts_since - self.ttfts_dropped):]
+            ),
         }

@@ -1,7 +1,8 @@
 """The port stands apart from the reference package and from the CPU:
 no port module imports ``jax`` or ``repro``; every knob not ported yet
-refuses with ``NotImplementedError`` (the dense cache, ported since,
-runs); a default-device entry point on a host without CUDA raises
+refuses with ``NotImplementedError``, on the engine and on a
+``distributed-serve`` job (the dense cache and checkpoint resume, ported
+since, run); a default-device entry point on a host without CUDA raises
 instead of running on the CPU; and ``chip_smoke.py`` prints no result
 without a card."""
 
@@ -9,6 +10,7 @@ import ast
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -16,6 +18,7 @@ import torch
 from repro_torch import prng, resolve_device
 from repro_torch.configs import ArchConfig, get_arch, reduced
 from repro_torch.core.storage import ObjectStore
+from repro_torch.launch.serve import serve_payload
 from repro_torch.launch.train import run_train_span
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_jax
@@ -69,6 +72,19 @@ def test_unported_engine_knobs_refuse(tiny, knob):
         ServeEngine(m, p, device="cpu", **knob)
 
 
+@pytest.mark.parametrize("knob", UNPORTED_KNOBS, ids=_knob_id)
+def test_unported_serve_job_knobs_refuse(tmp_path, knob):
+    """A ``distributed-serve`` job asking for what is not ported is
+    refused before anything is built, static batch and streaming lease
+    alike: it is never served without it."""
+    ctx = SimpleNamespace(store=ObjectStore(str(tmp_path)), heartbeat=lambda progress=None: None)
+    for job in ({"arch": "ds-paper-100m", "prompts": [[1, 2]]},
+                {"arch": "ds-paper-100m", "request_queue": str(tmp_path / "rq.sqlite")}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+            serve_payload({**job, "device": "cpu", **knob}, ctx)
+    assert not list(ObjectStore(str(tmp_path)).list())
+
+
 def test_dense_cache_mode_runs(tiny):
     """``cache_mode="dense"``, the reference's default and now the port's,
     serves: no pages, the whole per-slot reservation as the cache peak."""
@@ -89,14 +105,15 @@ def test_invalid_engine_knobs_raise_value_error(tiny, knob):
         ServeEngine(m, p, device="cpu", **knob)
 
 
-@pytest.mark.parametrize("method", ["submit_resume", "submit_handoff"])
+@pytest.mark.parametrize("method", ["submit_handoff"])
 def test_unported_engine_entry_points_refuse(tiny, method):
     m, p = tiny
     eng = ServeEngine(m, p, device="cpu", max_len=32, cache_mode="paged")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         getattr(eng, method)({})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        eng.cache_mgr.publish_generation(0, [1, 2, 3])
+    # without a prefix store a generation checkpoint publishes nothing,
+    # as in the reference without one
+    assert eng.cache_mgr.publish_generation(0, [1, 2, 3]) == 0
 
 
 def test_unported_model_features_refuse(tiny):

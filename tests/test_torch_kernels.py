@@ -2,10 +2,14 @@
 ``repro_torch.kernels.ops`` vs ``repro.kernels.ops`` in interpret mode
 and vs ``repro.kernels.ref``, on identical numpy inputs, at the
 reference's tolerances (2e-5 f32, 2e-2 bf16); the RMSNorm op's
-analytic gradient by ``gradcheck``."""
+analytic gradient by ``gradcheck``; and the wrappers' shared state under
+worker threads: launch counts stay exact and the decode path's scratch
+never shrinks under a caller that needs it."""
 
 import inspect
 import math
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -15,8 +19,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import flash_attention, flash_decode, ops, ref
+from repro_torch.kernels import _build, flash_attention, flash_decode, ops, ref
 from repro_torch.kernels import rmsnorm as rms_mod
+from repro_torch.kernels import ssd as ssd_mod
 
 torch.set_num_threads(1)  # the test workers share the host's cores
 
@@ -274,3 +279,99 @@ def test_build_digest_sees_headers_and_link_flags(monkeypatch, tmp_path):
     assert second != first
     monkeypatch.setattr(_build, "LINK_FLAGS", [*_build.LINK_FLAGS, "-lcuda"])
     assert _build._digest() not in (first, second)
+
+
+class _YieldingCounter:
+    """A wrapper's counters whose ``launches`` write gives up the GIL
+    before it stores: an unguarded ``launches += 1`` from two threads then
+    stores a stale count whenever they interleave, as worker threads
+    serving on one card can."""
+
+    def __init__(self):
+        self._n = 0
+        self.launches_by_path = dict.fromkeys(flash_decode.PATHS, 0)
+
+    @property
+    def launches(self):
+        return self._n
+
+    @launches.setter
+    def launches(self, value):
+        time.sleep(1e-6)  # gives up the GIL between the read and the store
+        self._n = value
+
+
+def _hammer(fn, n_threads=8):
+    threads = [threading.Thread(target=fn, args=(i,)) for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def test_launch_counts_are_exact_across_threads():
+    slow = _YieldingCounter()
+    wrappers = [flash_decode.paged_flash_attention_folded, rms_mod.rmsnorm,
+                flash_attention.flash_attention_bhsd, ssd_mod.ssd_chunk]
+    saved = [(w.launches, dict(getattr(w, "launches_by_path", {}))) for w in wrappers]
+    for w in wrappers:
+        w.launches = 0
+    try:
+        def work(i):
+            for j in range(300):
+                path = flash_decode.PATHS[(i + j) % len(flash_decode.PATHS)]
+                _build.count_launch(slow, path)
+                _build.count_launch(flash_decode.paged_flash_attention_folded, path)
+                for w in wrappers[1:]:
+                    _build.count_launch(w)
+
+        base = dict(flash_decode.paged_flash_attention_folded.launches_by_path)
+        _hammer(work)
+        assert slow.launches == 8 * 300
+        assert sum(slow.launches_by_path.values()) == 8 * 300
+        assert slow.launches_by_path == {p: 8 * 100 for p in flash_decode.PATHS}
+        for w in wrappers:
+            assert w.launches == 8 * 300, w.__name__
+        paged = flash_decode.paged_flash_attention_folded.launches_by_path
+        assert {p: paged[p] - base[p] for p in paged} == {p: 800 for p in flash_decode.PATHS}
+    finally:
+        for w, (n, by_path) in zip(wrappers, saved):
+            w.launches = n
+            if by_path:
+                w.launches_by_path = by_path
+
+
+def test_decode_scratch_grows_safely_across_threads(monkeypatch):
+    """Threads asking the decode path's scratch for different sizes at
+    once each get a pair at least as large as asked, and the pair kept is
+    the largest asked for: none stores a smaller buffer over a larger one."""
+    real_empty, real_zeros = torch.empty, torch.zeros
+
+    def yielding(make):
+        def alloc(*args, **kwargs):
+            time.sleep(1e-5)  # the allocation gives up the GIL
+            return make(*args, **kwargs)
+        return alloc
+
+    monkeypatch.setattr(torch, "empty", yielding(real_empty))
+    monkeypatch.setattr(torch, "zeros", yielding(real_zeros))
+    device = torch.device("cpu")
+    flash_decode._decode_scratch.pop(device, None)
+    rng = np.random.default_rng(4)
+    asks = np.sort(rng.integers(1, 4096, (8, 200)), axis=1)  # each thread keeps growing it
+    short = []
+
+    def work(i):
+        for n in asks[i]:
+            ws, counters = flash_decode._decode_buffers(device, int(n) * 16, int(n))
+            if ws.numel() < n * 16 or counters.numel() < n:
+                short.append(int(n))
+
+    try:
+        _hammer(work)
+        ws, counters = flash_decode._decode_scratch[device]
+    finally:
+        flash_decode._decode_scratch.pop(device, None)
+    assert not short
+    assert ws.numel() == int(asks.max()) * 16 and counters.numel() == int(asks.max())
+    assert ws.dtype == torch.float32 and counters.dtype == torch.int32
