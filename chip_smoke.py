@@ -97,6 +97,23 @@ Phases, each printing one JSON line:
   tokens/s of each, peak memory of the lease beside the bare engine's;
   every request served and acked, detached completions equal to the
   foreground's;
+- ``ds_store``: the cross-host prefix store and disaggregated
+  prefill/decode leases at page size 16.  f32 gates through the runtime
+  on the ``SimRunner``: two static jobs sharing a 32-token system prompt
+  (one worker publishes 2 pages, the other hydrates them; tokens equal a
+  card engine without a store, counters equal the same scenario on the
+  CPU), a prefill lease and a decode lease over ``parity``'s 6 requests
+  (6 handoffs published and admitted, no fallback, the prefill side
+  emits nothing, tokens equal ``parity``'s card engine, both queues
+  empty), and that split again with one page truncated by the chaos
+  monkey between the leases (the miss and one fallback counted, tokens
+  still equal); 12 paged and 25 RMSNorm launches a dispatch, every
+  hydrated page bit-equal to the publisher's pool page.  bf16 numbers:
+  ``serve``'s 32 requests behind a shared 256-token system prompt, in
+  turns, one unified lease with the store and a prefill lease followed
+  by a decode lease: tokens/s, pages and bytes published and hydrated,
+  host ms per page by step, the store's share of each lease's wall time,
+  peak memory, the split's tokens against the unified lease's (reported);
 - ``train_parity``: full-width f32 training at 4 of the 12 layers (the
   depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
   the card against the same steps on the CPU from the same weights and
@@ -2527,6 +2544,475 @@ def phase_ds_serve(root: Path) -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ the prefix store
+DS_STORE_F32 = {**DS_SERVE_F32, "prefix_store": True, "prefix_store_namespace": "ds_store/f32"}
+DS_STORE_BF16 = {"arch": "ds-paper-100m", "dtype": "bfloat16", "max_new_tokens": 64,
+                 "max_batch": 16, "max_len": 896, "prefill_chunk": 16, "cache_mode": "paged",
+                 "page_size": 16, "prefix_store": True, "prefix_store_namespace": "ds_store/bf16"}
+STORE_COUNTERS = ("prefix_store_pages_published", "prefix_store_pages_hydrated",
+                  "prefix_store_tokens_hydrated", "prompt_tokens_skipped",
+                  "prompt_tokens_ingested", "hydration_fetch_ops", "prefix_store_bytes_fetched",
+                  "prefix_store_hash_mismatches", "dispatches", "prefill_dispatches",
+                  "decode_dispatches", "tokens_emitted")
+EMPTY_QUEUE = {"visible": 0, "in_flight": 0, "dead": 0}
+
+
+def ds_sim(root: Path, app: str, shared: dict, groups: list, *, machines: int,
+           queues: dict = None, clock=None):
+    """One job file through the runtime's commands on the ``SimRunner``
+    (setup, submit, start the fleet, run to the drain).  ``queues`` maps
+    request-queue paths to the bodies sent there first; every queue is
+    opened on the run's virtual clock (``clock``, to go on from an earlier
+    run), whose times its messages carry.  Returns the runtime and each
+    queue's counts after the run."""
+    from repro_torch.core import DSConfig, DSRuntime, FleetFile, JobFile, SimRunner, VirtualClock
+    from repro_torch.core.queue import DurableQueue
+    from repro_torch.launch import serve
+
+    serve.reset_serve_state()
+    clk = clock or VirtualClock()
+    opened = {}
+    for path, bodies in (queues or {}).items():
+        opened[path] = DurableQueue(path, default_visibility=240.0, clock=clk)
+        if bodies:
+            opened[path].send_batch(bodies)
+    rt = DSRuntime(DSConfig(app_name=app, payload="distributed-serve",
+                            cluster_machines=machines, tasks_per_machine=1,
+                            machine_type=["sim.large"], machine_price=1.0,
+                            sqs_message_visibility=240.0, check_if_done=False,
+                            monitor_poll_seconds=DS_TICK),
+                   store_root=str(root / "store"), clock=clk)
+    rt.setup()
+    rt.submit_job(JobFile(shared=dict(shared), groups=groups))
+    rt.start_cluster(FleetFile(startup_seconds=0.0))
+    summary = SimRunner(rt, tick_seconds=DS_TICK).run(max_ticks=2000)
+    require(summary.jobs_done == len(groups), f"{app}: {summary}")
+    counts = {}
+    for path, q in opened.items():
+        counts[path] = q.counts()
+        q.close()
+    return rt, counts
+
+
+def chain_keys(ps, prompt: list, page: int) -> list:
+    """The content keys of a prompt's full chunks and its sub-page tail."""
+    keys, key = [], ps.root_key()
+    for j in range(len(prompt) // page):
+        key = ps.child_key(key, prompt[j * page:(j + 1) * page])
+        keys.append(key)
+    tail = prompt[len(prompt) // page * page:]
+    if tail:
+        keys.append(ps.child_key(keys[-1] if keys else ps.root_key(), tail))
+    return keys
+
+
+class PageAudit:
+    """Holds every hydrated page against the page the publisher's pool
+    held: records each page the publisher pulls (the host copy taken at
+    submit time, by content key) and, after each hydration write, requires
+    the written pool page to equal it bit for bit (``torch.equal`` on the
+    integer view)."""
+
+    def __init__(self):
+        from repro_torch.serving.cache_manager import KVCacheManager
+        from repro_torch.serving.prefix_store import AsyncPublisher, PrefixStore
+
+        self.targets = ((AsyncPublisher, "submit", self._submit),
+                        (PrefixStore, "fetch", self._fetch),
+                        (KVCacheManager, "_write_page", self._write))
+        self.published, self.saved = {}, []
+        self.last_key, self.checked = None, 0
+
+    def _submit(self, orig):
+        audit = self
+
+        def submit(self, key, arrays):
+            if callable(arrays):
+                thunk = arrays
+
+                def arrays():
+                    out = thunk()
+                    audit.published[key] = {n: a.copy() for n, a in out.items()}
+                    return out
+            return orig(self, key, arrays)
+        return submit
+
+    def _fetch(self, orig):
+        audit = self
+
+        def fetch(self, key, like):
+            audit.last_key = key
+            return orig(self, key, like)
+        return fetch
+
+    def _write(self, orig):
+        audit = self
+
+        def write_page(self, pid, arrays):
+            from repro_torch.serving.prefix_store import device_page
+
+            orig(self, pid, arrays)
+            want = audit.published.get(audit.last_key)
+            require(want is not None, f"hydrated page {audit.last_key} was never published here")
+            for name, leaf in self._pool_leaves().items():
+                ref = device_page(want[name], leaf.dtype).to(leaf.device)
+                ints = torch.int16 if leaf.dtype == torch.bfloat16 else torch.int32
+                require(torch.equal(leaf[:, pid].view(ints), ref.view(ints)),
+                        f"hydrated page {audit.last_key} ({name}) differs from the published one")
+            audit.checked += 1
+        return write_page
+
+    def __enter__(self):
+        for cls, name, wrap in self.targets:
+            fn = cls.__dict__[name]
+            self.saved.append((cls, name, fn))
+            setattr(cls, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+class StoreTimers:
+    """Host time of the prefix store's work, by step: on the lease's thread
+    the existence probes and pins, the device->host pulls of published
+    pages, the fetches (get, unpack, digest and template checks), the
+    host->device hydration writes and the waits for background writes at
+    the drain seams; on the publisher's thread the npz pack and put of
+    each page.  Each step's seconds and calls."""
+
+    def __init__(self):
+        from repro_torch.serving.cache_manager import KVCacheManager
+        from repro_torch.serving.prefix_store import AsyncPublisher, PrefixStore
+
+        self.targets = [*((PrefixStore, n) for n in ("exists", "pin", "fetch", "publish")),
+                        (KVCacheManager, "_page_arrays"), (KVCacheManager, "_write_page"),
+                        (AsyncPublisher, "flush")]
+        self.seconds = {n: 0.0 for _, n in self.targets}
+        self.calls = {n: 0 for _, n in self.targets}
+        self.saved, self.thread = [], None
+
+    def _wrap(self, name, fn):
+        import threading
+
+        def timed(*args, **kwargs):
+            if name != "publish" and threading.get_ident() != self.thread:
+                return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return timed
+
+    def __enter__(self):
+        import threading
+
+        self.thread = threading.get_ident()
+        for cls, name in self.targets:
+            fn = cls.__dict__[name]
+            self.saved.append((cls, name, fn))
+            setattr(cls, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+    def record(self, wall_s: float) -> dict:
+        s, c = self.seconds, self.calls
+        lease_thread = sum(v for k, v in s.items() if k != "publish")
+        return {
+            "seconds": dict(s), "calls": dict(c),
+            "ms_per_published_page": {
+                "device_pull": 1e3 * s["_page_arrays"] / max(1, c["_page_arrays"]),
+                "pack_put": 1e3 * s["publish"] / max(1, c["publish"])},
+            "ms_per_hydrated_page": {
+                "get_unpack": 1e3 * s["fetch"] / max(1, c["fetch"]),
+                "copy_to_device": 1e3 * s["_write_page"] / max(1, c["_write_page"])},
+            "lease_thread_store_s": lease_thread,
+            "store_share_of_lease_wall": lease_thread / wall_s,
+            "background_pack_put_s": s["publish"]}
+
+
+def phase_ds_store(root: Path, plain: dict) -> dict:
+    """The cross-host prefix store and disaggregated prefill/decode leases on
+    the card, full-width ds-paper-100m from seed 0, page size 16.
+
+    f32 gates, through the runtime on the ``SimRunner``: two static jobs
+    sharing a 32-token system prompt (one worker publishes its 2 pages, the
+    other hydrates them; tokens equal a card engine without a store,
+    counters equal the same scenario on the CPU); a prefill lease and a
+    decode lease over ``parity``'s 6 requests joined by a decode queue
+    (6 handoffs published and admitted, no fallback, the prefill side
+    emits nothing, decode tokens equal ``parity``'s card engine, both
+    queues empty); the same split with one published page truncated by the
+    chaos monkey between the two leases (the miss counted, one fallback,
+    tokens still equal).  Every dispatch of every run launches 12 paged and
+    25 RMSNorm kernels; every hydrated page equals the publisher's pool
+    page bit for bit (:class:`PageAudit`).
+
+    bf16 numbers: ``serve``'s 32 requests behind one shared 256-token
+    system prompt, 64 new tokens, ``max_batch`` 16, through the lease
+    payload called directly, in turns: one unified lease with the store,
+    then a prefill lease followed by a decode lease; tokens/s, pages and
+    bytes published and hydrated, host ms per page by step and the store's
+    share of each lease's wall time (:class:`StoreTimers`), peak memory;
+    the split's tokens against the unified lease's (reported, not gated:
+    the decode worker re-dispatches each frontier token alone in a chunk,
+    where the unified lease samples it from a prompt chunk's last row)."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import LogGroup, MetricRegistry, WallClock, WorkerContext
+    from repro_torch.core.chaos import ChaosEvent, ChaosMonkey
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.prefix_store import PrefixStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch("ds-paper-100m")
+    L, ps = cfg.n_layers, DS_STORE_F32["page_size"]
+    rec = {"phase": "ds_store", "arch": cfg.name, "page_size": ps, "nvidia_smi": smi_line(),
+           "f32": {}, "bf16": {"unified": [], "split": []}}
+    total: dict = {}
+
+    def gate_launches(what, launches, dispatches):
+        require(launches["paged_attention"] == L * dispatches
+                and launches["rmsnorm"] == (2 * L + 1) * dispatches,
+                f"ds_store {what}: launches {launches} for {dispatches} dispatches, want 12 "
+                "paged and 25 RMSNorm a dispatch")
+        return {k: v for k, v in launches.items() if v}
+
+    # -- f32: two static jobs sharing a 32-token system prompt
+    rng = np.random.default_rng(3)
+    sys_prompt = rng.integers(1, cfg.vocab_size, 32).tolist()
+    jobs = [[sys_prompt + rng.integers(1, cfg.vocab_size, n).tolist() for n in (3, 9)]
+            for _ in range(2)]
+    share = {**DS_STORE_F32, "max_new_tokens": 8}
+    groups = [{"prompts": p, "output_prefix": f"serve/w{i}"} for i, p in enumerate(jobs)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        reset_launches()
+        t0 = time.perf_counter()
+        rt, _ = ds_sim(root / f"share_{device}", "DSShare", {**share, "device": device},
+                       [dict(g) for g in groups], machines=2)
+        results[device] = [rt.store.get_json(f"serve/w{i}/RESULTS.json") for i in range(2)]
+        if device == "cuda":
+            launches, share_s = read_launches(), time.perf_counter() - t0
+    card, cpu = results["cuda"], results["cpu"]
+    counters = {c: [[r[c] for r in card], [r[c] for r in cpu]] for c in STORE_COUNTERS}
+    require(all(a == b for a, b in counters.values()),
+            f"ds_store share: card counters differ from the CPU's: {counters}")
+    pubs = [r["prefix_store_pages_published"] for r in card]
+    hyds = [r["prefix_store_pages_hydrated"] for r in card]
+    require(sorted(pubs) == [0, 2] and sorted(hyds) == [0, 2] and pubs.index(2) != hyds.index(2),
+            f"ds_store share: published {pubs}, hydrated {hyds}: want one worker to publish "
+            "2 pages and the other to hydrate them")
+    model = serve._cached_model(share)
+    params = serve._seed_params(share, model, 0, torch.device("cuda"))
+    divs = []
+    for i, prompts in enumerate(jobs):
+        eng, _ = run_engine(model, params, [Request(uid=f"req{j}", prompt=p, max_new_tokens=8)
+                                            for j, p in enumerate(prompts)],
+                            "cuda", max_batch=4, max_len=128, prefill_chunk=16,
+                            cache_mode="paged", page_size=ps)
+        want = {r.uid: r.output for r in eng.finished}
+        divs += ds_compare_greedy(model, ds_completions(card[i]), want,
+                                  {r.uid: r.prompt for r in eng.finished},
+                                  f"ds_store share w{i}")
+        del eng
+    total = add_launches(total, launches)
+    rec["f32"]["share"] = {
+        "tokens_equal_engine_without_store": not divs, "divergences": divs,
+        "counters_card_cpu": counters,
+        "launches": gate_launches("share", launches, sum(r["dispatches"] for r in card)),
+        "wall_s": share_s}
+
+    # -- f32: a prefill lease and a decode lease over parity's 6 requests
+    reqs = parity_requests(cfg.vocab_size)
+    prompts = {r.uid: r.prompt for r in reqs}
+    bodies = [{"uid": r.uid, "prompt": r.prompt, "max_new_tokens": 24} for r in reqs]
+    card_tokens = {r.uid: r.output for r in plain["paged"].finished}
+    lease = {**DS_STORE_F32, "stream_slice_ticks": 4, "stream_idle_polls": 200}
+
+    def split_groups(base: Path) -> tuple:
+        """The two leases' groups over a request queue and a decode queue."""
+        rq, dq = str(base / "requests.sqlite"), str(base / "decode.sqlite")
+        return ({"worker_role": "prefill", "request_queue": rq, "decode_queue": dq,
+                 "expected_requests": 6, "output_prefix": "serve/dpre"},
+                {"worker_role": "decode", "request_queue": dq, "expected_requests": 6,
+                 "output_prefix": "serve/ddec"}, rq, dq)
+
+    def split_result(what, store, queues, launches, wall_s, audit):
+        got = {info.key.rsplit("/", 1)[-1][:-len(".json")]: store.get_json(info.key)["completion"]
+               for info in store.list("serve/ddec/requests/")}
+        ctr = {side: {c: ds_lease_counter(store, f"serve/{side}/", c)
+                      for c in (*STORE_COUNTERS, "handoffs_published", "handoffs_admitted",
+                                "handoff_fallbacks", "handoff_seal_rejects")}
+               for side in ("dpre", "ddec")}
+        require(sorted(got) == sorted(card_tokens) and all(q == EMPTY_QUEUE
+                                                           for q in queues.values()),
+                f"ds_store {what}: served {sorted(got)}, queues end {queues}")
+        require(ctr["dpre"]["handoffs_published"] == 6 and ctr["ddec"]["handoffs_admitted"] == 6
+                and ctr["dpre"]["tokens_emitted"] == 0,
+                f"ds_store {what}: handoffs published {ctr['dpre']['handoffs_published']}, "
+                f"admitted {ctr['ddec']['handoffs_admitted']}, prefill tokens "
+                f"{ctr['dpre']['tokens_emitted']}")
+        require(audit.checked == ctr["ddec"]["prefix_store_pages_hydrated"] > 0,
+                f"ds_store {what}: {audit.checked} pages audited, "
+                f"{ctr['ddec']['prefix_store_pages_hydrated']} hydrated")
+        divs = ds_compare_greedy(model, got, card_tokens, prompts, f"ds_store {what}")
+        d = ctr["dpre"]["dispatches"] + ctr["ddec"]["dispatches"]
+        return {"tokens_equal_parity_card": not divs, "divergences": divs, "counters": ctr,
+                "queues": queues, "pages_audited_bit_equal": audit.checked,
+                "launches": gate_launches(what, launches, d), "wall_s": wall_s}
+
+    pre_g, dec_g, rq, dq = split_groups(root / "split")
+    reset_launches()
+    t0 = time.perf_counter()
+    with PageAudit() as audit:
+        # one worker: the two permits take turns every 4 ticks (on two, a
+        # permit that moves to the other worker strands the handoffs its
+        # first holder claimed until their visibility runs out, in the
+        # reference as in the port)
+        rt, counts = ds_sim(root / "split", "DSSplit", lease, [pre_g, dec_g], machines=1,
+                            queues={rq: bodies, dq: None})
+    launches = read_launches()
+    total = add_launches(total, launches)
+    clean = split_result("split", rt.store, counts, launches, time.perf_counter() - t0, audit)
+    require(clean["counters"]["ddec"]["handoff_fallbacks"] == 0,
+            f"ds_store split: {clean['counters']['ddec']['handoff_fallbacks']} fallbacks")
+    rec["f32"]["split"] = clean
+
+    # -- f32: the split again, one published page truncated between the leases
+    pre_g, dec_g, rq, dq = split_groups(root / "split_truncated")
+    reset_launches()
+    t0 = time.perf_counter()
+    with PageAudit() as audit:
+        rt, _ = ds_sim(root / "split_truncated", "DSSplitP", lease, [pre_g], machines=1,
+                            queues={rq: bodies, dq: None})
+        # a page in exactly one request's chain: p1's first chunk
+        keys = sorted(i.key for i in rt.store.list("kvprefix/"))
+        victim = chain_keys(PrefixStore(rt.store, DS_STORE_F32["prefix_store_namespace"]),
+                            prompts["p1"], ps)[0]
+        index = [k.rsplit("/", 1)[-1] for k in keys].index(victim)
+        chaos = ChaosMonkey(rt.fleet, rt.clock, store=rt.store,
+                            events=[ChaosEvent(kind="truncate_blob", at=0.0, victim=index)])
+        require([r.kind for r in chaos.tick()] == ["truncate_blob"],
+                "ds_store split_truncated: the chaos monkey truncated nothing")
+        clock = rt.clock  # the decode queue's messages carry the first run's times
+        rt, counts2 = ds_sim(root / "split_truncated", "DSSplitD", lease, [dec_g], machines=1,
+                             queues={rq: None, dq: None}, clock=clock)
+    launches = read_launches()
+    total = add_launches(total, launches)
+    trunc = split_result("split_truncated", rt.store, counts2, launches,
+                         time.perf_counter() - t0, audit)
+    dec = trunc["counters"]["ddec"]
+    require(dec["handoff_fallbacks"] == 1
+            and dec["hydration_fetch_ops"] > dec["prefix_store_pages_hydrated"],
+            f"ds_store split_truncated: fallbacks {dec['handoff_fallbacks']}, fetches "
+            f"{dec['hydration_fetch_ops']} for {dec['prefix_store_pages_hydrated']} hydrated")
+    trunc["truncated_key"] = victim
+    rec["f32"]["split_truncated"] = trunc
+    serve._PARAM_CACHE.clear()
+
+    # -- bf16 numbers: serve's 32 requests behind a shared 256-token system prompt
+    job = DS_STORE_BF16
+    sys_prompt = np.random.default_rng(4).integers(1, cfg.vocab_size, 256).tolist()
+    bodies = [{"uid": r.uid, "prompt": sys_prompt + r.prompt, "max_new_tokens": 64}
+              for r in serve_requests(cfg.vocab_size)]
+    model = serve._cached_model(job)
+    params = serve._seed_params(job, model, 0, torch.device("cuda"))
+    run_engine(model, params, [Request(uid="w", prompt=list(range(1, 40)), max_new_tokens=4)],
+               "cuda", max_batch=16, max_len=896, prefill_chunk=16, page_size=ps,
+               cache_mode="paged")
+    outputs = {}
+
+    def lease_call(store, name, extra, n_expected):
+        q = extra.get("request_queue")
+        ctx = WorkerContext(store=store, logs=LogGroup(name), metrics=MetricRegistry(),
+                            clock=WallClock(), task=None, worker_id=name)
+        release_device_memory()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        timers = StoreTimers()
+        t0 = time.perf_counter()
+        with timers:
+            out = serve.serve_payload({**job, "expected_requests": n_expected,
+                                       "stream_idle_polls": 200, **extra}, ctx)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        require(ds_queue_counts(q) == EMPTY_QUEUE, f"ds_store {name}: request queue not empty")
+        snap = {c: out[c] for c in (*STORE_COUNTERS, "handoffs_published", "handoffs_admitted",
+                                    "handoff_fallbacks")}
+        run = {"wall_s": wall, "tokens": out["tokens_emitted"],
+               "tokens_per_s": out["tokens_emitted"] / wall, "counters": snap,
+               "store_bytes_after": sum(i.size for i in store.list("kvprefix/")),
+               "page_bytes": out["page_bytes"], "total_pages": out["total_pages"],
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "store": timers.record(wall),
+               "launches": gate_launches(name, launches, out["dispatches"])}
+        return run, launches
+
+    for turn in range(2):
+        t_root = root / f"bf16_{turn}"
+        store = ObjectStore(str(t_root / "store"))
+        rq = ds_request_queue(t_root / "unified.sqlite", bodies)
+        run, launches = lease_call(store, f"unified{turn}",
+                                   {"request_queue": rq, "output_prefix": "serve/unified"},
+                                   len(bodies))
+        total = add_launches(total, launches)
+        outputs[f"unified{turn}"] = ds_completions(store.get_json("serve/unified/RESULTS.json"))
+        rec["bf16"]["unified"].append(run)
+
+        store = ObjectStore(str(t_root / "split_store"))
+        rq = ds_request_queue(t_root / "split.sqlite", bodies)
+        dq = str(t_root / "decode.sqlite")
+        pre, launches = lease_call(store, f"prefill{turn}",
+                                   {"worker_role": "prefill", "request_queue": rq,
+                                    "decode_queue": dq, "output_prefix": "serve/pre"},
+                                   len(bodies))
+        total = add_launches(total, launches)
+        dec, launches = lease_call(store, f"decode{turn}",
+                                   {"worker_role": "decode", "request_queue": dq,
+                                    "output_prefix": "serve/dec"}, len(bodies))
+        total = add_launches(total, launches)
+        require(pre["counters"]["handoffs_published"] == dec["counters"]["handoffs_admitted"]
+                == len(bodies) and dec["counters"]["handoff_fallbacks"] == 0
+                and pre["tokens"] == 0,
+                f"ds_store bf16 split: prefill {pre['counters']}, decode {dec['counters']}")
+        outputs[f"split{turn}"] = {
+            info.key.rsplit("/", 1)[-1][:-len(".json")]: store.get_json(info.key)["completion"]
+            for info in store.list("serve/dec/requests/")}
+        shutil.rmtree(t_root)  # ~1 GB of pages a turn
+        wall = pre["wall_s"] + dec["wall_s"]
+        rec["bf16"]["split"].append({
+            "prefill": pre, "decode": dec, "wall_s": wall, "tokens": dec["tokens"],
+            "tokens_per_s_start_to_summary": dec["tokens"] / wall,
+            "bytes_hydrated": dec["counters"]["prefix_store_bytes_fetched"]})
+    require(outputs["unified0"] == outputs["unified1"] and outputs["split0"] == outputs["split1"],
+            "ds_store bf16: a lease's completions differ between turns")
+    differ = sorted(u for u in outputs["unified0"] if outputs["unified0"][u] != outputs["split0"][u])
+    rec["bf16"]["split_vs_unified_tokens_equal"] = not differ  # reported, not gated
+    rec["bf16"]["split_vs_unified_requests_differing"] = len(differ)
+    rec["launches"] = total
+    serve.reset_serve_state()
+    serve._MODEL_CACHE.clear()
+    serve._PARAM_CACHE.clear()
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 # ------------------------------------------------------------------ the SSM family
 SSM_ARCH = "mamba2-1.3b"
 
@@ -2805,10 +3291,12 @@ KERNELS = {
 
 
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
-                 train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict) -> dict:
+                 ds_store: dict, train: dict, evals: dict, ssm_serve: dict,
+                 ssm_eval: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
-    spec_serve, ds_parity's and ds_serve's payload runs, train, eval,
-    ssm_serve, ssm_eval: counts set to 0 before each run and read after),
+    spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
+    eval, ssm_serve, ssm_eval: counts set to 0 before each run and read
+    after),
     its worst error, and its times at its first timed shape with the
     others beside."""
     def total(runs):
@@ -2816,7 +3304,7 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
 
     paths = {"serve": serve["launches"], "spec_serve": spec_serve["launches"],
              "ds_parity": ds_parity["launches"], "ds_serve": ds_serve["launches"],
-             "train": train["launches"], "eval": total(evals["runs"]),
+             "ds_store": ds_store["launches"], "train": train["launches"], "eval": total(evals["runs"]),
              "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"])}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
@@ -2879,8 +3367,9 @@ def main() -> int:
     spec_serve = phase_spec_serve()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         ds_parity = phase_ds_parity(Path(tmp), plain)
-        del plain
         ds_serve = phase_ds_serve(Path(tmp))
+        ds_store = phase_ds_store(Path(tmp), plain)
+        del plain
     phase_train_parity()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
@@ -2891,8 +3380,8 @@ def main() -> int:
         del params_cpu
         ssm_serve = phase_ssm_serve(cfg, params)
         ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
-    emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, train, evals, ssm_serve,
-                      ssm_eval))
+    emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
+                      ssm_serve, ssm_eval))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

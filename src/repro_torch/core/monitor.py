@@ -23,7 +23,6 @@ Responsibilities (paper Step 4):
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -201,33 +200,17 @@ class Monitor:
         the config opts in: without it the content-addressed store grows
         across runs until an operator sweeps by hand.  Pages are
         immutable and re-publishable, so expiry is always safe; workers
-        racing the sweep see a plain fetch miss.
-
-        The port has no prefix store yet (ROADMAP Queue 1), so the sweep
-        is the reference's ``PrefixStore.sweep`` written out over the
-        store: pages under ``kvprefix/`` older than the TTL (by object
-        mtime, wall clock) are deleted unless a fresh pin marker under
-        ``kvprefix-pins/`` names them; expired markers go too and are not
-        counted.  A store shared with the reference package is swept the
-        same way."""
+        racing the sweep see a plain fetch miss.  Keys are content
+        hashes under one prefix, so the port's pages and the reference
+        package's are swept alike."""
         ttl = getattr(self.cfg, "kvprefix_ttl_seconds", None)
         if ttl is None:
             return 0
-        ttl, now = float(ttl), time.time()
-        pinned = set()
-        for info in list(self.store.list("kvprefix-pins/")):
-            if now - info.mtime < ttl:
-                pinned.add(info.key.rsplit("/", 1)[-1])
-            else:
-                self.store.delete(info.key)
-        swept = 0
-        for info in list(self.store.list("kvprefix/")):
-            if info.key.rsplit("/", 1)[-1] in pinned:
-                continue
-            if now - info.mtime >= ttl:
-                self.store.delete(info.key)
-                swept += 1
-        return swept
+        from repro_torch.serving.prefix_store import PrefixStore
+
+        # the namespace only keys page hashes; sweeping is by key prefix
+        # and mtime, so any namespace value works here
+        return PrefixStore(self.store, namespace="sweep").sweep(float(ttl))
 
     def _teardown(self) -> None:
         svc_name = f"{self.cfg.app_name}Service"

@@ -34,7 +34,8 @@ poison requests still march to the DLQ), the segment's counters
 persisted under ``{out}/leases/``, and the permit yielded.  A resuming
 lease admits a redelivered request from its checkpoint when the record
 verifies (:func:`_try_resume`): its output continues token for token
-from where the drained worker stopped.  Models and seed-initialised
+from where the drained worker stopped, stitching the KV pages the drained
+worker published through the prefix store.  Models and seed-initialised
 parameters are memoized process-wide (``_MODEL_CACHE``,
 ``_PARAM_CACHE``).
 
@@ -42,18 +43,26 @@ Engine knobs accepted from the job dict: ``max_batch``, ``max_len``,
 ``prefill_chunk``, ``dispatch_mode``, ``sample_on_device``,
 ``cache_mode``, ``page_size``, ``total_pages`` (omitted => adaptive),
 ``prefix_cache``, ``prefix_match``, ``refill_policy``,
-``prefill_token_budget``, and the speculative knobs ``speculative``
+``prefill_token_budget``, the speculative knobs ``speculative``
 (``off`` | ``ngram`` | ``draft``), ``spec_k``, ``draft_arch``,
-``draft_arch_overrides`` and ``draft_init_seed``.  Two keys are the
-port's own: ``dtype`` (``"float32"``, the default, or ``"bfloat16"``)
-and ``device`` (default ``cuda``: a job without it fails on a host
-without a card and is never served on the CPU unasked).
+``draft_arch_overrides`` and ``draft_init_seed``, and the cross-host
+prefix store (``prefix_store`` truthy + optional
+``prefix_store_namespace``): completed prompts' KV pages are
+content-hashed into the shared object store and cold workers hydrate
+them instead of prefilling.  Two keys are the port's own: ``dtype``
+(``"float32"``, the default, or ``"bfloat16"``) and ``device`` (default
+``cuda``: a job without it fails on a host without a card and is never
+served on the CPU unasked).
 
-Not ported yet, and refused with ``NotImplementedError`` naming ROADMAP
-Queue 1 before anything is built: the cross-host prefix store
-(``prefix_store``) and disaggregated prefill/decode leases
-(``worker_role`` ``prefill`` or ``decode``).  Without a store a resume
-re-prefills ``prompt + output[:-1]``, as the reference's does.
+**Disaggregated prefill/decode** (``worker_role``): ``prefill`` leases
+chunk-prefill prompts from the request queue, publish each prompt's
+full KV chain through the prefix store (chain keys pinned against the
+TTL sweep), and enqueue a sealed handoff record onto ``decode_queue``,
+with a marker under ``{out}/handoffs/``; they never decode a token.
+``decode`` leases claim handoff records (their ``request_queue`` is the
+decode queue), demand-hydrate exactly the chained pages and decode to
+completion; a record that fails its seal check is never admitted and
+marches to the DLQ (``handoff_seal_rejects``).
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ from repro_torch.core.worker import (
 )
 from repro_torch.launch.train import build_model
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.prefix_store import PrefixStore
 from repro_torch.train.checkpoint import latest_step, restore_state
 
 # process-wide caches: a serving fleet rebuilds engines constantly
@@ -89,21 +99,6 @@ _PARAM_CACHE: Dict[tuple, object] = {}
 _LEASE_STATES: Dict[tuple, "_LeaseState"] = {}
 
 
-def _refuse_unported(job: Dict) -> None:
-    """Refuse what the port does not run yet, before anything is built:
-    a job asking for it is never served without it."""
-    if job.get("prefix_store"):
-        raise NotImplementedError(
-            "prefix_store is not ported yet (ROADMAP Queue 1: prefix store and payload)"
-        )
-    role = str(job.get("worker_role", "unified"))
-    if role != "unified":
-        raise NotImplementedError(
-            f"worker_role={role!r} is not ported yet "
-            "(ROADMAP Queue 1: prefix store and payload)"
-        )
-
-
 def reset_serve_state() -> None:
     """Drop all cached lease state.  Tests and benchmarks call this
     between independent simulated runs: worker ids repeat across fresh
@@ -113,6 +108,11 @@ def reset_serve_state() -> None:
     for st in list(_LEASE_STATES.values()):
         try:
             st.rq.close()
+        except Exception:
+            pass
+        try:
+            if st.dq is not None:
+                st.dq.close()
         except Exception:
             pass
     _LEASE_STATES.clear()
@@ -177,17 +177,32 @@ def _build_params(job: Dict, ctx: WorkerContext, model, device) -> Tuple[object,
 def _build_engine(job: Dict, ctx: WorkerContext) -> ServeEngine:
     device = resolve_device(job.get("device"))
     model = _cached_model(job)
-    params, _ = _build_params(job, ctx, model, device)
+    params, param_id = _build_params(job, ctx, model, device)
     cache_mode = str(job.get("cache_mode", "dense"))
+    if job.get("prefix_store") and cache_mode != "paged":
+        raise ValueError(
+            "job sets prefix_store but cache_mode is not 'paged'; the "
+            "cross-host prefix store would be silently inert"
+        )
     paged_kwargs = {}
     if cache_mode == "paged":
-        paged_kwargs["page_size"] = int(job.get("page_size", 16))
+        page_size = int(job.get("page_size", 16))
+        paged_kwargs["page_size"] = page_size
         # omitted total_pages => the engine sizes the pool adaptively from
         # the queue depth at submit
         if job.get("total_pages"):
             paged_kwargs["total_pages"] = int(job["total_pages"])
         paged_kwargs["prefix_cache"] = bool(job.get("prefix_cache", True))
         paged_kwargs["prefix_match"] = str(job.get("prefix_match", "token"))
+        if job.get("prefix_store"):
+            # the namespace pins what page bytes depend on: arch, params,
+            # dtype and page size (PrefixStore adds the framework tag)
+            namespace = str(
+                job.get("prefix_store_namespace")
+                or f"{job.get('arch', 'arch')}/{job.get('arch_overrides', '')}"
+                f"/{param_id}/{job.get('dtype', 'float32')}/ps{page_size}"
+            )
+            paged_kwargs["prefix_store"] = PrefixStore(ctx.store, namespace)
     budget = job.get("prefill_token_budget")  # 0 reaches the scheduler's
     #                                           validation and is refused
     speculative = str(job.get("speculative", "off"))
@@ -220,6 +235,7 @@ def _build_engine(job: Dict, ctx: WorkerContext) -> ServeEngine:
         cache_mode=cache_mode,
         refill_policy=str(job.get("refill_policy", "continuous")),
         prefill_token_budget=int(budget) if budget is not None else None,
+        worker_role=str(job.get("worker_role", "unified")),
         heartbeat=lambda: ctx.heartbeat(),
         device=device,
         **paged_kwargs,
@@ -327,9 +343,69 @@ def _try_resume(engine: ServeEngine, ctx: WorkerContext, ckpt_prefix: str,
     return engine.submit_resume(ckpt)
 
 
+# --------------------------------------- disaggregated prefill/decode
+def _handoff_valid(rec) -> bool:
+    """A decode-queue message is admitted only if its content hash
+    verifies and it is shaped like a handoff: the checkpoint record
+    format with an EMPTY output (nothing decoded yet).  There is no
+    request to cross-check against: the sealed record IS the source of
+    truth on the decode side."""
+    if not isinstance(rec, dict) or "sha" not in rec:
+        return False
+    body = {k: v for k, v in rec.items() if k != "sha"}
+    digest = hashlib.sha256(
+        json.dumps(body, sort_keys=True, separators=(",", ":")).encode("utf-8")
+    ).hexdigest()
+    if digest != rec["sha"]:
+        return False
+    try:
+        return (
+            len(list(rec["output"])) == 0
+            and len([int(t) for t in rec["prompt"]]) > 0
+            and int(rec["sample_stream"]) >= 0
+            and int(rec["max_new_tokens"]) > 0
+        )
+    except (KeyError, TypeError, ValueError):
+        return False
+
+
+def _publish_handoff(ctx: WorkerContext, st: "_LeaseState", r: Request, m) -> None:
+    """Seal and enqueue one finished prefill onto the decode queue.
+
+    Ordering is the handoff contract (durable-before-ack across three
+    parties): (1) the prompt's KV chain (full pages plus the sub-page
+    tail) is flushed durable in the prefix store; (2) every chain key is
+    pinned so the TTL sweep cannot reclaim the pages before a decode
+    worker admits them; (3) the sealed record lands on the decode queue;
+    (4) the handoff marker is persisted (the prefill lease's completion
+    record, which termination and uid dedup read); (5) only then is the
+    request message acked.  A crash between any two steps redelivers the
+    request and the sequence reruns idempotently."""
+    engine = st.engine
+    hand = _seal_checkpoint({
+        "uid": r.uid,
+        "prompt": [int(t) for t in r.prompt],
+        "output": [],
+        "sample_stream": int(r.sample_stream),
+        "max_new_tokens": int(r.max_new_tokens),
+        "temperature": float(r.temperature),
+        "stop_token": r.stop_token,
+    })
+    engine.cache_mgr.flush_store()
+    store = engine.cache_mgr.store
+    for k in engine.cache_mgr.chain_keys_for(r.prompt):
+        _with_retries(lambda k=k: store.pin(k), key=f"pin/{k}", clock=ctx.clock)
+    _with_retries(lambda: st.dq.send(hand), key=f"handoff/{r.uid}", clock=ctx.clock)
+    mark_key = f"{st.req_prefix}{r.uid}.json"
+    _with_retries(lambda: ctx.store.put_json(mark_key, hand), key=mark_key, clock=ctx.clock)
+    if m is not None:
+        _with_retries(lambda: st.rq.delete(m), key=mark_key, clock=ctx.clock)
+        st.acked += 1
+    engine.stats.handoffs_published += 1
+
+
 @register_payload("distributed-serve")
 def serve_payload(job: Dict, ctx: WorkerContext) -> Dict:
-    _refuse_unported(job)
     if job.get("request_queue"):
         # the streaming path builds (or resumes) its engine lazily: a
         # lease claimed after the fleet already finished never builds one
@@ -360,7 +436,7 @@ class _LeaseState:
     __slots__ = (
         "key", "worker_id", "out", "req_prefix", "results_key", "ctx",
         "engine", "rq", "inflight", "served", "marks", "acked", "idle",
-        "last_ext", "ckpt_prefix",
+        "last_ext", "ckpt_prefix", "role", "dq",
     )
 
     def __init__(self, key, ctx, out, req_prefix, results_key, engine, rq):
@@ -381,6 +457,10 @@ class _LeaseState:
         # generation-checkpoint prefix (None = work-preserving recovery
         # disabled for this job); set right after construction
         self.ckpt_prefix: Optional[str] = None
+        # disaggregation: the lease's role and, for prefill leases, the
+        # decode queue handoffs are enqueued onto
+        self.role = "unified"
+        self.dq: Optional[DurableQueue] = None
 
 
 def _report_progress(ctx: WorkerContext, st: _LeaseState) -> None:
@@ -394,7 +474,7 @@ def _report_progress(ctx: WorkerContext, st: _LeaseState) -> None:
     )
     ctx.report_progress({
         "kind": "serve",
-        "role": "unified",
+        "role": st.role,
         "backlog": qc["visible"] + qc["in_flight"],
         "active": active,
         "p99_ttft": timing["ttft_ticks"]["p99"],
@@ -429,17 +509,18 @@ def _persist_segment(ctx: WorkerContext, st: _LeaseState, wid_safe: str) -> None
 def _revocation_drain(ctx: WorkerContext, st: _LeaseState, wid_safe: str) -> None:
     """Graceful spot-revocation drain, inside the notice window: stop
     admitting, checkpoint every active generation (emitted tokens +
-    sampling position durably recorded), roll active rows back, flush
-    the store's publications (a no-op without a prefix store), make
-    every in-flight request message visible NOW (receive counts intact:
-    churn must still march poison requests toward the DLQ), and persist
-    this segment's counters — the replacement's summary cannot include
-    them.
+    sampling position durably recorded, resident KV — sub-page tail
+    included — published through the prefix store), roll active rows
+    back, flush prefix-store publications (hydration is what makes the
+    replacement cheap), make every in-flight request message visible NOW
+    (receive counts intact: churn must still march poison requests toward
+    the DLQ), and persist this segment's counters — the replacement's
+    summary cannot include them.
 
-    Ordering is the whole contract: checkpoint records land in the
-    object store BEFORE the requeue makes the messages claimable
-    (durable-before-ack), so a resuming worker either sees a complete
-    checkpoint or none at all — never a half one."""
+    Ordering is the whole contract: checkpoint records and page
+    publications land in the object store BEFORE the requeue makes the
+    messages claimable (durable-before-ack), so a resuming worker either
+    sees a complete checkpoint or none at all — never a half one."""
     engine = st.engine
     engine.stats.revocation_notices += 1
     for row, slot in enumerate(engine.slots):
@@ -479,6 +560,8 @@ def _revocation_drain(ctx: WorkerContext, st: _LeaseState, wid_safe: str) -> Non
     _report_progress(ctx, st)
     _LEASE_STATES.pop(st.key, None)
     st.rq.close()
+    if st.dq is not None:
+        st.dq.close()
     ctx.log(
         f"revocation drain: requeued {requeued} in-flight requests, "
         f"flushed prefix publications, persisted segment counters"
@@ -497,7 +580,16 @@ def _serve_stream(job: Dict, ctx: WorkerContext) -> Dict:
     mode — see the module docstring).
     """
     out = job.get("output_prefix", "serve/stream0")
-    req_prefix = f"{out}/requests/"
+    role = str(job.get("worker_role", "unified"))
+    if role == "prefill" and not job.get("decode_queue"):
+        raise ValueError(
+            "worker_role='prefill' requires a 'decode_queue' in the job "
+            "(where else would the sealed handoff records go?)"
+        )
+    # a prefill lease's completion records are its handoff markers (one
+    # sealed record per prompt handed off, written before the request
+    # ack); termination, uid dedup and resume seeding all read this prefix
+    req_prefix = f"{out}/handoffs/" if role == "prefill" else f"{out}/requests/"
     slice_ticks = int(job.get("stream_slice_ticks", 0))
     wid_safe = ctx.worker_id.replace("/", "~")
     # elastic leases write per-worker summaries (many workers share one
@@ -563,7 +655,18 @@ def _serve_stream(job: Dict, ctx: WorkerContext) -> Dict:
         )
         st = _LeaseState(key, ctx, out, req_prefix, results_key, engine, rq)
         st.served = served
-        if job.get("generation_checkpoints", True):
+        st.role = role
+        if role == "prefill":
+            # handoffs ride the same durable-queue machinery as requests
+            st.dq = DurableQueue(
+                str(job["decode_queue"]),
+                default_visibility=float(job.get("request_visibility", 120.0)),
+                max_receive_count=int(job.get("request_max_receive_count", 3)),
+                clock=ctx.clock,
+            )
+        # prefill leases never resume from generation checkpoints: their
+        # rows finish with zero output (nothing to preserve)
+        if job.get("generation_checkpoints", True) and role != "prefill":
             st.ckpt_prefix = f"{out}/checkpoints/"
         if served:
             # cold build joining a run with prior progress: a resume.
@@ -657,6 +760,21 @@ def _serve_stream(job: Dict, ctx: WorkerContext) -> Dict:
                         # the remaining budget get decoded
                         inflight[req.uid] = m
                         continue
+                if role == "decode":
+                    # decode-queue messages ARE sealed handoff records.  One
+                    # that fails its seal check is never admitted: it stays
+                    # in flight unacked, so the visibility timeout resurfaces
+                    # it and receive counting marches it to the DLQ
+                    rec = dict(m.body)
+                    if not _handoff_valid(rec):
+                        engine.stats.handoff_seal_rejects += 1
+                        continue
+                    # carry a uid-collision rename through (the seal was
+                    # verified over the original body above)
+                    rec["uid"] = req.uid
+                    inflight[req.uid] = m
+                    engine.submit_handoff(rec)
+                    continue
                 inflight[req.uid] = m
                 engine.submit([req])
 
@@ -667,6 +785,13 @@ def _serve_stream(job: Dict, ctx: WorkerContext) -> Dict:
             # drain (not slice) the finished list: a long-lived lease
             # must not retain every served Request object forever
             for r in engine.scheduler.drain_finished():
+                if role == "prefill":
+                    # finished here means "prompt ingested and published":
+                    # seal the handoff, pin its chain, enqueue it, persist
+                    # the marker, THEN ack (see _publish_handoff)
+                    _publish_handoff(ctx, st, r, inflight.pop(r.uid, None))
+                    served.add(r.uid)
+                    continue
                 rec = {
                     # a checkpoint-resumed request ran with an extended
                     # prompt; the record always carries the ORIGINAL one
@@ -737,20 +862,24 @@ def _serve_stream(job: Dict, ctx: WorkerContext) -> Dict:
         # crash/preemption: drop the warm state.  Unacked requests
         # resurface via their visibility timeouts — the at-least-once
         # story — and in-memory segment counters are lost (a crash is a
-        # crash).  The store's publications are flushed as in the
-        # reference (a no-op until the prefix store is ported).
+        # crash).  Publications are flushed so survivors can still
+        # hydrate this segment's pages.
         _LEASE_STATES.pop(key, None)
         try:
             engine.cache_mgr.flush_store()
         finally:
             rq.close()
+            if st.dq is not None:
+                st.dq.close()
         raise
     # completed: this holder saw the run through to its exit condition
     _LEASE_STATES.pop(key, None)
     _report_progress(ctx, st)
     rq.close()
+    if st.dq is not None:
+        st.dq.close()
     # lease end is a drain seam: prefix-store publishes must be durable
-    # before the lease's counters are reported (a no-op without a store)
+    # before the lease's counters are reported
     engine.cache_mgr.flush_store()
     # lease-end aggregate, assembled FROM the per-request records (the
     # single source of truth); only this one-shot summary materializes

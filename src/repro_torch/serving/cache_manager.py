@@ -11,8 +11,10 @@ write of shared pages, adaptive pool sizing, the radix prefix cache
 with sub-page (token-granularity) stitching, and pool-pressure recovery
 by LRU prefix eviction then youngest-slot preemption.  Every site that
 touches the device is rewritten in torch: pool creation and growth,
-the page copy, and the page-table push.  Both caches are updated in
-place.  The cross-host prefix store is not ported (ROADMAP Queue 1).
+the page copy, the page-table push, and the optional cross-host prefix
+store's page pulls and hydration writes
+(:mod:`repro_torch.serving.prefix_store`).  Both caches are updated in
+place.
 
 Contracts with the other layers:
 
@@ -26,7 +28,13 @@ Contracts with the other layers:
   best-effort) and :meth:`rewind_slot` after it, to drop the pages past
   the accepted frontier;
 - at admission the scheduler calls :meth:`stitch_prefix`; when a prompt
-  becomes fully resident the executor calls :meth:`prefix_insert`.
+  becomes fully resident the executor calls :meth:`prefix_insert`.  With
+  a store attached the first hydrates pages other workers published and
+  the second publishes the prompt's full pages;
+- store traffic stays on the engine's thread except the npz pack and
+  the write, which :class:`~repro_torch.serving.prefix_store.AsyncPublisher`
+  runs in the background on host copies pulled at submit time;
+  :meth:`flush_store` is the drain seam.
 
 Allocator invariants (checked by :meth:`check_invariants`): a page's
 refcount equals the number of slot tables mapping it plus one if the
@@ -38,12 +46,13 @@ radix cache retains, each at refcount 1.
 from __future__ import annotations
 
 import logging
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.prefix_store import PrefixStore, device_page, host_dtype, host_page
 from repro_torch.serving.types import EngineStats, Slot
 from repro_torch.tree import tree_leaves
 
@@ -64,6 +73,7 @@ class KVCacheManager:
         total_pages: Optional[int] = None,
         prefix_cache: bool = True,
         prefix_match: str = "token",
+        prefix_store: Optional[PrefixStore] = None,
     ):
         if prefix_match not in ("token", "page"):
             raise ValueError(
@@ -80,6 +90,14 @@ class KVCacheManager:
         # prefix inside the first divergent page via a CoW copy of the
         # partially-matched page; "page" restores page-aligned matching
         self.prefix_match = prefix_match
+        self.store = prefix_store if cache_mode == "paged" else None
+        # background publish worker (created on first use): the tick loop
+        # pulls page bytes and counts synchronously, the object-store write
+        # happens off-thread; flush_store() is the drain seam
+        self._publisher = None
+        # chunk keys this engine has already published or seen present:
+        # later requests sharing the prefix skip a store round-trip a chunk
+        self._published: set = set()
         # wired by the engine to RequestScheduler.preempt_for /
         # RequestScheduler.preempt: pool-pressure recovery crosses the
         # layer seam exactly here.  preempt_for never victimizes the
@@ -137,12 +155,12 @@ class KVCacheManager:
         # bytes of ONE page across every layer and pool leaf (k + v)
         self.stats.page_bytes = sum(
             leaf.numel() * leaf.element_size() // self.n_pages
-            for leaf in self._pool_leaves()
+            for leaf in self._pool_leaves().values()
         )
         self.stats.dense_cache_bytes = dense_pages * self.stats.page_bytes
 
-    def _pool_leaves(self) -> List[torch.Tensor]:
-        return [leaf for name, leaf in self.cache.items() if name.endswith("_pages")]
+    def _pool_leaves(self) -> Dict[str, torch.Tensor]:
+        return {name: leaf for name, leaf in self.cache.items() if name.endswith("_pages")}
 
     def _adaptive_pages(self, pending: list) -> int:
         """Pool size for the current queue: pages for the
@@ -281,7 +299,7 @@ class KVCacheManager:
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate one physical page across every layer
         and pool leaf, in place."""
-        for leaf in self._pool_leaves():
+        for leaf in self._pool_leaves().values():
             leaf[:, dst] = leaf[:, src]
 
     def ensure_pages(
@@ -444,26 +462,59 @@ class KVCacheManager:
 
     # --------------------------------------------------------- prefix cache
     def stitch_prefix(self, row: int, slot: Slot) -> None:
-        """Admission-time prefix reuse: map the longest cached prefix of the
-        new request's prompt into its page table and skip prefill for those
-        tokens.  At least one prompt token is always held back and re-
-        dispatched (its logits seed generation), so a full-prompt hit
-        rewrites one position inside the last shared page, which copy-on-
-        write then privatizes.
+        """Admission-time prefix reuse (see :meth:`_stitch`).  Handoff
+        admissions (``slot.req.handoff``) run the demand-driven hydration
+        variant (the chain pages are expected to exist, so the walk may
+        evict unpinned cached prefixes for room) and are accounted here:
+        one ``hydration_ticks`` sample (store round-trips this admission
+        made) and a ``handoff_fallbacks`` count when the store could not
+        cover the prompt down to the held-back frontier token (the rest
+        is chunk-prefilled, writing the same KV)."""
+        demand = bool(slot.req.handoff) and self.store is not None
+        if not demand:
+            self._stitch(row, slot, False)
+            return
+        ops0 = self.store.fetch_ops
+        self._stitch(row, slot, True)
+        self.stats._hydration_ticks.append(self.store.fetch_ops - ops0)
+        # a guaranteed hit leaves exactly the held-back frontier token to
+        # re-dispatch; anything longer means the store could not cover it
+        if len(slot.remaining_prompt) > 1:
+            self.stats.handoff_fallbacks += 1
+        self._sync_store_stats()
+
+    def _stitch(self, row: int, slot: Slot, demand: bool) -> None:
+        """Map the longest cached prefix of the new request's prompt into
+        its page table and skip prefill for those tokens.  With a store
+        attached, a local radix miss first tries to hydrate pages other
+        workers published.  At least one prompt token is always held back
+        and re-dispatched (its logits seed generation), so a full-prompt
+        hit rewrites one position inside the last shared page, which
+        copy-on-write then privatizes.
 
         With ``prefix_match="token"`` the longest common *token* prefix
         inside the first divergent page is reused too, by copying the
         partially-matched page into a slot-private page (best-effort: a
-        free page or one LRU eviction, never preemption)."""
+        free page or one LRU eviction, never preemption), or by fetching
+        that sub-page tail from the store under its extended content key
+        (a drained slot's published generation)."""
         if self.prefix is None:
             return
         prompt = slot.req.prompt
-        # page mode must not even scan for a partial sibling: the scan
-        # refreshes its LRU stamp and would perturb the eviction order
-        if self.prefix_match == "token":
-            path, pnode, plen = self.prefix.match_partial(prompt)
-        else:
-            path, pnode, plen = self.prefix.match(prompt), None, 0
+
+        def lookup():
+            # page mode must not even scan for a partial sibling: the scan
+            # refreshes its LRU stamp and would perturb the eviction order
+            if self.prefix_match == "token":
+                return self.prefix.match_partial(prompt)
+            return self.prefix.match(prompt), None, 0
+
+        path, pnode, plen = lookup()
+        if self.store is not None:
+            n_chunks = min(len(prompt) // self.page_size, self.pages_per_slot)
+            if len(path) < n_chunks and self._hydrate(prompt, [n.page for n in path],
+                                                      n_chunks, demand):
+                path, pnode, plen = lookup()  # now extended locally
         path = path[: self.pages_per_slot]
         matched = len(path) * self.page_size
         eff = min(matched, len(prompt) - 1)
@@ -477,6 +528,46 @@ class KVCacheManager:
             and len(path) < self.pages_per_slot
         ):
             partial = min(plen, len(prompt) - 1 - matched)
+        # extended-key tail hydration: another worker may have published
+        # exactly this sub-page remainder under its extended content key
+        # (publish_generation does).  Fetched into a slot-private page it
+        # turns a resume's whole frontier into a hit; the held-back token's
+        # rewrite lands inside the private page.  Free list only (demand
+        # hydration may evict), and skipped when a local partial sibling
+        # covers at least as many tokens
+        tail_pid = None
+        rem = list(prompt[matched:])
+        if (
+            self.store is not None
+            and self.prefix_match == "token"
+            and len(path) < self.pages_per_slot
+            and 0 < len(rem) < self.page_size
+            and len(rem) - 1 > partial
+        ):
+            parent = self._chunk_keys(prompt, len(path))[-1] if path else self.store.root_key()
+            tkey = self.store.child_key(parent, rem)
+            arrays = self.store.fetch(tkey, self._page_like())
+            self._sync_store_stats()
+            if arrays is not None:
+                pid = self._take_free_page()
+                if pid is None and demand and self.prefix is not None:
+                    # pin the matched path with transient raw refcount bumps
+                    # so the eviction cannot reclaim the chain mid-stitch
+                    for n in path:
+                        self._page_refs[n.page] += 1
+                    try:
+                        self._evict(1)
+                    finally:
+                        for n in path:
+                            self._page_refs[n.page] -= 1
+                    pid = self._take_free_page()
+                if pid is not None:
+                    self._write_page(pid, arrays)
+                    tail_pid = pid
+                    partial = len(rem) - 1
+                    self._published.add(tkey)
+                    self.stats.prefix_store_pages_hydrated += 1
+                    self.stats.prefix_store_tokens_hydrated += partial
         if eff <= 0 and partial <= 0:
             return
         pages = self._slot_pages[row]
@@ -485,11 +576,15 @@ class KVCacheManager:
             self._table[row, j] = node.page
             pages.append(node.page)
         if partial > 0:
-            pid = self._cow_partial(pnode.page)
+            if tail_pid is not None:
+                pid = tail_pid
+            else:
+                pid = self._cow_partial(pnode.page)
+                if pid is not None:
+                    self.stats.cow_partial_stitches += 1
             if pid is None:
                 partial = 0  # no page to copy into: page-aligned fallback
             else:
-                self.stats.cow_partial_stitches += 1
                 self._table[row, len(path)] = pid
                 pages.append(pid)
                 eff += partial
@@ -511,7 +606,8 @@ class KVCacheManager:
         """Copy the partially-matched page ``src`` into a fresh private page
         (refcount 1): the free list, then one LRU eviction, never
         preemption.  ``src`` is pinned by a transient raw refcount bump so
-        the eviction cannot reclaim the very page being copied."""
+        the eviction cannot reclaim the very page being copied (the stitch
+        already holds the matched path's pages, hydrated ones included)."""
         self._page_refs[src] += 1
         try:
             pid = self._take_free_page()
@@ -528,26 +624,219 @@ class KVCacheManager:
         """Publish a freshly-ingested prompt's full pages to the radix cache
         (called the moment the prompt is fully resident).  Chunks already
         cached keep the cache's page; only newly adopted pages gain the
-        cache's ref."""
+        cache's ref.  With a store attached, the full chunks are also
+        published under their chained content keys."""
         if self.prefix is None:
             return
         n_full = min(len(prompt) // self.page_size, len(self._slot_pages[row]))
         if n_full == 0:
             return
-        for pid in self.prefix.insert(prompt, self._slot_pages[row][:n_full]):
+        pages = self._slot_pages[row][:n_full]
+        for pid in self.prefix.insert(prompt, pages):
             self._incref(pid)
+        if self.store is not None:
+            self._publish(prompt, pages, n_full)
+
+    # ----------------------------------------------- cross-host prefix store
+    def _page_arrays(self, pid: int) -> Dict[str, np.ndarray]:
+        """One page's slice of every pool leaf, pulled to host numpy."""
+        return {name: host_page(leaf[:, pid]) for name, leaf in self._pool_leaves().items()}
+
+    def _page_like(self) -> Dict[str, np.ndarray]:
+        """Shape/dtype template a fetched page must match exactly."""
+        return {
+            name: np.empty(leaf.shape[:1] + leaf.shape[2:], host_dtype(leaf.dtype))
+            for name, leaf in self._pool_leaves().items()
+        }
+
+    def _write_page(self, pid: int, arrays: Dict[str, np.ndarray]) -> None:
+        """Hydrate pool page ``pid`` from fetched host arrays.  The copy
+        from pageable host memory returns once the source is consumed and
+        is ordered before the next dispatch on the engine's stream."""
+        for name, leaf in self._pool_leaves().items():
+            leaf[:, pid].copy_(device_page(arrays[name], leaf.dtype))
+
+    def _publisher_for(self):
+        if self._publisher is None:
+            self._publisher = self.store.publisher()
+        return self._publisher
+
+    def _chunk_keys(self, prompt: List[int], n_chunks: int) -> List[str]:
+        """Chained content keys for the first ``n_chunks`` full chunks."""
+        ps = self.page_size
+        keys, key = [], self.store.root_key()
+        for j in range(n_chunks):
+            key = self.store.child_key(key, prompt[j * ps:(j + 1) * ps])
+            keys.append(key)
+        return keys
+
+    def _publish(self, prompt: List[int], pages: List[int], n_full: int) -> None:
+        if len(self._published) > 100_000:
+            # the memo only saves round-trips; resetting it is always safe
+            # and bounds a long-lived engine on diverse traffic
+            self._published.clear()
+        for j, key in enumerate(self._chunk_keys(prompt, n_full)):
+            if key in self._published:
+                continue
+            if not self.store.exists(key):
+                # one existence probe, then an unconditional write.  The
+                # device->host pull happens at submit time, on this thread
+                # (the pool page may be reissued before the write lands),
+                # passed as a thunk so a submit the publisher dedups skips
+                # the pull and the pack entirely
+                self._publisher_for().submit(key, lambda pid=pages[j]: self._page_arrays(pid))
+                self.stats.prefix_store_pages_published += 1
+            self._published.add(key)
 
     def publish_generation(self, row: int, tokens: List[int]) -> int:
-        """Publish a drained slot's resident KV for a resuming worker: the
-        reference does it through its cross-host prefix store, which the
-        port does not have yet (ROADMAP Queue 1), so, as the reference
-        without a store, nothing is published.  Returns the number of
-        pages published: 0."""
-        return 0
+        """Publish a drained slot's resident KV — full chunks under the
+        usual chained keys plus the sub-page tail under an extended content
+        key — so a resuming worker gets a guaranteed prefix hit over
+        ``tokens`` (the request's prompt + output minus the frontier
+        token).  Returns the number of pages newly submitted."""
+        if self.store is None or self.cache_mode != "paged" or self.cache is None:
+            return 0
+        ps = self.page_size
+        pages = self._slot_pages[row]
+        before = self.stats.prefix_store_pages_published
+        n_full = min(len(tokens) // ps, len(pages))
+        if n_full:
+            self._publish(tokens, pages[:n_full], n_full)
+        tail = tokens[n_full * ps:]
+        if tail and n_full < len(pages):
+            parent = self._chunk_keys(tokens, n_full)[-1] if n_full else self.store.root_key()
+            tkey = self.store.child_key(parent, tail)
+            if tkey not in self._published and not self.store.exists(tkey):
+                # the tail blob carries the whole physical page; rows past
+                # the tail are garbage a hydrating reader never attends to
+                # (causal mask), and its held-back re-dispatch overwrites
+                # the frontier position
+                self._publisher_for().submit(
+                    tkey, lambda pid=pages[n_full]: self._page_arrays(pid))
+                self.stats.prefix_store_pages_published += 1
+            self._published.add(tkey)
+        return self.stats.prefix_store_pages_published - before
+
+    def chain_keys_for(self, tokens: List[int]) -> List[str]:
+        """Content keys covering ``tokens``: every full chunk plus, when a
+        sub-page remainder exists, its extended tail key — the exact set a
+        handoff's demand hydration fetches.  The prefill lease pins these
+        against the TTL sweep before enqueueing a handoff."""
+        if self.store is None:
+            return []
+        n_full = len(tokens) // self.page_size
+        keys = self._chunk_keys(tokens, n_full)
+        tail = tokens[n_full * self.page_size:]
+        if tail:
+            parent = keys[-1] if n_full else self.store.root_key()
+            keys.append(self.store.child_key(parent, tail))
+        return keys
+
+    def ensure_chain_published(self, row: int, tokens: List[int]) -> List[str]:
+        """Re-probe and (re)submit every chain page covering ``tokens``
+        while row ``row`` still holds them, bypassing the ``_published``
+        memo (which means "submitted", not "durable": a handoff points
+        other workers at these exact keys).  A key whose queued write has
+        not landed probes as absent and is resubmitted; the publisher's
+        pending-key dedup drops the duplicate before any pull or pack
+        (``publish_dedup_hits``).  Returns the chain keys."""
+        if self.store is None or self.cache_mode != "paged" or self.cache is None:
+            return []
+        ps = self.page_size
+        pages = self._slot_pages[row]
+        n_full = min(len(tokens) // ps, len(pages))
+        keys = self._chunk_keys(tokens, n_full)
+        publisher = self._publisher_for()
+        for j, key in enumerate(keys):
+            if not self.store.exists(key):
+                publisher.submit(key, lambda pid=pages[j]: self._page_arrays(pid))
+        tail = tokens[n_full * ps:]
+        if tail and n_full < len(pages):
+            parent = keys[-1] if n_full else self.store.root_key()
+            tkey = self.store.child_key(parent, tail)
+            keys.append(tkey)
+            if not self.store.exists(tkey):
+                publisher.submit(tkey, lambda pid=pages[n_full]: self._page_arrays(pid))
+        self._sync_store_stats()
+        return keys
+
+    def _sync_store_stats(self) -> None:
+        """Mirror the store/publisher-owned counters into the shared stats
+        block (they live on PrefixStore/AsyncPublisher so the store path
+        has no stats dependency)."""
+        if self.store is not None:
+            self.stats.prefix_store_hash_mismatches = self.store.hash_mismatches
+            self.stats.hydration_fetch_ops = self.store.fetch_ops
+            self.stats.prefix_store_bytes_fetched = self.store.bytes_fetched
+        if self._publisher is not None:
+            self.stats.publish_retries = self._publisher.retries
+            self.stats.publish_dedup_hits = self._publisher.dedup_hits
 
     def flush_store(self) -> None:
-        """The reference's drain seam for background prefix-store
-        publishes; a no-op without a store."""
+        """Drain the background publish queue (a no-op without a store or
+        before the first publish).  Called at the engine's drain seams so
+        published pages are durable before counters are compared or the
+        process exits."""
+        if self._publisher is not None:
+            self._publisher.flush()
+        self._sync_store_stats()
+
+    def _hydrate(self, prompt: List[int], pages_so_far: List[int], n_chunks: int,
+                 demand: bool) -> int:
+        """Extend the local radix path for ``prompt`` (already covering
+        ``pages_so_far`` chunks) from the store: fetch chunk pages other
+        workers published, copy them into freshly allocated pool pages and
+        index them, so the stitch that follows hits locally.  Stops at the
+        first miss.  Returns the pages hydrated.
+
+        Plain hydration is best-effort and side-effect-free on other
+        slots: it only takes already-free pages and stops when the free
+        list runs dry.  ``demand`` (handoff admissions: the chain is
+        expected to exist, a prefill worker just published and pinned it)
+        may evict unpinned LRU cached prefixes for room, never preempting;
+        pages already matched or freshly hydrated are pinned by transient
+        raw refcount bumps so the eviction cannot reclaim the chain being
+        assembled."""
+        ps = self.page_size
+        keys = self._chunk_keys(prompt, n_chunks)
+        like = self._page_like()
+        pages_so_far = list(pages_so_far)
+        hydrated = 0
+        pinned: List[int] = []
+        try:
+            if demand:
+                for p in pages_so_far:
+                    self._page_refs[p] += 1
+                    pinned.append(p)
+            for j in range(len(pages_so_far), n_chunks):
+                arrays = self.store.fetch(keys[j], like)
+                if arrays is None:
+                    break
+                self._published.add(keys[j])  # a fetched page is in the store
+                pid = self._take_free_page()
+                if pid is None and demand and self.prefix is not None:
+                    self._evict(1)
+                    pid = self._take_free_page()
+                if pid is None:
+                    break
+                self._write_page(pid, arrays)
+                pages_so_far.append(pid)
+                if demand:
+                    self._page_refs[pid] += 1
+                    pinned.append(pid)
+                hydrated += 1
+        finally:
+            for p in pinned:
+                self._page_refs[p] -= 1
+        if hydrated:
+            # the allocation above IS the cache's refcount on each hydrated
+            # page (insert adopts them; nothing further to incref)
+            self.prefix.insert(prompt[: len(pages_so_far) * ps], pages_so_far)
+            self.stats.prefix_store_pages_hydrated += hydrated
+            self.stats.prefix_store_tokens_hydrated += hydrated * ps
+            if self.stats.pages_in_use > self.stats.peak_pages:
+                self.stats.peak_pages = self.stats.pages_in_use
+        return hydrated
 
     # ------------------------------------------------------------ debugging
     def check_invariants(self) -> None:

@@ -31,13 +31,21 @@ called after every dispatch, at the reference's three sites (a serving
 lease extends its queue lease and notices preemption there).  The
 work-preserving recovery seam is the reference's too:
 :meth:`ServeEngine.checkpoint_slot` records an active row's generation
-and :meth:`ServeEngine.submit_resume` re-admits it for token-for-token
-continuation; with no prefix store nothing is published, so a resume
-re-prefills ``prompt + output[:-1]`` (the reference's behaviour without
-a store).  The reference's refusals come first, with its messages; then
-what is not ported yet is refused with ``NotImplementedError`` naming
-its ROADMAP Queue 1 item: the prefix store, disaggregated roles and
-handoff admission.
+(publishing its resident KV through the prefix store, when there is
+one) and :meth:`ServeEngine.submit_resume` re-admits it for
+token-for-token continuation, stitching the published generation.
+
+With ``prefix_store`` (a
+:class:`~repro_torch.serving.prefix_store.PrefixStore`; paged cache and
+radix prefix cache required) completed prompts' pages are published to
+the shared object store and cold admissions hydrate them.
+``worker_role="prefill"`` ingests prompts only: each finishes at prompt
+residency, its whole KV chain published, without sampling;
+``worker_role="decode"`` admits only sealed handoff records
+(:meth:`ServeEngine.submit_handoff`), whose chain it demand-hydrates.
+Sampling streams are keyed by (seed, stream, step), so the decode
+worker's frontier draw is the token a monolith draws.  Knob validation
+is the reference's, message for message.
 """
 
 from __future__ import annotations
@@ -55,10 +63,6 @@ from repro_torch.serving.speculate import DraftProposer, NgramProposer
 from repro_torch.serving.types import EngineStats, Request, Slot
 
 __all__ = ["Request", "ServeEngine", "Slot"]
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1: {item})")
 
 
 def _param_devices(tree) -> set:
@@ -106,9 +110,24 @@ class ServeEngine:
                 "cache_mode='paged' unsupported for arch "
                 f"{model.cfg.name!r} (no pageable KV cache)"
             )
+        if prefix_store is not None and (cache_mode != "paged" or not prefix_cache):
+            # the store publishes/hydrates through the radix cache over paged
+            # pool pages, so without both it can never move a byte
+            raise ValueError(
+                "prefix_store requires cache_mode='paged' with "
+                "prefix_cache=True; it would be silently inert here"
+            )
         if worker_role not in ("unified", "prefill", "decode"):
             raise ValueError(
                 f"worker_role must be unified|prefill|decode, got {worker_role!r}"
+            )
+        if worker_role != "unified" and prefix_store is None:
+            # the handoff travels through the prefix store: without one the
+            # roles would be silently inert
+            raise ValueError(
+                "worker_role='prefill'/'decode' requires a prefix_store "
+                "(the KV handoff is storage-mediated); it would be "
+                "silently inert here"
             )
         recurrent = model.cfg.family in ("ssm", "hybrid")
         if dispatch_mode == "grouped" and recurrent:
@@ -118,10 +137,6 @@ class ServeEngine:
                 "dispatch_mode='grouped' corrupts recurrent SSM/hybrid state; "
                 f"use the fused engine for family {model.cfg.family!r}"
             )
-        if prefix_store is not None:
-            raise _unported("prefix_store", "prefix store and payload")
-        if worker_role != "unified":
-            raise _unported(f"worker_role={worker_role!r}", "prefix store and payload")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -155,12 +170,15 @@ class ServeEngine:
             total_pages=total_pages,
             prefix_cache=prefix_cache,
             prefix_match=prefix_match,
+            prefix_store=prefix_store,
         )
+        self.worker_role = worker_role
         self.scheduler = RequestScheduler(
             max_batch,
             self.stats,
             refill_policy=refill_policy,
             prefill_token_budget=prefill_token_budget,
+            role=worker_role,
         )
         self.scheduler.cache = self.cache_mgr
         self.cache_mgr.preempt_for = self.scheduler.preempt_for
@@ -181,6 +199,19 @@ class ServeEngine:
             make_prefill_step(model, rng_seed, sample_on_device)
             if self._use_prefill else None
         )
+        if worker_role == "prefill" and not self._use_prefill:
+            # a prefill-role worker never runs a decode tick, so prompts
+            # must ingest through the chunked-prefill path
+            raise ValueError(
+                "worker_role='prefill' requires the fused chunked-prefill "
+                "path (dispatch_mode='fused', prefill_chunk > 0, a "
+                "prefill-capable non-rolling arch)"
+            )
+        if worker_role == "prefill" and speculative != "off":
+            raise ValueError(
+                "speculative decoding never runs on a prefill-role worker "
+                "(it has no decode ticks); it would be silently inert here"
+            )
         self.speculative = speculative
         self.spec_k = int(spec_k)
         self.proposer = None
@@ -298,15 +329,15 @@ class ServeEngine:
     def checkpoint_slot(self, row: int) -> Optional[Dict]:
         """Capture a resumable generation checkpoint for an active slot.
 
-        Called by a draining lease BEFORE it preempts the row.  Returns a
+        Called by a draining lease BEFORE it preempts the row, while its
+        pages are resident.  Publishes the pages covering ``prompt +
+        output[:-1]`` through the prefix store (the sub-page tail under an
+        extended content key; nothing without a store) and returns a
         plain-dict record of the ORIGINAL prompt, the FULL output and the
         sampling position, which the caller persists durably; ``None``
         when there is nothing worth saving (empty row, prompt still
         ingesting, or no tokens emitted yet: full replay costs the same
-        as a resume there).  The reference also publishes the resident KV
-        through its prefix store here; the port has none, so
-        ``publish_generation`` publishes nothing, as the reference's does
-        without a store."""
+        as a resume there)."""
         slot = self.scheduler.slots[row]
         req = slot.req
         if (req is None or slot.remaining_prompt
@@ -339,9 +370,9 @@ class ServeEngine:
         sample at the frontier re-derives ``output[-1]`` from the same
         stream key ``(stream, len(output) - 1)`` the original emission
         used, so the final output equals an uninterrupted run's and only
-        the frontier token is decoded again.  The extended prompt's
-        tokens are chunk-prefilled (less what the local radix cache
-        holds), writing the same KV the interrupted row held."""
+        the frontier token is decoded again.  The prefix stitch hits the
+        pages the draining worker published (sub-page tail included); what
+        no cache or store holds is chunk-prefilled, writing the same KV."""
         output = [int(t) for t in ckpt["output"]]
         req = Request(
             uid=ckpt["uid"],
@@ -360,7 +391,31 @@ class ServeEngine:
         return req
 
     def submit_handoff(self, rec: Dict) -> Request:
-        raise _unported("submit_handoff", "prefix store and payload")
+        """Admit a prefill worker's sealed handoff record on a decode
+        worker.
+
+        A handoff record is the checkpoint format with ``output == []``:
+        the prompt was ingested and its full KV chain (full pages plus the
+        sub-page tail under an extended content key) published by a
+        prefill-role worker, but nothing was decoded.  Admission flags the
+        request as a handoff, which routes the prefix stitch through the
+        demand-driven hydration path, and counts a fallback if the store
+        cannot cover the prompt (the slot then chunk-prefills the rest,
+        writing the same KV).  The first sample draws from the record's
+        stream at step 0, so the output equals a monolithic worker's."""
+        req = Request(
+            uid=rec["uid"],
+            prompt=[int(t) for t in rec["prompt"]],
+            max_new_tokens=int(rec["max_new_tokens"]),
+            temperature=float(rec["temperature"]),
+            stop_token=rec.get("stop_token"),
+        )
+        req.sample_stream = int(rec["sample_stream"])
+        req.handoff = True
+        self.scheduler.submit_handoff(req)
+        self.cache_mgr.on_submit(self.scheduler.pending)
+        self.stats.handoffs_admitted += 1
+        return req
 
     # ------------------------------------------------------------- stepping
     def step(self) -> int:
@@ -369,13 +424,17 @@ class ServeEngine:
         then advance the decode-ready rows: one decode dispatch (fused),
         one verify dispatch (speculative) or one decode dispatch per
         distinct row position (grouped; attention families only, since
-        every extra dispatch would re-advance a recurrence)."""
+        every extra dispatch would re-advance a recurrence).  A
+        prefill-role tick ingests only: each prompt finishes at ingest
+        completion, so a decode dispatch could only be a no-op."""
         self.scheduler.begin_tick()
         if not self.scheduler.has_active():
             return 0
         emitted = 0
         if self._use_prefill:
             emitted += self._ingest_prompts()
+        if self.worker_role == "prefill":
+            return emitted
         if self.dispatch_mode == "grouped":
             emitted += self._decode_tick_grouped()
         elif self.speculative != "off":
@@ -473,6 +532,16 @@ class ServeEngine:
                     # prompt fully resident: publish its full pages before
                     # accept (which may finish the row and drop its refs)
                     self.cache_mgr.prefix_insert(i, slot.req.prompt)
+                    if self.worker_role == "prefill":
+                        # disaggregated prefill: the prompt's whole KV chain
+                        # (the sub-page tail too) is published while the row
+                        # holds its pages, then the request finishes WITHOUT
+                        # sampling: the decode worker's draw at (stream, 0)
+                        # is the token a monolith would have emitted here
+                        self.cache_mgr.publish_generation(i, slot.req.prompt)
+                        self.cache_mgr.ensure_chain_published(i, slot.req.prompt)
+                        self.scheduler.finish(i)
+                        continue
                     self._accept_token(i, self._token(i, nxt, lg),
                                        bool(done[i]) if done is not None else None)
                     emitted += 1
@@ -710,6 +779,9 @@ class ServeEngine:
         ) and steps < max_steps:
             self.step()
             steps += 1
+        # drain seam: background prefix-store publishes must be durable
+        # before callers compare counters or hand pages to another engine
+        self.cache_mgr.flush_store()
         return self.scheduler.finished
 
 
@@ -733,12 +805,18 @@ for _name in (
     "prefix_hit_tokens", "prompt_tokens_skipped", "pages_shared_peak",
     "prefix_hit_tokens_partial", "cow_partial_stitches",
     "cow_copies", "prefix_evictions", "preemptions", "tokens_discarded",
+    "prefix_store_pages_published", "prefix_store_pages_hydrated",
+    "prefix_store_tokens_hydrated",
     "spec_dispatches", "draft_dispatches",
     "draft_tokens_proposed", "draft_tokens_accepted", "spec_tokens_emitted",
     "revocation_notices", "drain_requeued_requests", "requests_resumed",
     "lease_slices", "lease_resumes",
     "checkpoints_published", "checkpoint_resumes", "tokens_recovered",
     "checkpoint_fallbacks", "decode_tokens_discarded",
+    "publish_retries", "prefix_store_hash_mismatches",
+    "hydration_fetch_ops", "prefix_store_bytes_fetched", "publish_dedup_hits",
+    "handoffs_published", "handoffs_admitted", "handoff_fallbacks",
+    "handoff_seal_rejects",
 ):
     setattr(ServeEngine, _name, _stats_alias(_name))
 for _name in (

@@ -8,8 +8,9 @@ requeue policy the allocator escalates to under pool pressure, and
 per-request latency accounting in engine ticks, and the streaming
 lease's surface: checkpoint-resume admission (:meth:`submit_resume`),
 :meth:`drain_finished`, :meth:`trim_samples` and windowed
-:meth:`timing` over :meth:`sample_marks`.  Disaggregated roles and
-handoff admission are not ported (ROADMAP Queue 1).
+:meth:`timing` over :meth:`sample_marks`, and the disaggregated roles:
+``role="decode"`` admits only sealed handoff records
+(:meth:`submit_handoff`), ``role="prefill"`` refuses them.
 
 - ``refill_policy``: ``"continuous"`` (default) admits into every freed
   row at each tick; ``"drain"`` only admits when *all* slots are empty
@@ -47,6 +48,7 @@ class RequestScheduler:
         *,
         refill_policy: str = "continuous",
         prefill_token_budget: Optional[int] = None,
+        role: str = "unified",
     ):
         if refill_policy not in ("continuous", "drain"):
             raise ValueError(
@@ -54,10 +56,19 @@ class RequestScheduler:
             )
         if prefill_token_budget is not None and prefill_token_budget <= 0:
             raise ValueError("prefill_token_budget must be positive or None")
+        if role not in ("unified", "prefill", "decode"):
+            raise ValueError(
+                f"role must be unified|prefill|decode, got {role!r}"
+            )
         self.max_batch = max_batch
         self.stats = stats
         self.refill_policy = refill_policy
         self.prefill_token_budget = prefill_token_budget
+        # disaggregated-serving role: a "decode" scheduler admits ONLY
+        # sealed handoff records (fresh prefill work is refused at submit);
+        # a "prefill" scheduler refuses handoffs and never runs a decode
+        # tick (the engine finishes each prompt at ingest completion)
+        self.role = role
         self.slots = [Slot() for _ in range(max_batch)]
         self.pending: List[Request] = []
         self.finished: List[Request] = []
@@ -80,6 +91,14 @@ class RequestScheduler:
 
     # ------------------------------------------------------------- intake
     def submit(self, reqs: List[Request]) -> None:
+        if self.role == "decode":
+            fresh = [r.uid for r in reqs if not r.handoff]
+            if fresh:
+                raise RuntimeError(
+                    "decode-role scheduler refuses fresh prefill work "
+                    f"(uids {fresh}); route it through a prefill worker "
+                    "and submit the sealed handoff via submit_handoff"
+                )
         for r in reqs:
             # per-request sampling stream: submit-order, scheduling-
             # independent, so any admission policy draws identical samples
@@ -88,6 +107,24 @@ class RequestScheduler:
             if r.submit_tick < 0:
                 r.submit_tick = self.tick
         self.pending.extend(reqs)
+
+    def submit_handoff(self, req: Request) -> None:
+        """Queue a request admitted from a prefill worker's sealed handoff
+        record.  Like :meth:`submit_resume` the sampling stream is NOT
+        reassigned (the decode must draw on the stream the original
+        submission drew on the prefill worker) and the local counter
+        advances past it.  Unlike a resume it queues at the BACK like
+        fresh work: handoffs arrive in decode-queue order."""
+        if self.role == "prefill":
+            raise RuntimeError(
+                "prefill-role scheduler refuses handoff admissions "
+                f"(uid {req.uid!r}); handoffs are decode-side work"
+            )
+        req.handoff = True
+        self._n_submitted = max(self._n_submitted, req.sample_stream + 1)
+        if req.submit_tick < 0:
+            req.submit_tick = self.tick
+        self.pending.append(req)
 
     def submit_resume(self, req: Request) -> None:
         """Queue a checkpoint-resumed request WITHOUT reassigning its

@@ -10,9 +10,7 @@ refcounted allocator, copy-on-write, radix prefix cache) and
 :class:`repro_torch.serving.engine.ServeEngine` (device dispatch and
 sampling).  :class:`EngineStats` is the one counter block all three
 write into; its fields and :meth:`EngineStats.snapshot` keys are the
-reference's, so the two engines' counters compare key for key.  Counters
-of features the port does not run yet (the prefix store, leases,
-recovery, disaggregation) stay at zero.
+reference's, so the two engines' counters compare key for key.
 """
 
 from __future__ import annotations

@@ -21,7 +21,9 @@ The engine's recovery seam on its own, against the reference's:
 ``checkpoint_slot`` mid-decode and ``submit_resume`` on a fresh engine
 (paged and dense; outputs, records and every counter), and the
 ``_try_resume`` ladder (a valid checkpoint resumes; a missing, tampered
-or mismatched one is a counted fallback)."""
+or mismatched one is a counted fallback), without and with a prefix
+store (with one, a resume stitches the generation the checkpoint
+published)."""
 
 import dataclasses
 import re
@@ -44,11 +46,13 @@ from repro.configs import reduced as jreduced
 from repro.models import Model as JModel
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServeEngine as JEngine
+from repro.serving.prefix_store import PrefixStore as JStore
 from repro.train import checkpoint as jckpt
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.serving.prefix_store import PrefixStore
 
 torch.set_num_threads(1)  # the test workers share the host's cores
 
@@ -265,9 +269,10 @@ def test_checkpoint_resume_matches_reference(engines, mode, cut):
     assert counters["tokens_recovered"] == sum(len(c["output"]) - 1 for c in ckpts if c)
 
 
-def test_resume_ladder_matches_reference(engines, tmp_path):
-    """``_try_resume``: a sealed checkpoint resumes; a missing, tampered or
-    mismatched one is a counted ``checkpoint_fallback`` in both packages."""
+def _resume_ladder(engines, tmp_path, store: bool):
+    """``_try_resume`` over a valid, a missing, a tampered and a
+    mismatched checkpoint, in both packages: each rung's resume flag,
+    output and counters."""
     results = {}
     for name, serve_mod in (("ref", jserve), ("port", tserve)):
         make, Request = engines[name]
@@ -276,16 +281,22 @@ def test_resume_ladder_matches_reference(engines, tmp_path):
                               clock=core.VirtualClock())
         base = dict(max_batch=2, max_len=32, prefill_chunk=4, rng_seed=7, cache_mode="paged",
                     page_size=8, total_pages=10)
+        Store = JStore if name == "ref" else PrefixStore
+        kv = core.ObjectStore(str(tmp_path / name / "kv"))
+
+        def new():
+            return make(**base, **({"prefix_store": Store(kv, "ladder")} if store else {}))
 
         def req():
             return Request(uid="lad/0", prompt=[5, 6, 7, 8, 9], max_new_tokens=5,
                            temperature=0.5)
 
-        a = make(**base)
+        a = new()
         a.submit([req()])
         while a.scheduler.slots[0].req is None or len(a.scheduler.slots[0].req.output) < 2:
             a.step()
         sealed = serve_mod._seal_checkpoint(a.checkpoint_slot(0))
+        a.cache_mgr.flush_store()  # the published generation is durable
         key = f"ck/{serve_mod._uid_safe('lad/0')}.json"
         outcomes = []
         for label, record in (("valid", sealed), ("missing", None),
@@ -298,7 +309,7 @@ def test_resume_ladder_matches_reference(engines, tmp_path):
                 ctx.store.delete(key)
             else:
                 ctx.store.put_json(key, record)
-            eng = make(**base)
+            eng = new()
             r = req()
             resumed = serve_mod._try_resume(eng, ctx, "ck/", r)
             if resumed is None:
@@ -306,8 +317,27 @@ def test_resume_ladder_matches_reference(engines, tmp_path):
             out = eng.run_to_completion()[0].output
             outcomes.append((label, resumed is not None, list(out),
                              eng.stats.checkpoint_resumes, eng.stats.checkpoint_fallbacks,
-                             eng.stats.tokens_recovered))
+                             eng.stats.tokens_recovered, eng.stats.prefix_store_pages_hydrated,
+                             eng.stats.prompt_tokens_skipped))
         results[name] = outcomes
     assert results["port"] == results["ref"]
     assert [o[1] for o in results["port"]] == [True, False, False, False]
     assert len({tuple(o[2]) for o in results["port"]}) == 1  # every rung lands on one output
+    return results["port"]
+
+
+def test_resume_ladder_matches_reference(engines, tmp_path):
+    """``_try_resume``: a sealed checkpoint resumes; a missing, tampered or
+    mismatched one is a counted ``checkpoint_fallback`` in both packages."""
+    outcomes = _resume_ladder(engines, tmp_path, store=False)
+    assert all(o[6] == 0 for o in outcomes)
+
+
+def test_resume_ladder_with_prefix_store_matches_reference(engines, tmp_path):
+    """The same ladder with a prefix store: the valid checkpoint's resume
+    stitches the generation the draining engine published (its sub-page
+    tail included) instead of prefilling it, and every rung's output and
+    counters still equal the reference's."""
+    outcomes = _resume_ladder(engines, tmp_path, store=True)
+    valid = outcomes[0]
+    assert valid[6] > 0 and valid[7] > 0

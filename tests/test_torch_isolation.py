@@ -1,24 +1,20 @@
 """The port stands apart from the reference package and from the CPU:
-no port module imports ``jax`` or ``repro``; every knob not ported yet
-refuses with ``NotImplementedError``, on the engine and on a
-``distributed-serve`` job (the dense cache and checkpoint resume, ported
-since, run); a default-device entry point on a host without CUDA raises
-instead of running on the CPU; and ``chip_smoke.py`` prints no result
-without a card."""
+no port module imports ``jax`` or ``repro`` (the prefix store included);
+a model family not ported yet refuses with ``NotImplementedError`` (the
+dense cache, ported since, runs); a default-device entry point on a host
+without CUDA raises instead of running on the CPU; and ``chip_smoke.py``
+prints no result without a card."""
 
 import ast
 import subprocess
 import sys
 from pathlib import Path
-from types import SimpleNamespace
-
 import pytest
 import torch
 
 from repro_torch import prng, resolve_device
 from repro_torch.configs import ArchConfig, get_arch, reduced
 from repro_torch.core.storage import ObjectStore
-from repro_torch.launch.serve import serve_payload
 from repro_torch.launch.train import run_train_span
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_jax
@@ -43,6 +39,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
+    assert ROOT / "src" / "repro_torch" / "serving" / "prefix_store.py" in PORT_FILES
     bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "ml_dtypes", "repro")}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
@@ -51,38 +48,6 @@ def test_port_imports_neither_jax_nor_repro(path):
 def tiny():
     m = Model(reduced(get_arch("ds-paper-100m")))
     return m, m.init(0, device="cpu")
-
-
-UNPORTED_KNOBS = [
-    dict(prefix_store="a-store"),
-    dict(worker_role="prefill"),
-    dict(worker_role="decode"),
-]
-
-
-def _knob_id(knob) -> str:
-    (name, value), = knob.items()
-    return f"{name}={value}"
-
-
-@pytest.mark.parametrize("knob", UNPORTED_KNOBS, ids=_knob_id)
-def test_unported_engine_knobs_refuse(tiny, knob):
-    m, p = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ServeEngine(m, p, device="cpu", **knob)
-
-
-@pytest.mark.parametrize("knob", UNPORTED_KNOBS, ids=_knob_id)
-def test_unported_serve_job_knobs_refuse(tmp_path, knob):
-    """A ``distributed-serve`` job asking for what is not ported is
-    refused before anything is built, static batch and streaming lease
-    alike: it is never served without it."""
-    ctx = SimpleNamespace(store=ObjectStore(str(tmp_path)), heartbeat=lambda progress=None: None)
-    for job in ({"arch": "ds-paper-100m", "prompts": [[1, 2]]},
-                {"arch": "ds-paper-100m", "request_queue": str(tmp_path / "rq.sqlite")}):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            serve_payload({**job, "device": "cpu", **knob}, ctx)
-    assert not list(ObjectStore(str(tmp_path)).list())
 
 
 def test_dense_cache_mode_runs(tiny):
@@ -103,17 +68,6 @@ def test_invalid_engine_knobs_raise_value_error(tiny, knob):
     m, p = tiny
     with pytest.raises(ValueError):
         ServeEngine(m, p, device="cpu", **knob)
-
-
-@pytest.mark.parametrize("method", ["submit_handoff"])
-def test_unported_engine_entry_points_refuse(tiny, method):
-    m, p = tiny
-    eng = ServeEngine(m, p, device="cpu", max_len=32, cache_mode="paged")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        getattr(eng, method)({})
-    # without a prefix store a generation checkpoint publishes nothing,
-    # as in the reference without one
-    assert eng.cache_mgr.publish_generation(0, [1, 2, 3]) == 0
 
 
 def test_unported_model_features_refuse(tiny):
