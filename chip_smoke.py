@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the serving
-engine (paged and dense caches), training, eval and the SSM family at full
-width and prints what it measured.
+engine (paged and dense caches), training, eval, the SSM family and the
+hybrid family at full width and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -23,15 +23,17 @@ Phases, each printing one JSON line:
   keys, mixed long and short rows, pages of 8 and 64, softcap 30 at T 1,
   a G 2 x T 4 fold, GQA G 8 at dk 128, a parked row beside aliased first
   pages), RMSNorm (and its gradient;
-  d = 768 and mamba2's 2048), flash attention over the reference's sweep,
+  d = 768, mamba2's 2048 and zamba2's shared block at 4096, each record
+  naming its kernel path), flash attention over the reference's sweep,
   sliding windows, the model layout, and in both dtypes the eval phase's
   shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
   S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
   and 128, hd 128 and 192), and
   the SSD chunk kernel over the reference's
   sweep, chunks of 1-16 positions, the serve prefill shape with padded
-  tokens and idle rows, mamba2's eval shapes, and ``ops.ssd`` from a
-  carried state (final state at 1e-4);
+  tokens and idle rows, mamba2's eval shapes, zamba2's (state 64) serve
+  prefill and eval shapes, and ``ops.ssd`` from a carried state (final
+  state at 1e-4);
 - ``parity``: full-width ``ds-paper-100m`` in f32 from seed 0, the engine
   on ``cuda`` (kernel path) against the same engine on ``cpu`` (plain
   path), in paged mode (12 paged-attention launches per dispatch, none on
@@ -84,8 +86,8 @@ Phases, each printing one JSON line:
   requests at once on the card (launches the exact sum of both), a seeded
   revocation drill on the ``SimRunner`` (one notice; every request served
   once, checkpoint resumes, tokens equal an uninterrupted run's) and a
-  static ``mamba2-1.3b`` job against a direct engine (48 SSD launches a
-  prefill dispatch);
+  static ``mamba2-1.3b`` job at 12 of its 48 layers against a direct
+  engine (12 SSD launches a prefill dispatch);
 - ``ds_serve``: ``serve``'s 32 requests in bf16 in one call: the bare
   engine, the lease payload called directly (no runner) and one streaming
   lease in the foreground, in turns (the queue's, the object store's, the
@@ -129,12 +131,13 @@ Phases, each printing one JSON line:
   traced forward, and the flash kernel timed beside its bound (f32: three
   TF32 passes, its route, with the CUDA-core figure beside it), its plain
   version and ``F.scaled_dot_product_attention``;
-- ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers, d_model 2048,
-  1.35 B parameters) drawn once from seed 0 on the host, reused below;
-- ``ssm_parity``: f32, the dense-cache engine on the card against the
-  same engine on the CPU: equal greedy tokens and counters, 48 SSD
-  launches per prefill dispatch, none per decode dispatch, 49 RMSNorm per
-  dispatch;
+- ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers at d_model
+  2048), drawn once from seed 0 on the host, reused below;
+- ``ssm_parity``: f32, the first 12 of those layers (the depth cut keeps
+  the CPU side short and pays for the hybrid phases, which run 38
+  full-width mamba2 layers), the dense-cache engine on the card against the same engine
+  on the CPU: equal greedy tokens and counters, 12 SSD launches per
+  prefill dispatch, none per decode dispatch, 13 RMSNorm per dispatch;
 - ``ssm_serve``: bf16, dense cache, 32 requests: tokens/s, per-dispatch
   times, peak memory, 16 decode dispatches traced, the SSD kernel at the
   serve prefill shape and RMSNorm at d = 2048 timed beside their bounds;
@@ -145,10 +148,39 @@ Phases, each printing one JSON line:
   forward, and the SSD kernel timed at both shapes beside its bound
   (``bound_route``: f32 on the route it takes, C.B^T on the CUDA cores
   and the rest 3xTF32; bf16 on the tensor cores, though the kernel takes
-  bf16 in order on the CUDA cores), the CUDA-core figure beside it.
+  bf16 in order on the CUDA cores), the CUDA-core figure beside it;
+- ``hybrid_weights``: full-width ``zamba2-1.2b`` (38 mamba2 layers at
+  d_model 2048, state 64; one shared attention block at 4096, 32 heads of
+  128, run before each of 6 segments of 6 layers with its own LoRA of rank
+  128 on ``wq``; 1.29 B parameters) from seed 0 on the host, ``lora_b``
+  drawn non-zero (its reference init is zeros) and said so on a line;
+- ``hybrid_parity``: f32, ``ssm_parity``'s knobs and ``parity``'s 6
+  requests, the card against the CPU: equal greedy tokens and counters, 38
+  SSD launches a prefill dispatch and none a decode one, 51 RMSNorm a
+  dispatch all on the one-pass path, no flash or paged launch;
+- ``hybrid_serve``: bf16, ``ssm_serve``'s 32 requests and knobs: tokens/s,
+  per-dispatch times, peak memory, the same launches; 16 decode dispatches
+  traced and the per-invocation LoRA merge timed alone for its share;
+  RMSNorm at 16 and 256 x 4096 and the SSD kernel at state 64 timed;
+- ``hybrid_static``: ``parity``'s 6 requests as a static bf16
+  ``distributed-serve`` job through the four commands, serving a bf16
+  checkpoint of those weights: completions and counters equal to a
+  direct engine on the card, the same launches as ``hybrid_parity``;
+- ``hybrid_eval``: the eval runner on that checkpoint, bf16 and f32 at
+  8 x 512 and 2 x 4096: finite loss, 38 SSD, 51 RMSNorm and 6 flash
+  launches (hd 128) a forward; f32 logits with the kernels within 1e-3
+  of the plain path (``use_ssd_kernel=False``, ``attn_impl="direct"``),
+  the gate of ``eval`` and ``ssm_eval``; bf16 logits held to an f32 run
+  of the same weights, each batch row's mean distance at most 1.04 times
+  the plain path's, with three faults put into the kernels' outputs that
+  must each exceed it (the 1e-1 comparison, which no two bf16 routes of
+  this model meet, is reported); flash at hd 128 and SSD at state 64
+  timed at each shape.  It runs last and holds its logits gates after
+  emitting its numbers.
 
-Then a ``kernels`` summary line (the paged kernel's launches also per
-path), the card's ``nvidia-smi`` name and power
+A ``lap`` line after each group of phases gives its seconds.  Then a
+``kernels`` summary line (the paged kernel's and RMSNorm's launches
+also per kernel path), the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before the last line.  Needs one CUDA device; exits
 non-zero without a result when there is none or when run outside a
@@ -157,6 +189,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -415,12 +448,28 @@ def check_paged_attention() -> dict:
     return worst
 
 
+RMSNORM_ONE_PASS_WIDTHS = (768, 2048, 3840, 4096)  # compiled into csrc/rmsnorm.cu
+
+
+def rmsnorm_path(call):
+    """Run ``call``, one RMSNorm launch, and name the path the kernel
+    reported for it: ``(output, path)``."""
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    before = dict(rmsnorm.launches_by_path)
+    out = call()
+    moved = [p for p, n in rmsnorm.launches_by_path.items() if n != before[p]]
+    require(len(moved) == 1, f"rmsnorm: one launch moved the path counts {moved}")
+    return out, moved[0]
+
+
 def check_rmsnorm() -> dict:
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
     gen = torch.Generator(device="cuda").manual_seed(11)
+    # 4096: zamba2-1.2b's shared block (2 x d_model), compiled into the one-pass path
     cases = [(r, d, dt, dt) for dt in (torch.float32, torch.bfloat16)
-             for r in (1, 37, 4096) for d in (64, 768, 3840)]
+             for r in (1, 37, 4096) for d in (64, 768, 3840, 4096)]
     cases += [(37, 100, torch.bfloat16, torch.bfloat16), (37, 100, torch.float32, torch.float32),
               (37, 768, torch.bfloat16, torch.float32)]
     cases += [(37, 768, torch.float32, "misaligned"), (37, 768, torch.bfloat16, "misaligned")]
@@ -437,7 +486,7 @@ def check_rmsnorm() -> dict:
             x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, d)
             wdt = xdt
         w = (torch.randn((d,), generator=gen, device="cuda") + 1.0).to(wdt)
-        got = rmsnorm(x, w, 1e-5)
+        got, path = rmsnorm_path(lambda: rmsnorm(x, w, 1e-5))
         torch.cuda.synchronize()
         want = rmsnorm_plain(x, w, 1e-5)
         err = (got.float() - want.float()).abs().max().item()
@@ -445,8 +494,11 @@ def check_rmsnorm() -> dict:
         ok = bool(torch.allclose(got.float(), want.float(), atol=t, rtol=t))
         emit({"phase": "kernels", "kernel": "rmsnorm", "rows": rows, "d": d,
               "x_dtype": str(xdt), "w_dtype": str(wdt), "misaligned": misaligned,
-              "max_abs_err": err, "ok": ok})
+              "path": path, "max_abs_err": err, "ok": ok})
         require(ok, f"rmsnorm rows={rows} d={d} {xdt} disagrees with its plain version")
+        one_pass = d in RMSNORM_ONE_PASS_WIDTHS and not misaligned
+        require(path == ("one_pass" if one_pass else "generic"),
+                f"rmsnorm rows={rows} d={d} {xdt} misaligned={misaligned} took the {path} path")
         key = str(xdt).removeprefix("torch.")
         worst[key] = max(worst[key], err)
     return worst
@@ -630,6 +682,11 @@ def ssd_cases():
                        serve_lengths))
         cases.append((f"eval_8x512_{tag}", (8, 4, 128, 64, 64, 128), 8, dtype, None))
         cases.append((f"eval_2x4096_{tag}", (2, 32, 128, 64, 64, 128), 8, dtype, None))
+        # zamba2-1.2b's state width, n 64: serve prefill and the eval shapes
+        cases.append((f"zamba2_serve_prefill_padded_{tag}", (16, 1, 16, 64, 64, 64), 8, dtype,
+                      serve_lengths))
+        cases.append((f"zamba2_eval_8x512_{tag}", (8, 4, 128, 64, 64, 64), 8, dtype, None))
+        cases.append((f"zamba2_eval_2x4096_{tag}", (2, 32, 128, 64, 64, 64), 8, dtype, None))
     return cases
 
 
@@ -771,24 +828,31 @@ def launch_counters() -> dict:
             "flash_attention": flash_attention_bhsd, "ssd": ssd_chunk}
 
 
+# the kernels whose launches are also counted per path
+PATHED = ("paged_attention", "rmsnorm")
+
+
 def reset_launches():
     from repro_torch.kernels import flash_decode
+    from repro_torch.kernels import rmsnorm as rmsnorm_mod
 
     for fn in launch_counters().values():
         fn.launches = 0
     paged = flash_decode.paged_flash_attention_folded
     paged.launches_by_path = dict.fromkeys(flash_decode.PATHS, 0)
+    rmsnorm_mod.rmsnorm.launches_by_path = dict.fromkeys(rmsnorm_mod.PATHS, 0)
 
 
 def read_launches() -> dict:
-    """Launches per kernel, and the paged kernel's per path
+    """Launches per kernel, the paged kernel's per path
     (``paged_attention_cuda_core``, ``paged_attention_tensor_core``,
-    ``paged_attention_decode``)."""
-    from repro_torch.kernels.flash_decode import paged_flash_attention_folded
-
-    counts = {name: fn.launches for name, fn in launch_counters().items()}
-    for path, n in paged_flash_attention_folded.launches_by_path.items():
-        counts[f"paged_attention_{path}"] = n
+    ``paged_attention_decode``) and RMSNorm's (``rmsnorm_one_pass``,
+    ``rmsnorm_generic``)."""
+    counters = launch_counters()
+    counts = {name: fn.launches for name, fn in counters.items()}
+    for name in PATHED:
+        for path, n in counters[name].launches_by_path.items():
+            counts[f"{name}_{path}"] = n
     return counts
 
 
@@ -1042,8 +1106,9 @@ def time_rmsnorm(label, rows, d, dtype):
     bms, by = bound(nbytes, 4 * rows * d, dtype)
     err = check_at_shape(f"rmsnorm ({label})", lambda: rmsnorm(x, w, 1e-5),
                          lambda: rmsnorm_plain(x, w, 1e-5), dtype)
-    return {"at": label, "shape": {"rows": rows, "d": d}, "max_abs_err": err,
-            "ms": time_ms(lambda: rmsnorm(x, w, 1e-5)),
+    return {"at": label, "shape": {"rows": rows, "d": d},
+            "path": rmsnorm_path(lambda: rmsnorm(x, w, 1e-5))[1],
+            "max_abs_err": err, "ms": time_ms(lambda: rmsnorm(x, w, 1e-5)),
             "plain_ms": time_ms(lambda: rmsnorm_plain(x, w, 1e-5)),
             "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lambda: F.rms_norm(x, (d,), w, 1e-5)),
@@ -1651,7 +1716,7 @@ def flash_work(bh: int, s: int, hd: int, dtype) -> tuple:
     return 4 * bh * s * hd * item, 2 * bh * s * s * hd
 
 
-def time_flash(bh: int, s: int, dtype) -> dict:
+def time_flash(bh: int, s: int, dtype, hd: int = 64) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -1659,7 +1724,6 @@ def time_flash(bh: int, s: int, dtype) -> dict:
         flash_attention_bhsd_plain,
     )
 
-    hd = 64
     gen = torch.Generator(device="cuda").manual_seed(23)
     q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
@@ -1763,6 +1827,9 @@ DS_SERVE_F32 = {"arch": "ds-paper-100m", "max_new_tokens": 24, "max_batch": 4, "
 DS_DRILL = {"arch": "ds-paper-100m", "max_new_tokens": 12, "max_len": 32, "max_batch": 2,
             "prefill_chunk": 4, "cache_mode": "paged", "page_size": 8, "prefix_cache": True}
 DS_TICK = 30.0
+# ds_parity's mamba2 job runs 12 of the 48 layers: the depth cut saves most
+# of the full-width seed draw's time
+DS_SSM_LAYERS = 12
 
 
 def ds_commands(workdir: Path, app: str, config: dict, job: dict, *, foreground: bool = True):
@@ -2105,10 +2172,12 @@ def phase_ds_parity(root: Path, plain: dict) -> dict:
         "launches": launches, "wall_s": time.perf_counter() - t0}
     serve.reset_serve_state()
 
-    # -- a static mamba2-1.3b serve job (dense cache) against a direct engine
-    ssm_job = {"arch": SSM_ARCH, "max_new_tokens": 16, "max_batch": 4, "max_len": 128,
-               "prefill_chunk": 16, "cache_mode": "dense"}
-    ssm_cfg = get_arch(SSM_ARCH)
+    # -- a static mamba2-1.3b serve job (dense cache) against a direct engine, at
+    # DS_SSM_LAYERS of its 48 layers (full width)
+    ssm_job = {"arch": SSM_ARCH, "arch_overrides": {"n_layers": DS_SSM_LAYERS},
+               "max_new_tokens": 16, "max_batch": 4, "max_len": 128, "prefill_chunk": 16,
+               "cache_mode": "dense"}
+    ssm_cfg = serve._cached_model(ssm_job).cfg
     ssm_reqs = parity_requests(ssm_cfg.vocab_size)[:4]
     t0 = time.perf_counter()
     reset_launches()
@@ -3022,13 +3091,13 @@ def ssm_weights():
     in f32 and reused by every SSM phase (cast or moved as each needs)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, ModelRuntime
-
     from repro_torch.tree import tree_leaves
 
     cfg = get_arch(SSM_ARCH)
     t0 = time.perf_counter()
     params = Model(cfg, ModelRuntime(dtype=torch.float32)).init(0, device="cpu")
-    emit({"phase": "ssm_weights", "arch": cfg.name, "seconds": time.perf_counter() - t0,
+    emit({"phase": "ssm_weights", "arch": cfg.name, "layers": cfg.n_layers,
+          "seconds": time.perf_counter() - t0,
           "parameters": sum(t.numel() for t in tree_leaves(params))})
     return cfg, params
 
@@ -3045,16 +3114,27 @@ def cast_params(params, dtype, device):
         params)
 
 
+# The first 12 of mamba2-1.3b's 48 layers: the depth cut keeps the CPU side
+# short and pays for the hybrid phases; ssm_serve and ssm_eval run all 48.
+SSM_PARITY_LAYERS = 12
+
+
 def phase_ssm_parity(cfg, params_cpu) -> dict:
-    """Full-width mamba2-1.3b in f32 from seed 0: the dense-cache engine on
-    the card (SSD kernel at prefill, RMSNorm) against the same engine on
-    the CPU (plain path): equal greedy tokens (the near-tie exception of
-    ``phase_parity``) and counters; 48 SSD launches per prefill dispatch,
-    none per decode dispatch, 49 RMSNorm per dispatch."""
+    """Full-width mamba2-1.3b in f32 from seed 0, the first
+    ``SSM_PARITY_LAYERS`` of its layers: the dense-cache engine on the card
+    (SSD kernel at prefill, RMSNorm) against the same engine on the CPU
+    (plain path): equal greedy tokens (the near-tie exception of
+    ``phase_parity``) and counters; an SSD launch a layer a prefill
+    dispatch, none a decode dispatch, an RMSNorm a layer and ``ln_f`` a
+    dispatch.  ``hybrid_parity`` runs 38 full-width mamba2 layers so."""
+    import dataclasses
+
     from repro_torch.models import Model, ModelRuntime
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, n_layers=SSM_PARITY_LAYERS)
+    params_cpu = {**params_cpu, "layers": params_cpu["layers"][:SSM_PARITY_LAYERS]}
     model = Model(cfg, ModelRuntime(dtype=torch.float32))
     kw = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
     params_gpu = cast_params(params_cpu, torch.float32, "cuda")
@@ -3115,10 +3195,12 @@ def ssd_bound(nbytes, s_flops, yst_flops, dtype) -> dict:
             "bound_ms_cuda_core": cc_ms, "bound_by_cuda_core": cc_by}
 
 
-def time_ssd(label, b, nc, q, dtype, lengths=None) -> dict:
+def time_ssd(label, b, nc, q, dtype, lengths=None, n: int = 128) -> dict:
+    """The SSD kernel at 64 heads of 64 and state ``n`` (mamba2-1.3b's 128,
+    zamba2-1.2b's 64)."""
     from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_plain
 
-    h, p, n = 64, 64, 128  # mamba2-1.3b
+    h, p = 64, 64
     x, dt, A, B, C = ssd_inputs(b, nc, q, h, p, n, dtype, 70, lengths)
     dA = dt * A
     kern = lambda: ssd_chunk(x, dA, dt, B, C)  # noqa: E731
@@ -3214,15 +3296,15 @@ def phase_ssm_serve(cfg, params) -> dict:
 SSM_EVAL_JOB = {"arch": SSM_ARCH, "run": "ssm"}
 # Logits with the SSD kernel against the plain chunked scan: f32 differs by
 # summation order only; bf16 activations round each layer's small
-# differences, compounded over 48 layers.
+# differences, compounded over the layers.
 SSM_LOGIT_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 
 
 def phase_ssm_eval(cfg, params, store_root: Path) -> dict:
     """The eval runner on a checkpoint of the seed-0 weights (bf16, written
     with the port's ``save_state``), bf16 and f32 at 8 x 512 and 2 x 4096:
-    finite loss, 48 SSD and 49 RMSNorm launches per forward, logits with
-    the kernel against ``use_ssd_kernel=False``, a traced forward, and the
+    finite loss, an SSD launch a layer and an RMSNorm a layer and ``ln_f``
+    per forward, logits with the kernel against ``use_ssd_kernel=False``, a traced forward, and the
     SSD kernel timed at both shapes."""
     from repro_torch.core.storage import ObjectStore
     from repro_torch.launch.train import run_eval
@@ -3280,6 +3362,480 @@ def phase_ssm_eval(cfg, params, store_root: Path) -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ the hybrid family
+HYBRID_ARCH = "zamba2-1.2b"
+LORA_B_SEED = 1  # the numpy generator of the non-zero lora_b draw
+
+
+def hybrid_norms(cfg) -> int:
+    """RMSNorm launches a dispatch or forward: one a mamba2 layer (d_model),
+    ``ln1`` and ``ln2`` a shared-block invocation (2 d_model) and ``ln_f``:
+    51 at zamba2-1.2b's 38 layers and 6 invocations."""
+    return cfg.n_layers + 2 * (cfg.n_layers // cfg.shared_attn_every) + 1
+
+
+def require_hybrid_launches(cfg, launches: dict, dispatches: int, prefill_dispatches: int,
+                            what: str) -> None:
+    """A hybrid serving run's exact launches: an SSD a layer a prefill
+    dispatch and none a decode one, ``hybrid_norms`` RMSNorm a dispatch,
+    every one on the one-pass path (d 2048 and 4096 are compiled in), no
+    attention kernel (the shared block's decode and prefill attend the
+    dense cache in plain torch, as the dense family's do)."""
+    L, norms = cfg.n_layers, hybrid_norms(cfg)
+    require(launches["ssd"] == L * prefill_dispatches,
+            f"{what}: ssd launched {launches['ssd']} times for {prefill_dispatches} prefill "
+            f"dispatches, want {L} a prefill dispatch and none a decode one")
+    require(launches["rmsnorm"] == norms * dispatches,
+            f"{what}: rmsnorm launched {launches['rmsnorm']} times for {dispatches} dispatches, "
+            f"want {norms} a dispatch")
+    require(launches["rmsnorm_one_pass"] == launches["rmsnorm"],
+            f"{what}: RMSNorm took the generic path: {launches}")
+    require(launches["paged_attention"] == 0 and launches["flash_attention"] == 0,
+            f"{what}: attention kernels launched in a dense hybrid serving run: {launches}")
+
+
+def hybrid_weights():
+    """Full-width zamba2-1.2b weights from seed 0, drawn once on the host in
+    f32 and reused by every hybrid phase.  ``lora_b`` is redrawn non-zero
+    (the reference's zero init leaves the per-invocation LoRA invisible)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_arch(HYBRID_ARCH)
+    t0 = time.perf_counter()
+    params = Model(cfg, ModelRuntime(dtype=torch.float32)).init(0, device="cpu")
+    lb = params["shared"]["lora_b"]
+    std = 1.0 / math.sqrt(cfg.shared_attn_lora_rank)
+    draw = np.random.default_rng(LORA_B_SEED).standard_normal(tuple(lb.shape), dtype=np.float32)
+    params["shared"]["lora_b"] = torch.from_numpy(draw * np.float32(std))
+    emit({"phase": "hybrid_weights",
+          "note": f"lora_b drawn non-zero, normal of std 1/sqrt({cfg.shared_attn_lora_rank}) "
+                  f"from numpy default_rng({LORA_B_SEED}), in the one tree the card and the CPU "
+                  "both use: the reference's zero init would leave the per-invocation LoRA "
+                  "invisible to every gate"})
+    emit({"phase": "hybrid_weights", "arch": cfg.name, "seconds": time.perf_counter() - t0,
+          "parameters": sum(t.numel() for t in tree_leaves(params)),
+          "shared_block_parameters": sum(t.numel() for t in tree_leaves(params["shared"])),
+          "lora_b_std": std})
+    return cfg, params
+
+
+HYBRID_KW = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
+
+
+def phase_hybrid_parity(cfg, params_cpu) -> dict:
+    """Full-width zamba2-1.2b in f32: the dense-cache engine on the card
+    (SSD kernel at prefill, RMSNorm at d 2048 and 4096) against the same
+    engine on the CPU, ``parity``'s 6 requests: equal greedy tokens (the
+    near-tie exception of ``phase_parity``) and counters, the exact
+    launches of ``require_hybrid_launches``."""
+    from repro_torch.models import Model, ModelRuntime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Model(cfg, ModelRuntime(dtype=torch.float32))
+    params_gpu = cast_params(params_cpu, torch.float32, "cuda")
+    reset_launches()
+    gpu, gpu_s = run_engine(model, params_gpu, parity_requests(cfg.vocab_size), "cuda",
+                            **HYBRID_KW)
+    launches = read_launches()
+    del params_gpu
+    cpu, cpu_s = run_engine(model, params_cpu, parity_requests(cfg.vocab_size), "cpu",
+                            **HYBRID_KW)
+    divergences = compare_greedy(model, params_cpu, gpu, cpu, "hybrid_parity")
+    counters = compare_counters(gpu, cpu, "hybrid_parity, card against CPU")
+    d, pd = gpu.dispatches, gpu.prefill_dispatches
+    require_hybrid_launches(cfg, launches, d, pd, "hybrid_parity")
+    rec = {"phase": "hybrid_parity", "arch": cfg.name, "dtype": "float32",
+           "layers": cfg.n_layers, "shared_block_invocations": cfg.n_layers // cfg.shared_attn_every,
+           "cache_mode": "dense", "tokens_equal": not divergences, "divergences": divergences,
+           "counters_card_cpu": counters, "launches": launches,
+           "ssd_per_prefill_dispatch": launches["ssd"] / pd,
+           "rmsnorm_per_dispatch": launches["rmsnorm"] / d, "card_s": gpu_s, "cpu_s": cpu_s}
+    del cpu, gpu
+    release_device_memory()
+    emit(rec)
+    return rec
+
+
+def lora_merge_ms(cfg, shared: dict) -> dict:
+    """The per-invocation LoRA merge one dispatch makes, ``wq + lora_a[i] @
+    lora_b[i]`` for every invocation, timed alone as the model runs it,
+    beside its bound: read ``wq`` and both factors, write the merged
+    ``wq``."""
+    n_inv = cfg.n_layers // cfg.shared_attn_every
+    wq, la, lb = shared["attn"]["wq"], shared["lora_a"], shared["lora_b"]
+
+    def merge():
+        for inv in range(n_inv):
+            wq + (la[inv] @ lb[inv]).to(wq.dtype)
+
+    item = wq.element_size()
+    nbytes = n_inv * (2 * wq.numel() + la[0].numel() + lb[0].numel()) * item
+    flops = n_inv * 2 * la.shape[1] * la.shape[2] * lb.shape[2]
+    bms, by = bound(nbytes, flops, wq.dtype)
+    return {"invocations": n_inv, "ms_per_dispatch": time_ms(merge), "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+def phase_hybrid_serve(cfg, params) -> dict:
+    """Full-width zamba2-1.2b in bf16 on the dense cache at ``ssm_serve``'s
+    knobs: 32 requests (prompts 128-512, 64 new tokens), tokens/s,
+    per-dispatch times, peak memory, the exact launches; 16 decode
+    dispatches traced, the LoRA merge's share of one named; RMSNorm at
+    d 4096 and the SSD kernel at state 64 timed beside their bounds."""
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    dtype = torch.bfloat16
+    model = Model(cfg, ModelRuntime(dtype=dtype))
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 40 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **SSM_SERVE_KW)
+    reqs = serve_requests(cfg.vocab_size)
+    eng = ServeEngine(model, params, device="cuda", **SSM_SERVE_KW)
+    eng._decode, eng._prefill = DispatchTimer(eng._decode), DispatchTimer(eng._prefill)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    outs = {r.uid: r.output for r in eng.finished}
+    require(len(outs) == len(reqs), "not every hybrid serve request finished")
+    require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+            "a hybrid serve request emitted a wrong number of tokens or an id outside the vocab")
+    d, pd = eng.dispatches, eng.prefill_dispatches
+    require_hybrid_launches(cfg, launches, d, pd, "hybrid_serve")
+    rec = {
+        "phase": "hybrid_serve", "arch": cfg.name, "dtype": "bfloat16", "cache_mode": "dense",
+        "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "max_new_tokens": 64, "max_batch": 16, "prefill_chunk": 16, "wall_s": wall,
+        "tokens_emitted": eng.tokens_emitted, "tokens_per_s": eng.tokens_emitted / wall,
+        "dispatches": d, "prefill_dispatches": pd, "decode_dispatches": eng.decode_dispatches,
+        "decode_dispatch_ms": summary(eng._decode.ms()),
+        "prefill_dispatch_ms": summary(eng._prefill.ms()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_cache_bytes": eng.peak_cache_bytes,
+        "cache_bytes": {k: v.numel() * v.element_size() if isinstance(v, torch.Tensor)
+                        else sum(t.numel() * t.element_size() for t in v.values())
+                        for k, v in eng.cache.items()},
+        "launches": launches,
+    }
+    del eng
+    # where a decode dispatch's time goes: 16 rows at prompts 256
+    rng = np.random.default_rng(5)
+    eng = ServeEngine(model, params, device="cuda", **SSM_SERVE_KW)
+    eng.submit([Request(uid=f"q{i}", prompt=rng.integers(1, cfg.vocab_size, 256).tolist(),
+                        max_new_tokens=64) for i in range(16)])
+    while eng.decode_dispatches < 4:  # prompts drain in 16 prefill dispatches, then decode
+        eng.step()
+    d0, p0 = eng.decode_dispatches, eng.prefill_dispatches
+    ticks = 16
+    profile = trace(eng.step, ticks, "dispatch",
+                    watch=("rmsnorm_row_kernel", "rmsnorm_generic", "ssd_chunk_kernel"))
+    require(eng.decode_dispatches - d0 == 2 * ticks and eng.prefill_dispatches == p0,
+            "traced hybrid ticks were not all decode dispatches")
+    del eng
+    merge = lora_merge_ms(cfg, params["shared"])
+    merge["share_of_device_busy"] = merge["ms_per_dispatch"] / profile["device_busy_ms_per_dispatch"]
+    merge["share_of_wall"] = merge["ms_per_dispatch"] / profile["wall_ms_per_dispatch"]
+    rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256", "ticks": ticks, **profile,
+                      "lora_merge": merge}
+    rec["kernel_times"] = {
+        "ssd": {"serve_prefill_n64": time_ssd("serve_prefill_n64", 16, 1, 16, dtype,
+                                              rng.integers(0, 17, 16).tolist(), n=cfg.ssm_state)},
+        "rmsnorm": {"decode": time_rmsnorm("decode", 16, 2 * cfg.d_model, dtype),
+                    "prefill": time_rmsnorm("prefill", 16 * 16, 2 * cfg.d_model, dtype)},
+    }
+    emit(rec)
+    return rec
+
+
+HYBRID_EVAL_JOB = {"arch": HYBRID_ARCH, "run": "zamba2_bf16"}
+
+
+def hybrid_workdir(root: Path) -> Path:
+    """The run_ds workdir of the static hybrid job, whose store holds the
+    bf16 checkpoint that ``hybrid_static`` serves and ``hybrid_eval``
+    evaluates."""
+    return root / "hybrid"
+
+
+def save_hybrid_checkpoint(params, store_root: Path) -> float:
+    """The bf16 checkpoint of the hybrid weights that ``hybrid_static``
+    serves and ``hybrid_eval`` evaluates; returns the seconds it took."""
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.train.checkpoint import save_state
+
+    t0 = time.perf_counter()
+    save_state(ObjectStore(str(hybrid_workdir(store_root) / "wd" / "store")),
+               HYBRID_EVAL_JOB["run"], 0, params)
+    return time.perf_counter() - t0
+
+
+# In bf16 no two routes through full-depth zamba2 agree within
+# SSM_LOGIT_TOL's 1e-1: a difference anywhere changes which way later
+# activations round, so any two routes end about as far apart as bf16 is
+# from f32 (0.33 at most at logits of std 1).  The reference's own direct
+# and chunked attention miss it against each other by 3x
+# (tools/reference_bf16_routes.py).  So in bf16 the kernels are held to an
+# f32 run of the same weights (the witness): each batch row's mean distance
+# from it at most HYBRID_BF16_ROW_RATIO times the plain path's.  Correct
+# routes land within 2% of the plain path.  The controls put faults into the
+# kernels' outputs that the 1e-1 gate fails without bf16 noise; each must
+# land above the ratio, or the gate is blind and the phase fails.
+HYBRID_BF16_ROW_RATIO = 1.04
+
+
+def worst_over(x: torch.Tensor, ref: torch.Tensor, t: float) -> float:
+    """The worst element's share of ``torch.allclose``'s allowance
+    ``t + t |ref|``: above 1 where ``allclose(x, ref, atol=t, rtol=t)``
+    fails."""
+    return ((x - ref).abs() / (t + t * ref.abs())).max().item()
+
+
+def row_distance(x: torch.Tensor, witness: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Each batch row's mean ``|x - witness|`` over its positions and the
+    vocabulary (the padded columns left out)."""
+    return (x[..., :vocab] - witness[..., :vocab]).abs().mean(dim=(1, 2))
+
+
+@contextlib.contextmanager
+def patched(module, name: str, wrap):
+    """A context in which ``module.name`` is ``wrap(module.name)``."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def hybrid_bf16_controls() -> dict:
+    """Faults in the kernels' outputs, each still launching its kernel:
+    name -> (module, attribute, wrapper)."""
+    from repro_torch.kernels import ops
+
+    def flash_scaled(scale: float, row=None):
+        def wrap(real):
+            def attend(*args, **kw):
+                out = real(*args, **kw)
+                if row is None:
+                    return out * scale
+                out = out.clone()
+                out[row] *= scale
+                return out
+            return attend
+        return wrap
+
+    def ssd_half_heads(real):
+        def ssd(*args, **kw):
+            y, state = real(*args, **kw)
+            y = y.clone()
+            y[:, :, : y.shape[2] // 2] *= 1.08
+            return y, state
+        return ssd
+
+    return {"flash output x1.01": (ops, "flash_attention", flash_scaled(1.01)),
+            "flash output x1.02 on batch row 0": (ops, "flash_attention", flash_scaled(1.02, 0)),
+            "SSD output x1.08 on half the heads": (ops, "ssd", ssd_half_heads)}
+
+
+def hybrid_bf16_gate(logits, plain_rt: dict, cfg, witness_logits) -> dict:
+    """The bf16 logits gate of ``hybrid_eval``.  ``logits(**rt)`` is the bf16
+    forward with runtime knobs ``rt`` (none: the kernels);
+    ``witness_logits(**rt)`` the same in f32 on the same weights.  Holds
+    every batch row's distance ratio (kernels over plain path, from the f32
+    plain path) at most ``HYBRID_BF16_ROW_RATIO`` and every control's above
+    it; reports ``SSM_LOGIT_TOL``'s 1e-1 comparison, for the kernels against
+    the plain path and for the plain path's chunked attention against its
+    direct, and each kernel swapped in alone over the plain path."""
+    vocab, t = cfg.vocab_size, SSM_LOGIT_TOL[torch.bfloat16]
+    witness = witness_logits(**plain_rt)
+    plain = logits(**plain_rt)
+    base = row_distance(plain, witness, vocab)
+
+    def ratios(x):
+        return (row_distance(x, witness, vocab) / base).tolist()
+
+    kern = logits()
+    finite = bool(torch.isfinite(kern).all())
+    chunked = logits(**{**plain_rt, "attn_impl": "chunked"})
+    gate = {"row_ratio_limit": HYBRID_BF16_ROW_RATIO, "row_ratios": ratios(kern),
+            "row_distance_plain": base.tolist(),
+            "issue_gate": {
+                "tol": t, "against_plain_max_abs": (kern - plain).abs().max().item(),
+                "worst_over_gate": worst_over(kern, plain, t),
+                "plain_chunked_vs_direct_worst_over_gate": worst_over(chunked, plain, t)},
+            "by_kernel_alone": {
+                k: (logits(**{**plain_rt, **swap}) - plain).abs().max().item()
+                for k, swap in (("ssd", {"use_ssd_kernel": True}),
+                                ("flash", {"attn_impl": "kernel"}))},
+            "from_f32_plain": {route: {"max": (x - witness).abs().max().item(),
+                                       "mean": (x - witness).abs().mean().item()}
+                               for route, x in (("kernels", kern), ("plain", plain))},
+            "controls": {}}
+    del kern, chunked
+    for what, (module, attr, wrap) in hybrid_bf16_controls().items():
+        with patched(module, attr, wrap):
+            faulty = logits()
+            f32_worst = worst_over(witness_logits(), witness, t)
+        gate["controls"][what] = {"row_ratios": ratios(faulty),
+                                  "f32_worst_over_issue_gate": f32_worst}
+        del faulty
+    worst = max(gate["row_ratios"])
+    blind = [w for w, c in gate["controls"].items()
+             if max(c["row_ratios"]) <= HYBRID_BF16_ROW_RATIO]
+    gate["held"] = finite and worst <= HYBRID_BF16_ROW_RATIO and not blind
+    if not gate["held"]:
+        gate["miss"] = ("kernel logits not finite" if not finite else
+                        f"a row's distance ratio {worst} above {HYBRID_BF16_ROW_RATIO}"
+                        if worst > HYBRID_BF16_ROW_RATIO else
+                        f"controls within the ratio, the gate is blind to them: {blind}")
+    return gate
+
+
+def phase_hybrid_eval(cfg, store_root: Path, save_s: float) -> dict:
+    """The eval runner on the bf16 checkpoint of the hybrid weights, bf16
+    and f32 at 8 x 512 and 2 x 4096: finite loss, an SSD a layer,
+    ``hybrid_norms`` RMSNorm (one pass) and a flash launch (hd 128) an
+    invocation a forward; in f32, logits with the kernels against the plain
+    path (``use_ssd_kernel=False``, ``attn_impl="direct"``) within
+    ``SSM_LOGIT_TOL``, the gate the dense and mamba2 evals hold; in bf16,
+    ``hybrid_bf16_gate``; a traced forward; flash at hd 128 and SSD at
+    state 64 timed at each shape.  The logits gates are held after the
+    phase has measured and emitted all of this, so a miss leaves its
+    numbers behind."""
+    from repro_torch.core.storage import ObjectStore
+    from repro_torch.launch.train import run_eval
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.train.checkpoint import restore_state
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = ObjectStore(str(hybrid_workdir(store_root) / "wd" / "store"))
+    n_batches, L = 3, cfg.n_layers
+    n_inv, norms = L // cfg.shared_attn_every, hybrid_norms(cfg)
+    hd = 2 * cfg.d_model // cfg.n_heads
+    rec = {"phase": "hybrid_eval", "arch": cfg.name, "checkpoint_dtype": "bfloat16",
+           "checkpoint_save_s": save_s, "runs": [],
+           "kernel_times": {"flash_attention": [], "ssd": []}}
+    plain_rt = dict(use_ssd_kernel=False, attn_impl="direct")
+    misses = []
+    for dtype, name in ((torch.bfloat16, "bfloat16"), (torch.float32, "float32")):
+        job = {**HYBRID_EVAL_JOB, "dtype": name, "n_batches": n_batches}
+        base = Model(cfg, ModelRuntime(dtype=dtype))
+        restored, _ = restore_state(store, job["run"], 0, base.abstract_params(), device="cuda")
+        for b, s in EVAL_SHAPES:
+            events: list = []
+            reset_launches()
+            out = run_eval({**job, "seq_len": s, "global_batch": b}, store,
+                           heartbeat_events(events), device="cuda")
+            launches = read_launches()
+            ms = event_intervals_ms(events)
+            require(launches["ssd"] == L * n_batches and launches["rmsnorm"] == norms * n_batches
+                    and launches["rmsnorm_one_pass"] == launches["rmsnorm"]
+                    and launches["flash_attention"] == n_inv * n_batches,
+                    f"hybrid_eval {name} {b}x{s}: launches {launches}, want {L} SSD, {norms} "
+                    f"one-pass RMSNorm and {n_inv} flash per forward")
+            require(math.isfinite(out["loss"]), f"hybrid_eval {name} {b}x{s}: loss not finite")
+            batch = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=b, seed=1234),
+                                device="cuda").batch(0)
+
+            def logits(**rt):
+                with torch.no_grad():
+                    return Model(cfg, ModelRuntime(dtype=dtype, **rt)).forward(
+                        restored, batch["tokens"])
+
+            if dtype == torch.bfloat16:
+                with torch.no_grad():
+                    p32 = cast_params(restored, torch.float32, "cuda")
+                    gate = hybrid_bf16_gate(
+                        logits, plain_rt, cfg,
+                        lambda **rt: Model(cfg, ModelRuntime(dtype=torch.float32, **rt)).forward(
+                            p32, batch["tokens"]))
+                del p32
+                err = gate["issue_gate"]["against_plain_max_abs"]
+                if not gate["held"]:
+                    misses.append(f"{name} {b}x{s}: {gate['miss']} ({gate})")
+            else:
+                plain, kern = logits(**plain_rt), logits()
+                t = SSM_LOGIT_TOL[dtype]
+                err = (kern - plain).abs().max().item()
+                gate = {"tol": t, "against_plain_max_abs": err,
+                        "worst_over_gate": worst_over(kern, plain, t),
+                        "held": bool(torch.isfinite(kern).all())
+                        and bool(torch.allclose(kern, plain, atol=t, rtol=t))}
+                if not gate["held"]:
+                    misses.append(f"{name} {b}x{s}: kernel logits differ from the plain path "
+                                  f"by {err} ({gate})")
+                del kern, plain
+            evaluator = Model(cfg, ModelRuntime(dtype=dtype))
+            with torch.no_grad():
+                profile = trace(lambda: float(evaluator.loss(restored, batch)[0]), 1, "forward",
+                                watch=("ssd_chunk_kernel", "flash_", "rmsnorm_row_kernel"))
+            rec["runs"].append({
+                "dtype": name, "batch": b, "seq_len": s, "loss": out["loss"], "ppl": out["ppl"],
+                "forward_ms": summary(ms), "tokens_per_s": b * s / (summary(ms)["median"] / 1e3),
+                "launches": launches,
+                "launches_per_forward": {k: v / n_batches for k, v in launches.items()},
+                "logits_kernels_vs_plain_max_abs_err": err, "logits_gate": gate,
+                "profile": profile})
+            rec["kernel_times"]["flash_attention"].append(
+                time_flash(b * cfg.n_heads, s, dtype, hd=hd))
+            rec["kernel_times"]["ssd"].append(
+                time_ssd(f"{name}_{b}x{s}_n64", b, s // 128, 128, dtype, n=cfg.ssm_state))
+        del restored
+    emit(rec)
+    require(not misses, "hybrid_eval: " + "; ".join(misses))
+    return rec
+
+
+def phase_hybrid_static(cfg, params, root: Path) -> dict:
+    """``parity``'s 6 requests as a static ``distributed-serve`` job of
+    zamba2-1.2b in bf16 through the four commands, serving the checkpoint
+    of ``save_hybrid_checkpoint``: completions and counters equal to a direct
+    engine on the card over the same weights, the exact launches of
+    ``require_hybrid_launches``."""
+    from repro_torch.launch import serve
+    from repro_torch.models import Model, ModelRuntime
+
+    t0 = time.perf_counter()
+    reqs = parity_requests(cfg.vocab_size)
+    job = {**HYBRID_EVAL_JOB, "dtype": "bfloat16", "max_new_tokens": 24, **HYBRID_KW}
+    reset_launches()
+    store = ds_commands(hybrid_workdir(root), "DSZamba", {"payload": "distributed-serve"},
+                        {**job, "groups": [{"prompts": [r.prompt for r in reqs],
+                                            "output_prefix": "serve/zamba2"}]})
+    launches = read_launches()
+    res = store.get_json("serve/zamba2/RESULTS.json")
+    direct, _ = run_engine(Model(cfg, ModelRuntime(dtype=torch.bfloat16)), params,
+                           parity_requests(cfg.vocab_size), "cuda", **HYBRID_KW)
+    got = {f"p{u.removeprefix('req')}": o for u, o in ds_completions(res).items()}
+    require(got == {r.uid: r.output for r in direct.finished},
+            "hybrid_static: the job's completions differ from a direct engine on the card")
+    counters = {c: [res[c], getattr(direct, c)] for c in PARITY_COUNTERS}
+    require(all(a == b for a, b in counters.values()),
+            f"hybrid_static: the job's counters differ from a direct engine's: {counters}")
+    require_hybrid_launches(cfg, launches, res["dispatches"], res["prefill_dispatches"],
+                            "hybrid_static")
+    rec = {"phase": "hybrid_static", "arch": cfg.name, "dtype": "bfloat16",
+           "tokens_equal_direct_engine": True, "counters": counters, "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    del direct
+    serve._MODEL_CACHE.clear()
+    serve._PARAM_CACHE.clear()
+    release_device_memory()
+    emit(rec)
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -3291,36 +3847,44 @@ KERNELS = {
 
 
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
-                 ds_store: dict, train: dict, evals: dict, ssm_serve: dict,
-                 ssm_eval: dict) -> dict:
+                 ds_store: dict, train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict,
+                 hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
     spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
-    eval, ssm_serve, ssm_eval: counts set to 0 before each run and read
-    after),
-    its worst error, and its times at its first timed shape with the
-    others beside."""
+    eval, ssm_serve, ssm_eval, the hybrid's static job through the control
+    plane, hybrid_serve, hybrid_eval: counts set to 0 before each run and
+    read after), the paged kernel's and RMSNorm's also by kernel path, its
+    worst error, and its times at its first timed shape with the others
+    beside."""
     def total(runs):
         return {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
 
     paths = {"serve": serve["launches"], "spec_serve": spec_serve["launches"],
              "ds_parity": ds_parity["launches"], "ds_serve": ds_serve["launches"],
              "ds_store": ds_store["launches"], "train": train["launches"], "eval": total(evals["runs"]),
-             "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"])}
+             "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"]),
+             "hybrid_static": hybrid_static["launches"],
+             "hybrid_serve": hybrid_serve["launches"], "hybrid_eval": total(hybrid_eval["runs"])}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
                             **spec_serve["kernel_times"]["paged_attention"]},
         "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
-                    **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()}},
-        "flash_attention": {f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
-                            for t in evals["kernel_times"]},
+                    **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()},
+                    **{f"d4096_{k}": t for k, t in hybrid_serve["kernel_times"]["rmsnorm"].items()}},
+        "flash_attention": {**{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
+                               for t in evals["kernel_times"]},
+                            **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
+                               f"{t['shape']['hd']}": t
+                               for t in hybrid_eval["kernel_times"]["flash_attention"]}},
         "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
-                **ssm_serve["kernel_times"]["ssd"]},
+                **ssm_serve["kernel_times"]["ssd"],
+                **{t["at"]: t for t in hybrid_eval["kernel_times"]["ssd"]},
+                **hybrid_serve["kernel_times"]["ssd"]},
     }
-    from repro_torch.kernels.flash_decode import PATHS
-
-    kernel_paths = {f"paged_attention_{p}": sum(counts[f"paged_attention_{p}"]
-                                                for counts in paths.values())
-                    for p in PATHS}
+    counters = launch_counters()
+    kernel_paths = {name: {p: sum(counts[f"{name}_{p}"] for counts in paths.values())
+                           for p in counters[name].launches_by_path}
+                    for name in PATHED}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         launches = {path: counts[name] for path, counts in paths.items()}
@@ -3334,9 +3898,7 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "at": next(iter(timed)),
-            **({"launches_by_kernel_path": {k.removeprefix("paged_attention_"): v
-                                            for k, v in kernel_paths.items()}}
-               if name == "paged_attention" else {}),
+            **({"launches_by_kernel_path": kernel_paths[name]} if name in PATHED else {}),
             **{f: first[f] for f in ("bound_route", "bound_ms_cuda_core", "launch_floor_ms")
                if f in first},
             "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -3346,6 +3908,17 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                              for k, t in list(timed.items())[1:]},
         })
     return {"kernels": rows}
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(name: str) -> None:
+    """One line with the seconds since the previous lap: what each phase
+    costs of the script's time limit."""
+    now = time.perf_counter()
+    emit({"lap": name, "seconds": now - _LAP[-1]})
+    _LAP.append(now)
 
 
 def main() -> int:
@@ -3359,29 +3932,55 @@ def main() -> int:
 
     phase_env()
     phase_build()
+    lap("build")
     checks = phase_kernels()
+    lap("kernels")
     _, plain = phase_parity()
     serve = phase_serve()
     phase_profile()
+    lap("parity, serve, profile")
     phase_spec_parity(plain)
     spec_serve = phase_spec_serve()
+    lap("spec_parity, spec_serve")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         ds_parity = phase_ds_parity(Path(tmp), plain)
+        lap("ds_parity")
         ds_serve = phase_ds_serve(Path(tmp))
+        lap("ds_serve")
         ds_store = phase_ds_store(Path(tmp), plain)
+        lap("ds_store")
         del plain
     phase_train_parity()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
         evals = phase_eval(Path(tmp))
+        lap("train_parity, train, eval")
         cfg, params_cpu = ssm_weights()
         phase_ssm_parity(cfg, params_cpu)
         params = cast_params(params_cpu, torch.bfloat16, "cuda")
         del params_cpu
+        lap("ssm_weights, ssm_parity")
         ssm_serve = phase_ssm_serve(cfg, params)
         ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
+        del params
+        release_device_memory()
+        lap("ssm_serve, ssm_eval")
+        hcfg, hparams_cpu = hybrid_weights()
+        phase_hybrid_parity(hcfg, hparams_cpu)
+        hparams = cast_params(hparams_cpu, torch.bfloat16, "cuda")
+        del hparams_cpu
+        lap("hybrid_weights, hybrid_parity")
+        hybrid_serve = phase_hybrid_serve(hcfg, hparams)
+        lap("hybrid_serve")
+        save_s = save_hybrid_checkpoint(hparams, Path(tmp))
+        hybrid_static = phase_hybrid_static(hcfg, hparams, Path(tmp))
+        del hparams
+        release_device_memory()
+        lap("hybrid_static")
+        hybrid_eval = phase_hybrid_eval(hcfg, Path(tmp), save_s)
+        lap("hybrid_eval")
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
-                      ssm_serve, ssm_eval))
+                      ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

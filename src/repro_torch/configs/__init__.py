@@ -5,4 +5,4 @@ from repro_torch.configs.base import (  # noqa: F401
     pad_to,
     reduced,
 )
-from repro_torch.configs import ds_paper_100m, mamba2_1p3b  # noqa: F401
+from repro_torch.configs import ds_paper_100m, mamba2_1p3b, zamba2_1p2b  # noqa: F401

@@ -3,7 +3,7 @@ registry and :func:`reduced` for CPU-sized tests.
 
 A copy of the reference package's ``configs/base.py`` (the port keeps
 its own: it imports nothing of the JAX package), restricted to what the
-port's dense and SSM paths read.  Field names, defaults and derived
+port's dense, SSM and hybrid paths read.  Field names, defaults and derived
 properties are unchanged so a config means the same thing in both
 packages.
 """
@@ -131,16 +131,17 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A tiny same-family config for CPU tests (the reference package's
-    ``reduced`` for the dense and SSM families: 2 layers, d_model 64, vocab
-    256; 4 query heads over at most 2 KV heads of 16, or SSM state 16,
-    head width 16 and chunk 16)."""
-    if cfg.family not in ("dense", "ssm"):
+    ``reduced`` for the dense, SSM and hybrid families: 2 layers, d_model
+    64, vocab 256; 4 query heads over at most 2 KV heads of 16, or SSM
+    state 16, head width 16 and chunk 16; a hybrid has 4 layers with the
+    shared block every 2 and a LoRA rank of at most 8)."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"reduced() is ported for the dense family and the SSM family only, "
-            f"got {cfg.family!r}"
+            f"reduced() is ported for the dense family, the SSM family and the hybrid "
+            f"family only, got {cfg.family!r}"
         )
     small: Dict = dict(
-        n_layers=2,
+        n_layers=max(2, cfg.shared_attn_every or 0) * 2 if cfg.family == "hybrid" else 2,
         d_model=64,
         n_heads=4 if cfg.n_heads else 0,
         n_kv_heads=min(cfg.n_kv_heads, 2) if cfg.n_kv_heads else 0,
@@ -148,8 +149,11 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab_size=256,
         head_dim=16 if cfg.n_heads else 0,
     )
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16, d_model=64)
+    if cfg.shared_attn_every:
+        small.update(shared_attn_every=2, n_layers=4,
+                     shared_attn_lora_rank=min(cfg.shared_attn_lora_rank, 8))
     if cfg.sliding_window:
         small.update(sliding_window=32)
     if cfg.max_position_embeddings:

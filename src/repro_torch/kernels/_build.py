@@ -34,13 +34,14 @@ _lib: Optional[ctypes.CDLL] = None
 _count_lock = threading.Lock()
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ip = ctypes.POINTER(ctypes.c_int)
 # C entry points and their argument types: a pointer must be c_void_p, or
 # ctypes passes it as a 32-bit int and cuts it.
 SIGNATURES = {
     "paged_attention_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp,
                             _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _vp,
                             _vp, _vp],
-    "rmsnorm_fwd": [_i, _i, _vp, _vp, _vp, _i, _i, _f, _vp],
+    "rmsnorm_fwd": [_i, _i, _vp, _vp, _vp, _i, _i, _f, _ip, _vp],
     "empty_launch": [_vp],
     "flash_attention_fwd": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "ssd_chunk_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _vp],

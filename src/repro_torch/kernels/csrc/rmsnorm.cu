@@ -8,15 +8,19 @@
 // 16-byte loads issued before the reduction, and the row stays in
 // registers for the scale-and-store: one memory round trip where a second
 // pass over x (and w read after the reduction) made two.
-//   - The widths the models use (768, 2048) and 3840 are instantiated with
-//     a compile-time count of 16-byte vectors a row, shared by the fewest
-//     warps that keep a lane at 2 vectors or under (kMaxVecPerLane: 768
-//     bf16 takes 64 threads, 2048 128); the warps of a row meet in shared
-//     memory; 256 threads a block.  A warp a row with up to 8 vectors a
-//     lane measured 0.5 us slower at 2048 (tools/kernel_variants.py).
+//   - The widths the models use (768, 2048, zamba2's shared block at
+//     4096) and 3840 are instantiated with a compile-time count of 16-byte
+//     vectors a row, shared by the fewest warps that keep a lane at 2
+//     vectors or under (kMaxVecPerLane: 768 bf16 takes 64 threads, 2048
+//     128, 4096 256), up to the block's 256 threads (f32 at 3840 and 4096
+//     keeps 4 vectors a lane); the warps of a row meet in shared memory.
+//     A warp a row with up to 8 vectors a lane measured 0.5 us slower at
+//     2048 (tools/kernel_variants.py).
 //   - Any other width, or rows off the 16-byte grid, take a generic path
 //     with no limit on the width: a warp a row, scalar loads, two passes
 //     over x (the second from L1/L2), w read in the second.
+// The entry reports the path it launched, and kernels/rmsnorm.py counts
+// launches by path.
 // empty_kernel is launched through the same library by chip_smoke.py to
 // time the floor of a launch on this path.
 //
@@ -181,8 +185,10 @@ cudaError_t launch_rows(const void* x, const void* w, void* out, int rows, float
   return cudaGetLastError();
 }
 
+// Writes the path it launched to *path: 0 = one pass (an instantiated
+// width, rows and w on the 16-byte grid), 1 = generic.
 template <typename TX, typename TW>
-cudaError_t launch(const void* x, const void* w, void* out, int rows, int d, float eps,
+cudaError_t launch(const void* x, const void* w, void* out, int rows, int d, float eps, int* path,
                    cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(TX);
   constexpr int kWAlign = kVec * sizeof(TW);  // bytes of w beside one x vector
@@ -190,14 +196,17 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int d, flo
                        ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16) ==
                            0 &&
                        reinterpret_cast<uintptr_t>(w) % (kWAlign < 16 ? kWAlign : 16) == 0;
+  *path = 0;
   if (aligned) {
     switch (d) {
       case 768: return launch_rows<TX, TW, 768 / kVec>(x, w, out, rows, eps, stream);
       case 2048: return launch_rows<TX, TW, 2048 / kVec>(x, w, out, rows, eps, stream);
       case 3840: return launch_rows<TX, TW, 3840 / kVec>(x, w, out, rows, eps, stream);
+      case 4096: return launch_rows<TX, TW, 4096 / kVec>(x, w, out, rows, eps, stream);
       default: break;
     }
   }
+  *path = 1;
   rmsnorm_generic_kernel<TX, TW><<<(rows + kGenericRows - 1) / kGenericRows, kGenericRows * 32,
                                    0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), rows, d, eps);
@@ -209,18 +218,19 @@ __global__ void empty_kernel() {}
 }  // namespace
 
 // x_dtype / w_dtype: 0 = float32, 1 = bfloat16; out has x's type; any
-// rows and d.  Returns cudaGetLastError() after the launch.
+// rows and d.  *path gets the path launched (0 one pass, 1 generic).
+// Returns cudaGetLastError() after the launch.
 extern "C" int rmsnorm_fwd(int x_dtype, int w_dtype, const void* x, const void* w, void* out,
-                           int rows, int d, float eps, void* stream) {
+                           int rows, int d, float eps, int* path, void* stream) {
   if (rows <= 0 || d <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && w_dtype == 0) return launch<float, float>(x, w, out, rows, d, eps, s);
+  if (x_dtype == 0 && w_dtype == 0) return launch<float, float>(x, w, out, rows, d, eps, path, s);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, w, out, rows, d, eps, s);
+    return launch<float, __nv_bfloat16>(x, w, out, rows, d, eps, path, s);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, w, out, rows, d, eps, s);
+    return launch<__nv_bfloat16, float>(x, w, out, rows, d, eps, path, s);
   if (x_dtype == 1 && w_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, d, eps, path, s);
   return cudaErrorInvalidValue;
 }
 

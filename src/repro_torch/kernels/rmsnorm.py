@@ -5,7 +5,11 @@ Counterpart of the reference package's ``kernels/rmsnorm.py``
 (``rmsnorm_pallas``): ``x * rsqrt(mean(x^2) + eps) * w`` over the last
 axis of a ``(rows, d)`` input, fp32 accumulation, cast to ``x.dtype``.
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  The kernel has two paths, chosen by the C entry, which
+reports the one it launched: ``one_pass`` for the widths it compiles in
+with rows and ``w`` on the 16-byte grid, ``generic`` for the rest.
+Launches are counted in total (``launches``) and per path
+(``launches_by_path``).
 
 The op is differentiable: :class:`_RMSNorm` runs the kernel (or the plain
 version) forward and the analytic RMSNorm gradient backward, in plain
@@ -17,11 +21,14 @@ kernel's output through a raw pointer alone would cut the graph.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PATHS = ("one_pass", "generic")  # the C entry's `path` codes 0 and 1
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -45,12 +52,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    path = ctypes.c_int(-1)
     status = _build.library().rmsnorm_fwd(
         _DTYPES[x.dtype], _DTYPES[w.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        x.shape[0], x.shape[1], float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+        x.shape[0], x.shape[1], float(eps), ctypes.byref(path),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(status, "rmsnorm_fwd")
-    _build.count_launch(rmsnorm)
+    _build.count_launch(rmsnorm, PATHS[path.value])
     return out
 
 
@@ -86,3 +95,4 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
 
 
 rmsnorm.launches = 0
+rmsnorm.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -1,8 +1,9 @@
-"""The dense decoder and the SSM (mamba2) family: full-sequence forward,
-loss and the serving path on a paged or a dense (per-slot) cache.
+"""The dense decoder, the SSM (mamba2) family and the hybrid (zamba2)
+family: full-sequence forward, loss and the serving path on a paged or a
+dense (per-slot) cache.
 
 Counterpart of the reference package's ``models/transformer.py`` for
-the dense and SSM families:
+the dense, SSM and hybrid families:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
@@ -26,14 +27,22 @@ reference scans stacked layers); remat is not ported.
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
 one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
 {wi, wg, wo}; or for an SSM layer ``ln1`` and ``mixer``, see
-``ssm.mamba2_param_tree``), ``ln_f`` and ``lm_head`` ``(d, Vp)``.
+``ssm.mamba2_param_tree``), ``ln_f`` and ``lm_head`` ``(d, Vp)``.  A
+hybrid model adds ``shared``: one transformer block at width ``2 d``
+(``ln1``, ``attn``, ``ln2``, ``mlp``, ``down`` back to ``d``) run before
+each full segment of ``shared_attn_every`` SSM layers, its ``wq`` offset
+per invocation by a LoRA product (``lora_a`` ``(n_inv, 2d, r)``,
+``lora_b`` ``(n_inv, r, 2d)``, stacked over the invocations as in the
+reference).
 
 Caches are stacked over the layers and updated in place (the reference
 returns a new cache pytree); both calls still return the cache so call
 sites read alike.  The paged cache holds ``page_table``, ``k_pages`` and
 ``v_pages``; the dense cache ``k``/``v`` ``(L, B, max_len, Hkv, hd)`` for
 the dense family and, for an SSM, ``state``: the conv windows ``(L, B,
-k-1, c)`` in the model dtype and ``ssm`` ``(L, B, h, p, n)`` in fp32.
+k-1, c)`` in the model dtype and ``ssm`` ``(L, B, h, p, n)`` in fp32; a
+hybrid adds the shared block's ``shared_k``/``shared_v`` ``(n_inv, B,
+max_len, Hkv, 2d / H)``.
 Every decode dispatch advances every row of a dense cache, parked rows
 included (a new admission zeroes its row first, as in the reference).
 
@@ -180,10 +189,13 @@ def chunked_attention(
 
 
 def _attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, rt: ModelRuntime, *,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, n_heads: Optional[int] = None,
+                  n_kv: Optional[int] = None, head_dim: Optional[int] = None) -> torch.Tensor:
     """Full-sequence causal self-attention of one layer (the reference's
-    ``_attn_forward`` for the dense family)."""
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    ``_attn_forward``); the heads default to the config's, the hybrid's
+    shared block passes its own."""
+    h, hkv = n_heads or cfg.n_heads, n_kv or cfg.n_kv_heads
+    hd = head_dim or cfg.resolved_head_dim
     b, s, _ = x.shape
     q, k, v = qkv_project(p, x, h, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -203,15 +215,18 @@ def _attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, rt: ModelRuntime,
     return out.reshape(b, s, h * hd) @ p["wo"]
 
 
-def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: ArchConfig):
+def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: ArchConfig, *,
+                      n_heads: Optional[int] = None, n_kv: Optional[int] = None,
+                      head_dim: Optional[int] = None):
     """Decode or chunked prefill against a dense per-slot KV cache ``(B, t,
     Hkv, hd)`` (the reference's ``_attn_decode``/``_attn_extend``): the
     tokens ``writes = (rows, toks)`` write their K/V at ``position % t``, in
     place, and every query attends to the slots at or before its position;
     slot ``s`` holds ``last - ((last - s) mod t)``, the reference's
     reconstruction (the slot itself while the cache does not wrap; negative
-    = never written)."""
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    = never written).  The heads default to the config's."""
+    h, hkv = n_heads or cfg.n_heads, n_kv or cfg.n_kv_heads
+    hd = head_dim or cfg.resolved_head_dim
     b, T, _ = x.shape
     q, k, v = qkv_project(p, x, h, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -244,11 +259,38 @@ def _layer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> 
     return h + apply_mlp(p["mlp"], hn, cfg.activation)
 
 
+def _shared_block_apply(p: Params, h, x0, inv: int, cfg: ArchConfig, rt: ModelRuntime,
+                        positions, cache=None, writes=None) -> torch.Tensor:
+    """The hybrid's shared block at invocation ``inv`` (the reference's
+    ``_shared_block_apply``): on ``[h, x0]`` (width 2d), attention with
+    ``wq`` offset by this invocation's LoRA product, then the MLP and the
+    projection back to d; returns the delta to add to ``h``.  Without
+    ``cache`` the attention runs over the full sequence; with ``cache =
+    (k, v)`` (this invocation's dense slices) the ``writes`` tokens write
+    their K/V in place and every query attends the cache, as a dense
+    layer's decode or prefill does."""
+    d2h = torch.cat([h, x0], dim=-1)
+    xn = apply_norm(p["ln1"], d2h, cfg.norm, cfg.norm_eps)
+    attn_p = p["attn"]
+    if "lora_a" in p:  # merged in the parameters' dtype, as the reference merges
+        wq = attn_p["wq"]
+        attn_p = {**attn_p, "wq": wq + (p["lora_a"][inv] @ p["lora_b"][inv]).to(wq.dtype)}
+    heads = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=2 * cfg.d_model // cfg.n_heads)
+    if cache is None:
+        a = _attn_forward(attn_p, xn, cfg, rt, positions=positions, **heads)
+    else:
+        a = _attn_dense_cache(attn_p, xn, cache[0], cache[1], positions, writes, cfg, **heads)
+    y = d2h + a
+    yn = apply_norm(p["ln2"], y, cfg.norm, cfg.norm_eps)
+    y = y + apply_mlp(p["mlp"], yn, cfg.activation)
+    return y @ p["down"]
+
+
 class Model:
     def __init__(self, cfg: ArchConfig, runtime: Optional[ModelRuntime] = None):
         unsupported = [
             name for name, on in (
-                (f"family {cfg.family!r}", cfg.family not in ("dense", "ssm")),
+                (f"family {cfg.family!r}", cfg.family not in ("dense", "ssm", "hybrid")),
                 ("MLA", cfg.use_mla),
                 ("sliding-window attention", cfg.sliding_window > 0),
                 ("encoder-decoder", cfg.is_encoder_decoder),
@@ -259,7 +301,7 @@ class Model:
         if unsupported:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
-                "(ROADMAP Queue 1: MLA paged, the hybrid family, the model zoo)"
+                "(ROADMAP Queue 1: MLA paged, the model zoo)"
             )
         self.cfg = cfg
         self.rt = runtime or ModelRuntime()
@@ -312,15 +354,22 @@ class Model:
         def dense(d_in, d_out, scale=1.0) -> torch.Tensor:
             return normal((d_in, d_out), scale / math.sqrt(d_in))
 
-        def norm() -> Params:
-            p = {"w": const((d,), 1.0)}
+        def norm(width: int = d) -> Params:
+            p = {"w": const((width,), 1.0)}
             if cfg.norm == "layernorm":
-                p["b"] = const((d,), 0.0)
+                p["b"] = const((width,), 0.0)
+            return p
+
+        def mlp(width: int) -> Params:
+            p = {"wi": dense(width, f)}
+            if cfg.activation in GATED:
+                p["wg"] = dense(width, f)
+            p["wo"] = dense(f, width, depth_scale)
             return p
 
         params: Params = {"embed": normal((vp, d), 0.02), "layers": []}
         for _ in range(cfg.n_layers):
-            if cfg.family == "ssm":
+            if cfg.family in ("ssm", "hybrid"):
                 params["layers"].append({
                     "ln1": norm(),
                     "mixer": ssm.mamba2_param_tree(cfg, normal, const, fp32, depth_scale)})
@@ -332,11 +381,24 @@ class Model:
             if cfg.qkv_bias:
                 attn.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
                             bv=const((hkv * hd,), 0.0))
-            mlp = {"wi": dense(d, f)}
-            if cfg.activation in GATED:
-                mlp["wg"] = dense(d, f)
-            mlp["wo"] = dense(f, d, depth_scale)
-            params["layers"].append({"ln1": norm(), "attn": attn, "ln2": norm(), "mlp": mlp})
+            params["layers"].append({"ln1": norm(), "attn": attn, "ln2": norm(), "mlp": mlp(d)})
+        if cfg.family == "hybrid":  # the reference's _shared_block_init
+            d2 = 2 * d
+            hd2 = d2 // h
+            shared = {
+                "ln1": norm(d2),
+                "attn": {"wq": dense(d2, h * hd2), "wk": dense(d2, hkv * hd2),
+                         "wv": dense(d2, hkv * hd2), "wo": dense(h * hd2, d2, depth_scale)},
+                "ln2": norm(d2),
+                "mlp": mlp(d2),
+                "down": dense(d2, d, depth_scale),
+            }
+            r = cfg.shared_attn_lora_rank
+            if r:
+                n_inv = cfg.n_layers // cfg.shared_attn_every
+                shared["lora_a"] = normal((n_inv, d2, r), 1.0 / math.sqrt(d2))
+                shared["lora_b"] = const((n_inv, r, h * hd2), 0.0)
+            params["shared"] = shared
         params["ln_f"] = norm()
         if not cfg.tie_embeddings:
             params["lm_head"] = dense(d, vp)
@@ -350,9 +412,26 @@ class Model:
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         h = x
-        for lp in params["layers"]:
+        for i, lp in enumerate(params["layers"]):
+            inv = self._shared_at(i)
+            if inv is not None:  # the reference's _run_hybrid
+                h = h + _shared_block_apply(params["shared"], h, x, inv, self.cfg, self.rt,
+                                            positions)
             h = _layer_apply(lp, h, self.cfg, self.rt, positions)
         return self._logits(params, h)
+
+    def _shared_at(self, i: int) -> Optional[int]:
+        """The invocation of the hybrid's shared block that runs before
+        layer ``i``: one before each full segment of ``shared_attn_every``
+        layers, none before the trailing layers past the last full
+        segment (38 = 6 x 6 + 2 at zamba2-1.2b's depth); None for other
+        families."""
+        cfg = self.cfg
+        if cfg.family != "hybrid":
+            return None
+        every = cfg.shared_attn_every
+        inv, at = divmod(i, every)
+        return inv if at == 0 and inv < cfg.n_layers // every else None
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         """Next-token cross-entropy over ``batch`` (``tokens``, ``labels``
@@ -399,7 +478,9 @@ class Model:
         device=None,
     ) -> Params:
         """Decode cache, stacked over the layers.  Dense (the default): the
-        SSM ``state`` or ``k``/``v`` ``(L, batch, max_len, Hkv, hd)``.
+        SSM ``state`` (a hybrid's also ``shared_k``/``shared_v`` ``(n_inv,
+        batch, max_len, Hkv, 2d / H)``) or ``k``/``v`` ``(L, batch, max_len,
+        Hkv, hd)``.
         ``paged=True``: ``k_pages``/``v_pages`` ``(L, n_pages, page_size,
         Hkv, hd)`` and a ``page_table`` ``(batch, ceil(max_len /
         page_size))`` int32 whose entries hold the sentinel ``n_pages``
@@ -408,10 +489,16 @@ class Model:
         cfg, dtype = self.cfg, self.rt.dtype
         L = cfg.n_layers
         if not paged:
-            if cfg.family == "ssm":
+            if cfg.family in ("ssm", "hybrid"):
                 one = ssm.mamba2_decode_state(cfg, batch, dtype, device)
-                return {"state": {k: torch.zeros((L,) + v.shape, dtype=v.dtype, device=device)
-                                  for k, v in one.items()}}
+                cache = {"state": {k: torch.zeros((L,) + v.shape, dtype=v.dtype, device=device)
+                                   for k, v in one.items()}}
+                if cfg.family == "hybrid":
+                    shape = (L // cfg.shared_attn_every, batch, max_len, cfg.n_kv_heads,
+                             2 * cfg.d_model // cfg.n_heads)
+                    cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
+                    cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
+                return cache
             shape = (L, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=device),
                     "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -444,8 +531,8 @@ class Model:
         h = params["embed"][tokens].to(self.rt.dtype)
         if "page_table" in cache:
             h = self._run_layers_paged(params, cache, h, pos[:, None], valid=None)
-        elif self.cfg.family == "ssm":
-            h = self._decode_ssm(params, cache, h)
+        elif self.cfg.family in ("ssm", "hybrid"):
+            h = self._decode_ssm(params, cache, h, pos)
         else:
             h = self._decode_attn(params, cache, h, pos)
         return self._logits(params, h), cache
@@ -491,18 +578,13 @@ class Model:
         h = params["embed"][tokens].to(self.rt.dtype)
         if "page_table" in cache:
             return self._run_layers_paged(params, cache, h, positions, valid=valid)
-        if self.cfg.family == "ssm":
-            return self._prefill_ssm(params, cache, h, lengths, valid)
+        if self.cfg.family in ("ssm", "hybrid"):
+            return self._prefill_ssm(params, cache, h, positions, lengths, valid)
         return self._prefill_attn(params, cache, h, positions, valid)
 
     # ------------------------------------------------------------- layers
     def _decode_attn(self, params, cache, h, pos) -> torch.Tensor:
-        """Every row writes its token (the reference's decode writes every
-        row, parked ones included, at ``pos % t``)."""
-        b = h.shape[0]
-        writes = (torch.arange(b, device=h.device), torch.zeros(b, dtype=torch.long,
-                                                                device=h.device))
-        return self._run_layers_dense(params, cache, h, pos[:, None], writes)
+        return self._run_layers_dense(params, cache, h, pos[:, None], _every_row(h))
 
     def _prefill_attn(self, params, cache, h, positions, valid) -> torch.Tensor:
         """Only the valid tokens write (one host sync a dispatch)."""
@@ -518,9 +600,19 @@ class Model:
             h = h + apply_mlp(lp["mlp"], hn, cfg.activation)
         return h
 
-    def _decode_ssm(self, params, cache, h) -> torch.Tensor:
+    def _decode_ssm(self, params, cache, h, pos) -> torch.Tensor:
+        """The SSM layers' recurrent step; a hybrid's shared block writes
+        every row's K/V at ``pos % t`` (parked rows included, as the
+        reference's decode does)."""
         cfg, state = self.cfg, cache["state"]
+        writes = _every_row(h) if cfg.family == "hybrid" else None
+        x0 = h
         for i, lp in enumerate(params["layers"]):
+            inv = self._shared_at(i)
+            if inv is not None:
+                h = h + _shared_block_apply(
+                    params["shared"], h, x0, inv, cfg, self.rt, pos[:, None],
+                    cache=(cache["shared_k"][inv], cache["shared_v"][inv]), writes=writes)
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
             out, new = ssm.apply_mamba2_decode(lp["mixer"], hn,
                                                {k: v[i] for k, v in state.items()}, cfg)
@@ -529,12 +621,21 @@ class Model:
                 state[k][i].copy_(v)
         return h
 
-    def _prefill_ssm(self, params, cache, h, lengths, valid) -> torch.Tensor:
+    def _prefill_ssm(self, params, cache, h, positions, lengths, valid) -> torch.Tensor:
         """Each layer ingests the chunk from its cached state; on the card
-        the scan goes through ``ops.ssd`` (``resolve_ssd``)."""
+        the scan goes through ``ops.ssd`` (``resolve_ssd``).  A hybrid's
+        shared block writes the valid tokens' K/V only (one host sync a
+        dispatch, as the dense layers' prefill)."""
         cfg, state = self.cfg, cache["state"]
         use_kernel = self.rt.resolve_ssd(device=h.device)
+        writes = valid.nonzero(as_tuple=True) if cfg.family == "hybrid" else None
+        x0 = h
         for i, lp in enumerate(params["layers"]):
+            inv = self._shared_at(i)
+            if inv is not None:
+                h = h + _shared_block_apply(
+                    params["shared"], h, x0, inv, cfg, self.rt, positions,
+                    cache=(cache["shared_k"][inv], cache["shared_v"][inv]), writes=writes)
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
             out, new = ssm.apply_mamba2_prefill(
                 lp["mixer"], hn, {k: v[i] for k, v in state.items()}, cfg, valid=valid,
@@ -576,6 +677,15 @@ class Model:
         h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return (h @ w).float()
+
+
+def _every_row(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The writes of a decode dispatch on a dense cache: every row writes
+    its one token (the reference's decode writes every row, parked ones
+    included, at ``pos % t``)."""
+    b = h.shape[0]
+    return (torch.arange(b, device=h.device),
+            torch.zeros(b, dtype=torch.long, device=h.device))
 
 
 def write_slots(

@@ -73,13 +73,15 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(
     np_params: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = torch.float32
 ) -> Dict[str, Any]:
-    """Port parameters from the reference's dense- or SSM-model pytree of
-    numpy leaves (layers stacked along ``L``), converted to ``dtype``; an
-    SSM's ``A_log``, ``D`` and ``dt_bias`` stay float32, as the reference
-    keeps them in every model dtype."""
+    """Port parameters from the reference's dense-, SSM- or hybrid-model
+    pytree of numpy leaves (layers stacked along ``L``; a hybrid's
+    ``shared`` block, its LoRA stacked over the invocations, kept as it
+    is), converted to ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias``
+    stay float32, as the reference keeps them in every model dtype."""
     device = resolve_device(device)
-    if "dense_layers" in np_params or "layers" not in np_params or "shared" in np_params:
-        raise NotImplementedError("params_from_jax takes the dense or SSM family's pytree only")
+    if "dense_layers" in np_params or "layers" not in np_params:
+        raise NotImplementedError(
+            "params_from_jax takes the dense, SSM or hybrid family's pytree only")
 
     def leaf(path, a):
         return _tensor(a, device, torch.float32 if path[-1] in FP32_PARAMS else dtype)

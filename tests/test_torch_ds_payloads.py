@@ -10,12 +10,14 @@ packages' seed inits differ.  Held: the train spans' per-step losses
 (rtol 1e-5) and final parameters (atol 1e-6), as ``test_torch_train.py``;
 the final checkpoint's step; eval ``METRICS.json`` (rtol 1e-5); serve
 completions token for token and every counter of ``RESULTS.json``,
-paged and dense; and a serve job whose ``run`` is a checkpoint the
-reference's training wrote."""
+paged and dense, and for reduced ``zamba2-1.2b`` on the dense cache
+(its seed-0 checkpoint with ``lora_b`` drawn non-zero); and a serve job
+whose ``run`` is a checkpoint the reference's training wrote."""
 
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -44,10 +46,17 @@ SERVE = {**ARCH, "max_new_tokens": 6, "max_len": 40, "max_batch": 2, "prefill_ch
 @pytest.fixture(scope="module")
 def seed_weights(tmp_path_factory):
     """A store holding the reference's seed-0 parameters as run ``w`` at
-    step 0, written by the reference."""
+    step 0, and reduced zamba2-1.2b's as run ``z`` (``lora_b`` drawn
+    non-zero: its init is zeros), written by the reference."""
     root = tmp_path_factory.mktemp("weights")
+    store = jcore.ObjectStore(str(root))
     jm = JModel(jreduced(jget_arch("ds-paper-100m")))
-    jckpt.save_checkpoint(jcore.ObjectStore(str(root)), "w", 0, jm.init(jax.random.PRNGKey(0)))
+    jckpt.save_checkpoint(store, "w", 0, jm.init(jax.random.PRNGKey(0)))
+    jz = JModel(jreduced(jget_arch("zamba2-1.2b"))).init(jax.random.PRNGKey(0))
+    lb = jz["shared"]["lora_b"]
+    draw = np.random.default_rng(9).standard_normal(lb.shape).astype(np.float32)
+    jz["shared"]["lora_b"] = jnp.asarray(draw / np.sqrt(lb.shape[1]), lb.dtype)
+    jckpt.save_checkpoint(store, "z", 0, jz)
     return root
 
 
@@ -134,6 +143,7 @@ SERVE_CASES = {
     "paged_adaptive_pool": dict(cache_mode="paged", page_size=8),
     "dense": dict(cache_mode="dense"),
     "temperature_stop": dict(cache_mode="paged", page_size=8, temperature=0.7, stop_token=7),
+    "zamba2_dense": dict(arch="zamba2-1.2b", run="z", cache_mode="dense"),
 }
 
 

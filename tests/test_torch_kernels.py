@@ -173,7 +173,9 @@ def test_paged_wrapper_rejects_bad_fold():
 
 # ------------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 256), (2, 8, 512), (3, 5, 128), (37, 100), (3, 8192)])
+# 2048, 3840 and 4096 (zamba2's shared block) are compiled into the kernel's one-pass path
+@pytest.mark.parametrize("shape", [(4, 256), (2, 8, 512), (3, 5, 128), (37, 100), (3, 8192),
+                                   (16, 2048), (4, 3840), (16, 4096), (256, 4096)])
 def test_rmsnorm_sweep(shape, dtype):
     rng = np.random.default_rng(5)
     x = rng.standard_normal(shape).astype(np.float32)

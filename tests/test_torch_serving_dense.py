@@ -1,14 +1,17 @@
 """The port's ``ServeEngine`` on the dense (per-slot) cache, plain path on
 the CPU, against the reference's dense engine (its default) on shared
-weights, for reduced ``ds-paper-100m`` (KV rows) and reduced
-``mamba2-1.3b`` (SSM state rows): greedy outputs and every counter
-exactly equal over refills into freed rows, decode-path ingestion, host
-sampling, drain refill, stop tokens and temperature rows (device and host
-sampling) and rows cut at ``max_len``; the SSM engine's fused prefill against the
-sequential greedy oracle (``tests/test_serving.py``'s case); and the
-reference's four refusals for recurrent families."""
+weights, for reduced ``ds-paper-100m`` (KV rows), reduced ``mamba2-1.3b``
+(SSM state rows) and reduced ``zamba2-1.2b`` (SSM state rows and the
+shared block's KV rows; ``lora_b`` drawn non-zero, its init being zeros):
+greedy outputs and every counter exactly equal over refills into freed
+rows, decode-path ingestion, host sampling, drain refill, stop tokens and
+temperature rows (device and host sampling) and rows cut at ``max_len``;
+the recurrent engines' fused prefill against the sequential greedy oracle
+(``tests/test_serving.py``'s case); admission zeroing every row of every
+dense leaf; and the reference's four refusals for recurrent families."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from repro_torch.configs import get_arch, reduced
 from repro_torch.models import Model
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serving.engine import Request, ServeEngine
+from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)  # the test workers share the host's cores
 
@@ -52,7 +56,8 @@ FIELDS = {
     "max_len_cut": lambda i: {"max_new_tokens": 24},
 }
 STOP_WORKLOADS = ("stop_token", "stop_token_host_sampling")
-ARCHS = ("ds-paper-100m", "mamba2-1.3b")
+ARCHS = ("ds-paper-100m", "mamba2-1.3b", "zamba2-1.2b")
+RECURRENT = ("mamba2-1.3b", "zamba2-1.2b")
 
 
 @pytest.fixture(scope="module")
@@ -61,6 +66,10 @@ def models():
     for arch in ARCHS:
         jm = JModel(jreduced(jget_arch(arch)))
         jp = jm.init(jax.random.PRNGKey(0))
+        if "shared" in jp:  # the reference inits lora_b to zeros: draw it
+            lb = jp["shared"]["lora_b"]
+            draw = np.random.default_rng(9).standard_normal(lb.shape).astype(np.float32)
+            jp["shared"]["lora_b"] = jnp.asarray(draw / np.sqrt(lb.shape[1]), lb.dtype)
         out[arch] = (jm, jp, Model(reduced(get_arch(arch))),
                      params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
     return out
@@ -114,11 +123,12 @@ def _greedy_reference(model, params, prompt, max_new, max_len):
     return out
 
 
-def test_ssm_fused_prefill_matches_sequential_reference(models):
-    """Recurrent state through chunked prefill (conv window hand-off,
-    dt-masked padding, rows re-zeroed at admission) reproduces the
-    token-at-a-time oracle."""
-    _, _, m, p = models["mamba2-1.3b"]
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_ssm_fused_prefill_matches_sequential_reference(models, arch):
+    """Recurrent state (and the hybrid's shared-block KV) through chunked
+    prefill (conv window hand-off, dt-masked padding, rows re-zeroed at
+    admission) reproduces the token-at-a-time oracle."""
+    _, _, m, p = models[arch]
     prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8], [42]]
     refs = [_greedy_reference(m, p, pr, 3, 32) for pr in prompts]
     eng = ServeEngine(m, p, device="cpu", max_batch=2, max_len=32, prefill_chunk=4)
@@ -131,13 +141,18 @@ def test_ssm_fused_prefill_matches_sequential_reference(models):
         assert by_uid[f"r{i}"] == ref, f"request {i}"
 
 
-def test_admission_zeroes_every_state_row(models):
-    _, _, m, p = models["mamba2-1.3b"]
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_admission_zeroes_every_state_row(models, arch):
+    """Every dense leaf's row: the SSM state and a hybrid's ``shared_k``
+    and ``shared_v`` (batch on axis 1, as the state's)."""
+    _, _, m, p = models[arch]
     eng = ServeEngine(m, p, device="cpu", max_batch=2, max_len=32, prefill_chunk=4)
-    for leaf in eng.cache["state"].values():
+    leaves = tree_leaves(eng.cache)
+    assert len(leaves) == len(eng.cache["state"]) + 2 * (arch == "zamba2-1.2b")
+    for leaf in leaves:
         leaf.fill_(3.0)
     eng.cache_mgr.reset_row(1)
-    for leaf in eng.cache["state"].values():
+    for leaf in leaves:
         assert (leaf[:, 1] == 0).all() and (leaf[:, 0] == 3.0).all()
 
 
@@ -150,10 +165,11 @@ REFUSALS = {
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_recurrent_family_refusals_match_reference(models, name):
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_family_refusals_match_reference(models, arch, name):
     """The reference's ValueErrors, with its messages, before the port's
     own refusals of what is not ported."""
-    jm, jp, m, p = models["mamba2-1.3b"]
+    jm, jp, m, p = models[arch]
     knob, msg = REFUSALS[name]
     with pytest.raises(ValueError, match=msg):
         JEngine(jm, jp, **knob)

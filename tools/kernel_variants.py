@@ -398,7 +398,8 @@ def rmsnorm_variants(libs: dict) -> None:
 
         def call(lib):
             status = lib.rmsnorm_fwd(1, 1, x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
-                                     1e-5, torch.cuda.current_stream().cuda_stream)
+                                     1e-5, ctypes.byref(ctypes.c_int()),
+                                     torch.cuda.current_stream().cuda_stream)
             _build.check(status, "rmsnorm_fwd (variant)")
 
         want = rmsnorm_plain(x, w, 1e-5).float()
