@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the serving
-engine (paged and dense caches), training, eval, the SSM family and the
-hybrid family at full width and prints what it measured.
+engine (paged and dense caches), training, eval, the SSM family, the
+hybrid family and the dense zoo at full width and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
 - ``env``: torch/CUDA versions, ``nvcc --version``, whether ``triton``
   imports, the card's name and power limit;
 - ``build``: compiles ``src/repro_torch/kernels/csrc/*.cu`` (one ``nvcc``
-  per source, in parallel) into ``build/kernels/``;
+  per source, in parallel) into ``build/kernels/``, while the host draws
+  the ``ssm_weights`` and ``hybrid_weights`` below;
 - ``kernels``: each kernel against its plain version on the card, f32
   (atol/rtol 2e-5) and bf16 (2e-2): paged attention over the serving
   slice's shapes and the GQA/MQA/MLA/softcap/verify (G 8 x T 5, and
@@ -22,9 +23,14 @@ Phases, each printing one JSON line:
   edges in f32 and bf16 (the ``dec_*`` cases: one row over 1 and 4096
   keys, mixed long and short rows, pages of 8 and 64, softcap 30 at T 1,
   a G 2 x T 4 fold, GQA G 8 at dk 128, a parked row beside aliased first
-  pages), RMSNorm (and its gradient;
-  d = 768, mamba2's 2048 and zamba2's shared block at 4096, each record
-  naming its kernel path), flash attention over the reference's sweep,
+  pages), the dense zoo's serving shapes (granite-34b's MQA prefill at
+  G 48 x T 16, qwen2-72b's prefill at G 8 x T 16, nemotron-4-340b's decode
+  and prefill at dk 192, each on the path ``CASE_PATHS`` names, and the
+  tensor-core path's most rows at dk 128, G 6 x T 16),
+  RMSNorm (and its gradient;
+  d = 768, mamba2's 2048, zamba2's shared block at 4096 and the zoo's
+  6144, 8192 and 18432, each record naming its kernel path), flash
+  attention over the reference's sweep,
   sliding windows, the model layout, and in both dtypes the eval phase's
   shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
   S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
@@ -56,14 +62,15 @@ Phases, each printing one JSON line:
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
   idle share against the unprofiled wall time, top device ops;
-- ``spec_parity``: f32, the speculative engines (paged ``ngram`` and
+- ``spec_parity``: f32, the first 4 of the 12 layers (the depth cut keeps
+  its CPU side short), the speculative engines (paged ``ngram`` and
   ``draft``, dense ``ngram``, ``spec_k`` 4: verify at T 5; the draft is
   the same arch from seed 7) and the grouped engine on the card against
   the same engines on the CPU: equal greedy tokens (the near-tie
-  exception) and counters, speculative ones included, tokens equal to
-  ``parity``'s non-speculative card runs, 12 decode-path paged launches
-  and 25 RMSNorm per verify dispatch, 25 RMSNorm per dispatch draft
-  dispatches included, and a draft run that rolls back;
+  exception) and counters, speculative ones included, tokens equal to the
+  non-speculative paged and dense card engines at that depth, 4
+  decode-path paged launches and 9 RMSNorm per verify dispatch, 9 RMSNorm
+  per dispatch draft dispatches included, and a draft run that rolls back;
 - ``spec_serve``: bf16, paged, 8 decode-heavy requests of 256 new tokens
   through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9: the
   CUDA-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode path):
@@ -78,16 +85,17 @@ Phases, each printing one JSON line:
   commands (``run_ds.main``, ``startCluster --foreground`` so the worker
   threads' launches are counted; no job names a device, so each runs on
   cuda): 2 train spans of 2 steps at 4 x 256 against one direct 4-step
-  span (losses, parameters at ``train_parity``'s tolerances), 2 eval shards
-  against direct ``run_eval`` (12 flash and 25 RMSNorm a shard), a static
+  span (4 of the 12 layers, a depth cut; losses, parameters at
+  ``train_parity``'s tolerances), 2 eval shards on that checkpoint
+  against direct ``run_eval`` (4 flash and 9 RMSNorm a shard), a static
   serve job and a streaming lease of ``parity``'s 6 requests against
   ``parity``'s card engine (tokens, counters; 12 paged and 25 RMSNorm a
   dispatch; the request queue ends empty), two streaming leases of 3
   requests at once on the card (launches the exact sum of both), a seeded
   revocation drill on the ``SimRunner`` (one notice; every request served
   once, checkpoint resumes, tokens equal an uninterrupted run's) and a
-  static ``mamba2-1.3b`` job at 12 of its 48 layers against a direct
-  engine (12 SSD launches a prefill dispatch);
+  static ``mamba2-1.3b`` job at 6 of its 48 layers against a direct
+  engine (6 SSD launches a prefill dispatch);
 - ``ds_serve``: ``serve``'s 32 requests in bf16 in one call: the bare
   engine, the lease payload called directly (no runner) and one streaming
   lease in the foreground, in turns (the queue's, the object store's, the
@@ -116,7 +124,7 @@ Phases, each printing one JSON line:
   by a decode lease: tokens/s, pages and bytes published and hydrated,
   host ms per page by step, the store's share of each lease's wall time,
   peak memory, the split's tokens against the unified lease's (reported);
-- ``train_parity``: full-width f32 training at 4 of the 12 layers (the
+- ``train_parity``: full-width f32 training at 2 of the 12 layers (the
   depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
   the card against the same steps on the CPU from the same weights and
   batches (loss, grad norm, parameters), once as one batch and once as 2
@@ -132,7 +140,8 @@ Phases, each printing one JSON line:
   TF32 passes, its route, with the CUDA-core figure beside it), its plain
   version and ``F.scaled_dot_product_attention``;
 - ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers at d_model
-  2048), drawn once from seed 0 on the host, reused below;
+  2048), drawn once from seed 0 on the host during the build, reused
+  below;
 - ``ssm_parity``: f32, the first 12 of those layers (the depth cut keeps
   the CPU side short and pays for the hybrid phases, which run 38
   full-width mamba2 layers), the dense-cache engine on the card against the same engine
@@ -152,12 +161,15 @@ Phases, each printing one JSON line:
 - ``hybrid_weights``: full-width ``zamba2-1.2b`` (38 mamba2 layers at
   d_model 2048, state 64; one shared attention block at 4096, 32 heads of
   128, run before each of 6 segments of 6 layers with its own LoRA of rank
-  128 on ``wq``; 1.29 B parameters) from seed 0 on the host, ``lora_b``
+  128 on ``wq``; 1.29 B parameters) from seed 0 on the host during the
+  build, ``lora_b``
   drawn non-zero (its reference init is zeros) and said so on a line;
-- ``hybrid_parity``: f32, ``ssm_parity``'s knobs and ``parity``'s 6
-  requests, the card against the CPU: equal greedy tokens and counters, 38
-  SSD launches a prefill dispatch and none a decode one, 51 RMSNorm a
-  dispatch all on the one-pass path, no flash or paged launch;
+- ``hybrid_parity``: f32, the first 14 of the 38 layers (two full
+  segments and 2 trailing layers), ``ssm_parity``'s knobs and
+  ``parity``'s 6 requests, the card against the CPU: equal greedy tokens
+  and counters, 14 SSD launches a prefill dispatch and none a decode one,
+  19 RMSNorm a dispatch all on the one-pass path, no flash or paged
+  launch;
 - ``hybrid_serve``: bf16, ``ssm_serve``'s 32 requests and knobs: tokens/s,
   per-dispatch times, peak memory, the same launches; 16 decode dispatches
   traced and the per-invocation LoRA merge timed alone for its share;
@@ -175,10 +187,26 @@ Phases, each printing one JSON line:
   the plain path's, with three faults put into the kernels' outputs that
   must each exceed it (the 1e-1 comparison, which no two bf16 routes of
   this model meet, is reported); flash at hd 128 and SSD at state 64
-  timed at each shape.  It runs last and holds its logits gates after
-  emitting its numbers.
+  timed at each shape.  It holds its logits gates after emitting its
+  numbers;
+- ``zoo_parity``: the dense zoo in f32 (TF32 off), weights drawn on the
+  card (``Model.draw``; qwen2-72b's QKV bias drawn non-zero, its reference
+  init being zeros), ``parity``'s 6 requests through the paged and the
+  dense engine: granite-34b at 2 layers and qwen2-72b at 1, the card
+  against the CPU (a CPU copy of the card's tree); nemotron-4-340b at 1
+  layer (51.6 GB in f32), the card's paged engine without its prefix
+  cache against its dense engine: equal greedy tokens (the near-tie
+  exception), counters and every dispatch's logits at 1e-4, launches
+  exact by path (``ZOO_PATHS``: e.g. granite's f32 prefill and decode on
+  the CUDA-core path), RMSNorm all generic;
+- ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
+  granite-34b whole (88 layers), qwen2-72b at 8 and nemotron-4-340b at 2,
+  each freed before the next: tokens/s, dispatch times, peak memory,
+  launches exact by path, a traced decode dispatch, and the paged kernel
+  and RMSNorm at the model's decode and prefill shapes timed beside their
+  bounds, plain versions and library calls.
 
-A ``lap`` line after each group of phases gives its seconds.  Then a
+A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
 also per kernel path), the card's ``nvidia-smi`` name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -397,6 +425,28 @@ def paged_cases():
                                                offsets=[20, 33, 20, 400], seed=48, alias=True,
                                                parked=(1,), **d), 0.0, 0),
         ]
+    # the dense zoo's full-width serving shapes the cases above miss (mqa_*,
+    # gqa_* and dec_gqa8_dk128_* hold their decode): granite's MQA prefill
+    # (G 48 x T 16), qwen2's prefill (G 8 x T 16: 8 M-tiles, past the 6 the
+    # tensor-core path's shared memory holds at dk 128), nemotron's decode
+    # and prefill at dk 192; and the tensor-core path's most rows at dk 128
+    # (G 6 x T 16); each must take the path CASE_PATHS names
+    for dtype in (torch.float32, torch.bfloat16):
+        d = {"dtype": dtype}
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases += [
+            (f"zoo_granite_prefill_{tag}", dict(B=4, hkv=1, g=48, T=16, dk=128, ps=16, P=40,
+                                                offsets=[0, 32, 131, 480], seed=50, **d), 0.0, 0),
+            (f"zoo_qwen2_prefill_{tag}", dict(B=4, hkv=8, g=8, T=16, dk=128, ps=16, P=40,
+                                              offsets=[0, 21, 128, 600], seed=51, **d), 0.0, 0),
+            (f"zoo_nemotron_decode_{tag}", dict(B=4, hkv=8, g=12, T=1, dk=192, ps=16, P=40,
+                                                offsets=[0, 37, 300, 639], seed=52, **d), 0.0, 0),
+            (f"zoo_nemotron_prefill_{tag}", dict(B=4, hkv=8, g=12, T=16, dk=192, ps=16, P=40,
+                                                 offsets=[0, 32, 129, 480], seed=53, **d),
+             0.0, 0),
+        ]
+    cases.append(("tc_dk128_rows96_bf16", dict(B=3, hkv=8, g=6, T=16, dk=128, ps=16, P=40,
+                                               offsets=[0, 45, 600], seed=54, **bf), 0.0, 0))
     # the parity engine's slots (max_len 128: 8 pages of 16), its own dtype
     cases += [
         ("parity_decode_f32", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
@@ -407,6 +457,16 @@ def paged_cases():
          0.0, 0),
     ]
     return cases
+
+
+# The path these cases must take (kernel_path, which the wrapper follows)
+CASE_PATHS = {
+    "zoo_granite_prefill_f32": "cuda_core", "zoo_granite_prefill_bf16": "cuda_core",  # G*T 768
+    "zoo_qwen2_prefill_f32": "cuda_core", "zoo_qwen2_prefill_bf16": "cuda_core",  # 128 at dk 128
+    "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "cuda_core",  # dk 192
+    "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "cuda_core",
+    "tc_dk128_rows96_bf16": "tensor_core",
+}
 
 
 def check_paged_attention() -> dict:
@@ -437,6 +497,8 @@ def check_paged_attention() -> dict:
                "max_abs_err": err, "ok": ok}
         require(not name.startswith("dec_") or path == "decode",
                 f"paged_attention case {name} did not take the decode path")
+        require(CASE_PATHS.get(name, path) == path,
+                f"paged_attention case {name} took the {path} path, not {CASE_PATHS.get(name)}")
         if kw.get("parked"):
             zero = bool((got[list(kw["parked"])] == 0).all().item())
             rec["parked_rows_exact_zero"] = zero
@@ -475,9 +537,11 @@ def check_rmsnorm() -> dict:
     cases += [(37, 768, torch.float32, "misaligned"), (37, 768, torch.bfloat16, "misaligned")]
     # mamba2-1.3b's width: a decode dispatch (16 rows) and a prefill one (16 x 16)
     cases += [(r, 2048, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
-    # widths past the compiled ones (qwen2-72b's 8192, nemotron-4-340b's 18432): the generic path
+    # widths past the compiled ones (granite-34b's 6144, qwen2-72b's 8192,
+    # nemotron-4-340b's 18432): the generic path
     cases += [(37, 8192, torch.float32, torch.float32), (37, 8192, torch.bfloat16, torch.bfloat16),
               (5, 18432, torch.bfloat16, torch.float32)]
+    cases += [(r, 6144, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(xdt)
@@ -860,10 +924,11 @@ PARITY_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches", "tok
                    "prefix_hit_tokens", "peak_pages")
 
 
-def divergences(model, params_cpu, a, b, what: str) -> list:
+def divergences(model, params_cpu, a, b, what: str, device: str = "cpu") -> list:
     """The first differing token of each request two engine runs finished
     (their finished requests and output lengths must be equal) and the
-    CPU's top-2 logit gap after ``b``'s prefix there."""
+    CPU's top-2 logit gap after ``b``'s prefix there (``device``'s, with
+    ``params_cpu`` on it, where no CPU copy of the weights is held)."""
     got = {r.uid: r.output for r in a.finished}
     want = {r.uid: r.output for r in b.finished}
     require(sorted(got) == sorted(want), f"{what}: the runs finished different requests")
@@ -875,17 +940,18 @@ def divergences(model, params_cpu, a, b, what: str) -> list:
         k = next((i for i, (u, v) in enumerate(zip(x, y)) if u != v), None)
         if k is None:
             continue
-        lg = next_token_logits(model, params_cpu, prompts[uid] + y[:k], "cpu")
+        lg = next_token_logits(model, params_cpu, prompts[uid] + y[:k], device)
         top2 = torch.topk(lg, 2).values
         out.append({"uid": uid, "index": k, "cpu_top2_gap": float(top2[0] - top2[1])})
     return out
 
 
-def compare_greedy(model, params_cpu, gpu, cpu, what: str) -> list:
+def compare_greedy(model, params_cpu, gpu, cpu, what: str, device: str = "cpu") -> list:
     """Require equal finished requests and greedy outputs of two engine
     runs, a near-tie at the first difference (a CPU top-2 logit gap below
-    ``NEAR_TIE_GAP``) being the one allowed exception; the divergences."""
-    divs = divergences(model, params_cpu, gpu, cpu, what)
+    ``NEAR_TIE_GAP``; ``device``'s gap, see ``divergences``) being the one
+    allowed exception; the divergences."""
+    divs = divergences(model, params_cpu, gpu, cpu, what, device)
     for d in divs:
         require(d["cpu_top2_gap"] < NEAR_TIE_GAP,
                 f"{what}: {d['uid']}: the runs diverge at token {d['index']} with a CPU "
@@ -915,8 +981,8 @@ def phase_parity() -> tuple:
     base = dict(max_batch=4, max_len=128, prefill_chunk=16)
     modes = {"paged": dict(base, page_size=16, cache_mode="paged"),
              "dense": dict(base, cache_mode="dense")}
-    params_gpu = model.init(0, device="cuda")
-    params_cpu = model.init(0, device="cpu")
+    params_gpu = init_params(model, 0, "cuda")
+    params_cpu = init_params(model, 0, "cpu")
     rec = {"phase": "parity", "arch": cfg.name, "dtype": "float32", "modes": {}}
     card = {}
     for mode, kw in modes.items():
@@ -1056,7 +1122,11 @@ def check_at_shape(what: str, kern, plain, dtype) -> float:
     return err
 
 
-def time_paged(label, B, T, offsets, dtype, P=40):
+def time_paged(label, B, T, offsets, dtype, P=40, hkv=12, g=1, dk=64):
+    """The paged kernel at ``B`` rows of ``T`` tokens, ``hkv`` KV heads of
+    ``g`` query heads each (the fold ``G*T``) and head width ``dk``: held
+    against its plain version and timed beside its bound, its plain
+    version and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import (
@@ -1065,8 +1135,8 @@ def time_paged(label, B, T, offsets, dtype, P=40):
         paged_flash_attention_folded_plain,
     )
 
-    hkv, dk, ps = 12, 64, 16
-    q, kp, vp, table, offs = paged_inputs(B=B, hkv=hkv, g=1, T=T, dk=dk, ps=ps, P=P,
+    ps = 16
+    q, kp, vp, table, offs = paged_inputs(B=B, hkv=hkv, g=g, T=T, dk=dk, ps=ps, P=P,
                                           offsets=offsets, dtype=dtype, seed=21)
     scale = 1.0 / math.sqrt(dk)
     kern = lambda: paged_flash_attention_folded(  # noqa: E731
@@ -1078,7 +1148,7 @@ def time_paged(label, B, T, offsets, dtype, P=40):
     safe = table.long().clamp(max=kp.shape[0] - 1)
     kc = kp[safe].reshape(B, P * ps, hkv, dk).transpose(1, 2).contiguous()
     vc = vp[safe].reshape(B, P * ps, hkv, dk).transpose(1, 2).contiguous()
-    q_pos = offs.long()[:, None] + torch.arange(T, device="cuda")[None]
+    q_pos = offs.long()[:, None] + torch.arange(g * T, device="cuda")[None] % T  # the fold
     alloc = torch.repeat_interleave(table < kp.shape[0], ps, dim=1)
     mask = ((torch.arange(P * ps, device="cuda")[None, None] <= q_pos[..., None])
             & alloc[:, None])[:, None]
@@ -1086,9 +1156,9 @@ def time_paged(label, B, T, offsets, dtype, P=40):
     nbytes, flops = paged_work(q, kp, table, offs, T, dk)
     bms, by = bound(nbytes, flops, dtype)
     err = check_at_shape(f"paged attention ({label})", kern, plain, dtype)
-    return {"at": label, "shape": {"B": B, "Hkv": hkv, "G": 1, "T": T, "dk": dk,
+    return {"at": label, "shape": {"B": B, "Hkv": hkv, "G": g, "T": T, "dk": dk,
                                    "page_size": ps, "pages_per_slot": P},
-            "path": kernel_path(dtype, T, dk, dk), "max_abs_err": err,
+            "path": kernel_path(dtype, g * T, dk, dk), "max_abs_err": err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms,
             "bound_by": by, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on pre-gathered contiguous K/V"}
@@ -1133,7 +1203,7 @@ def phase_serve() -> dict:
     cfg = get_arch("ds-paper-100m")
     dtype = torch.bfloat16
     model = Model(cfg, ModelRuntime(dtype=dtype))
-    params = model.init(0, device="cuda")
+    params = init_params(model, 0, "cuda")
     kw = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16, cache_mode="paged")
     warm = [Request(uid=f"w{i}", prompt=list(range(1, 40 + i)), max_new_tokens=4)
             for i in range(2)]
@@ -1233,11 +1303,14 @@ def trace(fn, reps: int, unit: str, watch: tuple = ()) -> dict:
             fn()
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the raw Kineto events: the same device events as prof.events(), which
+    # builds the whole host and device event tree in Python, some ten times
+    # slower (tools/profiler_events.py)
+    dev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
+        by_name[e.name()][0] += e.duration_ns() / 1e6
+        by_name[e.name()][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {f"wall_ms_per_{unit}": wall_ms / reps,
@@ -1262,7 +1335,7 @@ def phase_profile() -> dict:
 
     cfg = get_arch("ds-paper-100m")
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
-    params = model.init(0, device="cuda")
+    params = init_params(model, 0, "cuda")
     rng = np.random.default_rng(4)
     eng = ServeEngine(model, params, device="cuda", max_batch=16, max_len=640,
                       prefill_chunk=16, page_size=16, cache_mode="paged")
@@ -1303,43 +1376,57 @@ class LaunchesPerCall:
 
 def require_verify_launches(eng, paged: bool, path: str, what: str) -> None:
     """Every verify dispatch of ``eng`` (wrapped in ``LaunchesPerCall``)
-    launched 12 paged kernels, all on ``path`` (none on the dense cache),
-    and 25 RMSNorm."""
+    launched a paged kernel a layer, all on ``path`` (none on the dense
+    cache), and 2 L + 1 RMSNorm."""
     calls = eng._verify.calls
+    L = eng.model.cfg.n_layers
     require(len(calls) == eng.spec_dispatches > 0,
             f"{what}: {len(calls)} verify calls for {eng.spec_dispatches} spec dispatches")
-    want = 12 if paged else 0
+    want = L if paged else 0
     for c in calls:
         require(c["paged_attention"] == want and c[f"paged_attention_{path}"] == want
-                and c["rmsnorm"] == 25,
+                and c["rmsnorm"] == 2 * L + 1,
                 f"{what}: a verify dispatch launched {c}, not {want} paged on the {path} "
-                "path and 25 RMSNorm")
+                f"path and {2 * L + 1} RMSNorm")
 
 
-def phase_spec_parity(plain: dict) -> dict:
-    """Full-width ds-paper-100m in f32: the speculative engines (paged
-    ``ngram`` at ``spec_k`` 4 and 8, paged ``draft`` from seed 7 and from
-    the target's own params, dense ``ngram``; ``spec_k`` 4 unless named)
-    and the grouped engine on the card against the same engines on the
-    CPU: equal greedy tokens (near-tie exception) and counters, tokens
-    equal to the non-speculative card runs of ``parity`` (``plain``), 12
-    paged launches and 25 RMSNorm a verify dispatch (T 5 on the decode
-    path, T 9 on the CUDA-core path), 25 RMSNorm a dispatch draft
-    dispatches included, and rollback exercised: the seed-7 draft rejects,
-    the self-draft keeps some drafts and loses the rest."""
+# The first 4 of ds-paper-100m's 12 layers (target and draft alike): the
+# depth cut keeps the CPU side short; the widths and every gate stay.
+SPEC_PARITY_LAYERS = 4
+
+
+def phase_spec_parity() -> dict:
+    """Full-width ds-paper-100m in f32 at its first ``SPEC_PARITY_LAYERS``
+    layers: the speculative engines (paged ``ngram`` at ``spec_k`` 4 and 8,
+    paged ``draft`` from seed 7 and from the target's own params, dense
+    ``ngram``; ``spec_k`` 4 unless named) and the grouped engine on the
+    card against the same engines on the CPU: equal greedy tokens
+    (near-tie exception) and counters, tokens equal to the same model's
+    non-speculative paged and dense engines on the card, a paged launch a
+    layer and 2 L + 1 RMSNorm a verify dispatch (T 5 on the decode path,
+    T 9 on the CUDA-core path), 2 L + 1 RMSNorm a dispatch draft dispatches
+    included, and rollback exercised: the seed-7 draft rejects, the
+    self-draft keeps some drafts and loses the rest."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, ModelRuntime
     from repro_torch.serving.engine import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_arch("ds-paper-100m")
+    cfg = dataclasses.replace(get_arch("ds-paper-100m"), n_layers=SPEC_PARITY_LAYERS)
+    L, norms = cfg.n_layers, 2 * cfg.n_layers + 1
     model = Model(cfg, ModelRuntime(dtype=torch.float32))
     draft = Model(cfg, ModelRuntime(dtype=torch.float32))
-    params = {d: model.init(0, device=d) for d in ("cuda", "cpu")}
-    draft_params = {d: draft.init(DRAFT_SEED, device=d) for d in ("cuda", "cpu")}
+    params = {d: init_params(model, 0, d) for d in ("cuda", "cpu")}
+    draft_params = {d: init_params(draft, DRAFT_SEED, d) for d in ("cuda", "cpu")}
     base = dict(max_batch=4, max_len=128, prefill_chunk=16)
     paged = dict(base, page_size=16, cache_mode="paged")
+    # the non-speculative engines on the card, which every speculative one must equal
+    plain = {mode: run_engine(model, params["cuda"], parity_requests(cfg.vocab_size), "cuda",
+                              **kw)[0]
+             for mode, kw in (("paged", paged), ("dense", dict(base, cache_mode="dense")))}
     engines = {
         "paged_ngram": (dict(paged, speculative="ngram", spec_k=4), "paged"),
         "paged_ngram_k8": (dict(paged, speculative="ngram", spec_k=8), "paged"),
@@ -1353,7 +1440,7 @@ def phase_spec_parity(plain: dict) -> dict:
     # its verify keeps a run of drafts and rewinds the rest
     drafts = {"paged_draft": (draft, draft_params), "paged_draft_self": (model, params)}
     t_phase = time.perf_counter()
-    rec = {"phase": "spec_parity", "arch": cfg.name, "dtype": "float32",
+    rec = {"phase": "spec_parity", "arch": cfg.name, "dtype": "float32", "layers": L,
            "draft_init_seed": DRAFT_SEED, "engines": {}}
     for name, (kw, mode) in engines.items():
         runs = {}
@@ -1377,11 +1464,11 @@ def phase_spec_parity(plain: dict) -> dict:
         counters = compare_counters(gpu, cpu, f"{what}, card against CPU",
                                     PARITY_COUNTERS + SPEC_COUNTERS)
         vs_plain = compare_greedy(model, params["cpu"], gpu, plain[mode],
-                                  f"{what} against parity's {mode} card run")
+                                  f"{what} against the non-speculative {mode} card run")
         n = gpu.dispatches + gpu.draft_dispatches
-        require(launches["rmsnorm"] == 25 * n,
+        require(launches["rmsnorm"] == norms * n,
                 f"{what}: rmsnorm launched {launches['rmsnorm']} times for {n} dispatches")
-        require(launches["paged_attention"] == (12 * n if mode == "paged" else 0),
+        require(launches["paged_attention"] == (L * n if mode == "paged" else 0),
                 f"{what}: paged attention launched {launches['paged_attention']} times for "
                 f"{n} dispatches")
         require(launches["paged_attention_tensor_core"] == 0,
@@ -1395,8 +1482,8 @@ def phase_spec_parity(plain: dict) -> dict:
         else:
             require(gpu.prefill_dispatches == 0 and gpu.decode_dispatches > gpu.scheduler.tick,
                     f"{what}: grouped dispatch ran fused prefill or one dispatch a tick")
-            require(launches["paged_attention_decode"] == 12 * gpu.decode_dispatches,
-                    f"{what}: decode-path launches {launches['paged_attention_decode']} != 12 "
+            require(launches["paged_attention_decode"] == L * gpu.decode_dispatches,
+                    f"{what}: decode-path launches {launches['paged_attention_decode']} != {L} "
                     f"per decode dispatch ({gpu.decode_dispatches})")
         if name in drafts:
             require(gpu.draft_dispatches > 0
@@ -1449,9 +1536,9 @@ def phase_spec_serve() -> dict:
     cfg = get_arch("ds-paper-100m")
     dtype = torch.bfloat16
     model = Model(cfg, ModelRuntime(dtype=dtype))
-    params = model.init(0, device="cuda")
+    params = init_params(model, 0, "cuda")
     draft = Model(cfg, ModelRuntime(dtype=dtype))
-    draft_params = draft.init(DRAFT_SEED, device="cuda")
+    draft_params = init_params(draft, DRAFT_SEED, "cuda")
     modes = {
         "off": ({}, None),
         "ngram": (dict(speculative="ngram", spec_k=8), "cuda_core"),
@@ -1584,7 +1671,7 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
     model = build_model(job)
     step_fn, opt_cfg = build_train_step(job, model)
     data = SyntheticLM(model.cfg, DataConfig(seq_len=seq_len, global_batch=batch), device=device)
-    params = model.init(0, device=device)
+    params = init_params(model, 0, device)
     opt = init_opt_state(params, opt_cfg)
     metrics = []
     for step in range(2):
@@ -1593,10 +1680,10 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
     return metrics, params
 
 
-# train_parity runs 4 of ds-paper-100m's 12 layers at full width: at all 12
+# train_parity runs 2 of ds-paper-100m's 12 layers at full width: at all 12
 # its CPU side (2 x 2 full-width f32 steps, 135M-element threefry draws)
-# took 55 s on the host of a one-H100 machine, the script's longest phase.
-TRAIN_PARITY_LAYERS = 4
+# took 55 s on the host of a one-H100 machine, at 4 layers 24.5 s.
+TRAIN_PARITY_LAYERS = 2
 
 
 def phase_train_parity() -> dict:
@@ -1697,7 +1784,7 @@ def trace_train_step() -> dict:
     batch = SyntheticLM(model.cfg, DataConfig(seq_len=TRAIN_JOB["seq_len"],
                                               global_batch=TRAIN_JOB["global_batch"]),
                         device="cuda").batch(0)
-    state = {"params": model.init(0, device="cuda")}
+    state = {"params": init_params(model, 0, "cuda")}
     state["opt"] = init_opt_state(state["params"], opt_cfg)
     key = prng.PRNGKey(0, device="cuda")
 
@@ -1819,7 +1906,11 @@ def phase_eval(store_root: Path) -> dict:
 DS_CONFIG = {"tasks_per_machine": 1, "cluster_machines": 1, "machine_type": ["sim.large"],
              "machine_price": 1.0, "sqs_message_visibility": 600.0, "max_receive_count": 3,
              "check_if_done": False}
-DS_TRAIN = {"arch": "ds-paper-100m", "seq_len": 256, "global_batch": 4}
+# The train spans and eval shards run the first 4 of ds-paper-100m's 12
+# layers at full width (a depth cut for the script's time limit)
+DS_TRAIN_LAYERS = 4
+DS_TRAIN = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": DS_TRAIN_LAYERS},
+            "seq_len": 256, "global_batch": 4}
 # parity's engine knobs as a distributed-serve job (no "device": it runs on cuda)
 DS_SERVE_F32 = {"arch": "ds-paper-100m", "max_new_tokens": 24, "max_batch": 4, "max_len": 128,
                 "prefill_chunk": 16, "cache_mode": "paged", "page_size": 16}
@@ -1827,9 +1918,9 @@ DS_SERVE_F32 = {"arch": "ds-paper-100m", "max_new_tokens": 24, "max_batch": 4, "
 DS_DRILL = {"arch": "ds-paper-100m", "max_new_tokens": 12, "max_len": 32, "max_batch": 2,
             "prefill_chunk": 4, "cache_mode": "paged", "page_size": 8, "prefix_cache": True}
 DS_TICK = 30.0
-# ds_parity's mamba2 job runs 12 of the 48 layers: the depth cut saves most
+# ds_parity's mamba2 job runs 6 of the 48 layers: the depth cut saves most
 # of the full-width seed draw's time
-DS_SSM_LAYERS = 12
+DS_SSM_LAYERS = 6
 
 
 def ds_commands(workdir: Path, app: str, config: dict, job: dict, *, foreground: bool = True):
@@ -1909,7 +2000,7 @@ def ds_compare_greedy(model, got: dict, want: dict, prompts: dict, what: str) ->
     when the completions differ."""
     if got == want:
         return []
-    params_cpu = model.init(0, device="cpu")
+    params_cpu = init_params(model, 0, "cpu")
     return compare_greedy(model, params_cpu, as_finished(got, prompts),
                           as_finished(want, prompts), what)
 
@@ -1978,9 +2069,11 @@ def phase_ds_parity(root: Path, plain: dict) -> dict:
     ds_losses = [x for r in spans for x in r["losses"]]
     require(latest_step(store, "ds") == 4 and len(ds_losses) == 4,
             f"ds_parity train: checkpoint at {latest_step(store, 'ds')}, losses {ds_losses}")
-    require(launches["rmsnorm"] == 4 * (2 * L + 1) and launches["flash_attention"] == 0
+    Lt = DS_TRAIN_LAYERS
+    require(launches["rmsnorm"] == 4 * (2 * Lt + 1) and launches["flash_attention"] == 0
             and launches["paged_attention"] == 0,
-            f"ds_parity train: launches {launches}, want 25 RMSNorm a step and no attention kernel")
+            f"ds_parity train: launches {launches}, want {2 * Lt + 1} RMSNorm a step and no "
+            "attention kernel")
     direct_store = ObjectStore(str(root / "train_direct"))
     direct = run_train_span({**DS_TRAIN, "total_steps": 4, "run": "ds", "start_step": 0,
                              "num_steps": 4}, direct_store, lambda progress=None: None,
@@ -2011,8 +2104,9 @@ def phase_ds_parity(root: Path, plain: dict) -> dict:
     launches = read_launches()
     total = add_launches(total, launches)
     ds_s = time.perf_counter() - t0
-    require(launches["flash_attention"] == 2 * L and launches["rmsnorm"] == 2 * (2 * L + 1),
-            f"ds_parity eval: launches {launches}, want 12 flash and 25 RMSNorm a shard")
+    require(launches["flash_attention"] == 2 * Lt and launches["rmsnorm"] == 2 * (2 * Lt + 1),
+            f"ds_parity eval: launches {launches}, want {Lt} flash and {2 * Lt + 1} RMSNorm a "
+            "shard")
     metrics = []
     for shard in (0, 1):
         got = store.get_json(f"runs/ds/eval/shard{shard}/METRICS.json")
@@ -3102,6 +3196,29 @@ def ssm_weights():
     return cfg, params
 
 
+_HOST_DRAWS: dict = {}
+
+
+def init_params(model, seed: int, device):
+    """``model.init(seed, device)``, bit for bit: the numpy draw is made once
+    a (config, seed) on the host in f32, kept, and copied to ``device`` in
+    the model's dtype at each call (several phases start from the same
+    seed-0 weights; ``Model.init`` draws them in f32 and casts alike)."""
+    from repro_torch.models import Model, ModelRuntime
+
+    from repro_torch.models.ssm import FP32_PARAMS
+    from repro_torch.tree import tree_map_with_path
+
+    key = (model.cfg, seed)
+    if key not in _HOST_DRAWS:
+        _HOST_DRAWS[key] = Model(model.cfg, ModelRuntime(dtype=torch.float32)).init(
+            seed, device="cpu")
+    return tree_map_with_path(
+        lambda path, t: t.to(device=device, copy=True,
+                             dtype=torch.float32 if path[-1] in FP32_PARAMS else model.rt.dtype),
+        _HOST_DRAWS[key])
+
+
 def cast_params(params, dtype, device):
     """The tree on ``device`` in ``dtype``, the SSM's A_log, D and dt_bias
     kept float32 (as in the reference and ``Model.init``)."""
@@ -3422,18 +3539,32 @@ def hybrid_weights():
 
 
 HYBRID_KW = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
+# The first 14 of zamba2-1.2b's 38 layers: two full segments of 6 (the shared
+# block's first two invocations) and 2 trailing layers past the last one, so
+# _shared_at's trailing rule still runs; the depth cut keeps the CPU side short.
+# hybrid_serve, hybrid_static and hybrid_eval run all 38.
+HYBRID_PARITY_LAYERS = 14
 
 
 def phase_hybrid_parity(cfg, params_cpu) -> dict:
-    """Full-width zamba2-1.2b in f32: the dense-cache engine on the card
-    (SSD kernel at prefill, RMSNorm at d 2048 and 4096) against the same
-    engine on the CPU, ``parity``'s 6 requests: equal greedy tokens (the
-    near-tie exception of ``phase_parity``) and counters, the exact
-    launches of ``require_hybrid_launches``."""
+    """Full-width zamba2-1.2b in f32, the first ``HYBRID_PARITY_LAYERS`` of
+    its layers: the dense-cache engine on the card (SSD kernel at prefill,
+    RMSNorm at d 2048 and 4096) against the same engine on the CPU,
+    ``parity``'s 6 requests: equal greedy tokens (the near-tie exception of
+    ``phase_parity``) and counters, the exact launches of
+    ``require_hybrid_launches``."""
+    import dataclasses
+
     from repro_torch.models import Model, ModelRuntime
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, n_layers=HYBRID_PARITY_LAYERS)
+    n_inv = cfg.n_layers // cfg.shared_attn_every
+    shared = params_cpu["shared"]
+    params_cpu = {**params_cpu, "layers": params_cpu["layers"][:cfg.n_layers],
+                  "shared": {**shared, "lora_a": shared["lora_a"][:n_inv],
+                             "lora_b": shared["lora_b"][:n_inv]}}
     model = Model(cfg, ModelRuntime(dtype=torch.float32))
     params_gpu = cast_params(params_cpu, torch.float32, "cuda")
     reset_launches()
@@ -3836,6 +3967,353 @@ def phase_hybrid_static(cfg, params, root: Path) -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ the dense zoo
+ZOO_ARCHS = ("granite-34b", "qwen2-72b", "nemotron-4-340b")
+ZOO_SEED = 0  # of the card's generator: zoo weights are drawn on the card (Model.draw)
+ZOO_BIAS_STD = 0.5  # qwen2's bq/bk/bv drawn non-zero: q, k and v are ~N(0, 1) at init
+# Depth cuts, never widths.  zoo_parity in f32: granite-34b at 2 layers and
+# qwen2-72b at 1 (card and CPU copies), nemotron-4-340b at 1 (51.6 GB, on
+# the card only).  zoo_serve in bf16: granite-34b whole (88 layers, 63.3 GiB),
+# qwen2-72b at 8 (17.8 GiB), nemotron-4-340b at 2 (30.4 GiB).
+ZOO_PARITY_LAYERS = {"granite-34b": 2, "qwen2-72b": 1, "nemotron-4-340b": 1}
+ZOO_SERVE_LAYERS = {"granite-34b": 88, "qwen2-72b": 8, "nemotron-4-340b": 2}
+# The paged kernel's path of a decode dispatch (T 1) and of a prefill one
+# (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
+ZOO_PATHS = {
+    ("granite-34b", torch.float32): ("cuda_core", "cuda_core"),  # G*T 48 and 768 in f32
+    ("granite-34b", torch.bfloat16): ("tensor_core", "cuda_core"),  # 768: past 8 M-tiles
+    ("qwen2-72b", torch.float32): ("decode", "cuda_core"),  # G*T 8 at dk 128
+    ("qwen2-72b", torch.bfloat16): ("decode", "cuda_core"),  # 128: past 6 M-tiles at dk 128
+    ("nemotron-4-340b", torch.float32): ("cuda_core", "cuda_core"),  # dk 192
+    ("nemotron-4-340b", torch.bfloat16): ("cuda_core", "cuda_core"),
+}
+ZOO_PARITY_KW = dict(max_batch=4, max_len=128, prefill_chunk=16)
+ZOO_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
+                    cache_mode="paged")
+ZOO_TRACE_TICKS = 8
+ZOO_DISPATCH_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches",
+                         "tokens_emitted")
+
+
+def zoo_model(arch: str, layers: int, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+
+    return Model(dataclasses.replace(get_arch(arch), n_layers=layers), ModelRuntime(dtype=dtype))
+
+
+def zoo_weights(model) -> tuple:
+    """The model's weights drawn on the card from ``ZOO_SEED`` by
+    ``Model.draw`` (straight into its dtype, no host copy), a QKV bias
+    redrawn non-zero there (the reference's zeros would leave it invisible
+    to every gate): ``(params, record)``."""
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator(device="cuda").manual_seed(ZOO_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.draw(gen)
+    if model.cfg.qkv_bias:
+        for layer in params["layers"]:
+            for name in ("bq", "bk", "bv"):
+                layer["attn"][name].normal_(0.0, ZOO_BIAS_STD, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    require(all(t.is_cuda for t in leaves), f"{model.cfg.name}: a weight was drawn off the card")
+    return params, {"draw_s": seconds, "layers": model.cfg.n_layers,
+                    "parameters": sum(t.numel() for t in leaves),
+                    "parameter_bytes": sum(t.numel() * t.element_size() for t in leaves),
+                    "qkv_bias_std": ZOO_BIAS_STD if model.cfg.qkv_bias else None}
+
+
+def run_recorded(model, params, reqs, device, **kw):
+    """``run_engine`` keeping every dispatch's logits on its live rows (a
+    prefill dispatch's rows with tokens, a decode dispatch's rows the
+    scheduler made active) beside the inputs that produced them:
+    ``(engine, seconds, dispatches)``."""
+    from repro_torch.serving.engine import ServeEngine
+
+    eng = ServeEngine(model, params, device=device, **kw)
+    calls, active = [], []
+    build = eng._build_decode_inputs
+
+    def build_inputs():
+        out = build()
+        active.append(list(out[0]))
+        return out
+
+    def recorded(fn, kind):
+        def call(params, cache, tokens, *args):
+            logits, cache = fn(params, cache, tokens, *args)
+            rows, lg = ((active[-1], logits[:, 0]) if kind == "decode"
+                        else (args[-1].nonzero()[:, 0].tolist(), logits))  # args: offsets, lengths
+            calls.append({"kind": kind, "inputs": [t.cpu() for t in (tokens, *args)],
+                          "rows": rows,
+                          "logits": lg[rows, :model.cfg.vocab_size].float().cpu()})
+            return logits, cache
+        return call
+
+    eng._build_decode_inputs = build_inputs
+    model.decode_step = recorded(model.decode_step, "decode")
+    model.prefill_chunk = recorded(model.prefill_chunk, "prefill")
+    try:
+        eng.submit(reqs)
+        t0 = time.perf_counter()
+        eng.run_to_completion()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del model.decode_step, model.prefill_chunk  # the class's methods again
+    return eng, seconds, calls
+
+
+def compare_dispatch_logits(a: list, b: list, divergent: bool, what: str) -> dict:
+    """Hold two runs' dispatches against each other, logits at parity's
+    tolerance (rtol ``PARITY_RTOL``, atol ``PARITY_PARAM_ATOL``), for as
+    long as both ran the same inputs on the same rows: every dispatch
+    unless ``divergent`` (a near-tie ``compare_greedy`` admitted sends the
+    runs down different tokens from there)."""
+    held, err, ratio = 0, 0.0, 0.0
+    for x, y in zip(a, b):
+        if (x["kind"] != y["kind"] or x["rows"] != y["rows"]
+                or not all(torch.equal(u, v) for u, v in zip(x["inputs"], y["inputs"]))):
+            break
+        diff = (x["logits"] - y["logits"]).abs()
+        if diff.numel():
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float((diff / (PARITY_PARAM_ATOL
+                                              + PARITY_RTOL * y["logits"].abs())).max()))
+        held += 1
+    require(divergent or held == len(a) == len(b),
+            f"{what}: the runs' dispatches differ at {held} of {len(a)} / {len(b)} with equal "
+            "tokens")
+    require(ratio <= 1.0, f"{what}: logits {ratio}x past rtol {PARITY_RTOL} / atol "
+            f"{PARITY_PARAM_ATOL} (max abs {err})")
+    return {"dispatches_held": held, "dispatches": [len(a), len(b)], "max_abs_err": err,
+            "worst_over_tolerance": ratio}
+
+
+def require_zoo_launches(cfg, dtype, launches: dict, eng, paged: bool, what: str) -> None:
+    """A zoo serving run's exact launches: on the paged engine a paged
+    launch a layer a dispatch, a decode dispatch's on the decode path of
+    ``ZOO_PATHS`` and a prefill dispatch's on its prefill path (none on
+    the dense engine); 2 L + 1 RMSNorm a dispatch, every one on the generic
+    path (6144, 8192 and 18432 are not compiled into the one pass); no
+    flash or SSD launch."""
+    from repro_torch.kernels.flash_decode import PATHS
+
+    L, d = cfg.n_layers, eng.dispatches
+    decode, prefill = ZOO_PATHS[(cfg.name, dtype)]
+    want = dict.fromkeys(PATHS, 0)
+    if paged:
+        want[decode] += L * eng.decode_dispatches
+        want[prefill] += L * eng.prefill_dispatches
+    got = {p: launches[f"paged_attention_{p}"] for p in PATHS}
+    require(got == want and launches["paged_attention"] == sum(want.values()),
+            f"{what}: paged launches by path {got}, want {want} ({L} layers, "
+            f"{eng.decode_dispatches} decode and {eng.prefill_dispatches} prefill dispatches)")
+    require(launches["rmsnorm"] == (2 * L + 1) * d == launches["rmsnorm_generic"],
+            f"{what}: rmsnorm launched {launches['rmsnorm']} times "
+            f"({launches['rmsnorm_generic']} generic) for {d} dispatches, want {2 * L + 1} a "
+            "dispatch, all generic")
+    require(launches["flash_attention"] == 0 and launches["ssd"] == 0,
+            f"{what}: flash or SSD launched in a serving run: {launches}")
+
+
+def zoo_parity_cpu(arch: str) -> dict:
+    """granite-34b or qwen2-72b: each engine on the card against the same
+    engine on the CPU over a CPU copy of the card's tree."""
+    from repro_torch.tree import tree_map
+
+    model = zoo_model(arch, ZOO_PARITY_LAYERS[arch], torch.float32)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    rec = {"phase": "zoo_parity", "arch": arch, "dtype": "float32", "weights": weights,
+           "against": "the same engine on the CPU", "modes": {}}
+    modes = {"paged": dict(ZOO_PARITY_KW, page_size=16, cache_mode="paged"),
+             "dense": dict(ZOO_PARITY_KW, cache_mode="dense")}
+    for mode, kw in modes.items():
+        reset_launches()
+        gpu, gpu_s, gpu_calls = run_recorded(model, params, parity_requests(cfg.vocab_size),
+                                             "cuda", **kw)
+        launches = read_launches()
+        cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu, parity_requests(cfg.vocab_size),
+                                             "cpu", **kw)
+        what = f"zoo_parity {arch} {mode}, card against CPU"
+        divs = compare_greedy(model, params_cpu, gpu, cpu, what)
+        counters = compare_counters(gpu, cpu, what)
+        logits = compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what)
+        require_zoo_launches(cfg, torch.float32, launches, gpu, mode == "paged", what)
+        if mode == "paged":
+            require(gpu.prefix_hit_tokens > 0, f"{what}: the shared prefix was never hit")
+        rec["modes"][mode] = {
+            "tokens_equal": not divs, "divergences": divs, "counters_card_cpu": counters,
+            "logits": logits, "launches": launches,
+            "launches_per_dispatch": {k: v / gpu.dispatches for k, v in launches.items()},
+            "card_s": gpu_s, "cpu_s": cpu_s}
+    return rec
+
+
+def zoo_parity_card(arch: str) -> dict:
+    """nemotron-4-340b, whose f32 tree is out of the CPU's reach: the card's
+    paged engine (the paged kernel) against its dense engine (plain
+    ``gqa_attention`` over the per-slot cache), the paged one without its
+    prefix cache so that both run the same dispatches."""
+    model = zoo_model(arch, ZOO_PARITY_LAYERS[arch], torch.float32)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    rec = {"phase": "zoo_parity", "arch": arch, "dtype": "float32", "weights": weights,
+           "against": "the dense engine on the card", "modes": {}}
+    modes = {"paged": dict(ZOO_PARITY_KW, page_size=16, cache_mode="paged", prefix_cache=False),
+             "dense": dict(ZOO_PARITY_KW, cache_mode="dense")}
+    runs = {}
+    for mode, kw in modes.items():
+        reset_launches()
+        eng, seconds, calls = run_recorded(model, params, parity_requests(cfg.vocab_size),
+                                           "cuda", **kw)
+        launches = read_launches()
+        require_zoo_launches(cfg, torch.float32, launches, eng, mode == "paged",
+                             f"zoo_parity {arch} {mode}")
+        runs[mode] = (eng, calls)
+        rec["modes"][mode] = {
+            "launches": launches,
+            "launches_per_dispatch": {k: v / eng.dispatches for k, v in launches.items()},
+            "card_s": seconds}
+    what = f"zoo_parity {arch}, paged against dense on the card"
+    (paged, paged_calls), (dense, dense_calls) = runs["paged"], runs["dense"]
+    divs = compare_greedy(model, params, paged, dense, what, device="cuda")
+    rec["paged_against_dense"] = {
+        "tokens_equal": not divs, "divergences": divs,
+        "counters": compare_counters(paged, dense, what, ZOO_DISPATCH_COUNTERS),
+        "logits": compare_dispatch_logits(paged_calls, dense_calls, bool(divs), what)}
+    return rec
+
+
+def phase_zoo_parity() -> dict:
+    """The dense zoo in f32 with TF32 off, weights drawn on the card,
+    ``parity``'s 6 requests through the paged and the dense engine:
+    granite-34b (2 layers) and qwen2-72b (1) card against CPU, nemotron-4-340b
+    (1) paged against dense on the card (``zoo_parity_cpu``,
+    ``zoo_parity_card``): equal greedy tokens (the near-tie exception of
+    ``phase_parity``), counters, every dispatch's logits at parity's
+    tolerance, and every run's launches exact by path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {}
+    for arch in ZOO_ARCHS:
+        release_device_memory()
+        t0 = time.perf_counter()
+        rec = (zoo_parity_card if arch == "nemotron-4-340b" else zoo_parity_cpu)(arch)
+        release_device_memory()
+        rec["seconds"] = time.perf_counter() - t0
+        emit(rec)
+        recs[arch] = rec
+    return recs
+
+
+def zoo_serve_arch(arch: str) -> dict:
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    dtype = torch.bfloat16
+    t_phase = time.perf_counter()
+    model = zoo_model(arch, ZOO_SERVE_LAYERS[arch], dtype)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 40 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **ZOO_SERVE_KW)
+    reqs = serve_requests(cfg.vocab_size)
+    eng = ServeEngine(model, params, device="cuda", **ZOO_SERVE_KW)
+    eng._decode, eng._prefill = DispatchTimer(eng._decode), DispatchTimer(eng._prefill)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    outs = {r.uid: r.output for r in eng.finished}
+    require(len(outs) == len(reqs), f"zoo_serve {arch}: not every request finished")
+    require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+            f"zoo_serve {arch}: a request emitted a wrong number of tokens or an id outside "
+            "the vocab")
+    require_zoo_launches(cfg, dtype, launches, eng, True, f"zoo_serve {arch}")
+    d = eng.dispatches
+    rec = {
+        "phase": "zoo_serve", "arch": arch, "dtype": "bfloat16", "weights": weights,
+        "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "max_new_tokens": 64, "max_batch": 16, "page_size": 16, "prefill_chunk": 16,
+        "wall_s": wall, "tokens_emitted": eng.tokens_emitted,
+        "tokens_per_s": eng.tokens_emitted / wall, "dispatches": d,
+        "prefill_dispatches": eng.prefill_dispatches, "decode_dispatches": eng.decode_dispatches,
+        "decode_dispatch_ms": summary(eng._decode.ms()),
+        "prefill_dispatch_ms": summary(eng._prefill.ms()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_pages": eng.peak_pages, "total_pages": eng.n_pages,
+        "peak_cache_bytes": eng.peak_cache_bytes, "launches": launches,
+        "launches_per_dispatch": {k: v / d for k, v in launches.items()},
+    }
+    del eng
+    # where a decode dispatch's time goes: 16 rows at prompts 256
+    rng = np.random.default_rng(5)
+    eng = ServeEngine(model, params, device="cuda", **ZOO_SERVE_KW)
+    eng.submit([Request(uid=f"q{i}", prompt=rng.integers(1, cfg.vocab_size, 256).tolist(),
+                        max_new_tokens=64) for i in range(16)])
+    while eng.decode_dispatches < 4:  # prompts drain in 16 prefill dispatches, then decode
+        eng.step()
+    d0, p0 = eng.decode_dispatches, eng.prefill_dispatches
+    rec["profile"] = {
+        "what": "decode dispatch, 16 rows, prompts 256", "ticks": ZOO_TRACE_TICKS,
+        **trace(eng.step, ZOO_TRACE_TICKS, "dispatch",
+                watch=("paged_attention_kernel", "paged_tc_kernel", "paged_decode_kernel",
+                       "rmsnorm_generic_kernel", "gemm", "gemv", "nvjet"))}
+    require(eng.decode_dispatches - d0 == 2 * ZOO_TRACE_TICKS and eng.prefill_dispatches == p0,
+            f"zoo_serve {arch}: traced ticks were not all decode dispatches")
+    del eng, params
+    release_device_memory()
+    g, hd, hkv = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_kv_heads
+    rng = np.random.default_rng(3)
+    paged = {
+        "decode": time_paged("decode", 16, 1, rng.integers(128, 576, 16).tolist(), dtype,
+                             hkv=hkv, g=g, dk=hd),
+        "prefill": time_paged("prefill", 16, 16, (16 * rng.integers(0, 32, 16)).tolist(),
+                              dtype, hkv=hkv, g=g, dk=hd)}
+    require((paged["decode"]["path"], paged["prefill"]["path"]) == ZOO_PATHS[(arch, dtype)],
+            f"zoo_serve {arch}: the timed shapes took {paged['decode']['path']} / "
+            f"{paged['prefill']['path']}")
+    rec["kernel_times"] = {
+        "paged_attention": paged,
+        "rmsnorm": {"decode": time_rmsnorm("decode", 16, cfg.d_model, dtype),
+                    "prefill": time_rmsnorm("prefill", 16 * 16, cfg.d_model, dtype)}}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def phase_zoo_serve() -> dict:
+    """The dense zoo in bf16 through the paged engine at ``serve``'s knobs
+    and requests (32, prompts 128-512, 64 new tokens, ``max_batch`` 16,
+    page 16), each model freed before the next: granite-34b whole,
+    qwen2-72b at 8 layers, nemotron-4-340b at 2; tokens/s, dispatch times,
+    peak memory, launches exact by path, a traced decode dispatch, and
+    the paged kernel and RMSNorm at the model's decode and prefill shapes
+    beside their bounds, plain versions and library calls."""
+    recs = {}
+    for arch in ZOO_ARCHS:
+        release_device_memory()
+        recs[arch] = zoo_serve_arch(arch)
+    release_device_memory()
+    return recs
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -3848,14 +4326,15 @@ KERNELS = {
 
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
                  ds_store: dict, train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict,
-                 hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict) -> dict:
+                 hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict,
+                 zoo_serve: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
     spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
     eval, ssm_serve, ssm_eval, the hybrid's static job through the control
-    plane, hybrid_serve, hybrid_eval: counts set to 0 before each run and
-    read after), the paged kernel's and RMSNorm's also by kernel path, its
-    worst error, and its times at its first timed shape with the others
-    beside."""
+    plane, hybrid_serve, hybrid_eval, each zoo model's serve run: counts
+    set to 0 before each run and read after), the paged kernel's and
+    RMSNorm's also by kernel path, its worst error, and its times at its
+    first timed shape with the others beside."""
     def total(runs):
         return {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
 
@@ -3864,13 +4343,18 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
              "ds_store": ds_store["launches"], "train": train["launches"], "eval": total(evals["runs"]),
              "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"]),
              "hybrid_static": hybrid_static["launches"],
-             "hybrid_serve": hybrid_serve["launches"], "hybrid_eval": total(hybrid_eval["runs"])}
+             "hybrid_serve": hybrid_serve["launches"], "hybrid_eval": total(hybrid_eval["runs"]),
+             **{f"zoo_serve_{arch}": r["launches"] for arch, r in zoo_serve.items()}}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
-                            **spec_serve["kernel_times"]["paged_attention"]},
+                            **spec_serve["kernel_times"]["paged_attention"],
+                            **{f"{arch}_{k}": t for arch, r in zoo_serve.items()
+                               for k, t in r["kernel_times"]["paged_attention"].items()}},
         "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
                     **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()},
-                    **{f"d4096_{k}": t for k, t in hybrid_serve["kernel_times"]["rmsnorm"].items()}},
+                    **{f"d4096_{k}": t for k, t in hybrid_serve["kernel_times"]["rmsnorm"].items()},
+                    **{f"d{t['shape']['d']}_{k}": t for r in zoo_serve.values()
+                       for k, t in r["kernel_times"]["rmsnorm"].items()}},
         "flash_attention": {**{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
                                for t in evals["kernel_times"]},
                             **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
@@ -3929,19 +4413,28 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
 
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     phase_env()
-    phase_build()
-    lap("build")
+    # nvcc builds the kernels while the host draws the SSM and hybrid weights
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        build = pool.submit(phase_build)
+        cfg, params_cpu = ssm_weights()
+        hcfg, hparams_cpu = hybrid_weights()
+        build.result()
+    lap("build, ssm_weights, hybrid_weights")
     checks = phase_kernels()
     lap("kernels")
     _, plain = phase_parity()
+    lap("parity")
     serve = phase_serve()
+    lap("serve")
     phase_profile()
-    lap("parity, serve, profile")
-    phase_spec_parity(plain)
+    lap("profile")
+    phase_spec_parity()
+    lap("spec_parity")
     spec_serve = phase_spec_serve()
-    lap("spec_parity, spec_serve")
+    lap("spec_serve")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         ds_parity = phase_ds_parity(Path(tmp), plain)
         lap("ds_parity")
@@ -3951,25 +4444,26 @@ def main() -> int:
         lap("ds_store")
         del plain
     phase_train_parity()
+    lap("train_parity")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
+        lap("train")
         evals = phase_eval(Path(tmp))
-        lap("train_parity, train, eval")
-        cfg, params_cpu = ssm_weights()
+        lap("eval")
         phase_ssm_parity(cfg, params_cpu)
         params = cast_params(params_cpu, torch.bfloat16, "cuda")
         del params_cpu
-        lap("ssm_weights, ssm_parity")
+        lap("ssm_parity")
         ssm_serve = phase_ssm_serve(cfg, params)
+        lap("ssm_serve")
         ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
         del params
         release_device_memory()
-        lap("ssm_serve, ssm_eval")
-        hcfg, hparams_cpu = hybrid_weights()
+        lap("ssm_eval")
         phase_hybrid_parity(hcfg, hparams_cpu)
         hparams = cast_params(hparams_cpu, torch.bfloat16, "cuda")
         del hparams_cpu
-        lap("hybrid_weights, hybrid_parity")
+        lap("hybrid_parity")
         hybrid_serve = phase_hybrid_serve(hcfg, hparams)
         lap("hybrid_serve")
         save_s = save_hybrid_checkpoint(hparams, Path(tmp))
@@ -3979,8 +4473,12 @@ def main() -> int:
         lap("hybrid_static")
         hybrid_eval = phase_hybrid_eval(hcfg, Path(tmp), save_s)
         lap("hybrid_eval")
+    phase_zoo_parity()
+    lap("zoo_parity")
+    zoo_serve = phase_zoo_serve()
+    lap("zoo_serve")
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
-                      ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval))
+                      ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

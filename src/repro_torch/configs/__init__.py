@@ -5,4 +5,11 @@ from repro_torch.configs.base import (  # noqa: F401
     pad_to,
     reduced,
 )
-from repro_torch.configs import ds_paper_100m, mamba2_1p3b, zamba2_1p2b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    ds_paper_100m,
+    granite_34b,
+    mamba2_1p3b,
+    nemotron_4_340b,
+    qwen2_72b,
+    zamba2_1p2b,
+)

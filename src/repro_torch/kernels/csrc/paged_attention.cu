@@ -765,8 +765,10 @@ cudaError_t run_tc(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tensor-core path takes bf16, G*T >= 16 (at most 8 M-tiles), dk and
-// dv in {64, 128}, and 16-byte-aligned rows.
+// The tensor-core path takes bf16, G*T >= 16 (at most 8 M-tiles, and only
+// as many as the warps' rings fit in shared memory: 6 at dk = dv = 128;
+// run_tc refuses more, flash_decode.tensor_core_rows routes them to the
+// CUDA cores), dk and dv in {64, 128}, and 16-byte-aligned rows.
 cudaError_t launch_tc(const Args& a, int dtype, cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pages) |
                          reinterpret_cast<uintptr_t>(a.v_pages)) & 15) == 0;

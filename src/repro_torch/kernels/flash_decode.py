@@ -22,8 +22,10 @@ live pages shared out among the blocks :func:`decode_plan` counts, each
 streaming its pages through a 2-stage ring of rounds, and the last block
 of a (row, kv head) to finish merging the splits); bf16 chunk-extend with
 ``G*T >= 16`` and ``dk, dv`` in {64, 128} runs on the tensor cores
-(``mma.sync`` over ``cp.async``-pipelined page tiles); every other call
-(f32 chunk-extend, MLA's 576/512, odd widths) runs the CUDA-core kernel.
+(``mma.sync`` over ``cp.async``-pipelined page tiles) up to the folded
+queries its shared memory holds (:func:`tensor_core_rows`: 128, or 96 at
+``dk = dv = 128``); every other call (f32 chunk-extend, MLA's 576/512,
+odd widths, longer folds) runs the CUDA-core kernel.
 Launches are counted in total (``launches``) and per path
 (``launches_by_path``).
 
@@ -46,6 +48,14 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PATHS = ("cuda_core", "tensor_core", "decode")  # the C entry's `path` codes 0, 1 and 2
 TENSOR_CORE_WIDTHS = (64, 128)
+# The tensor-core path runs a warp per 16-row M-tile of folded queries (at
+# most 8), each staging 32-key K and V units (rows padded by 8 elements) in
+# its own 2-stage bf16 ring; the rings must fit an H100 block's opt-in
+# shared memory, cudaDevAttrMaxSharedMemoryPerBlockOptin (csrc:
+# tc_smem_bytes, run_tc)
+TENSOR_CORE_MAX_TILES = 8
+TENSOR_CORE_UNIT = 32
+TENSOR_CORE_SMEM_BYTES = 232448
 DECODE_WIDTHS = (64, 128)
 DECODE_MAX_ROWS = 8  # folded queries a decode block computes
 # The decode path's plan: a block loads its pages in rounds of K and V rows
@@ -63,16 +73,25 @@ DECODE_MIN_PAGES = 4
 DECODE_MAX_ROUNDS = 8
 
 
+def tensor_core_rows(dk: int, dv: int) -> int:
+    """The most folded queries the tensor-core path takes at widths ``dk``,
+    ``dv``: 16 a warp, as many warps (at most 8) as have their K/V rings fit
+    in shared memory: 128 at dk = dv = 64 and for the mixed widths, 96 at
+    dk = dv = 128."""
+    ring = 2 * TENSOR_CORE_UNIT * (dk + 8 + dv + 8) * 2  # two stages of bf16 K and V rows
+    return 16 * min(TENSOR_CORE_MAX_TILES, TENSOR_CORE_SMEM_BYTES // ring)
+
+
 def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int) -> str:
     """Which of the kernel's paths takes a call: ``"decode"`` for at most 8
     folded queries (``ql = G*T``) with ``dk, dv`` in {64, 128}, f32 or bf16;
-    ``"tensor_core"`` for bf16 with at least one 16-row M-tile of folded
-    queries (at most 8 tiles) and ``dk, dv`` in {64, 128}; ``"cuda_core"``
-    for every other call."""
+    ``"tensor_core"`` for bf16 with ``dk, dv`` in {64, 128} and from one
+    16-row M-tile of folded queries up to :func:`tensor_core_rows`;
+    ``"cuda_core"`` for every other call."""
     if ql <= DECODE_MAX_ROWS and dk in DECODE_WIDTHS and dv in DECODE_WIDTHS:
         return "decode"
-    if (dtype == torch.bfloat16 and 16 <= ql <= 128 and dk in TENSOR_CORE_WIDTHS
-            and dv in TENSOR_CORE_WIDTHS):
+    if (dtype == torch.bfloat16 and dk in TENSOR_CORE_WIDTHS and dv in TENSOR_CORE_WIDTHS
+            and 16 <= ql <= tensor_core_rows(dk, dv)):
         return "tensor_core"
     return "cuda_core"
 

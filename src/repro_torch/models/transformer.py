@@ -7,6 +7,7 @@ the dense, SSM and hybrid families:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
+    params = model.draw(torch.Generator("cuda").manual_seed(seed))  # drawn on the card
     logits = model.forward(params, tokens)              # (B, S, Vp)
     loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
     cache = model.init_cache(batch, max_len)            # dense, the default
@@ -326,6 +327,26 @@ class Model:
 
         def fp32(a) -> torch.Tensor:
             return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+
+        return self._param_tree(normal, const, fp32)
+
+    def draw(self, generator: torch.Generator) -> Params:
+        """Random weights drawn by ``generator`` on its own device (the
+        card's generator draws on the card): the tree, shapes and scales of
+        :meth:`init`, each normal leaf drawn straight into the model dtype
+        there, with no host copy of it; the float32 leaves stay float32.
+        The draws differ from :meth:`init`'s numpy ones."""
+        device, dtype = generator.device, self.rt.dtype
+
+        def normal(shape, std) -> torch.Tensor:
+            return torch.empty(shape, dtype=dtype, device=device).normal_(
+                0.0, std, generator=generator)
+
+        def const(shape, value) -> torch.Tensor:
+            return torch.full(shape, float(value), dtype=dtype, device=device)
+
+        def fp32(a) -> torch.Tensor:
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
         return self._param_tree(normal, const, fp32)
 

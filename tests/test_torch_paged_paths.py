@@ -43,6 +43,10 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.bfloat16, 40, 128, 128, "tensor_core"),   # verify T 5 at G 8
     (torch.bfloat16, 16, 128, 64, "tensor_core"),
     (torch.bfloat16, 128, 64, 64, "tensor_core"),    # 8 M-tiles, the most a block takes
+    (torch.bfloat16, 128, 64, 128, "tensor_core"),
+    (torch.bfloat16, 96, 128, 128, "tensor_core"),   # 6 M-tiles: the most that fit at 128
+    (torch.bfloat16, 97, 128, 128, "cuda_core"),
+    (torch.bfloat16, 128, 128, 128, "cuda_core"),    # qwen2-72b's prefill, G 8 x T 16
     (torch.bfloat16, 1, 64, 64, "decode"),           # decode
     (torch.bfloat16, 8, 128, 128, "decode"),         # GQA decode, G 8
     (torch.bfloat16, 1, 128, 128, "decode"),
@@ -75,6 +79,28 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
+
+
+def test_tensor_core_calls_fit_the_blocks_shared_memory():
+    """Every call routed to the tensor-core path fits the C launcher's
+    budget (``run_tc``: a warp per M-tile, at most 8, each with a 2-stage
+    ring of 32-key K and V units, rows padded by 8 bf16, or the warps'
+    merge slots, within the H100's 227 KiB a block); the next fold past
+    ``tensor_core_rows`` goes to the CUDA cores.  A call routed past it
+    failed to launch on the card (qwen2-72b's bf16 prefill, G*T 128 at
+    dk = dv = 128: 272 KiB)."""
+    for dk in (64, 128):
+        for dv in (64, 128):
+            rows = flash_decode.tensor_core_rows(dk, dv)
+            assert flash_decode.kernel_path(torch.bfloat16, rows + 1, dk, dv) == "cuda_core"
+            for ql in range(16, rows + 1):
+                assert flash_decode.kernel_path(torch.bfloat16, ql, dk, dv) == "tensor_core"
+                nw = -(-ql // 16)
+                ring = nw * 2 * 32 * (dk + 8 + dv + 8) * 2
+                merge = nw * (32 + 16 * dv) * 4
+                assert nw <= 8 and max(ring, merge) <= 227 * 1024, (ql, dk, dv)
+    assert flash_decode.tensor_core_rows(128, 128) == 96
+    assert flash_decode.tensor_core_rows(64, 64) == flash_decode.tensor_core_rows(64, 128) == 128
 
 
 # The decode path's shapes (G*T <= 8, dk and dv in {64, 128}, f32 and

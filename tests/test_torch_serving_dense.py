@@ -1,8 +1,11 @@
 """The port's ``ServeEngine`` on the dense (per-slot) cache, plain path on
 the CPU, against the reference's dense engine (its default) on shared
-weights, for reduced ``ds-paper-100m`` (KV rows), reduced ``mamba2-1.3b``
-(SSM state rows) and reduced ``zamba2-1.2b`` (SSM state rows and the
-shared block's KV rows; ``lora_b`` drawn non-zero, its init being zeros):
+weights, for reduced ``ds-paper-100m`` (KV rows), the dense zoo (MQA
+``granite-34b``, ``qwen2-72b`` with ``bq``/``bk``/``bv`` drawn non-zero,
+their init being zeros, and squared-ReLU ``nemotron-4-340b``), reduced
+``mamba2-1.3b`` (SSM state rows) and reduced ``zamba2-1.2b`` (SSM state
+rows and the shared block's KV rows; ``lora_b`` drawn non-zero, its init
+being zeros):
 greedy outputs and every counter exactly equal over refills into freed
 rows, decode-path ingestion, host sampling, drain refill, stop tokens and
 temperature rows (device and host sampling) and rows cut at ``max_len``;
@@ -56,7 +59,8 @@ FIELDS = {
     "max_len_cut": lambda i: {"max_new_tokens": 24},
 }
 STOP_WORKLOADS = ("stop_token", "stop_token_host_sampling")
-ARCHS = ("ds-paper-100m", "mamba2-1.3b", "zamba2-1.2b")
+ARCHS = ("ds-paper-100m", "granite-34b", "qwen2-72b", "nemotron-4-340b", "mamba2-1.3b",
+         "zamba2-1.2b")
 RECURRENT = ("mamba2-1.3b", "zamba2-1.2b")
 
 
@@ -70,6 +74,10 @@ def models():
             lb = jp["shared"]["lora_b"]
             draw = np.random.default_rng(9).standard_normal(lb.shape).astype(np.float32)
             jp["shared"]["lora_b"] = jnp.asarray(draw / np.sqrt(lb.shape[1]), lb.dtype)
+        attn, rng = jp["layers"].get("attn", {}), np.random.default_rng(9)
+        for name in ("bq", "bk", "bv") if "bq" in attn else ():  # zeros at init: draw them
+            draw = rng.standard_normal(attn[name].shape).astype(np.float32)
+            attn[name] = jnp.asarray(draw * 0.5, attn[name].dtype)
         out[arch] = (jm, jp, Model(reduced(get_arch(arch))),
                      params_from_jax(jax.tree.map(np.asarray, jp), device="cpu"))
     return out
