@@ -16,17 +16,20 @@ Phases, each printing one JSON line:
   (atol/rtol 2e-5) and bf16 (2e-2): paged attention over the serving
   slice's shapes and the GQA/MQA/MLA/softcap/verify (G 8 x T 5, and
   ds-paper-100m's G 1 x T 5 and T 9)/aliased/parked cases,
-  and its bf16 tensor-core path's edges (G*T 16 at pages of 8-64 with
-  offsets 0 and straddling a page, G 2 x T 16, a ragged G 3 x T 8 fold,
-  dk = dv = 128, a parked row held exactly zero, aliased first pages,
-  softcap 30; each record names the path), its split-KV decode path's
+  and its bf16 tensor-core path's edges (the ``tc_*`` cases: G*T 16 at
+  pages of 8-64 with offsets 0 and straddling a page, G 2 x T 16, a ragged
+  G 3 x T 8 fold, dk = dv = 128, a parked row held exactly zero, aliased
+  first pages, softcap 30, dk 192 at pages of 8 and 64, a 12-row fold,
+  granite's 768-row fold with a parked row and aliased pages, MQA G 48
+  over one row of 4096 keys in 16 key splits, qwen2's 128 rows straddling
+  a page; each record names the path), its split-KV decode path's
   edges in f32 and bf16 (the ``dec_*`` cases: one row over 1 and 4096
   keys, mixed long and short rows, pages of 8 and 64, softcap 30 at T 1,
   a G 2 x T 4 fold, GQA G 8 at dk 128, a parked row beside aliased first
   pages), the dense zoo's serving shapes (granite-34b's MQA prefill at
   G 48 x T 16, qwen2-72b's prefill at G 8 x T 16, nemotron-4-340b's decode
-  and prefill at dk 192, each on the path ``CASE_PATHS`` names, and the
-  tensor-core path's most rows at dk 128, G 6 x T 16),
+  and prefill at dk 192, each on the path ``CASE_PATHS`` names: the
+  tensor cores in bf16, the CUDA cores in f32; and G 6 x T 16 at dk 128),
   RMSNorm (and its gradient;
   d = 768, mamba2's 2048, zamba2's shared block at 4096 and the zoo's
   6144, 8192 and 18432, each record naming its kernel path), flash
@@ -73,7 +76,7 @@ Phases, each printing one JSON line:
   per dispatch draft dispatches included, and a draft run that rolls back;
 - ``spec_serve``: bf16, paged, 8 decode-heavy requests of 256 new tokens
   through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9: the
-  CUDA-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode path):
+  tensor-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode path):
   tokens/s, dispatches per token, accepted per dispatch, verify dispatch
   times from CUDA events, launches by path, peak memory, tokens against
   the plain run (reported, not gated: bf16 verify rounds unlike T
@@ -198,7 +201,7 @@ Phases, each printing one JSON line:
   cache against its dense engine: equal greedy tokens (the near-tie
   exception), counters and every dispatch's logits at 1e-4, launches
   exact by path (``ZOO_PATHS``: e.g. granite's f32 prefill and decode on
-  the CUDA-core path), RMSNorm all generic;
+  the CUDA-core path), RMSNorm all one-pass;
 - ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
   granite-34b whole (88 layers), qwen2-72b at 8 and nemotron-4-340b at 2,
   each freed before the next: tokens/s, dispatch times, peak memory,
@@ -358,7 +361,8 @@ def paged_cases():
             (f"verify_T5_{tag}", dict(B=3, hkv=8, g=8, T=5, dk=128, ps=16, P=40,
                                       offsets=[17, 0, 250], seed=7, **d), 0.0, 0),
             # ds-paper-100m's verify dispatch (G 1): spec_k 4 on the decode
-            # path, spec_k 8 on the CUDA-core one; page-crossing offsets
+            # path, spec_k 8 on the CUDA-core one in f32 and the tensor-core
+            # one in bf16; page-crossing offsets
             (f"verify_g1_T5_{tag}", dict(B=4, hkv=12, g=1, T=5, dk=64, ps=16, P=40,
                                          offsets=[0, 13, 130, 571], seed=14, **d), 0.0, 0),
             (f"verify_g1_T9_{tag}", dict(B=4, hkv=12, g=1, T=9, dk=64, ps=16, P=40,
@@ -373,9 +377,10 @@ def paged_cases():
             (f"page64_{tag}", dict(B=3, hkv=8, g=8, T=1, dk=128, ps=64, P=10,
                                    offsets=[0, 70, 400], seed=11, **d), 0.0, 0),
         ]
-    # the bf16 tensor-core path's edges (G*T >= 16, dk and dv in {64, 128}):
-    # page sizes 8-64 with offsets 0 and straddling a page, 32 and a ragged
-    # 24 folded rows, dk = dv = 128, a parked row, aliased first pages
+    # the bf16 tensor-core path's edges (G*T >= 9 at dk, dv in {64, 128};
+    # any fold at 192): page sizes 8-64 with offsets 0 and straddling a
+    # page, 32 and a ragged 24 folded rows, dk = dv = 128, a parked row,
+    # aliased first pages
     bf = {"dtype": torch.bfloat16}
     for ps in (8, 16, 32, 64):
         cases.append((f"tc_page{ps}_bf16", dict(B=3, hkv=4, g=1, T=16, dk=64, ps=ps, P=8,
@@ -447,6 +452,26 @@ def paged_cases():
         ]
     cases.append(("tc_dk128_rows96_bf16", dict(B=3, hkv=8, g=6, T=16, dk=128, ps=16, P=40,
                                                offsets=[0, 45, 600], seed=54, **bf), 0.0, 0))
+    # the tensor-core path's zoo edges: dk 192 prefill at pages of 8 and 64,
+    # a 12-row fold at dk 64, granite's 768-row fold (6 row groups) with a
+    # parked row and aliased first pages, MQA G 48 decode over one row of
+    # 4096 keys (the most key splits), qwen2's 128 rows at offsets
+    # straddling a page
+    cases += [
+        ("tc_dk192_page8_bf16", dict(B=3, hkv=4, g=12, T=16, dk=192, ps=8, P=80,
+                                     offsets=[0, 13, 600], seed=55, **bf), 0.0, 0),
+        ("tc_dk192_page64_bf16", dict(B=3, hkv=4, g=12, T=16, dk=192, ps=64, P=10,
+                                      offsets=[0, 70, 600], seed=56, **bf), 0.0, 0),
+        ("tc_rows12_bf16", dict(B=4, hkv=8, g=12, T=1, dk=64, ps=16, P=40,
+                                offsets=[0, 37, 300, 639], seed=57, **bf), 0.0, 0),
+        ("tc_granite768_parked_aliased_bf16", dict(B=4, hkv=1, g=48, T=16, dk=128, ps=16,
+                                                   P=40, offsets=[20, 33, 20, 400], seed=58,
+                                                   alias=True, parked=(1,), **bf), 0.0, 0),
+        ("tc_mqa_g48_ctx4096_bf16", dict(B=1, hkv=1, g=48, T=1, dk=128, ps=16, P=256,
+                                         offsets=[4095], seed=59, **bf), 0.0, 0),
+        ("tc_qwen2_rows128_straddle_bf16", dict(B=3, hkv=8, g=8, T=16, dk=128, ps=16, P=40,
+                                                offsets=[7, 23, 599], seed=60, **bf), 0.0, 0),
+    ]
     # the parity engine's slots (max_len 128: 8 pages of 16), its own dtype
     cases += [
         ("parity_decode_f32", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
@@ -459,13 +484,15 @@ def paged_cases():
     return cases
 
 
-# The path these cases must take (kernel_path, which the wrapper follows)
+# The path these cases must take (kernel_path, which the wrapper follows);
+# every tc_* case takes the tensor-core path and every dec_* case the
+# decode path
 CASE_PATHS = {
-    "zoo_granite_prefill_f32": "cuda_core", "zoo_granite_prefill_bf16": "cuda_core",  # G*T 768
-    "zoo_qwen2_prefill_f32": "cuda_core", "zoo_qwen2_prefill_bf16": "cuda_core",  # 128 at dk 128
-    "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "cuda_core",  # dk 192
-    "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "cuda_core",
-    "tc_dk128_rows96_bf16": "tensor_core",
+    "zoo_granite_prefill_f32": "cuda_core", "zoo_granite_prefill_bf16": "tensor_core",  # G*T 768
+    "zoo_qwen2_prefill_f32": "cuda_core", "zoo_qwen2_prefill_bf16": "tensor_core",  # 8 M-tiles
+    "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "tensor_core",  # dk 192
+    "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "tensor_core",
+    "verify_g1_T9_f32": "cuda_core", "verify_g1_T9_bf16": "tensor_core",
 }
 
 
@@ -497,6 +524,8 @@ def check_paged_attention() -> dict:
                "max_abs_err": err, "ok": ok}
         require(not name.startswith("dec_") or path == "decode",
                 f"paged_attention case {name} did not take the decode path")
+        require(not name.startswith("tc_") or path == "tensor_core",
+                f"paged_attention case {name} did not take the tensor-core path")
         require(CASE_PATHS.get(name, path) == path,
                 f"paged_attention case {name} took the {path} path, not {CASE_PATHS.get(name)}")
         if kw.get("parked"):
@@ -510,7 +539,7 @@ def check_paged_attention() -> dict:
     return worst
 
 
-RMSNORM_ONE_PASS_WIDTHS = (768, 2048, 3840, 4096)  # compiled into csrc/rmsnorm.cu
+RMSNORM_ONE_PASS_WIDTHS = (768, 2048, 3840, 4096, 6144, 8192, 18432)  # compiled into csrc/rmsnorm.cu
 
 
 def rmsnorm_path(call):
@@ -537,10 +566,11 @@ def check_rmsnorm() -> dict:
     cases += [(37, 768, torch.float32, "misaligned"), (37, 768, torch.bfloat16, "misaligned")]
     # mamba2-1.3b's width: a decode dispatch (16 rows) and a prefill one (16 x 16)
     cases += [(r, 2048, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
-    # widths past the compiled ones (granite-34b's 6144, qwen2-72b's 8192,
-    # nemotron-4-340b's 18432): the generic path
+    # the dense zoo's widths (granite-34b's 6144, qwen2-72b's 8192,
+    # nemotron-4-340b's 18432), one pass: 18432 a row of 1,024 threads
     cases += [(37, 8192, torch.float32, torch.float32), (37, 8192, torch.bfloat16, torch.bfloat16),
-              (5, 18432, torch.bfloat16, torch.float32)]
+              (5, 18432, torch.bfloat16, torch.float32), (16, 18432, torch.bfloat16, torch.bfloat16),
+              (5, 18432, torch.float32, torch.bfloat16), (37, 18432, torch.float32, torch.float32)]
     cases += [(r, 6144, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
@@ -1410,6 +1440,7 @@ def phase_spec_parity() -> dict:
     import dataclasses
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_decode import kernel_path
     from repro_torch.models import Model, ModelRuntime
     from repro_torch.serving.engine import ServeEngine
 
@@ -1476,8 +1507,8 @@ def phase_spec_parity() -> dict:
         if kw.get("speculative"):
             require(gpu.decode_dispatches == gpu.spec_dispatches > 0,
                     f"{what}: not every decode dispatch was a verify dispatch")
-            # G 1: T = spec_k + 1 up to 8 takes the decode path, 9-15 the CUDA-core one
-            path = "decode" if kw["spec_k"] + 1 <= 8 else "cuda_core"
+            # G 1: T = spec_k + 1 up to 8 takes the decode path, 9-15 the CUDA-core one (f32)
+            path = kernel_path(torch.float32, kw["spec_k"] + 1, 64, 64)
             require_verify_launches(gpu, mode == "paged", path, what)
         else:
             require(gpu.prefill_dispatches == 0 and gpu.decode_dispatches > gpu.scheduler.tick,
@@ -1523,13 +1554,14 @@ SPEC_SERVE_NEW = 256
 def phase_spec_serve() -> dict:
     """Full-width ds-paper-100m in bf16, 8 decode-heavy requests of 256 new
     tokens through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9:
-    the CUDA-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode
+    the tensor-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode
     path): tokens/s, dispatches per token, accepted per dispatch, verify
     dispatch times, launches by path (12 a verify dispatch on its path),
     peak memory, one traced verify tick each, tokens against the plain run
     reported (bf16 verify rounds unlike T sequential decodes: not gated),
     and the paged kernel at the verify shapes."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_decode import kernel_path
     from repro_torch.models import Model, ModelRuntime
     from repro_torch.serving.engine import ServeEngine
 
@@ -1541,7 +1573,7 @@ def phase_spec_serve() -> dict:
     draft_params = init_params(draft, DRAFT_SEED, "cuda")
     modes = {
         "off": ({}, None),
-        "ngram": (dict(speculative="ngram", spec_k=8), "cuda_core"),
+        "ngram": (dict(speculative="ngram", spec_k=8), kernel_path(dtype, 9, 64, 64)),
         "draft": (dict(speculative="draft", spec_k=4, draft_model=draft,
                        draft_params=draft_params), "decode"),
     }
@@ -3981,11 +4013,11 @@ ZOO_SERVE_LAYERS = {"granite-34b": 88, "qwen2-72b": 8, "nemotron-4-340b": 2}
 # (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
 ZOO_PATHS = {
     ("granite-34b", torch.float32): ("cuda_core", "cuda_core"),  # G*T 48 and 768 in f32
-    ("granite-34b", torch.bfloat16): ("tensor_core", "cuda_core"),  # 768: past 8 M-tiles
+    ("granite-34b", torch.bfloat16): ("tensor_core", "tensor_core"),  # key splits; 6 row groups
     ("qwen2-72b", torch.float32): ("decode", "cuda_core"),  # G*T 8 at dk 128
-    ("qwen2-72b", torch.bfloat16): ("decode", "cuda_core"),  # 128: past 6 M-tiles at dk 128
-    ("nemotron-4-340b", torch.float32): ("cuda_core", "cuda_core"),  # dk 192
-    ("nemotron-4-340b", torch.bfloat16): ("cuda_core", "cuda_core"),
+    ("qwen2-72b", torch.bfloat16): ("decode", "tensor_core"),  # 128 rows: 8 M-tiles
+    ("nemotron-4-340b", torch.float32): ("cuda_core", "cuda_core"),  # f32 at dk 192
+    ("nemotron-4-340b", torch.bfloat16): ("tensor_core", "tensor_core"),  # dk 192: 12, 192 rows
 }
 ZOO_PARITY_KW = dict(max_batch=4, max_len=128, prefill_chunk=16)
 ZOO_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
@@ -4101,9 +4133,9 @@ def require_zoo_launches(cfg, dtype, launches: dict, eng, paged: bool, what: str
     """A zoo serving run's exact launches: on the paged engine a paged
     launch a layer a dispatch, a decode dispatch's on the decode path of
     ``ZOO_PATHS`` and a prefill dispatch's on its prefill path (none on
-    the dense engine); 2 L + 1 RMSNorm a dispatch, every one on the generic
-    path (6144, 8192 and 18432 are not compiled into the one pass); no
-    flash or SSD launch."""
+    the dense engine); 2 L + 1 RMSNorm a dispatch, every one on the one-pass
+    path (6144, 8192 and 18432 are compiled into it); no flash or SSD
+    launch."""
     from repro_torch.kernels.flash_decode import PATHS
 
     L, d = cfg.n_layers, eng.dispatches
@@ -4116,10 +4148,10 @@ def require_zoo_launches(cfg, dtype, launches: dict, eng, paged: bool, what: str
     require(got == want and launches["paged_attention"] == sum(want.values()),
             f"{what}: paged launches by path {got}, want {want} ({L} layers, "
             f"{eng.decode_dispatches} decode and {eng.prefill_dispatches} prefill dispatches)")
-    require(launches["rmsnorm"] == (2 * L + 1) * d == launches["rmsnorm_generic"],
+    require(launches["rmsnorm"] == (2 * L + 1) * d == launches["rmsnorm_one_pass"],
             f"{what}: rmsnorm launched {launches['rmsnorm']} times "
-            f"({launches['rmsnorm_generic']} generic) for {d} dispatches, want {2 * L + 1} a "
-            "dispatch, all generic")
+            f"({launches['rmsnorm_one_pass']} one-pass) for {d} dispatches, want {2 * L + 1} a "
+            "dispatch, all one-pass")
     require(launches["flash_attention"] == 0 and launches["ssd"] == 0,
             f"{what}: flash or SSD launched in a serving run: {launches}")
 
@@ -4274,7 +4306,8 @@ def zoo_serve_arch(arch: str) -> dict:
         "what": "decode dispatch, 16 rows, prompts 256", "ticks": ZOO_TRACE_TICKS,
         **trace(eng.step, ZOO_TRACE_TICKS, "dispatch",
                 watch=("paged_attention_kernel", "paged_tc_kernel", "paged_decode_kernel",
-                       "rmsnorm_generic_kernel", "gemm", "gemv", "nvjet"))}
+                       "rmsnorm_row_kernel", "rmsnorm_generic_kernel", "gemm", "gemv",
+                       "nvjet"))}
     require(eng.decode_dispatches - d0 == 2 * ZOO_TRACE_TICKS and eng.prefill_dispatches == p0,
             f"zoo_serve {arch}: traced ticks were not all decode dispatches")
     del eng, params

@@ -39,8 +39,8 @@ _ip = ctypes.POINTER(ctypes.c_int)
 # ctypes passes it as a 32-bit int and cuts it.
 SIGNATURES = {
     "paged_attention_fwd": [_i, _vp, _vp, _vp, _vp, _vp, _vp,
-                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _vp,
-                            _vp, _vp],
+                            _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f, _i, _i, _i, _i,
+                            _vp, _vp, _vp],
     "rmsnorm_fwd": [_i, _i, _vp, _vp, _vp, _i, _i, _f, _ip, _vp],
     "empty_launch": [_vp],
     "flash_attention_fwd": [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],

@@ -10,6 +10,8 @@
 //
 // Three paths, chosen by the caller (kernels/flash_decode.py::kernel_path)
 // and passed in as `path`; the C entry refuses a path that does not apply.
+// What the sources share (Args, the launch of the tensor-core path) is in
+// csrc/paged_attention.cuh.
 //
 // Split-KV decode path (path 2: G*T <= 8, dk and dv in {64, 128}, f32 or
 // bf16: serve and parity decode, GQA decode up to G 8).  At decode only one
@@ -40,37 +42,13 @@
 // distributed shared memory measured no faster at 128-576 keys and slower
 // at 2048-4096: a cluster's blocks wait for its slowest split.
 //
-// Tensor-core path (path 1: bf16, G*T >= 16, dk and dv in {64, 128}: serve
-// prefill, speculative verify at G 8).  Why mma.sync and not wgmma: only
-// the G*T queries of one (b, kv head) share a K tile, and at the serve
-// prefill that is 16 rows, exactly one mma.sync.m16n8k16 M-tile; wgmma's
-// 64-row M would leave 3/4 of every product empty.  One block per (kv
-// head, batch row); warp w holds M-tile w % mtiles (16 folded rows, Q as A
-// fragments loaded once) and walks units of 32 logical keys (one unit spans
-// four 8-key pages, two 16-key pages, one 32-key page or half a 64-key
-// page), unit split, split + splits, ... with split = w / mtiles.  Each
-// warp gathers a unit's K and V rows (ps rows of dk bf16 per page at
-// stride Hkv*dk) with 16-byte cp.async into padded shared rows (stride
-// d + 8, so ldmatrix reads hit distinct banks), in a 2-stage ring: the
-// next unit's copy is in flight while this one is computed.  A key on an
-// unallocated page or a page past the row's last query is zero-filled
-// (src-size 0: nothing is read) and masked.  S = Q.K^T and O += P.V run on
-// mma.sync (P packed from the S fragments, V through ldmatrix.trans); the
-// scale multiplies the fp32 S (as the plain version's einsum(q, k) *
-// scale: pre-scaling bf16 Q would round differently), then softcap; only a
-// unit that reaches past the tile's smallest query position, or holds an
-// unread key, is masked; the online softmax uses the quad-shuffle form of
-// csrc/flash_attention.cu.  Splits: the host aims at 4 warps a block
-// (splits = 4 / mtiles, at least 1), so at the serve prefill (16 rows, one
-// M-tile) the 192 (b, h) blocks of 4 warps (~74 KB of shared memory each)
-// are all resident on 132 SMs at once and each K/V page is read exactly
-// once per (b, h); with more M-tiles each tile's warps read the pages
-// again (from L2).  The warps' partial states merge through shared memory.
-// ptxas -v (sm_90a, nvcc 12.9): 114 registers at dk = dv = 64, 174 at 128,
-// no spills.
+// Tensor-core path (path 1: bf16 from flash_decode.TENSOR_CORE_MIN_ROWS
+// folded rows at dk, dv in {64, 128}, every fold at dk = dv = 192): in
+// csrc/paged_tensor_core.cu, compiled apart so the build runs it in
+// parallel; its note there.
 //
-// CUDA-core path (path 0: every other call -- f32 chunk-extend, MLA's dk
-// 576 / dv 512, widths outside {64, 128}).  One thread block per (query
+// CUDA-core path (path 0: every other call -- f32 chunk-extend, f32 at dk
+// 192, MLA's dk 576 / dv 512, other widths).  One thread block per (query
 // tile, kv head, batch row).  The
 // tile holds up to 32 / NV folded query rows (NV value columns per lane),
 // and the host shrinks it while the grid would leave the card's SMs
@@ -98,10 +76,13 @@
 // page_size * Hkv * (dk + dv) elements) plus q and write out; at decode
 // (T = 1) that is ~1 flop per byte, far under the ~295 flop/byte at
 // which the tensor cores would bound it; at the serve prefill (G*T 16) it
-// is ~16 flops a byte, still memory-bound.  The CUDA-core path stages
-// pages synchronously (no cp.async pipeline, fp32 math); the tensor-core
-// and decode paths pipeline them.  The paths' times on the card are
-// recorded against that byte bound in PERF.md.
+// is ~16 flops a byte; at granite's MQA prefill (G*T 768 over one K/V
+// head) the K/V reads alone carry ~750 flops a byte, but q and out (3 MB
+// each at B 16) keep the call bytes-bound.  The CUDA-core
+// path stages pages synchronously (no cp.async pipeline, fp32 math); the
+// tensor-core and decode paths pipeline them, read each row's K/V once a
+// block, and split the keys where the grid is small.  The paths' times on
+// the card are recorded against that bound in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,12 +91,16 @@
 #include <stdint.h>
 
 #include "mma_sm80.cuh"
+#include "paged_attention.cuh"
 
 namespace {
 
+using paged::Args;
+using paged::kLog2e;
+using paged::kNegInf;
+
 constexpr int kMaxWarps = 8;
 constexpr int kMaxThreads = kMaxWarps * 32;
-constexpr float kNegInf = -1e30f;  // the reference's mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -157,21 +142,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// What a launch needs; the launcher fills in the last three.
-struct Args {
-  const void* q;
-  const void* k_pages;
-  const void* v_pages;
-  const int* table;
-  const int* offsets;
-  void* out;
-  int batch, hkv, ql, dk, n_pages, page_size, pages_per_slot, dv_store, dv, tokens_per_row;
-  float scale, softcap;
-  int kt;         // keys per staged tile: a power of two dividing 32, at most a page
-  int ks_stride;  // shared-memory row stride of a staged key
-  int vec;        // 16-byte global loads are aligned
-};
 
 // One warp copies a tile of nk keys -- dk key elements (global row stride
 // k_stride) and dv value elements (v_stride) each -- into fp32 shared
@@ -467,319 +437,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }
 
 
-// ------------------------------------------- bf16 chunk-extend: tensor cores
 using mma_sm80::cp_async16;
 using mma_sm80::cp_async_commit;
 using mma_sm80::cp_async_wait;
-using mma_sm80::ldmatrix_x4;
-using mma_sm80::ldmatrix_x4_trans;
-using mma_sm80::mma_bf16;
-using mma_sm80::pack_bf16;
-
-constexpr int kTcUnit = 32;   // logical keys per staged unit: two k16 steps of P.V
-constexpr int kTcWarps = 4;   // target warps per block (M-tiles x page splits)
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int DK, int DV>
-struct TcCfg {
-  static constexpr int LDK = DK + 8;  // padded shared rows: ldmatrix rows hit distinct banks
-  static constexpr int LDV = DV + 8;
-  static constexpr int STAGE = kTcUnit * (LDK + LDV);  // bf16 elements of one K + V unit
-  static constexpr int RED = 32 + 16 * DV;             // floats of one warp's merge slot
-};
-
-inline size_t tc_smem_bytes(int nw, int dk, int dv) {
-  const size_t ring = (size_t)nw * 2 * kTcUnit * (dk + 8 + dv + 8) * 2;
-  const size_t red = (size_t)nw * (32 + 16 * dv) * 4;
-  return ring > red ? ring : red;
-}
-
-// Copies unit u (logical keys [32 u, 32 u + 32)) of K and V for head h into
-// a warp's stage with 16-byte cp.async; a key whose page lies past the
-// row's last query or is unallocated is zero-filled and not read.  Returns
-// the unit's valid-key bits (bit r: key 32 u + r lies on a read page).
-template <int DK, int DV>
-__device__ __forceinline__ uint32_t tc_stage(const Args& a, const __nv_bfloat16* __restrict__ kp,
-                                             const __nv_bfloat16* __restrict__ vp, int b, int h,
-                                             int last_q, int u, __nv_bfloat16* ks,
-                                             __nv_bfloat16* vs, int lane) {
-  using C = TcCfg<DK, DV>;
-  const int key = u * kTcUnit + lane;
-  const int j = key / a.page_size;
-  int row = -1;  // physical cache row of this lane's key
-  if (j < a.pages_per_slot && j * a.page_size <= last_q) {
-    const int pid = a.table[b * a.pages_per_slot + j];
-    if (pid >= 0 && pid < a.n_pages) row = pid * a.page_size + key - j * a.page_size;
-  }
-  const uint32_t valid = __ballot_sync(0xffffffffu, row >= 0);
-  const size_t k_stride = (size_t)a.hkv * DK, v_stride = (size_t)a.hkv * a.dv_store;
-  constexpr int KC = DK / 8, VC = DV / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int t = 0; t < KC; ++t) {
-    const int i = lane + 32 * t;
-    const int r = i / KC, c = (i % KC) * 8;
-    const int src_row = __shfl_sync(0xffffffffu, row, r);
-    cp_async16(ks + r * C::LDK + c,
-               kp + (src_row >= 0 ? (size_t)src_row * k_stride + (size_t)h * DK + c : 0),
-               src_row >= 0);
-  }
-#pragma unroll
-  for (int t = 0; t < VC; ++t) {
-    const int i = lane + 32 * t;
-    const int r = i / VC, c = (i % VC) * 8;
-    const int src_row = __shfl_sync(0xffffffffu, row, r);
-    cp_async16(vs + r * C::LDV + c,
-               vp + (src_row >= 0 ? (size_t)src_row * v_stride + (size_t)h * a.dv_store + c : 0),
-               src_row >= 0);
-  }
-  return valid;
-}
-
-// One block per (kv head, batch row); warp w takes M-tile w % mtiles (16
-// folded query rows) and the units split, split + splits, ... of the row's
-// keys (split = w / mtiles).  Partial softmax states merge through shared
-// memory at the end.
-template <int DK, int DV>
-__global__ void __launch_bounds__(256) paged_tc_kernel(const Args a, int mtiles, int splits) {
-  using C = TcCfg<DK, DV>;
-  extern __shared__ float4 smem4[];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mt = warp % mtiles, split = warp / mtiles;
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
-  const int g = lane >> 2, tq4 = lane & 3;  // accumulator: rows g, g + 8; cols 2 tq4
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4) + warp * 2 * C::STAGE;
-  const __nv_bfloat16* __restrict__ kp = static_cast<const __nv_bfloat16*>(a.k_pages);
-  const __nv_bfloat16* __restrict__ vp = static_cast<const __nv_bfloat16*>(a.v_pages);
-  const __nv_bfloat16* __restrict__ q =
-      static_cast<const __nv_bfloat16*>(a.q) + (size_t)(b * a.hkv + h) * a.ql * DK;
-
-  // this warp's 16 folded rows as A fragments (rows past QL are zeros)
-  {
-    constexpr int KC = DK / 8;
-#pragma unroll
-    for (int t = 0; t < KC / 2; ++t) {
-      const int i = lane + 32 * t;
-      const int r = i / KC, c = (i % KC) * 8;
-      const int qi = mt * 16 + r;
-      cp_async16(ring + r * C::LDK + c, q + (qi < a.ql ? (size_t)qi * DK + c : 0), qi < a.ql);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncwarp();
-  }
-  uint32_t qf[DK / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < DK / 16; ++kc)
-    ldmatrix_x4(qf[kc], ring + ((mi & 1) * 8 + mr) * C::LDK + kc * 16 + (mi >> 1) * 8);
-  __syncwarp();
-
-  const int off = a.offsets[b];
-  const int last_q = off + a.tokens_per_row - 1;
-  const int row_a = mt * 16 + g, row_b = row_a + 8;
-  const int qpos_a = off + row_a % a.tokens_per_row, qpos_b = off + row_b % a.tokens_per_row;
-  // the tile's smallest query position: keys at or below it need no
-  // position mask
-  const int qmin = __reduce_min_sync(
-      0xffffffffu, min(row_a < a.ql ? qpos_a : INT_MAX, row_b < a.ql ? qpos_b : INT_MAX));
-  const int n_units = (last_q + kTcUnit) / kTcUnit;  // keys [0, last_q]
-  const float c = a.scale;
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;  // l: this lane's share
-  float o[DV / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < DV / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-
-  uint32_t valid_cur = 0, valid_next = 0;
-  if (split < n_units)
-    valid_cur = tc_stage<DK, DV>(a, kp, vp, b, h, last_q, split, ring, ring + kTcUnit * C::LDK,
-                                 lane);
-  cp_async_commit();
-  for (int n = 0, u = split; u < n_units; ++n, u += splits) {
-    // the next unit's copy is in flight while this one is computed
-    __nv_bfloat16* nxt = ring + ((n + 1) & 1) * C::STAGE;
-    if (u + splits < n_units)
-      valid_next = tc_stage<DK, DV>(a, kp, vp, b, h, last_q, u + splits, nxt,
-                                    nxt + kTcUnit * C::LDK, lane);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncwarp();
-    const __nv_bfloat16* ks = ring + (n & 1) * C::STAGE;
-    const __nv_bfloat16* vs = ks + kTcUnit * C::LDK;
-    if (valid_cur != 0) {
-      float s[4][4];  // 16 rows x 32 keys: 4 key tiles of 8
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < DK / 16; ++kc) {
-#pragma unroll
-        for (int nt = 0; nt < 4; nt += 2) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, ks + (nt * 8 + (mi >> 1) * 8 + mr) * C::LDK + kc * 16 + (mi & 1) * 8);
-          mma_bf16(s[nt], qf[kc], bk[0], bk[1]);
-          mma_bf16(s[nt + 1], qf[kc], bk[2], bk[3]);
-        }
-      }
-      // scale (fp32, as the plain version), softcap, mask only a unit that
-      // reaches past qmin or holds an unread key
-      const int k0 = u * kTcUnit;
-      const bool full = valid_cur == 0xffffffffu && k0 + kTcUnit - 1 <= qmin;
-      float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float va = s[nt][e] * c, vb = s[nt][2 + e] * c;
-          if (a.softcap > 0.f) {
-            va = tanhf(va / a.softcap) * a.softcap;
-            vb = tanhf(vb / a.softcap) * a.softcap;
-          }
-          if (!full) {
-            const int kr = nt * 8 + tq4 * 2 + e;
-            const bool in = (valid_cur >> kr) & 1u;
-            if (!(in && k0 + kr <= qpos_a)) va = -INFINITY;
-            if (!(in && k0 + kr <= qpos_b)) vb = -INFINITY;
-          }
-          s[nt][e] = va;
-          s[nt][2 + e] = vb;
-          mx_a = fmaxf(mx_a, va);
-          mx_b = fmaxf(mx_b, vb);
-        }
-      }
-      // a row spans the 4 lanes of a quad
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-      const float mc_a = mx_a * kLog2e, mc_b = mx_b * kLog2e;
-      // m starts at -1e30: corr is 0 until a row sees a key; -inf gives
-      // p = 0; the difference is taken before scaling (see flash_attention.cu)
-      const float corr_a = exp2f((m_a - mx_a) * kLog2e);
-      const float corr_b = exp2f((m_b - mx_b) * kLog2e);
-      m_a = mx_a;
-      m_b = mx_b;
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pa = exp2f(fmaf(s[nt][e], kLog2e, -mc_a));
-          const float pb = exp2f(fmaf(s[nt][2 + e], kLog2e, -mc_b));
-          s[nt][e] = pa;
-          s[nt][2 + e] = pb;
-          sum_a += pa;
-          sum_b += pb;
-        }
-      }
-      l_a = fmaf(l_a, corr_a, sum_a);
-      l_b = fmaf(l_b, corr_b, sum_b);
-#pragma unroll
-      for (int dt = 0; dt < DV / 8; ++dt) {
-        o[dt][0] *= corr_a;
-        o[dt][1] *= corr_a;
-        o[dt][2] *= corr_b;
-        o[dt][3] *= corr_b;
-      }
-      // O += P.V: two key tiles' accumulator fragments are one A fragment
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                                pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                                pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                                pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-        for (int dt = 0; dt < DV / 8; dt += 2) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vs + (kc * 16 + (mi & 1) * 8 + mr) * C::LDV + (dt + (mi >> 1)) * 8);
-          mma_bf16(o[dt], pa, bv[0], bv[1]);
-          mma_bf16(o[dt + 1], pa, bv[2], bv[3]);
-        }
-      }
-    }
-    __syncwarp();  // this stage is refilled two units later
-    valid_cur = valid_next;
-  }
-  cp_async_wait<0>();
-
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-
-  // Merge the splits' partial states: slot[w] = {m[16], l[16], o[16][DV]}.
-  __syncthreads();  // every warp is done with its ring
-  float* red = reinterpret_cast<float*>(smem4);
-  float* slot = red + warp * C::RED;
-  if (tq4 == 0) {
-    slot[g] = m_a;
-    slot[g + 8] = m_b;
-    slot[16 + g] = l_a;
-    slot[16 + g + 8] = l_b;
-  }
-#pragma unroll
-  for (int dt = 0; dt < DV / 8; ++dt) {
-    const int col = dt * 8 + tq4 * 2;
-    slot[32 + g * DV + col] = o[dt][0];
-    slot[32 + g * DV + col + 1] = o[dt][1];
-    slot[32 + (g + 8) * DV + col] = o[dt][2];
-    slot[32 + (g + 8) * DV + col + 1] = o[dt][3];
-  }
-  __syncthreads();
-  __nv_bfloat16* __restrict__ out =
-      static_cast<__nv_bfloat16*>(a.out) + (size_t)(b * a.hkv + h) * a.ql * DV;
-  for (int i = threadIdx.x; i < a.ql * DV; i += blockDim.x) {
-    const int qi = i / DV, d = i - qi * DV;
-    const int t = qi >> 4, r = qi & 15;
-    float mx = kNegInf;
-    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, red[(sp * mtiles + t) * C::RED + r]);
-    float lsum = 0.f, acc = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float* sl = red + (sp * mtiles + t) * C::RED;
-      const float f = exp2f((sl[r] - mx) * kLog2e);
-      lsum = fmaf(sl[16 + r], f, lsum);
-      acc = fmaf(sl[32 + r * DV + d], f, acc);
-    }
-    // a query with nothing attendable keeps l == 0 and writes zeros
-    out[i] = __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
-  }
-}
-
-template <int DK, int DV>
-cudaError_t run_tc(const Args& a, cudaStream_t stream) {
-  int dev = 0, smem_max = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  const int mtiles = (a.ql + 15) / 16;
-  int splits = kTcWarps / mtiles > 1 ? kTcWarps / mtiles : 1;
-  while (splits > 1 && tc_smem_bytes(mtiles * splits, DK, DV) > (size_t)smem_max) --splits;
-  const int nw = mtiles * splits;
-  const size_t smem = tc_smem_bytes(nw, DK, DV);
-  if (nw * 32 > 256 || smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  auto kernel = paged_tc_kernel<DK, DV>;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<dim3(a.hkv, a.batch), nw * 32, smem, stream>>>(a, mtiles, splits);
-  return cudaGetLastError();
-}
-
-// The tensor-core path takes bf16, G*T >= 16 (at most 8 M-tiles, and only
-// as many as the warps' rings fit in shared memory: 6 at dk = dv = 128;
-// run_tc refuses more, flash_decode.tensor_core_rows routes them to the
-// CUDA cores), dk and dv in {64, 128}, and 16-byte-aligned rows.
-cudaError_t launch_tc(const Args& a, int dtype, cudaStream_t stream) {
-  const bool aligned = ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pages) |
-                         reinterpret_cast<uintptr_t>(a.v_pages)) & 15) == 0;
-  if (dtype != 1 || a.ql < 16 || a.ql > 128 || !aligned || a.dv_store % 8 != 0)
-    return cudaErrorInvalidValue;
-  if (a.dk == 64 && a.dv == 64) return run_tc<64, 64>(a, stream);
-  if (a.dk == 64 && a.dv == 128) return run_tc<64, 128>(a, stream);
-  if (a.dk == 128 && a.dv == 64) return run_tc<128, 64>(a, stream);
-  if (a.dk == 128 && a.dv == 128) return run_tc<128, 128>(a, stream);
-  return cudaErrorInvalidValue;
-}
 
 // ---------------------------------------------- decode: split-KV, streamed pages
 constexpr int kDecThreads = 256;
@@ -1154,21 +814,22 @@ cudaError_t launch_decode(const Args& a, int dtype, int splits, int round_pages,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).  table and
 // offsets are int32.  path: 0 = the CUDA-core kernel (every shape), 1 = the
-// bf16 tensor-core chunk-extend kernel, 2 = the split-KV decode kernel
-// (paths 1 and 2 are refused with cudaErrorInvalidValue where they do not
-// apply).  splits, round_pages, workspace and counters serve path 2 only:
-// the split count, the pages a split loads a round, an f32 workspace of
-// batch * hkv * splits * ql * (dv + 2) floats and batch * hkv int32
-// counters that are zero before the launch and zero again after it (both
-// may be null with one split).  Returns cudaGetLastError() after the
+// bf16 tensor-core kernel, 2 = the split-KV decode kernel (paths 1 and 2 are
+// refused with cudaErrorInvalidValue where they do not apply).  splits: the
+// key splits of paths 1 and 2; round_pages: the pages a path-2 split loads
+// a round; groups: path 1's row groups (flash_decode.tensor_core_plan).
+// With more than one split, workspace holds batch * hkv * splits * ql *
+// (dv + 2) floats and counters batch * hkv (path 2) or batch * hkv * groups
+// (path 1) int32 that are zero before the launch and zero again after it
+// (both may be null with one split).  Returns cudaGetLastError() after the
 // launch.
 extern "C" int paged_attention_fwd(int dtype, const void* q, const void* k_pages,
                                    const void* v_pages, const void* table, const void* offsets,
                                    void* out, int batch, int hkv, int ql, int dk, int n_pages,
                                    int page_size, int pages_per_slot, int dv_store, int dv,
                                    int tokens_per_row, float scale, float softcap, int path,
-                                   int splits, int round_pages, void* workspace, void* counters,
-                                   void* stream) {
+                                   int splits, int round_pages, int groups, void* workspace,
+                                   void* counters, void* stream) {
   if (batch <= 0 || hkv <= 0 || ql <= 0 || dk <= 0 || dv <= 0 || page_size <= 0 ||
       tokens_per_row <= 0 || dv > dv_store)
     return cudaErrorInvalidValue;
@@ -1177,7 +838,7 @@ extern "C" int paged_attention_fwd(int dtype, const void* q, const void* k_pages
                pages_per_slot, dv_store, dv, tokens_per_row, scale, softcap, 0, 0, 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  if (path == 1) return launch_tc(a, dtype, s);
+  if (path == 1) return paged::launch_tc(a, dtype, groups, splits, workspace, counters, s);
   if (path == 2) return launch_decode(a, dtype, splits, round_pages, workspace, counters, s);
   if (path != 0) return cudaErrorInvalidValue;
 #define PAGED_LAUNCH(NV) \

@@ -1,0 +1,36 @@
+// What the paged attention kernel's two sources share: csrc/paged_attention.cu
+// (the C entry, the CUDA-core and split-KV decode paths) and
+// csrc/paged_tensor_core.cu (the bf16 tensor-core path), compiled apart so
+// the build runs them in parallel.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace paged {
+
+constexpr float kNegInf = -1e30f;  // the reference's mask value
+constexpr float kLog2e = 1.4426950408889634f;
+
+// What a launch needs; the launcher fills in the last three.
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* table;
+  const int* offsets;
+  void* out;
+  int batch, hkv, ql, dk, n_pages, page_size, pages_per_slot, dv_store, dv, tokens_per_row;
+  float scale, softcap;
+  int kt;         // keys per staged tile: a power of two dividing 32, at most a page
+  int ks_stride;  // shared-memory row stride of a staged key
+  int vec;        // 16-byte global loads are aligned
+};
+
+// The tensor-core path (csrc/paged_tensor_core.cu): bf16, dk and dv in
+// {64, 128} or both 192, 16-byte-aligned rows, in the row groups and key
+// splits of the host's plan; with more than one split the workspace and
+// the zeroed counters (one a (row, kv head, group)).
+cudaError_t launch_tc(const Args& a, int dtype, int groups, int splits, void* ws, void* counters,
+                      cudaStream_t s);
+
+}  // namespace paged

@@ -9,13 +9,18 @@
 // registers for the scale-and-store: one memory round trip where a second
 // pass over x (and w read after the reduction) made two.
 //   - The widths the models use (768, 2048, zamba2's shared block at
-//     4096) and 3840 are instantiated with a compile-time count of 16-byte
-//     vectors a row, shared by the fewest warps that keep a lane at 2
-//     vectors or under (kMaxVecPerLane: 768 bf16 takes 64 threads, 2048
-//     128, 4096 256), up to the block's 256 threads (f32 at 3840 and 4096
-//     keeps 4 vectors a lane); the warps of a row meet in shared memory.
-//     A warp a row with up to 8 vectors a lane measured 0.5 us slower at
-//     2048 (tools/kernel_variants.py).
+//     4096, and the dense zoo's 6144, 8192 and 18432) and 3840 are
+//     instantiated with a compile-time count of 16-byte vectors a row,
+//     shared by the fewest warps that keep a lane at 2 vectors or under
+//     (kMaxVecPerLane: 768 bf16 takes 64 threads, 2048 128, 4096 256), up
+//     to the block's 256 threads, where a lane takes up to 4 (f32 at 3840
+//     and 4096, bf16 at 6144 and 8192: 3 and 4 vectors); a row past 4
+//     vectors a lane at 256 threads takes more lanes, up to a block of
+//     1,024 threads a row (f32 at 6144 and 8192: 512 threads, 3 and 4
+//     vectors; 18432: 1,024 threads, 3 vectors in bf16 and 5 in f32), so
+//     the row still stays in registers, read once.  The warps of a row
+//     meet in shared memory.  A warp a row with up to 8 vectors a lane
+//     measured 0.5 us slower at 2048 (tools/kernel_variants.py).
 //   - Any other width, or rows off the 16-byte grid, take a generic path
 //     with no limit on the width: a warp a row, scalar loads, two passes
 //     over x (the second from L1/L2), w read in the second.
@@ -36,6 +41,8 @@ namespace {
 
 constexpr int kBlockThreads = 256;
 constexpr int kMaxVecPerLane = 2;
+constexpr int kWideVecPerLane = 4;  // a lane's vectors before a row takes more than 256 threads
+constexpr int kMaxRowThreads = 1024;
 constexpr int kGenericRows = 8;  // rows (warps) a block on the generic path
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -52,11 +59,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 
 // Threads that share a row of `nvec` 16-byte vectors: a warp up to
 // kMaxVecPerLane vectors a lane, else the least power-of-two number of
-// warps that keeps a lane at or under it.
+// warps that keeps a lane at or under it, up to kBlockThreads; past
+// kWideVecPerLane vectors a lane there, the least power of two up to
+// kMaxRowThreads that keeps a lane at or under that.
 __host__ __device__ constexpr int row_threads(int nvec) {
   int t = 32;
   while (t < kBlockThreads && nvec > t * kMaxVecPerLane) t *= 2;
+  while (t < kMaxRowThreads && nvec > t * kWideVecPerLane) t *= 2;
   return t;
+}
+
+// A block's threads: kBlockThreads (rows of up to 256 threads each), or
+// one row of more.
+__host__ __device__ constexpr int block_threads(int nvec) {
+  return row_threads(nvec) > kBlockThreads ? row_threads(nvec) : kBlockThreads;
 }
 
 // Element e of a run of T packed in 32-bit words, as fp32.
@@ -89,13 +105,13 @@ struct WVec {
 };
 
 template <typename TX, typename TW, int NVEC>
-__global__ void __launch_bounds__(kBlockThreads)
+__global__ void __launch_bounds__(block_threads(NVEC))
     rmsnorm_row_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out,
                        int rows, float eps) {
   constexpr int kVec = 16 / sizeof(TX);
   constexpr int D = NVEC * kVec;
   constexpr int TPR = row_threads(NVEC);
-  constexpr int RPB = kBlockThreads / TPR;  // rows a block
+  constexpr int RPB = block_threads(NVEC) / TPR;  // rows a block
   constexpr int VPT = (NVEC + TPR - 1) / TPR;
   constexpr int WPR = TPR / 32;  // warps a row
   const int sub = threadIdx.x % TPR;
@@ -129,7 +145,7 @@ __global__ void __launch_bounds__(kBlockThreads)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
   if constexpr (WPR > 1) {
-    __shared__ float part[kBlockThreads / 32];
+    __shared__ float part[block_threads(NVEC) / 32];
     const int wid = threadIdx.x >> 5;
     if ((threadIdx.x & 31) == 0) part[wid] = ss;
     __syncthreads();
@@ -179,8 +195,8 @@ __global__ void __launch_bounds__(kGenericRows * 32)
 template <typename TX, typename TW, int NVEC>
 cudaError_t launch_rows(const void* x, const void* w, void* out, int rows, float eps,
                         cudaStream_t stream) {
-  constexpr int RPB = kBlockThreads / row_threads(NVEC);
-  rmsnorm_row_kernel<TX, TW, NVEC><<<(rows + RPB - 1) / RPB, kBlockThreads, 0, stream>>>(
+  constexpr int BT = block_threads(NVEC), RPB = BT / row_threads(NVEC);
+  rmsnorm_row_kernel<TX, TW, NVEC><<<(rows + RPB - 1) / RPB, BT, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), rows, eps);
   return cudaGetLastError();
 }
@@ -203,6 +219,9 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int d, flo
       case 2048: return launch_rows<TX, TW, 2048 / kVec>(x, w, out, rows, eps, stream);
       case 3840: return launch_rows<TX, TW, 3840 / kVec>(x, w, out, rows, eps, stream);
       case 4096: return launch_rows<TX, TW, 4096 / kVec>(x, w, out, rows, eps, stream);
+      case 6144: return launch_rows<TX, TW, 6144 / kVec>(x, w, out, rows, eps, stream);
+      case 8192: return launch_rows<TX, TW, 8192 / kVec>(x, w, out, rows, eps, stream);
+      case 18432: return launch_rows<TX, TW, 18432 / kVec>(x, w, out, rows, eps, stream);
       default: break;
     }
   }

@@ -20,12 +20,15 @@ queries (``G*T <= 8``: decode, GQA decode up to G 8) and ``dk, dv`` in
 {64, 128}, f32 or bf16, take the split-KV ``decode`` kernel (each row's
 live pages shared out among the blocks :func:`decode_plan` counts, each
 streaming its pages through a 2-stage ring of rounds, and the last block
-of a (row, kv head) to finish merging the splits); bf16 chunk-extend with
-``G*T >= 16`` and ``dk, dv`` in {64, 128} runs on the tensor cores
-(``mma.sync`` over ``cp.async``-pipelined page tiles) up to the folded
-queries its shared memory holds (:func:`tensor_core_rows`: 128, or 96 at
-``dk = dv = 128``); every other call (f32 chunk-extend, MLA's 576/512,
-odd widths, longer folds) runs the CUDA-core kernel.
+of a (row, kv head) to finish merging the splits); bf16 with ``dk, dv`` in
+{64, 128} from ``TENSOR_CORE_MIN_ROWS`` folded queries up, and bf16 at
+``dk = dv = 192`` at any fold, runs on the tensor cores (``mma.sync``):
+the fold is cut into row groups of at most 8 M-tiles of 16 rows, a block's
+warps share one ``cp.async`` ring of 32-key K/V units, so a block reads
+the row's K/V once, and where the grid would leave most SMs idle the
+row's keys are shared out among blocks that merge as the decode path's do
+(:func:`tensor_core_plan`); every other call (f32 chunk-extend, f32 at
+dk 192, MLA's 576/512, odd widths) runs the CUDA-core kernel.
 Launches are counted in total (``launches``) and per path
 (``launches_by_path``).
 
@@ -47,15 +50,35 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PATHS = ("cuda_core", "tensor_core", "decode")  # the C entry's `path` codes 0, 1 and 2
-TENSOR_CORE_WIDTHS = (64, 128)
-# The tensor-core path runs a warp per 16-row M-tile of folded queries (at
-# most 8), each staging 32-key K and V units (rows padded by 8 elements) in
-# its own 2-stage bf16 ring; the rings must fit an H100 block's opt-in
-# shared memory, cudaDevAttrMaxSharedMemoryPerBlockOptin (csrc:
-# tc_smem_bytes, run_tc)
+# The tensor-core path's (dk, dv), and the least bf16 fold it takes at the
+# widths the decode path also takes (it takes every fold at 192).  Measured
+# with tools/kernel_variants.py (tc) on an H100 (B 16, 128-576 keys): at
+# 9-15 rows (G 1, Hkv 12, dk 64) it took 0.0225-0.0235 ms against the
+# CUDA-core path's 0.0677-0.0810.  It also beat the decode path at 5 and 8
+# rows (0.0217 / 0.0220 ms against 0.0424 / 0.0436) and at 8 rows of dk 128
+# (0.0288 against 0.0605); the decode path keeps its folds of up to 8 for
+# now (ROADMAP Queue 2).
+TENSOR_CORE_WIDTHS = ((64, 64), (64, 128), (128, 64), (128, 128), (192, 192))
+TENSOR_CORE_MIN_ROWS = 9
+# A block of the tensor-core path takes a row group of at most
+# TENSOR_CORE_MAX_TILES 16-row M-tiles, a warp each, and walks the row's
+# keys in units of TENSOR_CORE_UNIT (csrc/paged_tensor_core.cu: tc_block
+# lays the block out, run_tc refuses a plan that does not fit; the CPU
+# tests mirror its shared-memory budget).  The plan shares a row's units
+# out among blocks while the grid holds under TENSOR_CORE_BLOCKS_PER_SM
+# blocks an SM, each keeping TENSOR_CORE_MIN_UNITS units, at most
+# TENSOR_CORE_MAX_SPLITS of them (the last block of a row merges them
+# all).  Measured with tools/kernel_variants.py (tc) on an H100 (bf16,
+# B 16, 128-576 keys): a 200 KiB ring took nemotron-4-340b's decode in
+# 0.0403 ms against 0.0574 at 112 KiB; granite-34b's MQA decode took
+# 0.0207 ms in 8 key splits, against 0.0407 unsplit, 0.0313 in 4, 0.0259
+# in 16 and 0.0259 in 3 row groups of one M-tile and 2 splits; one MQA
+# row of 4096 keys took 0.0366 ms in 16 splits against 0.0548 in 64.
 TENSOR_CORE_MAX_TILES = 8
 TENSOR_CORE_UNIT = 32
-TENSOR_CORE_SMEM_BYTES = 232448
+TENSOR_CORE_BLOCKS_PER_SM = 1
+TENSOR_CORE_MIN_UNITS = 2
+TENSOR_CORE_MAX_SPLITS = 16
 DECODE_WIDTHS = (64, 128)
 DECODE_MAX_ROWS = 8  # folded queries a decode block computes
 # The decode path's plan: a block loads its pages in rounds of K and V rows
@@ -73,27 +96,37 @@ DECODE_MIN_PAGES = 4
 DECODE_MAX_ROUNDS = 8
 
 
-def tensor_core_rows(dk: int, dv: int) -> int:
-    """The most folded queries the tensor-core path takes at widths ``dk``,
-    ``dv``: 16 a warp, as many warps (at most 8) as have their K/V rings fit
-    in shared memory: 128 at dk = dv = 64 and for the mixed widths, 96 at
-    dk = dv = 128."""
-    ring = 2 * TENSOR_CORE_UNIT * (dk + 8 + dv + 8) * 2  # two stages of bf16 K and V rows
-    return 16 * min(TENSOR_CORE_MAX_TILES, TENSOR_CORE_SMEM_BYTES // ring)
-
-
 def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int) -> str:
-    """Which of the kernel's paths takes a call: ``"decode"`` for at most 8
-    folded queries (``ql = G*T``) with ``dk, dv`` in {64, 128}, f32 or bf16;
-    ``"tensor_core"`` for bf16 with ``dk, dv`` in {64, 128} and from one
-    16-row M-tile of folded queries up to :func:`tensor_core_rows`;
-    ``"cuda_core"`` for every other call."""
-    if ql <= DECODE_MAX_ROWS and dk in DECODE_WIDTHS and dv in DECODE_WIDTHS:
-        return "decode"
-    if (dtype == torch.bfloat16 and dk in TENSOR_CORE_WIDTHS and dv in TENSOR_CORE_WIDTHS
-            and 16 <= ql <= tensor_core_rows(dk, dv)):
+    """Which of the kernel's paths takes a call: ``"tensor_core"`` for bf16
+    at ``(dk, dv)`` in ``TENSOR_CORE_WIDTHS`` with at least
+    ``TENSOR_CORE_MIN_ROWS`` folded queries (``ql = G*T``), or at widths
+    the decode path does not take; ``"decode"`` for at most 8 folded
+    queries with ``dk, dv`` in {64, 128}, f32 or bf16; ``"cuda_core"`` for
+    every other call."""
+    decode_widths = dk in DECODE_WIDTHS and dv in DECODE_WIDTHS
+    if (dtype == torch.bfloat16 and (dk, dv) in TENSOR_CORE_WIDTHS
+            and (ql >= TENSOR_CORE_MIN_ROWS or not decode_widths)):
         return "tensor_core"
+    if ql <= DECODE_MAX_ROWS and decode_widths:
+        return "decode"
     return "cuda_core"
+
+
+def tensor_core_plan(batch: int, hkv: int, ql: int, pages_per_slot: int, page_size: int,
+                     sms: int) -> tuple:
+    """``(groups, splits)`` of a tensor-core call on a card of ``sms`` SMs:
+    the row groups the fold of ``ql`` rows is cut into (as few as keep a
+    group at ``TENSOR_CORE_MAX_TILES`` M-tiles, balanced, none empty), and
+    how many blocks share a row's 32-key units (the grid's B x Hkv x groups
+    blocks raised to ``TENSOR_CORE_BLOCKS_PER_SM`` an SM where each split
+    keeps ``TENSOR_CORE_MIN_UNITS`` units of the page table's span, at
+    most ``TENSOR_CORE_MAX_SPLITS``)."""
+    mtiles = -(-ql // 16)
+    tiles = -(-mtiles // -(-mtiles // TENSOR_CORE_MAX_TILES))
+    groups = -(-mtiles // tiles)
+    units = -(-pages_per_slot * page_size // TENSOR_CORE_UNIT)
+    fill = TENSOR_CORE_BLOCKS_PER_SM * sms // (batch * hkv * groups)
+    return groups, max(1, min(fill, units // TENSOR_CORE_MIN_UNITS, TENSOR_CORE_MAX_SPLITS))
 
 
 def decode_plan(batch: int, hkv: int, pages_per_slot: int, page_size: int, dk: int, dv: int,
@@ -118,7 +151,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# The decode path's f32 workspace and int32 counters, one pair per device,
+# The split paths' f32 workspace and int32 counters, one pair per device,
 # grown on demand (see paged_flash_attention_folded).  The lock makes the
 # lookup and the growth one step: worker threads serving on one card at
 # once would otherwise each grow the pair and one of them store a smaller
@@ -187,9 +220,10 @@ def paged_flash_attention_folded(
 ) -> torch.Tensor:  # (B, Hkv, QL, dv)
     """Paged attention of folded queries (see the module docstring).
 
-    On the ``decode`` path with more than one split, the splits' partial
-    softmax states go to an f32 workspace and a per-(row, kv head) int32
-    counter tells the last block of each to merge them; it resets the
+    On the ``decode`` and ``tensor_core`` paths with more than one split,
+    the splits' partial softmax states go to an f32 workspace and a
+    per-(row, kv head) int32 counter (per row group on the tensor-core
+    path) tells the last block of each to merge them; it resets the
     counter to 0.  Workspace and counters are one pair per device, kept
     here and reused by every call, so calls on one device must run on one
     stream (or be ordered between streams by the caller).  Threads may
@@ -231,19 +265,23 @@ def paged_flash_attention_folded(
     if out.numel() == 0:
         return out
     path = kernel_path(q.dtype, ql, dk, dv)
-    splits, round_pages, ws_ptr, counters_ptr = 1, 1, None, None
+    splits, round_pages, groups, ws_ptr, counters_ptr = 1, 1, 1, None, None
+    P = page_table.shape[1]
     if path == "decode":
-        splits, round_pages = decode_plan(b, hkv, page_table.shape[1], page_size, dk, dv,
-                                          q.element_size(), _sm_count(q.device.index))
-        if splits > 1:
-            ws, counters = _decode_buffers(q.device, b * hkv * splits * ql * (dv + 2), b * hkv)
-            ws_ptr, counters_ptr = ws.data_ptr(), counters.data_ptr()
+        splits, round_pages = decode_plan(b, hkv, P, page_size, dk, dv, q.element_size(),
+                                          _sm_count(q.device.index))
+    elif path == "tensor_core":
+        groups, splits = tensor_core_plan(b, hkv, ql, P, page_size, _sm_count(q.device.index))
+    if splits > 1:
+        ws, counters = _decode_buffers(q.device, b * hkv * splits * ql * (dv + 2),
+                                       b * hkv * groups)
+        ws_ptr, counters_ptr = ws.data_ptr(), counters.data_ptr()
     status = _build.library().paged_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        b, hkv, ql, dk, n_pages, page_size, page_table.shape[1], dv_store, dv,
+        b, hkv, ql, dk, n_pages, page_size, P, dv_store, dv,
         tokens_per_row, float(scale), float(softcap), PATHS.index(path), splits, round_pages,
-        ws_ptr, counters_ptr, torch.cuda.current_stream(q.device).cuda_stream,
+        groups, ws_ptr, counters_ptr, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(status, f"paged_attention_fwd ({path} path)")
     _build.count_launch(paged_flash_attention_folded, path)

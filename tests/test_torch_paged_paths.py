@@ -1,7 +1,10 @@
 """The paged-attention kernel's three paths: which calls take the bf16
 tensor-core path and which the split-KV decode path
 (``flash_decode.kernel_path``), how a decode call is split and streamed
-(``flash_decode.decode_plan``), and the plain version that
+(``flash_decode.decode_plan``), how a tensor-core call is cut into row
+groups and key splits and what its blocks hold in shared memory
+(``flash_decode.tensor_core_plan``, and the C launcher's budget), and
+the plain version that
 ``chip_smoke.py`` holds those paths to, against the reference package
 (its kernel in interpret mode and its oracle) at the paths' shapes, on
 identical numpy inputs, at the f32 (2e-5) and bf16 (2e-2) tolerances."""
@@ -16,10 +19,11 @@ from test_torch_kernels import _paged_case, _run_both, f32, tol
 torch.set_num_threads(1)  # the test workers share the host's cores
 
 
-# The CUDA kernel's tensor-core path takes bf16 chunk-extend with G*T >= 16
-# and dk, dv in {64, 128}; these are its shapes (page sizes 8-32, offsets 0
-# and straddling a page, one and two query groups, a ragged 24-row fold,
-# a softcap), held in the plain version that chip_smoke.py holds it to.
+# The CUDA kernel's tensor-core path takes bf16 folds from
+# TENSOR_CORE_MIN_ROWS rows at dk, dv in {64, 128}, and every bf16 fold at
+# dk = dv = 192; these are its shapes (page sizes 8-32, offsets 0 and
+# straddling a page, one and two query groups, a ragged 24-row fold, a
+# softcap), held in the plain version that chip_smoke.py holds it to.
 TC_CASES = [(g, 16, ps, dk, 0.0) for ps in (8, 16, 32) for dk in (64, 128) for g in (1, 2)]
 TC_CASES += [(1, 16, 16, 64, 30.0), (3, 8, 16, 64, 0.0)]
 
@@ -36,6 +40,32 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
         np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
 
 
+# The dense zoo's folds on the tensor-core path at small sizes: dk 192
+# (nemotron-4-340b's prefill and its 12-row decode fold), a 12-row fold at
+# dk 64, MQA past 128 rows (G 48 x T 4 at Hkv 1: two row groups), and a
+# parked row (every table entry the sentinel) beside rows whose first
+# pages alias one physical page.
+TC_FOLDS = [(2, 1, 16, 16, 192, False), (2, 12, 1, 16, 192, False), (2, 12, 1, 16, 64, False),
+            (1, 48, 4, 16, 128, False), (1, 48, 4, 8, 128, True), (2, 9, 1, 16, 128, True)]
+
+
+@pytest.mark.parametrize("hkv,g,T,ps,dk,parked_aliased", TC_FOLDS)
+def test_paged_attention_tensor_core_folds_vs_reference(hkv, g, T, ps, dk, parked_aliased):
+    q, k, v, table, offs = _paged_case(B=3, T=T, hkv=hkv, g=g, dk=dk, ps=ps, P=64 // ps,
+                                       n_pages=3 * 64 // ps + 2, offsets=[0, ps + 3, 40],
+                                       seed=ps + dk + g)
+    if parked_aliased:
+        table[1] = k.shape[0]  # parked: nothing attendable, zeros out
+        table[2, 0] = table[0, 0]  # aliased first pages
+    assert flash_decode.kernel_path(torch.bfloat16, g * T, dk, dk) == "tensor_core"
+    got, want_kernel, want_ref, port_ref = _run_both(q, k, v, table, offs, dtype="bfloat16")
+    assert got.shape == (3, T, hkv * g, dk)
+    if parked_aliased:
+        assert bool((got[1] == 0).all())
+    for want in (want_kernel, want_ref, port_ref):
+        np.testing.assert_allclose(f32(got), f32(want), **tol("bfloat16"))
+
+
 @pytest.mark.parametrize("dtype,ql,dk,dv,path", [
     (torch.bfloat16, 16, 64, 64, "tensor_core"),     # serve prefill, G 1 x T 16
     (torch.bfloat16, 32, 64, 64, "tensor_core"),     # G 2 x T 16
@@ -44,9 +74,9 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.bfloat16, 16, 128, 64, "tensor_core"),
     (torch.bfloat16, 128, 64, 64, "tensor_core"),    # 8 M-tiles, the most a block takes
     (torch.bfloat16, 128, 64, 128, "tensor_core"),
-    (torch.bfloat16, 96, 128, 128, "tensor_core"),   # 6 M-tiles: the most that fit at 128
-    (torch.bfloat16, 97, 128, 128, "cuda_core"),
-    (torch.bfloat16, 128, 128, 128, "cuda_core"),    # qwen2-72b's prefill, G 8 x T 16
+    (torch.bfloat16, 96, 128, 128, "tensor_core"),   # 6 M-tiles
+    (torch.bfloat16, 97, 128, 128, "tensor_core"),   # the shared stage fits 8 at 128
+    (torch.bfloat16, 128, 128, 128, "tensor_core"),  # qwen2-72b's prefill, G 8 x T 16
     (torch.bfloat16, 1, 64, 64, "decode"),           # decode
     (torch.bfloat16, 8, 128, 128, "decode"),         # GQA decode, G 8
     (torch.bfloat16, 1, 128, 128, "decode"),
@@ -57,13 +87,13 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.float32, 1, 128, 128, "decode"),
     (torch.float32, 8, 64, 64, "decode"),
     (torch.float32, 5, 128, 64, "decode"),           # verify T 5 at G 1
-    (torch.bfloat16, 9, 64, 64, "cuda_core"),        # verify spec_k 8, the reference bench's
+    (torch.bfloat16, 9, 64, 64, "tensor_core"),      # verify spec_k 8, the reference bench's
     (torch.bfloat16, 1, 576, 512, "cuda_core"),      # MLA decode
     (torch.float32, 1, 576, 512, "cuda_core"),
     (torch.bfloat16, 1, 32, 32, "cuda_core"),
     (torch.float32, 16, 128, 128, "cuda_core"),      # f32 chunk-extend
-    (torch.bfloat16, 15, 64, 64, "cuda_core"),
-    (torch.bfloat16, 136, 64, 64, "cuda_core"),
+    (torch.bfloat16, 15, 64, 64, "tensor_core"),
+    (torch.bfloat16, 136, 64, 64, "tensor_core"),    # two row groups
     (torch.bfloat16, 16, 576, 512, "cuda_core"),     # MLA
     (torch.bfloat16, 16, 32, 32, "cuda_core"),
     (torch.bfloat16, 16, 64, 48, "cuda_core"),
@@ -76,31 +106,101 @@ def test_paged_attention_tensor_core_shapes_vs_reference(g, T, ps, dk, softcap):
     (torch.float32, 9, 64, 64, "cuda_core"),         # spec_k 8; its bf16 row is listed earlier
     (torch.bfloat16, 32, 64, 64, "tensor_core"),     # the draft's catch-up chunk
     (torch.float32, 32, 64, 64, "cuda_core"),
+    # the dense zoo: nemotron-4-340b at dk 192 (decode G 12, prefill G 12 x
+    # T 16, a 768-row fold), granite-34b's MQA (G 48 at T 1 and T 16), and
+    # f32 at dk 192 on the CUDA cores
+    (torch.bfloat16, 12, 192, 192, "tensor_core"),
+    (torch.bfloat16, 128, 192, 192, "tensor_core"),
+    (torch.bfloat16, 192, 192, 192, "tensor_core"),
+    (torch.bfloat16, 768, 192, 192, "tensor_core"),
+    (torch.bfloat16, 1, 192, 192, "tensor_core"),
+    (torch.bfloat16, 48, 128, 128, "tensor_core"),
+    (torch.bfloat16, 768, 128, 128, "tensor_core"),
+    (torch.float32, 12, 192, 192, "cuda_core"),
+    (torch.float32, 192, 192, 192, "cuda_core"),
+    (torch.bfloat16, 12, 192, 128, "cuda_core"),     # mixed 192 widths: not instantiated
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
 
 
+def tensor_core_block(tiles, dk, dv, splits=1):
+    """``(wsplits, stages, smem_bytes)`` of a tensor-core block of ``tiles``
+    M-tiles under ``splits`` key splits, as ``csrc/paged_tensor_core.cu``'s
+    ``tc_block`` lays it out: below 4 M-tiles 4 / tiles in-block key
+    splits, halved while two stages of them pass the 200 KiB ring budget;
+    3 stages of one 32-key K and V unit a split (rows padded by 8 bf16), 2
+    where 3 pass it; the ring, or the warps' merge slots or the split
+    merge's weights where larger."""
+    def ring(stages, wsplits):
+        return stages * wsplits * 32 * (dk + 8 + dv + 8) * 2
+
+    wsplits = 1 if tiles >= 4 else 4 // tiles
+    while wsplits > 1 and ring(2, wsplits) > 200 * 1024:
+        wsplits //= 2
+    stages = 2 if wsplits > 1 and ring(3, wsplits) > 200 * 1024 else 3
+    merge = tiles * wsplits * (32 + 16 * dv) * 4 if wsplits > 1 else 0
+    weights = (splits + 1) * tiles * 16 * 4 if splits > 1 else 0
+    return wsplits, stages, max(ring(stages, wsplits), merge, weights)
+
+
 def test_tensor_core_calls_fit_the_blocks_shared_memory():
     """Every call routed to the tensor-core path fits the C launcher's
-    budget (``run_tc``: a warp per M-tile, at most 8, each with a 2-stage
-    ring of 32-key K and V units, rows padded by 8 bf16, or the warps'
-    merge slots, within the H100's 227 KiB a block); the next fold past
-    ``tensor_core_rows`` goes to the CUDA cores.  A call routed past it
-    failed to launch on the card (qwen2-72b's bf16 prefill, G*T 128 at
+    budget (``run_tc``/``tc_block``: a row group of at most 8 M-tiles, a
+    warp each, times the in-block key splits, at most 8 warps; a ring of
+    3 stages, or 2 where 3 pass 200 KiB, of one 32-key K and V unit a split
+    with rows padded by 8 bf16, shared by every warp, or the warps' merge
+    slots or the split merge's weights, within the H100's 227 KiB a
+    block).  The private per-warp rings
+    before it failed to launch qwen2-72b's bf16 prefill (G*T 128 at
     dk = dv = 128: 272 KiB)."""
-    for dk in (64, 128):
-        for dv in (64, 128):
-            rows = flash_decode.tensor_core_rows(dk, dv)
-            assert flash_decode.kernel_path(torch.bfloat16, rows + 1, dk, dv) == "cuda_core"
-            for ql in range(16, rows + 1):
-                assert flash_decode.kernel_path(torch.bfloat16, ql, dk, dv) == "tensor_core"
-                nw = -(-ql // 16)
-                ring = nw * 2 * 32 * (dk + 8 + dv + 8) * 2
-                merge = nw * (32 + 16 * dv) * 4
-                assert nw <= 8 and max(ring, merge) <= 227 * 1024, (ql, dk, dv)
-    assert flash_decode.tensor_core_rows(128, 128) == 96
-    assert flash_decode.tensor_core_rows(64, 64) == flash_decode.tensor_core_rows(64, 128) == 128
+    for dk, dv in flash_decode.TENSOR_CORE_WIDTHS:
+        for ql in range(1, 8 * 16 * 3 + 1):
+            if flash_decode.kernel_path(torch.bfloat16, ql, dk, dv) != "tensor_core":
+                assert ql < flash_decode.TENSOR_CORE_MIN_ROWS and dk != 192, (ql, dk, dv)
+                continue
+            for batch, hkv in ((16, 1), (1, 1), (16, 8)):
+                groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, 256, 16, sms=132)
+                mtiles = -(-ql // 16)
+                tiles = -(-mtiles // groups)  # as run_tc derives it
+                assert tiles <= 8 and (groups - 1) * tiles < mtiles, (ql, groups)
+                wsplits, stages, smem = tensor_core_block(tiles, dk, dv, splits)
+                assert smem <= 227 * 1024 and tiles * wsplits <= 8, (ql, dk, dv)
+    # 8 M-tiles at every width read one shared stage: 51 KiB at 128, 75 KiB at 192
+    assert tensor_core_block(8, 128, 128) == (1, 3, 52224)
+    assert tensor_core_block(8, 192, 192) == (1, 3, 76800)
+    # one M-tile: 4 in-block splits, 3 stages at 64 and 2 at 128 and 192
+    # (a ring of at most 200 KiB)
+    assert tensor_core_block(1, 64, 64) == (4, 3, 110592)
+    assert tensor_core_block(1, 128, 128) == (4, 2, 139264)
+    assert tensor_core_block(1, 192, 192) == (4, 2, 204800)
+    # the split merge's weights: (splits + 1) x the group's rows, f32
+    assert tensor_core_block(8, 64, 64, splits=132)[2] == 133 * 128 * 4
+
+
+@pytest.mark.parametrize("batch,hkv,ql,P,ps,want", [
+    (16, 12, 16, 40, 16, (1, 1)),     # ds-paper-100m's serve prefill: 192 blocks, no split
+    (16, 1, 48, 40, 16, (1, 8)),      # granite-34b's MQA decode: 16 blocks -> 8 splits
+    (16, 1, 768, 40, 16, (6, 1)),     # granite's prefill: 48 M-tiles in 6 groups of 8
+    (16, 8, 128, 40, 16, (1, 1)),     # qwen2-72b's prefill: 8 M-tiles, 128 blocks
+    (16, 8, 12, 40, 16, (1, 1)),      # nemotron-4-340b's decode fold
+    (16, 8, 192, 40, 16, (2, 1)),     # nemotron's prefill: 12 M-tiles in 2 groups of 6
+    (1, 1, 48, 256, 16, (1, 16)),     # MQA G 48 over one row of 4096 keys: the most splits
+    (2, 1, 48, 2, 16, (1, 1)),        # a row of one unit keeps one split
+    (16, 12, 9, 40, 16, (1, 1)),      # verify T 9 at G 1
+    (1, 1, 144, 8, 64, (2, 8)),       # 9 M-tiles: 2 groups (of 5 and 4); 16 units
+    (2, 8, 144, 40, 16, (2, 4)),      # 32 blocks of 9 M-tiles in 2 groups -> 4 splits
+])
+def test_tc_plan(batch, hkv, ql, P, ps, want):
+    groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132)
+    assert (groups, splits) == want
+    mtiles = -(-ql // 16)
+    tiles = -(-mtiles // groups)
+    assert tiles <= flash_decode.TENSOR_CORE_MAX_TILES and (groups - 1) * tiles < mtiles
+    units = -(-P * ps // 32)
+    assert 1 <= splits <= max(1, units)
+    if splits > 1:
+        assert batch * hkv * groups * splits <= 132 and units // splits >= 2 and splits <= 16
 
 
 # The decode path's shapes (G*T <= 8, dk and dv in {64, 128}, f32 and

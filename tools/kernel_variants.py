@@ -1,7 +1,7 @@
 """Design measurements behind the f32 flash kernel, the paged decode path,
 the SSD chunk kernel and RMSNorm, on one CUDA card.
 
-    python3 tools/kernel_variants.py [flash] [decode] [ssd] [rmsnorm] [mma] [ssd_logits]
+    python3 tools/kernel_variants.py [flash] [decode] [tc] [ssd] [rmsnorm] [mma] [ssd_logits]
 
 (no argument: every group).  Each variant is the committed source (its
 ``mma_sm80.cuh`` inlined) with one design choice undone by a text
@@ -18,6 +18,17 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   counts and round sizes (module constants of ``flash_decode``), and
   copies that stream the pages and compute nothing, or stop before the
   splits' merge;
+- the paged tensor-core path (``tc``): the routing boundary against the
+  decode and CUDA-core paths (each forced through
+  ``flash_decode.kernel_path``) at bf16 folds of 5-15 rows (B 16, G 1,
+  Hkv 12, dk 64; G 8 and 12 at Hkv 8, dk 128); the plan's constants
+  (``TENSOR_CORE_BLOCKS_PER_SM``, ``TENSOR_CORE_MIN_UNITS``,
+  ``TENSOR_CORE_MAX_SPLITS``) and plans forced through
+  ``flash_decode.tensor_core_plan`` at the dense zoo's decode and prefill
+  shapes, ds-paper-100m's serve prefill and verify T 9, and over one MQA
+  row of 4096 keys; and the kernel rebuilt with a 112 KiB ring budget
+  instead of 200, the copy as a loop at every width or unrolled at 192
+  too, and 8 warps a block as the target instead of 4;
 - the SSD chunk kernel at mamba2-1.3b's eval shapes (b 8 x nc 4 and b 2 x
   nc 32 chunks of 128, h 64, p 64, n 128) and the serve prefill shape (b
   16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate
@@ -28,10 +39,12 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   stop after C.B^T, or skip Y_diag or the states, for the phases'
   shares; and a zero fill of the f32 outputs (what writing them alone
   takes);
-- RMSNorm at 16 and 256 rows of 768 and 2048 (bf16): up to 8 vectors a
-  lane (a warp a row at these widths) instead of 2; at least 128 threads
-  a row; one warp a block instead of 256 threads; w loaded after the
-  reduction (a second round trip), beside an empty launch;
+- RMSNorm at 16 and 256 rows of 768 and 2048, 16 of 6144 and 8192, 16
+  and 256 of 18432 (bf16): up to 8 vectors a lane (a warp a row at the
+  narrow widths) instead of 2; at least 128 threads a row; one warp a
+  block instead of 256 threads; at most 256 threads a row (a larger
+  per-lane budget: 9 vectors a lane at 18432) instead of 1,024; w loaded
+  after the reduction (a second round trip), beside an empty launch;
 - the ``mma.sync`` ceilings: m16n8k8 TF32 and m16n8k16 bf16 with 4
   independent accumulators a warp and 32 warps an SM;
 - ``ssd_logits`` (not in the default run): mamba2-1.3b's bf16 eval logits
@@ -79,6 +92,14 @@ def source(name: str) -> str:
     return (_build.CSRC / name).read_text().replace('#include "mma_sm80.cuh"\n', header)
 
 
+def paged_source() -> str:
+    """The paged kernel's two sources as one (a variant builds one file):
+    the entry with the CUDA-core and decode paths, then the tensor-core
+    path."""
+    tc = (_build.CSRC / "paged_tensor_core.cu").read_text()
+    return source("paged_attention.cu") + "\n" + tc.replace('#include "mma_sm80.cuh"\n', "")
+
+
 FLASH_EDITS = {
     "one_mtile": [("static constexpr int MT = HD == 64 ? 2 : 1;", "static constexpr int MT = 1;")],
     "cvt_split": [("  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
@@ -100,6 +121,16 @@ DECODE_STOPS = {
                    ("  // 6. the key groups' sums meet", "  return;\n  // 6. the key groups' sums meet")],
     "before_merge": [("  // 7. the last split of (b, h) to finish merges them all",
                       "  return;\n  // 7. the last split of (b, h) to finish merges them all")],
+}
+
+# the paged tensor-core path with one design choice undone
+TC_EDITS = {
+    "ring_112k": [("constexpr size_t kTcRingBudget = 200 * 1024;",
+                   "constexpr size_t kTcRingBudget = 112 * 1024;")],
+    "copy_loop": [("  if constexpr (NC <= 16) {\n#pragma unroll", "  if constexpr (false) {\n#pragma unroll")],
+    "copy_unrolled_192": [("  if constexpr (NC <= 16) {\n#pragma unroll",
+                           "  if constexpr (true) {\n#pragma unroll")],
+    "eight_warps": [("constexpr int kTcWarps = 4;", "constexpr int kTcWarps = 8;")],
 }
 
 SSD_EDITS = {  # name: (edits, the dtypes it is timed in)
@@ -138,6 +169,8 @@ RMSNORM_EDITS = {
     "eight_vectors_a_lane": [("constexpr int kMaxVecPerLane = 2;", "constexpr int kMaxVecPerLane = 8;")],
     "block_of_128_a_row": [("  int t = 32;\n", "  int t = 128;\n")],
     "one_warp_a_block": [("constexpr int kBlockThreads = 256;", "constexpr int kBlockThreads = 32;")],
+    "at_most_256_threads_a_row": [("constexpr int kMaxRowThreads = 1024;",
+                                   "constexpr int kMaxRowThreads = 256;")],
     "w_after_reduction": [("      xv[k] = xr[v];\n      wv[k].load(w, v * kVec);\n", "      xv[k] = xr[v];\n"),
                           ("  const float inv = rsqrtf(ss / (float)D + eps);\n",
                            "  const float inv = rsqrtf(ss / (float)D + eps);\n#pragma unroll\n"
@@ -290,6 +323,115 @@ def decode_variants(libs: dict) -> None:
         c.emit({"what": "empty_launch", "ms": c.time_ms(lambda: torch.cuda._sleep(0))})
 
 
+def _tc_case(label, B, hkv, g, T, dk, offs, P=40):
+    """A bf16 paged call at the given fold and its plain output."""
+    q, kp, vp, table, offt = c.paged_inputs(B=B, hkv=hkv, g=g, T=T, dk=dk, ps=16, P=P,
+                                            offsets=offs, dtype=torch.bfloat16, seed=21)
+    scale = 1.0 / math.sqrt(dk)
+    fn = lambda: flash_decode.paged_flash_attention_folded(  # noqa: E731
+        q, kp, vp, table, offt, tokens_per_row=T, scale=scale)
+    want = flash_decode.paged_flash_attention_folded_plain(q, kp, vp, table, offt,
+                                                           tokens_per_row=T, scale=scale)
+    return fn, want
+
+
+def _checked_ms(what: str, fn, want) -> dict:
+    got = fn()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    c.require(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+              f"{what} misses 2e-2 ({err})")
+    return {"ms": c.time_ms(fn), "max_abs_err": err}
+
+
+def tc_variants(libs: dict) -> None:
+    """The tensor-core path: its routing boundary (paths forced through
+    ``flash_decode.kernel_path``), its plan (the module's constants, and
+    plans forced through ``flash_decode.tensor_core_plan``), no rebuild;
+    then the committed kernel against each of ``TC_EDITS`` in turns, at
+    the dense zoo's and ds-paper-100m's bf16 shapes (B 16)."""
+    rng = np.random.default_rng(3)
+    decode_offs = rng.integers(128, 576, 16).tolist()  # the serve phase's decode offsets
+    prefill_offs = (16 * rng.integers(0, 32, 16)).tolist()
+    real_path, real_plan = flash_decode.kernel_path, flash_decode.tensor_core_plan
+    folds = [(5, 12, 1, 5, 64), (8, 12, 1, 8, 64), (9, 12, 1, 9, 64), (12, 12, 1, 12, 64),
+             (15, 12, 1, 15, 64), (8, 8, 8, 1, 128), (12, 8, 12, 1, 128)]
+    try:
+        for rows, hkv, g, T, dk in folds:
+            fn, want = _tc_case("boundary", 16, hkv, g, T, dk,
+                                [o - T + 1 for o in decode_offs])
+            for path in ("decode", "tensor_core", "cuda_core"):
+                if path == "decode" and rows > flash_decode.DECODE_MAX_ROWS:
+                    continue
+                flash_decode.kernel_path = lambda *_a, p=path: p
+                c.emit({"what": "tc_boundary", "rows": rows, "G": g, "T": T, "dk": dk,
+                        "Hkv": hkv, "path": path,
+                        **_checked_ms(f"{path} at {rows} rows, dk {dk}", fn, want)})
+    finally:
+        flash_decode.kernel_path = real_path
+    consts = ("TENSOR_CORE_BLOCKS_PER_SM", "TENSOR_CORE_MIN_UNITS", "TENSOR_CORE_MAX_SPLITS")
+    committed = {k: getattr(flash_decode, k) for k in consts}
+    shapes = {"granite_decode": (16, 1, 48, 1, 128, decode_offs, 40),
+              "granite_prefill": (16, 1, 48, 16, 128, prefill_offs, 40),
+              "qwen2_prefill": (16, 8, 8, 16, 128, prefill_offs, 40),
+              "nemotron_decode": (16, 8, 12, 1, 192, decode_offs, 40),
+              "nemotron_prefill": (16, 8, 12, 16, 192, prefill_offs, 40),
+              "serve_prefill": (16, 12, 1, 16, 64, prefill_offs, 40),
+              "verify_T9": (16, 12, 1, 9, 64, [o - 8 for o in decode_offs], 40),
+              "mqa_row_4096": (1, 1, 48, 1, 128, [4095], 256)}
+    forced = {"granite_decode": [(1, 1), (1, 4), (1, 8), (1, 16), (3, 2)],
+              "mqa_row_4096": [(1, 16), (1, 32), (1, 64), (3, 16)]}
+    try:
+        for label, (B, hkv, g, T, dk, offs, P) in shapes.items():
+            fn, want = _tc_case(label, B, hkv, g, T, dk, offs, P)
+            for bps, min_units, max_splits in ((1, 2, 16), (2, 2, 16), (1, 1, 16), (1, 4, 16),
+                                               (1, 2, 64)):
+                flash_decode.TENSOR_CORE_BLOCKS_PER_SM = bps
+                flash_decode.TENSOR_CORE_MIN_UNITS = min_units
+                flash_decode.TENSOR_CORE_MAX_SPLITS = max_splits
+                plan = flash_decode.tensor_core_plan(B, hkv, g * T, P, 16, 132)
+                c.emit({"what": "tc_plan", "at": label, "blocks_per_sm": bps,
+                        "min_units": min_units, "max_splits": max_splits, "plan": plan,
+                        **_checked_ms(f"tc plan {plan} at {label}", fn, want)})
+            for k, v in committed.items():
+                setattr(flash_decode, k, v)
+            for plan in forced.get(label, ()):
+                flash_decode.tensor_core_plan = lambda *_a, p=plan: p
+                c.emit({"what": "tc_plan", "at": label, "forced": plan,
+                        **_checked_ms(f"tc plan {plan} at {label}", fn, want)})
+                flash_decode.tensor_core_plan = real_plan
+    finally:
+        for k, v in committed.items():
+            setattr(flash_decode, k, v)
+        flash_decode.tensor_core_plan = real_plan
+    names = ["committed", *TC_EDITS]
+    for n in names:
+        libs[f"tc_{n}"].paged_attention_fwd.argtypes = _build.SIGNATURES["paged_attention_fwd"]
+    lib0 = _build.library()
+    for label, (B, hkv, g, T, dk, offs, P) in shapes.items():
+        if label == "mqa_row_4096":
+            continue
+        fn, want = _tc_case(label, B, hkv, g, T, dk, offs, P)
+        fns, errs = {}, {}
+        for n in names:
+            def run(lib=libs[f"tc_{n}"]):
+                _build._lib = lib
+                try:
+                    return fn()
+                finally:
+                    _build._lib = lib0
+            fns[n] = run
+            got = run()
+            torch.cuda.synchronize()
+            errs[n] = (got.float() - want.float()).abs().max().item()
+            c.require(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+                      f"tc variant {n} misses 2e-2 at {label} ({errs[n]})")
+        ms = in_turns(fns)
+        for n in names:
+            c.emit({"what": "tc_variant", "variant": n, "at": label, "ms": ms[n],
+                    "max_abs_err": errs[n]})
+
+
 def ssd_variants(libs: dict) -> None:
     from repro_torch.kernels.ssd import _DTYPES, ssd_chunk_plain
 
@@ -391,7 +533,8 @@ def rmsnorm_variants(libs: dict) -> None:
     for n in names:
         libs[f"rmsnorm_{n}"].rmsnorm_fwd.argtypes = _build.SIGNATURES["rmsnorm_fwd"]
     gen = torch.Generator(device="cuda").manual_seed(22)
-    for rows, d in ((16, 768), (256, 768), (16, 2048), (256, 2048)):
+    for rows, d in ((16, 768), (256, 768), (16, 2048), (256, 2048), (16, 6144), (16, 8192),
+                    (16, 18432), (256, 18432)):
         x = torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
         w = (torch.randn((d,), generator=gen, device="cuda") + 1.0).bfloat16()
         out = torch.empty_like(x)
@@ -430,7 +573,7 @@ def mma_ceilings(lib) -> None:
                 "tflops": 2 * macs * n_mma / (ms * 1e-3) / 1e12})
 
 
-GROUPS = ("flash", "decode", "ssd", "rmsnorm", "mma", "ssd_logits")
+GROUPS = ("flash", "decode", "tc", "ssd", "rmsnorm", "mma", "ssd_logits")
 
 
 def main() -> int:
@@ -447,10 +590,14 @@ def main() -> int:
         flash = source("flash_attention.cu")
         sources["flash_committed"] = flash
         sources.update({f"flash_{n}": substitute(flash, e) for n, e in FLASH_EDITS.items()})
+    if "decode" in groups or "tc" in groups:
+        paged = paged_source()
     if "decode" in groups:
-        paged = source("paged_attention.cu")
         sources["paged_committed"] = paged
         sources.update({f"paged_{n}": substitute(paged, e) for n, e in DECODE_STOPS.items()})
+    if "tc" in groups:
+        sources["tc_committed"] = paged
+        sources.update({f"tc_{n}": substitute(paged, e) for n, e in TC_EDITS.items()})
     if "ssd" in groups:
         ssd = source("ssd.cu")
         sources["ssd_committed"] = ssd
@@ -465,7 +612,7 @@ def main() -> int:
     _build.library()
     libs = build_all(sources)
     for group, fn in (("flash", flash_variants), ("decode", decode_variants),
-                      ("ssd", ssd_variants), ("rmsnorm", rmsnorm_variants),
+                      ("tc", tc_variants), ("ssd", ssd_variants), ("rmsnorm", rmsnorm_variants),
                       ("ssd_logits", ssd_logits)):
         if group in groups:
             fn(libs)
