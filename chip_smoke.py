@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the serving
 engine (paged and dense caches), training, eval, the SSM family, the
-hybrid family and the dense zoo at full width and prints what it measured.
+hybrid family, the dense zoo and the MoE family (with the rolling
+sliding-window cache) at full width and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -37,7 +38,8 @@ Phases, each printing one JSON line:
   sliding windows, the model layout, and in both dtypes the eval phase's
   shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
   S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
-  and 128, hd 128 and 192), and
+  and 128, hd 128 and 192, and mixtral's hd 128 with a 4096 window over
+  8192 positions), and
   the SSD chunk kernel over the reference's
   sweep, chunks of 1-16 positions, the serve prefill shape with padded
   tokens and idle rows, mamba2's eval shapes, zamba2's (state 64) serve
@@ -65,7 +67,7 @@ Phases, each printing one JSON line:
 - ``profile``: 16 decode dispatches at the serve shape timed on the host
   clock, then 16 more traced with ``torch.profiler``: device busy time,
   idle share against the unprofiled wall time, top device ops;
-- ``spec_parity``: f32, the first 4 of the 12 layers (the depth cut keeps
+- ``spec_parity``: f32, the first 2 of the 12 layers (the depth cut keeps
   its CPU side short), the speculative engines (paged ``ngram`` and
   ``draft``, dense ``ngram``, ``spec_k`` 4: verify at T 5; the draft is
   the same arch from seed 7) and the grouped engine on the card against
@@ -74,7 +76,8 @@ Phases, each printing one JSON line:
   non-speculative paged and dense card engines at that depth, 4
   decode-path paged launches and 9 RMSNorm per verify dispatch, 9 RMSNorm
   per dispatch draft dispatches included, and a draft run that rolls back;
-- ``spec_serve``: bf16, paged, 8 decode-heavy requests of 256 new tokens
+- ``spec_serve``: bf16, paged, 4 of the 12 layers (a depth cut for the
+  time limit), 8 decode-heavy requests of 256 new tokens
   through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9: the
   tensor-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode path):
   tokens/s, dispatches per token, accepted per dispatch, verify dispatch
@@ -88,18 +91,19 @@ Phases, each printing one JSON line:
   commands (``run_ds.main``, ``startCluster --foreground`` so the worker
   threads' launches are counted; no job names a device, so each runs on
   cuda): 2 train spans of 2 steps at 4 x 256 against one direct 4-step
-  span (4 of the 12 layers, a depth cut; losses, parameters at
+  span (2 of the 12 layers, a depth cut; losses, parameters at
   ``train_parity``'s tolerances), 2 eval shards on that checkpoint
-  against direct ``run_eval`` (4 flash and 9 RMSNorm a shard), a static
+  against direct ``run_eval`` (2 flash and 5 RMSNorm a forward), a static
   serve job and a streaming lease of ``parity``'s 6 requests against
   ``parity``'s card engine (tokens, counters; 12 paged and 25 RMSNorm a
   dispatch; the request queue ends empty), two streaming leases of 3
   requests at once on the card (launches the exact sum of both), a seeded
   revocation drill on the ``SimRunner`` (one notice; every request served
   once, checkpoint resumes, tokens equal an uninterrupted run's) and a
-  static ``mamba2-1.3b`` job at 6 of its 48 layers against a direct
-  engine (6 SSD launches a prefill dispatch);
-- ``ds_serve``: ``serve``'s 32 requests in bf16 in one call: the bare
+  static ``mamba2-1.3b`` job at 3 of its 48 layers against a direct
+  engine (3 SSD launches a prefill dispatch);
+- ``ds_serve``: ``serve``'s 32 requests in bf16 at 4 of the 12 layers (a
+  depth cut) in one call: the bare
   engine, the lease payload called directly (no runner) and one streaming
   lease in the foreground, in turns (the queue's, the object store's, the
   engine's and the rest's shares of each foreground lease's wall time,
@@ -121,23 +125,26 @@ Phases, each printing one JSON line:
   empty), and that split again with one page truncated by the chaos
   monkey between the leases (the miss and one fallback counted, tokens
   still equal); 12 paged and 25 RMSNorm launches a dispatch, every
-  hydrated page bit-equal to the publisher's pool page.  bf16 numbers:
+  hydrated page bit-equal to the publisher's pool page.  bf16 numbers (4
+  of the 12 layers):
   ``serve``'s 32 requests behind a shared 256-token system prompt, in
   turns, one unified lease with the store and a prefill lease followed
   by a decode lease: tokens/s, pages and bytes published and hydrated,
   host ms per page by step, the store's share of each lease's wall time,
   peak memory, the split's tokens against the unified lease's (reported);
-- ``train_parity``: full-width f32 training at 2 of the 12 layers (the
+- ``train_parity``: full-width f32 training at 1 of the 12 layers (the
   depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
   the card against the same steps on the CPU from the same weights and
   batches (loss, grad norm, parameters), once as one batch and once as 2
   microbatches with int8 stochastic-rounding accumulation;
-- ``train``: full width in f32, 8 x 512 tokens, 20 steps through the span
+- ``train``: full width in f32 at 2 of the 12 layers (a depth cut), 8 x
+  512 tokens, 20 steps through the span
   runner into a checkpoint, resumed for 2 more and held against an
   uninterrupted 22-step run: losses, step times, tokens/s, peak memory,
   and one step traced with ``torch.profiler``;
-- ``eval``: full-width forward through the eval runner in bf16 and f32
-  at 8 x 512 and 2 x 4096: tokens/s, 12 flash and 25 RMSNorm launches
+- ``eval``: full-width forward (``train``'s 2 layers) through the eval
+  runner in bf16 and f32 at 8 x 512 and 2 x 4096: tokens/s, 2 flash and 5
+  RMSNorm launches
   per forward, logits with the flash kernel against direct attention, a
   traced forward, and the flash kernel timed beside its bound (f32: three
   TF32 passes, its route, with the CUDA-core figure beside it), its plain
@@ -145,12 +152,13 @@ Phases, each printing one JSON line:
 - ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers at d_model
   2048), drawn once from seed 0 on the host during the build, reused
   below;
-- ``ssm_parity``: f32, the first 12 of those layers (the depth cut keeps
-  the CPU side short and pays for the hybrid phases, which run 38
-  full-width mamba2 layers), the dense-cache engine on the card against the same engine
-  on the CPU: equal greedy tokens and counters, 12 SSD launches per
-  prefill dispatch, none per decode dispatch, 13 RMSNorm per dispatch;
-- ``ssm_serve``: bf16, dense cache, 32 requests: tokens/s, per-dispatch
+- ``ssm_parity``: f32, the first 6 of those layers (the depth cut keeps
+  the CPU side short and pays for the later phases), the dense-cache
+  engine on the card against the same engine on the CPU: equal greedy
+  tokens and counters, 6 SSD launches per prefill dispatch, none per
+  decode dispatch, 7 RMSNorm per dispatch;
+- ``ssm_serve``: bf16, dense cache, the first 12 of the 48 layers (a depth
+  cut), 32 requests: tokens/s, per-dispatch
   times, peak memory, 16 decode dispatches traced, the SSD kernel at the
   serve prefill shape and RMSNorm at d = 2048 timed beside their bounds;
 - ``ssm_eval``: the eval runner on a bf16 checkpoint of the same weights
@@ -167,13 +175,14 @@ Phases, each printing one JSON line:
   128 on ``wq``; 1.29 B parameters) from seed 0 on the host during the
   build, ``lora_b``
   drawn non-zero (its reference init is zeros) and said so on a line;
-- ``hybrid_parity``: f32, the first 14 of the 38 layers (two full
-  segments and 2 trailing layers), ``ssm_parity``'s knobs and
+- ``hybrid_parity``: f32, the first 8 of the 38 layers (one full
+  segment and 2 trailing layers), ``ssm_parity``'s knobs and
   ``parity``'s 6 requests, the card against the CPU: equal greedy tokens
-  and counters, 14 SSD launches a prefill dispatch and none a decode one,
-  19 RMSNorm a dispatch all on the one-pass path, no flash or paged
+  and counters, 8 SSD launches a prefill dispatch and none a decode one,
+  11 RMSNorm a dispatch all on the one-pass path, no flash or paged
   launch;
-- ``hybrid_serve``: bf16, ``ssm_serve``'s 32 requests and knobs: tokens/s,
+- ``hybrid_serve``: bf16, the first 14 of the 38 layers (two segments and
+  the trailing 2), ``ssm_serve``'s 32 requests and knobs: tokens/s,
   per-dispatch times, peak memory, the same launches; 16 decode dispatches
   traced and the per-invocation LoRA merge timed alone for its share;
   RMSNorm at 16 and 256 x 4096 and the SSD kernel at state 64 timed;
@@ -195,7 +204,7 @@ Phases, each printing one JSON line:
 - ``zoo_parity``: the dense zoo in f32 (TF32 off), weights drawn on the
   card (``Model.draw``; qwen2-72b's QKV bias drawn non-zero, its reference
   init being zeros), ``parity``'s 6 requests through the paged and the
-  dense engine: granite-34b at 2 layers and qwen2-72b at 1, the card
+  dense engine: granite-34b and qwen2-72b at 1 layer, the card
   against the CPU (a CPU copy of the card's tree); nemotron-4-340b at 1
   layer (51.6 GB in f32), the card's paged engine without its prefix
   cache against its dense engine: equal greedy tokens (the near-tie
@@ -203,11 +212,35 @@ Phases, each printing one JSON line:
   exact by path (``ZOO_PATHS``: e.g. granite's f32 prefill and decode on
   the CUDA-core path), RMSNorm all one-pass;
 - ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
-  granite-34b whole (88 layers), qwen2-72b at 8 and nemotron-4-340b at 2,
-  each freed before the next: tokens/s, dispatch times, peak memory,
-  launches exact by path, a traced decode dispatch, and the paged kernel
-  and RMSNorm at the model's decode and prefill shapes timed beside their
-  bounds, plain versions and library calls.
+  granite-34b at 22 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
+  at 2, each freed before the next: tokens/s, dispatch times, peak
+  memory, launches exact by path, a traced decode dispatch, and the paged
+  kernel and RMSNorm at the model's decode and prefill shapes timed
+  beside their bounds, plain versions and library calls;
+- ``moe_parity``: ``mixtral-8x7b`` at 1 layer in f32 (TF32 off; 1.72 B
+  parameters, 6.9 GB), weights drawn on the card, 16 requests (prompts
+  16-48, 8 new, ``max_batch`` 16) through the dense-cache engine, every
+  prompt ingested one token a decode dispatch (MoE takes no fused
+  prefill), on the card against the same engine on the CPU, under
+  ``capacity`` (5 slots an expert at 16 rows: entries drop, counted) and
+  ``dense``: equal greedy tokens (the near-tie exception), every counter,
+  every dispatch's logits at 1e-4, 3 one-pass RMSNorm a dispatch;
+- ``moe_window``: the same weights, ``dense``, 2 rows decoded one
+  position at a time through 4,608 positions of the 4,224-slot rolling
+  cache: each position's logits against one windowed full forward on the
+  plain chunked path (1e-4) and through the flash kernel (1e-3), and a
+  forward without the window that must miss past position 4096;
+- ``moe_serve``: 8 layers in bf16 (23.8 GB), ``serve``'s 32 requests on
+  the dense cache under ``dense`` (the entry points' default): tokens/s,
+  dispatch times, peak memory, 17 one-pass RMSNorm a dispatch, 8 decode
+  dispatches traced (GEMM and routing device time); a ``capacity`` run's
+  tokens/s beside it;
+- ``moe_eval``: 2 layers over 1 x 8192 tokens, ``dense``: f32 logits
+  with the kernels (flash at hd 128 with the 4096 window, RMSNorm)
+  within 1e-3 of the plain path (chunked attention, plain RMSNorm), 2
+  flash and 5 RMSNorm a forward; bf16 timed and reported; flash at BH 32
+  x 8192 timed in both dtypes beside its bound (the windowed pair count),
+  its plain version and SDPA given the window as a boolean mask.
 
 A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
@@ -658,6 +691,11 @@ def flash_cases():
             cases.append((f"rows192_s1216_{'causal' if causal else 'full'}_{tag}", 2, 1216, 64,
                           64, causal, 0, dtype))
         cases.append((f"rows192_window128_s1216_{tag}", 2, 1216, 64, 64, True, 128, dtype))
+        # mixtral's eval: hd 128, a 4096 window over 8192 positions (tiles
+        # wholly below the window skipped), at a small BH for the plain
+        # version's (BH, S, S) scores
+        cases.append((f"mixtral_hd128_window4096_s8192_{tag}", 2, 8192, 128, 512, True,
+                      MOE_WINDOW, dtype))
     return cases
 
 
@@ -1420,9 +1458,9 @@ def require_verify_launches(eng, paged: bool, path: str, what: str) -> None:
                 f"path and {2 * L + 1} RMSNorm")
 
 
-# The first 4 of ds-paper-100m's 12 layers (target and draft alike): the
+# The first 2 of ds-paper-100m's 12 layers (target and draft alike): the
 # depth cut keeps the CPU side short; the widths and every gate stay.
-SPEC_PARITY_LAYERS = 4
+SPEC_PARITY_LAYERS = 2
 
 
 def phase_spec_parity() -> dict:
@@ -1546,26 +1584,35 @@ def decode_heavy_requests(n_requests: int, max_new: int, seed: int = 11):
             for i in range(n_requests)]
 
 
+# Depth cuts for the script's time limit: spec_serve runs 4 of ds-paper-100m's
+# 12 layers, ds_serve and ds_store's bf16 leases 4, train and eval 2.
+SPEC_SERVE_LAYERS = 4
+DS_SERVE_LAYERS = 4
+TRAIN_LAYERS = 2
 SPEC_SERVE_KW = dict(max_batch=8, max_len=288, prefill_chunk=16, page_size=16,
                      cache_mode="paged")
 SPEC_SERVE_NEW = 256
 
 
 def phase_spec_serve() -> dict:
-    """Full-width ds-paper-100m in bf16, 8 decode-heavy requests of 256 new
+    """Full-width ds-paper-100m in bf16 at its first ``SPEC_SERVE_LAYERS``
+    layers, 8 decode-heavy requests of 256 new
     tokens through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9:
     the tensor-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode
     path): tokens/s, dispatches per token, accepted per dispatch, verify
-    dispatch times, launches by path (12 a verify dispatch on its path),
+    dispatch times, launches by path (one a layer a verify dispatch on its path),
     peak memory, one traced verify tick each, tokens against the plain run
     reported (bf16 verify rounds unlike T sequential decodes: not gated),
     and the paged kernel at the verify shapes."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_decode import kernel_path
     from repro_torch.models import Model, ModelRuntime
     from repro_torch.serving.engine import ServeEngine
 
-    cfg = get_arch("ds-paper-100m")
+    cfg = dataclasses.replace(get_arch("ds-paper-100m"), n_layers=SPEC_SERVE_LAYERS)
+    L = cfg.n_layers
     dtype = torch.bfloat16
     model = Model(cfg, ModelRuntime(dtype=dtype))
     params = init_params(model, 0, "cuda")
@@ -1613,7 +1660,7 @@ def phase_spec_serve() -> dict:
                 f"spec_serve {name}: a request did not finish with {SPEC_SERVE_NEW} tokens in "
                 "the vocab")
         n = eng.dispatches + eng.draft_dispatches
-        require(launches["paged_attention"] == 12 * n and launches["rmsnorm"] == 25 * n,
+        require(launches["paged_attention"] == L * n and launches["rmsnorm"] == (2 * L + 1) * n,
                 f"spec_serve {name}: launches {launches} for {n} dispatches")
         if path is not None:
             require_verify_launches(eng, True, path, f"spec_serve {name}")
@@ -1712,10 +1759,10 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
     return metrics, params
 
 
-# train_parity runs 2 of ds-paper-100m's 12 layers at full width: at all 12
+# train_parity runs 1 of ds-paper-100m's 12 layers at full width: at all 12
 # its CPU side (2 x 2 full-width f32 steps, 135M-element threefry draws)
 # took 55 s on the host of a one-H100 machine, at 4 layers 24.5 s.
-TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_LAYERS = 1
 
 
 def phase_train_parity() -> dict:
@@ -1759,7 +1806,8 @@ def phase_train_parity() -> dict:
     return rec
 
 
-TRAIN_JOB = {"arch": "ds-paper-100m", "run": "smoke", "seq_len": 512, "global_batch": 8}
+TRAIN_JOB = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": TRAIN_LAYERS},
+             "run": "smoke", "seq_len": 512, "global_batch": 8}
 
 
 def phase_train(store_root: Path) -> dict:
@@ -1781,8 +1829,9 @@ def phase_train(store_root: Path) -> dict:
     require(len(first["losses"]) == 20 and all(math.isfinite(x) for x in first["losses"]),
             "the 20 training losses are not all finite")
     require(checkpoint_exists(store, "smoke", 20), "no checkpoint at step 20")
-    require(launches["rmsnorm"] == 20 * 25 and launches["flash_attention"] == 0,
-            f"training launches {launches}: want 25 RMSNorm per step and no flash kernel")
+    norms = 2 * TRAIN_LAYERS + 1
+    require(launches["rmsnorm"] == 20 * norms and launches["flash_attention"] == 0,
+            f"training launches {launches}: want {norms} RMSNorm per step and no flash kernel")
     resumed = run_train_span({**TRAIN_JOB, "start_step": 20, "num_steps": 2}, store,
                              lambda progress=None: None, device="cuda")
     whole = run_train_span({**TRAIN_JOB, "start_step": 0, "num_steps": 22},
@@ -1828,14 +1877,18 @@ def trace_train_step() -> dict:
     return {"what": "f32 train step, 8 x 512 tokens", **trace(one_step, 3, "step")}
 
 
-def flash_work(bh: int, s: int, hd: int, dtype) -> tuple:
+def flash_work(bh: int, s: int, hd: int, dtype, window: int = 0) -> tuple:
     """Bytes (q, k, v read once, out written once) and causal flops
-    (2 * BH * S^2 * hd: QK and PV over the lower triangle)."""
+    (2 * BH * S^2 * hd: QK and PV over the lower triangle; with a window
+    W, 4 * BH * hd over the W (W + 1) / 2 + (S - W) W pairs in it)."""
     item = torch.tensor([], dtype=dtype).element_size()
+    if window and window < s:
+        return 4 * bh * s * hd * item, 4 * bh * hd * (window * (window + 1) // 2
+                                                       + (s - window) * window)
     return 4 * bh * s * hd * item, 2 * bh * s * s * hd
 
 
-def time_flash(bh: int, s: int, dtype, hd: int = 64) -> dict:
+def time_flash(bh: int, s: int, dtype, hd: int = 64, window: int = 0) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -1846,14 +1899,20 @@ def time_flash(bh: int, s: int, dtype, hd: int = 64) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(23)
     q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
-    kern = lambda: flash_attention_bhsd(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: flash_attention_bhsd_plain(q, k, v, causal=True)  # noqa: E731
+    kern = lambda: flash_attention_bhsd(q, k, v, causal=True, window=window)  # noqa: E731
+    plain = lambda: flash_attention_bhsd_plain(q, k, v, causal=True, window=window)  # noqa: E731
     # SDPA takes its fast kernels for (batch, heads, S, hd): the same folded
-    # tensors with a unit batch axis
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q[None], k[None], v[None], is_causal=True)
-    err = check_at_shape(f"flash attention ({bh}x{s})", kern, plain, dtype)
-    nbytes, flops = flash_work(bh, s, hd, dtype)
+    # tensors with a unit batch axis; a window as a boolean mask
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[None], k[None], v[None], attn_mask=mask)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[None], k[None], v[None], is_causal=True)
+    err = check_at_shape(f"flash attention ({bh}x{s}, window {window})", kern, plain, dtype)
+    nbytes, flops = flash_work(bh, s, hd, dtype, window)
     bms, by = bound(nbytes, flops, dtype)
     route = {"bound_route": "bf16 tensor cores, 989 TFLOP/s"}
     if dtype == torch.float32:
@@ -1863,11 +1922,13 @@ def time_flash(bh: int, s: int, dtype, hd: int = 64) -> dict:
                  "bound_ms_cuda_core": bms, "bound_by_cuda_core": by}
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_OPS
         bms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-    return {"shape": {"BH": bh, "S": s, "hd": hd}, "dtype": str(dtype).removeprefix("torch."),
+    return {"shape": {"BH": bh, "S": s, "hd": hd, "window": window},
+            "dtype": str(dtype).removeprefix("torch."),
             "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10),
             "bound_ms": bms, "bound_by": by, **route, "library_ms": time_ms(lib),
-            "library_call": "F.scaled_dot_product_attention(is_causal=True) on the folded "
-                            "tensors viewed as (1, BH, S, hd)"}
+            "library_call": "F.scaled_dot_product_attention on the folded tensors viewed as "
+                            "(1, BH, S, hd), " + ("a boolean window mask" if window
+                                                  else "is_causal=True")}
 
 
 EVAL_SHAPES = ((8, 512), (2, 4096))
@@ -1902,10 +1963,11 @@ def phase_eval(store_root: Path) -> dict:
                            heartbeat_events(events), device="cuda")
             launches = read_launches()
             ms = event_intervals_ms(events)
-            require(launches["flash_attention"] == 12 * n_batches
-                    and launches["rmsnorm"] == 25 * n_batches,
-                    f"eval {name} {b}x{s}: launches {launches}, want 12 flash and 25 RMSNorm "
-                    "per forward")
+            L = base.cfg.n_layers
+            require(launches["flash_attention"] == L * n_batches
+                    and launches["rmsnorm"] == (2 * L + 1) * n_batches,
+                    f"eval {name} {b}x{s}: launches {launches}, want {L} flash and {2 * L + 1} "
+                    "RMSNorm per forward")
             require(math.isfinite(out["loss"]), f"eval {name} {b}x{s}: loss not finite")
             batch = SyntheticLM(base.cfg, DataConfig(seq_len=s, global_batch=b, seed=1234),
                                 device="cuda").batch(0)
@@ -1938,9 +2000,9 @@ def phase_eval(store_root: Path) -> dict:
 DS_CONFIG = {"tasks_per_machine": 1, "cluster_machines": 1, "machine_type": ["sim.large"],
              "machine_price": 1.0, "sqs_message_visibility": 600.0, "max_receive_count": 3,
              "check_if_done": False}
-# The train spans and eval shards run the first 4 of ds-paper-100m's 12
+# The train spans and eval shards run the first 2 of ds-paper-100m's 12
 # layers at full width (a depth cut for the script's time limit)
-DS_TRAIN_LAYERS = 4
+DS_TRAIN_LAYERS = 2
 DS_TRAIN = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": DS_TRAIN_LAYERS},
             "seq_len": 256, "global_batch": 4}
 # parity's engine knobs as a distributed-serve job (no "device": it runs on cuda)
@@ -1950,9 +2012,9 @@ DS_SERVE_F32 = {"arch": "ds-paper-100m", "max_new_tokens": 24, "max_batch": 4, "
 DS_DRILL = {"arch": "ds-paper-100m", "max_new_tokens": 12, "max_len": 32, "max_batch": 2,
             "prefill_chunk": 4, "cache_mode": "paged", "page_size": 8, "prefix_cache": True}
 DS_TICK = 30.0
-# ds_parity's mamba2 job runs 6 of the 48 layers: the depth cut saves most
+# ds_parity's mamba2 job runs 3 of the 48 layers: the depth cut saves most
 # of the full-width seed draw's time
-DS_SSM_LAYERS = 6
+DS_SSM_LAYERS = 3
 
 
 def ds_commands(workdir: Path, app: str, config: dict, job: dict, *, foreground: bool = True):
@@ -2542,18 +2604,17 @@ def phase_ds_serve(root: Path) -> dict:
     import os
     import threading
 
-    from repro_torch.configs import get_arch
     from repro_torch.core import LogGroup, MetricRegistry, WallClock, WorkerContext
     from repro_torch.core.storage import ObjectStore
     from repro_torch.launch import run_ds, serve
     from repro_torch.serving.engine import Request, ServeEngine
 
     t_phase = time.perf_counter()
-    cfg = get_arch("ds-paper-100m")
+    job = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": DS_SERVE_LAYERS},
+           "dtype": "bfloat16", "max_new_tokens": 64, "max_batch": 16, "max_len": 640,
+           "prefill_chunk": 16, "cache_mode": "paged", "page_size": 16}
+    cfg = serve._cached_model(job).cfg
     L = cfg.n_layers
-    job = {"arch": "ds-paper-100m", "dtype": "bfloat16", "max_new_tokens": 64,
-           "max_batch": 16, "max_len": 640, "prefill_chunk": 16, "cache_mode": "paged",
-           "page_size": 16}
     kw = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16, cache_mode="paged")
     reqs = serve_requests(cfg.vocab_size)
     bodies = [{"uid": r.uid, "prompt": r.prompt, "max_new_tokens": 64} for r in reqs]
@@ -2741,7 +2802,8 @@ def phase_ds_serve(root: Path) -> dict:
 
 # ------------------------------------------------------------------ the prefix store
 DS_STORE_F32 = {**DS_SERVE_F32, "prefix_store": True, "prefix_store_namespace": "ds_store/f32"}
-DS_STORE_BF16 = {"arch": "ds-paper-100m", "dtype": "bfloat16", "max_new_tokens": 64,
+DS_STORE_BF16 = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": DS_SERVE_LAYERS},
+                 "dtype": "bfloat16", "max_new_tokens": 64,
                  "max_batch": 16, "max_len": 896, "prefill_chunk": 16, "cache_mode": "paged",
                  "page_size": 16, "prefix_store": True, "prefix_store_namespace": "ds_store/bf16"}
 STORE_COUNTERS = ("prefix_store_pages_published", "prefix_store_pages_hydrated",
@@ -2977,11 +3039,11 @@ def phase_ds_store(root: Path, plain: dict) -> dict:
            "f32": {}, "bf16": {"unified": [], "split": []}}
     total: dict = {}
 
-    def gate_launches(what, launches, dispatches):
+    def gate_launches(what, launches, dispatches, L=L):
         require(launches["paged_attention"] == L * dispatches
                 and launches["rmsnorm"] == (2 * L + 1) * dispatches,
-                f"ds_store {what}: launches {launches} for {dispatches} dispatches, want 12 "
-                "paged and 25 RMSNorm a dispatch")
+                f"ds_store {what}: launches {launches} for {dispatches} dispatches, want {L} "
+                f"paged and {2 * L + 1} RMSNorm a dispatch")
         return {k: v for k, v in launches.items() if v}
 
     # -- f32: two static jobs sharing a 32-token system prompt
@@ -3154,7 +3216,7 @@ def phase_ds_store(root: Path, plain: dict) -> dict:
                "page_bytes": out["page_bytes"], "total_pages": out["total_pages"],
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                "store": timers.record(wall),
-               "launches": gate_launches(name, launches, out["dispatches"])}
+               "launches": gate_launches(name, launches, out["dispatches"], model.cfg.n_layers)}
         return run, launches
 
     for turn in range(2):
@@ -3237,8 +3299,7 @@ def init_params(model, seed: int, device):
     the model's dtype at each call (several phases start from the same
     seed-0 weights; ``Model.init`` draws them in f32 and casts alike)."""
     from repro_torch.models import Model, ModelRuntime
-
-    from repro_torch.models.ssm import FP32_PARAMS
+    from repro_torch.models.weights import FP32_PARAMS
     from repro_torch.tree import tree_map_with_path
 
     key = (model.cfg, seed)
@@ -3253,8 +3314,9 @@ def init_params(model, seed: int, device):
 
 def cast_params(params, dtype, device):
     """The tree on ``device`` in ``dtype``, the SSM's A_log, D and dt_bias
-    kept float32 (as in the reference and ``Model.init``)."""
-    from repro_torch.models.ssm import FP32_PARAMS
+    and a MoE's router kept float32 (as in the reference and
+    ``Model.init``)."""
+    from repro_torch.models.weights import FP32_PARAMS
     from repro_torch.tree import tree_map_with_path
 
     return tree_map_with_path(
@@ -3263,9 +3325,25 @@ def cast_params(params, dtype, device):
         params)
 
 
-# The first 12 of mamba2-1.3b's 48 layers: the depth cut keeps the CPU side
-# short and pays for the hybrid phases; ssm_serve and ssm_eval run all 48.
-SSM_PARITY_LAYERS = 12
+def first_layers(cfg, params, n: int) -> tuple:
+    """The model cut to its first ``n`` layers: the config and the tree
+    (a hybrid's stacked LoRA cut to the invocations those layers run)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, n_layers=n)
+    params = {**params, "layers": params["layers"][:n]}
+    if "lora_a" in params.get("shared", {}):
+        n_inv, shared = n // cfg.shared_attn_every, params["shared"]
+        params["shared"] = {**shared, "lora_a": shared["lora_a"][:n_inv],
+                            "lora_b": shared["lora_b"][:n_inv]}
+    return cfg, params
+
+
+# The first 6 of mamba2-1.3b's 48 layers: the depth cut keeps the CPU side
+# short and pays for the later phases; ssm_serve runs 12, ssm_eval
+# all 48.
+SSM_PARITY_LAYERS = 6
+SSM_SERVE_LAYERS = 12
 
 
 def phase_ssm_parity(cfg, params_cpu) -> dict:
@@ -3276,14 +3354,11 @@ def phase_ssm_parity(cfg, params_cpu) -> dict:
     ``phase_parity``) and counters; an SSD launch a layer a prefill
     dispatch, none a decode dispatch, an RMSNorm a layer and ``ln_f`` a
     dispatch.  ``hybrid_parity`` runs 38 full-width mamba2 layers so."""
-    import dataclasses
-
     from repro_torch.models import Model, ModelRuntime
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(cfg, n_layers=SSM_PARITY_LAYERS)
-    params_cpu = {**params_cpu, "layers": params_cpu["layers"][:SSM_PARITY_LAYERS]}
+    cfg, params_cpu = first_layers(cfg, params_cpu, SSM_PARITY_LAYERS)
     model = Model(cfg, ModelRuntime(dtype=torch.float32))
     kw = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
     params_gpu = cast_params(params_cpu, torch.float32, "cuda")
@@ -3571,11 +3646,13 @@ def hybrid_weights():
 
 
 HYBRID_KW = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
-# The first 14 of zamba2-1.2b's 38 layers: two full segments of 6 (the shared
-# block's first two invocations) and 2 trailing layers past the last one, so
-# _shared_at's trailing rule still runs; the depth cut keeps the CPU side short.
-# hybrid_serve, hybrid_static and hybrid_eval run all 38.
-HYBRID_PARITY_LAYERS = 14
+# The first 8 of zamba2-1.2b's 38 layers: one full segment of 6 (the shared
+# block's first invocation) and 2 trailing layers past it, so _shared_at's
+# trailing rule still runs; the depth cut keeps the CPU side short.
+# hybrid_serve runs 14 (two segments and the 2 trailing layers),
+# hybrid_static and hybrid_eval all 38.
+HYBRID_PARITY_LAYERS = 8
+HYBRID_SERVE_LAYERS = 14
 
 
 def phase_hybrid_parity(cfg, params_cpu) -> dict:
@@ -3585,18 +3662,11 @@ def phase_hybrid_parity(cfg, params_cpu) -> dict:
     ``parity``'s 6 requests: equal greedy tokens (the near-tie exception of
     ``phase_parity``) and counters, the exact launches of
     ``require_hybrid_launches``."""
-    import dataclasses
-
     from repro_torch.models import Model, ModelRuntime
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(cfg, n_layers=HYBRID_PARITY_LAYERS)
-    n_inv = cfg.n_layers // cfg.shared_attn_every
-    shared = params_cpu["shared"]
-    params_cpu = {**params_cpu, "layers": params_cpu["layers"][:cfg.n_layers],
-                  "shared": {**shared, "lora_a": shared["lora_a"][:n_inv],
-                             "lora_b": shared["lora_b"][:n_inv]}}
+    cfg, params_cpu = first_layers(cfg, params_cpu, HYBRID_PARITY_LAYERS)
     model = Model(cfg, ModelRuntime(dtype=torch.float32))
     params_gpu = cast_params(params_cpu, torch.float32, "cuda")
     reset_launches()
@@ -4003,12 +4073,12 @@ def phase_hybrid_static(cfg, params, root: Path) -> dict:
 ZOO_ARCHS = ("granite-34b", "qwen2-72b", "nemotron-4-340b")
 ZOO_SEED = 0  # of the card's generator: zoo weights are drawn on the card (Model.draw)
 ZOO_BIAS_STD = 0.5  # qwen2's bq/bk/bv drawn non-zero: q, k and v are ~N(0, 1) at init
-# Depth cuts, never widths.  zoo_parity in f32: granite-34b at 2 layers and
-# qwen2-72b at 1 (card and CPU copies), nemotron-4-340b at 1 (51.6 GB, on
-# the card only).  zoo_serve in bf16: granite-34b whole (88 layers, 63.3 GiB),
-# qwen2-72b at 8 (17.8 GiB), nemotron-4-340b at 2 (30.4 GiB).
-ZOO_PARITY_LAYERS = {"granite-34b": 2, "qwen2-72b": 1, "nemotron-4-340b": 1}
-ZOO_SERVE_LAYERS = {"granite-34b": 88, "qwen2-72b": 8, "nemotron-4-340b": 2}
+# Depth cuts, never widths.  zoo_parity in f32: granite-34b and qwen2-72b at
+# 1 layer (card and CPU copies), nemotron-4-340b at 1 (51.6 GB, on the card
+# only).  zoo_serve in bf16: granite-34b at 22 of its 88 layers, qwen2-72b at
+# 8 (17.8 GiB), nemotron-4-340b at 2 (30.4 GiB).
+ZOO_PARITY_LAYERS = {"granite-34b": 1, "qwen2-72b": 1, "nemotron-4-340b": 1}
+ZOO_SERVE_LAYERS = {"granite-34b": 22, "qwen2-72b": 8, "nemotron-4-340b": 2}
 # The paged kernel's path of a decode dispatch (T 1) and of a prefill one
 # (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
 ZOO_PATHS = {
@@ -4347,6 +4417,422 @@ def phase_zoo_serve() -> dict:
     return recs
 
 
+# ------------------------------------------------------------------ the MoE family
+MOE_ARCH = "mixtral-8x7b"
+MOE_WINDOW = 4096  # mixtral-8x7b's sliding window
+# Depth cuts, never widths: mixtral-8x7b whole is 46.7 B parameters (93.4 GB
+# in bf16).  moe_parity and moe_window in f32 at 1 layer (1.72 B, 6.9 GB on
+# the card and again on the host for parity), moe_eval at 2 (3.17 B, 12.7 GB
+# in f32), moe_serve in bf16 at 8 (11.88 B, 23.8 GB).  Weights are drawn on
+# the card (``zoo_weights``: Model.draw from ZOO_SEED).
+MOE_PARITY_LAYERS = 1
+MOE_EVAL_LAYERS = 2
+MOE_SERVE_LAYERS = 8
+MOE_PARITY_KW = dict(max_batch=16, max_len=128, prefill_chunk=16, cache_mode="dense")
+MOE_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, cache_mode="dense")
+MOE_WINDOW_POSITIONS = 4608  # past the rolling cache's 4,224 slots and the window
+MOE_EVAL_TOKENS = 8192
+MOE_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches", "steps_executed",
+                "tokens_emitted", "prompt_tokens_ingested", "preemptions", "tokens_discarded",
+                "peak_cache_bytes")
+MOE_TRACE_TICKS = 8
+# device ops of a MoE decode dispatch by what they do (substrings of their
+# names); the softmax count includes attention's, so routing is an upper bound
+MOE_GEMM_OPS = ("gemm", "gemv", "nvjet")
+MOE_ROUTING_OPS = ("softmax", "sort", "Sort", "scatter")
+
+
+def moe_model(layers: int, dtype, strategy: str = "dense"):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+
+    cfg = dataclasses.replace(get_arch(MOE_ARCH), n_layers=layers)
+    return Model(cfg, ModelRuntime(dtype=dtype, moe_strategy=strategy))
+
+
+def moe_parity_requests(vocab: int):
+    """16 greedy requests, prompts of 16-48 tokens, 8 new each."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(4)
+    return [Request(uid=f"m{i}", prompt=rng.integers(1, vocab, int(n)).tolist(),
+                    max_new_tokens=8)
+            for i, n in enumerate(rng.integers(16, 49, 16))]
+
+
+def require_moe_launches(cfg, launches: dict, dispatches: int, what: str, flash: int = 0) -> None:
+    """A MoE run's exact launches: 2 L + 1 RMSNorm a dispatch or forward,
+    every one on the one-pass path (4096 is compiled into it), ``flash``
+    flash launches, no paged or SSD launch (a windowed cache is never
+    paged; the expert products are plain GEMMs, as in the reference)."""
+    want = (2 * cfg.n_layers + 1) * dispatches
+    require(launches["rmsnorm"] == want == launches["rmsnorm_one_pass"],
+            f"{what}: rmsnorm launched {launches['rmsnorm']} times "
+            f"({launches['rmsnorm_one_pass']} one-pass), want {want}, all one-pass")
+    require(launches["flash_attention"] == flash and launches["paged_attention"] == 0
+            and launches["ssd"] == 0,
+            f"{what}: launches {launches}, want {flash} flash and no paged or SSD")
+
+
+@contextlib.contextmanager
+def counting_drops(cfg):
+    """A context in which the MoE router also counts, call by call, the
+    entries the capacity paths drop (kept on the card until read)."""
+    from repro_torch.models import moe
+
+    counts: list = []
+
+    def wrap(real):
+        def route(p, x, top_k):
+            gates, ids = real(p, x, top_k)
+            per_expert = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+            counts.append((per_expert - moe.capacity(ids.shape[0], cfg)).clamp(min=0).sum())
+            return gates, ids
+        return route
+
+    with patched(moe, "route", wrap):
+        yield counts
+
+
+def phase_moe_parity() -> tuple:
+    """mixtral-8x7b at 1 layer in f32 (TF32 off), weights drawn on the
+    card: the dense-cache engine on the card against the same engine on a
+    CPU copy of the tree, 16 requests at ``max_batch`` 16, prompts ingested
+    one token a decode dispatch, under ``capacity`` (5 slots an expert at
+    16 rows, so entries drop; the count is required above 0) and
+    ``dense``: equal greedy tokens (the near-tie exception), every engine
+    counter, every dispatch's logits at parity's 1e-4, RMSNorm launches
+    exact.  Returns the card's tree for ``moe_window``."""
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = moe_model(MOE_PARITY_LAYERS, torch.float32)
+    cfg = base.cfg
+    params, weights = zoo_weights(base)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    rec = {"phase": "moe_parity", "arch": cfg.name, "dtype": "float32", "weights": weights,
+           "against": "the same engine on the CPU", "requests": 16,
+           "knobs": MOE_PARITY_KW, "strategies": {}}
+    for strategy in ("capacity", "dense"):
+        model = Model(cfg, ModelRuntime(dtype=torch.float32, moe_strategy=strategy))
+        reset_launches()
+        counting = counting_drops(cfg) if strategy == "capacity" else contextlib.nullcontext([])
+        with counting as drops:
+            gpu, gpu_s, gpu_calls = run_recorded(model, params, moe_parity_requests(cfg.vocab_size),
+                                                 "cuda", **MOE_PARITY_KW)
+            dropped = int(sum(int(c) for c in drops))
+        launches = read_launches()
+        cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu,
+                                             moe_parity_requests(cfg.vocab_size), "cpu",
+                                             **MOE_PARITY_KW)
+        what = f"moe_parity {strategy}, card against CPU"
+        divs = compare_greedy(model, params_cpu, gpu, cpu, what)
+        counters = compare_counters(gpu, cpu, what, MOE_COUNTERS)
+        logits = compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what)
+        require_moe_launches(cfg, launches, gpu.dispatches, what)
+        require(gpu.prefill_dispatches == 0, f"{what}: a MoE prompt took the fused prefill")
+        if strategy == "capacity":
+            require(dropped > 0, f"{what}: no entry was dropped; the capacity drops went untested")
+        rec["strategies"][strategy] = {
+            "tokens_equal": not divs, "divergences": divs, "counters_card_cpu": counters,
+            "logits": logits, "entries_dropped_on_card": dropped if strategy == "capacity" else 0,
+            "launches": launches,
+            "launches_per_dispatch": {k: v / gpu.dispatches for k, v in launches.items()},
+            "card_s": gpu_s, "cpu_s": cpu_s}
+    del params_cpu
+    emit(rec)
+    return rec, params
+
+
+def phase_moe_window(params) -> dict:
+    """The rolling sliding-window cache on the card: mixtral-8x7b at 1 layer
+    in f32 (``dense``: the capacity paths' drops depend on the batch and
+    would differ from a full forward), 2 rows decoded one position at a
+    time through 4,608 positions of a 4,224-slot cache, so it wraps and the
+    4096 window bites.  Each position's logits are held against one full
+    forward of the same tokens on the plain chunked path with the window at
+    parity's 1e-4, and through the flash kernel at 1e-3; a forward without
+    the window must miss the decode logits past position 4096 by more than
+    1e-4 (the fault control: else the gate could not see the window)."""
+    import dataclasses
+
+    from repro_torch.models import Model, ModelRuntime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = moe_model(MOE_PARITY_LAYERS, torch.float32)
+    cfg, n, vocab = model.cfg, MOE_WINDOW_POSITIONS, model.cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(1, vocab, (2, n), generator=gen, device="cuda")
+    cache = model.init_cache(2, n, device="cuda")
+    slots = cache["k"].shape[2]
+    require(cfg.sliding_window < slots < n,
+            f"moe_window: {slots} slots do not roll under {n} positions with window "
+            f"{cfg.sliding_window}")
+    decode = torch.empty((n, 2, vocab), device="cuda")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for pos in range(n):
+            lg, cache = model.decode_step(params, cache, tokens[:, pos:pos + 1],
+                                          torch.full((2,), pos, device="cuda"))
+            decode[pos] = lg[:, 0, :vocab]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_launches()
+    require_moe_launches(cfg, launches, n, "moe_window decode")
+    decode = decode.transpose(0, 1)  # (2, n, vocab)
+    del cache
+
+    def forward(window: int, impl: str) -> torch.Tensor:
+        m = Model(dataclasses.replace(cfg, sliding_window=window),
+                  ModelRuntime(dtype=torch.float32, attn_impl=impl, moe_strategy="dense"))
+        with torch.no_grad():
+            return m.forward(params, tokens)[..., :vocab]
+
+    w, tol_plain, tol_kernel = cfg.sliding_window, PARITY_RTOL, EVAL_LOGIT_TOL[torch.float32]
+    plain = forward(w, "chunked")
+    gate_plain = worst_over(decode, plain, tol_plain)
+    plain_err = (decode - plain).abs().max().item()
+    del plain
+    reset_launches()
+    kern = forward(w, "kernel")
+    kernel_launches = read_launches()
+    gate_kernel = worst_over(decode, kern, tol_kernel)
+    kernel_err = (decode - kern).abs().max().item()
+    del kern
+    unwindowed = forward(0, "chunked")
+    control = {"tol": tol_plain,
+               "worst_over_tol_before_window": worst_over(decode[:, :w], unwindowed[:, :w],
+                                                          tol_plain),
+               "worst_over_tol_past_window": worst_over(decode[:, w:], unwindowed[:, w:],
+                                                        tol_plain)}
+    del unwindowed
+    rec = {"phase": "moe_window", "arch": cfg.name, "dtype": "float32", "layers": cfg.n_layers,
+           "rows": 2, "positions": n, "cache_slots": slots, "window": w,
+           "decode_s": decode_s, "decode_ms_per_position": decode_s * 1e3 / n,
+           "decode_launches": launches,
+           "decode_vs_chunked_forward": {"tol": tol_plain, "max_abs_err": plain_err,
+                                         "worst_over_tol": gate_plain},
+           "decode_vs_flash_forward": {"tol": tol_kernel, "max_abs_err": kernel_err,
+                                       "worst_over_tol": gate_kernel,
+                                       "launches": kernel_launches},
+           "control_forward_without_window": control}
+    emit(rec)
+    require(gate_plain <= 1.0, f"moe_window: decode logits {gate_plain}x past {tol_plain} of the "
+            "windowed chunked forward")
+    require(gate_kernel <= 1.0, f"moe_window: decode logits {gate_kernel}x past {tol_kernel} of "
+            "the windowed flash forward")
+    require_moe_launches(cfg, kernel_launches, 1, "moe_window flash forward", flash=cfg.n_layers)
+    require(control["worst_over_tol_past_window"] > 1.0,
+            "moe_window: a forward without the window matches the decode past position "
+            f"{w}; the gate cannot see the window")
+    return rec
+
+
+def phase_moe_serve() -> dict:
+    """mixtral-8x7b at 8 layers in bf16 on the dense (rolling-capable)
+    cache, ``dense`` as the entry points default: ``serve``'s 32 requests
+    (prompts 128-512, 64 new, ``max_batch`` 16), every prompt ingested one
+    token a decode dispatch (MoE takes no fused prefill, as in the
+    reference): tokens/s, dispatch times, peak memory, 17 one-pass RMSNorm
+    a dispatch; one ``capacity`` run's tokens/s beside it (reported: its
+    drops make other tokens); 8 decode dispatches traced (GEMM and routing
+    device time)."""
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    dtype = torch.bfloat16
+    t_phase = time.perf_counter()
+    model = moe_model(MOE_SERVE_LAYERS, dtype)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 20 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **MOE_SERVE_KW)
+    reqs = serve_requests(cfg.vocab_size)
+    eng = ServeEngine(model, params, device="cuda", **MOE_SERVE_KW)
+    eng._decode = DispatchTimer(eng._decode)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []  # host clock: each step syncs on its sampled tokens
+    t0 = time.perf_counter()
+    while eng.pending or eng.scheduler.has_active():
+        t_step = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    outs = {r.uid: r.output for r in eng.finished}
+    require(len(outs) == len(reqs), "moe_serve: not every request finished")
+    require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+            "moe_serve: a request emitted a wrong number of tokens or an id outside the vocab")
+    require(eng.prefill_dispatches == 0, "moe_serve: a MoE prompt took the fused prefill")
+    require_moe_launches(cfg, launches, eng.dispatches, "moe_serve")
+    d = eng.dispatches
+    rec = {
+        "phase": "moe_serve", "arch": cfg.name, "dtype": "bfloat16", "weights": weights,
+        "moe_strategy": "dense", "cache_mode": "dense", "cache_slots": eng.cache["k"].shape[2],
+        "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "max_new_tokens": 64, "max_batch": 16, "wall_s": wall,
+        "tokens_emitted": eng.tokens_emitted, "tokens_per_s": eng.tokens_emitted / wall,
+        "dispatches": d, "decode_dispatches": eng.decode_dispatches,
+        "dispatch_wall_ms": summary(step_ms),
+        "decode_dispatch_device_span_ms": summary(eng._decode.ms()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_cache_bytes": eng.peak_cache_bytes, "launches": launches,
+        "launches_per_dispatch": {k: v / d for k, v in launches.items()},
+    }
+    del eng
+    capacity = Model(cfg, ModelRuntime(dtype=dtype, moe_strategy="capacity"))
+    reset_launches()
+    cap_eng, cap_wall = run_engine(capacity, params, serve_requests(cfg.vocab_size), "cuda",
+                                   **MOE_SERVE_KW)
+    cap_launches = read_launches()
+    require_moe_launches(cfg, cap_launches, cap_eng.dispatches, "moe_serve capacity")
+    cap_outs = {r.uid: r.output for r in cap_eng.finished}
+    require(len(cap_outs) == len(reqs), "moe_serve capacity: not every request finished")
+    rec["capacity"] = {
+        "wall_s": cap_wall, "tokens_per_s": cap_eng.tokens_emitted / cap_wall,
+        "dispatches": cap_eng.dispatches, "launches": cap_launches,
+        "tokens_equal_to_dense": sum(a == b for u in outs
+                                     for a, b in zip(outs[u], cap_outs[u])),
+        "tokens_compared": sum(len(o) for o in outs.values())}
+    del cap_eng
+    # where a decode dispatch's time goes: 16 rows deep in their prompts
+    rng = np.random.default_rng(5)
+    eng = ServeEngine(model, params, device="cuda", **MOE_SERVE_KW)
+    eng.submit([Request(uid=f"q{i}", prompt=rng.integers(1, cfg.vocab_size, 256).tolist(),
+                        max_new_tokens=64) for i in range(16)])
+    for _ in range(4):
+        eng.step()
+    d0 = eng.decode_dispatches
+    profile = trace(eng.step, MOE_TRACE_TICKS, "dispatch",
+                    watch=MOE_GEMM_OPS + MOE_ROUTING_OPS + ("rmsnorm_row_kernel",))
+    require(eng.decode_dispatches - d0 == 2 * MOE_TRACE_TICKS,
+            "moe_serve: traced ticks were not all decode dispatches")
+    watched = profile["watched_ops"]
+    profile["gemm_ms_per_dispatch"] = sum(watched[w]["ms_per_dispatch"] for w in MOE_GEMM_OPS)
+    profile["routing_ms_per_dispatch"] = sum(watched[w]["ms_per_dispatch"]
+                                             for w in MOE_ROUTING_OPS)
+    # each dispatch's busy time alone, one traced tick at a time
+    profile["device_busy_ms"] = summary([
+        trace(eng.step, 1, "dispatch")["device_busy_ms_per_dispatch"]
+        for _ in range(MOE_TRACE_TICKS)])
+    rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256", "ticks": MOE_TRACE_TICKS,
+                      **profile}
+    del eng, params
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def plain_rmsnorm(real):
+    """``ops.rmsnorm`` replaced by the kernel's plain version (the eval's
+    plain path: no kernel launched)."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+
+    def norm(x, w, *, eps=1e-5):
+        return rmsnorm_plain(x.reshape(-1, x.shape[-1]), w, eps).reshape(x.shape)
+    return norm
+
+
+def phase_moe_eval() -> dict:
+    """mixtral-8x7b at 2 layers over 1 x 8192 tokens of the eval runner's
+    synthetic stream, ``dense``, weights drawn on the card.  f32 (TF32
+    off): the kernels (flash at hd 128 with the 4096 window, RMSNorm)
+    against the plain path (chunked attention, plain RMSNorm) at the eval
+    gate 1e-3, with exact launches (2 flash, 5 one-pass RMSNorm a forward)
+    and a finite loss.  bf16 on the same weights: timed and reported (its
+    distance from the f32 plain path), finite, launches exact.  Then flash
+    at BH 32 x 8192, hd 128, window 4096 timed in both dtypes beside its
+    bound (the windowed pair count), its plain version and SDPA with the
+    same window as a boolean mask."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    model = moe_model(MOE_EVAL_LAYERS, torch.float32)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    batch = SyntheticLM(cfg, DataConfig(seq_len=MOE_EVAL_TOKENS, global_batch=1, seed=1234),
+                        device="cuda").batch(0)
+    rec = {"phase": "moe_eval", "arch": cfg.name, "weights": weights, "batch": 1,
+           "seq_len": MOE_EVAL_TOKENS, "moe_strategy": "dense", "runs": [], "kernel_times": []}
+
+    def timed_loss(m, p) -> tuple:
+        ms = []
+        for _ in range(2):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            with torch.no_grad():
+                loss = float(m.loss(p, batch)[0])
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e))
+        return loss, min(ms)
+
+    def logits(m, p) -> torch.Tensor:
+        with torch.no_grad():
+            return m.forward(p, batch["tokens"])[..., :cfg.vocab_size]
+
+    plain_rt = dict(attn_impl="chunked", moe_strategy="dense")
+    with patched(ops, "rmsnorm", plain_rmsnorm):
+        witness = logits(Model(cfg, ModelRuntime(**plain_rt)), params)
+    misses = []
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        p = params if dtype == torch.float32 else cast_params(params, dtype, "cuda")
+        kern_model = Model(cfg, ModelRuntime(dtype=dtype, moe_strategy="dense"))
+        reset_launches()
+        kern = logits(kern_model, p)
+        launches = read_launches()
+        require_moe_launches(cfg, launches, 1, f"moe_eval {name}", flash=cfg.n_layers)
+        loss, forward_ms = timed_loss(kern_model, p)
+        require(math.isfinite(loss) and bool(torch.isfinite(kern).all()),
+                f"moe_eval {name}: loss or logits not finite")
+        run = {"dtype": name, "loss": loss, "forward_ms": forward_ms,
+               "tokens_per_s": MOE_EVAL_TOKENS / (forward_ms / 1e3), "launches": launches,
+               "from_f32_plain": {"max": (kern - witness).abs().max().item(),
+                                  "mean": (kern - witness).abs().mean().item()}}
+        if dtype == torch.float32:
+            t = EVAL_LOGIT_TOL[dtype]
+            run["gate"] = {"tol": t, "against_plain_max_abs": run["from_f32_plain"]["max"],
+                           "worst_over_tol": worst_over(kern, witness, t)}
+            if run["gate"]["worst_over_tol"] > 1.0:
+                misses.append(f"f32 kernels against the plain path: {run['gate']}")
+        else:
+            with patched(ops, "rmsnorm", plain_rmsnorm):
+                plain = logits(Model(cfg, ModelRuntime(dtype=dtype, **plain_rt)), p)
+            run["bf16_plain_from_f32_plain"] = {"max": (plain - witness).abs().max().item(),
+                                                "mean": (plain - witness).abs().mean().item()}
+            del plain
+        rec["runs"].append(run)
+        del kern, p
+    del params, witness
+    release_device_memory()
+    for dtype in (torch.bfloat16, torch.float32):  # BH: 1 row of n_heads
+        rec["kernel_times"].append(time_flash(cfg.n_heads, MOE_EVAL_TOKENS, dtype,
+                                              hd=cfg.resolved_head_dim, window=MOE_WINDOW))
+        release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    require(not misses, "moe_eval: " + "; ".join(misses))
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -4360,12 +4846,13 @@ KERNELS = {
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
                  ds_store: dict, train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict,
                  hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict,
-                 zoo_serve: dict) -> dict:
+                 zoo_serve: dict, moe_serve: dict, moe_eval: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
     spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
     eval, ssm_serve, ssm_eval, the hybrid's static job through the control
-    plane, hybrid_serve, hybrid_eval, each zoo model's serve run: counts
-    set to 0 before each run and read after), the paged kernel's and
+    plane, hybrid_serve, hybrid_eval, each zoo model's serve run,
+    moe_serve's dense and capacity runs, moe_eval's forwards: counts set to
+    0 before each run and read after), the paged kernel's and
     RMSNorm's also by kernel path, its worst error, and its times at its
     first timed shape with the others beside."""
     def total(runs):
@@ -4377,7 +4864,10 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
              "ssm_serve": ssm_serve["launches"], "ssm_eval": total(ssm_eval["runs"]),
              "hybrid_static": hybrid_static["launches"],
              "hybrid_serve": hybrid_serve["launches"], "hybrid_eval": total(hybrid_eval["runs"]),
-             **{f"zoo_serve_{arch}": r["launches"] for arch, r in zoo_serve.items()}}
+             **{f"zoo_serve_{arch}": r["launches"] for arch, r in zoo_serve.items()},
+             "moe_serve": moe_serve["launches"],
+             "moe_serve_capacity": moe_serve["capacity"]["launches"],
+             "moe_eval": total(moe_eval["runs"])}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
                             **spec_serve["kernel_times"]["paged_attention"],
@@ -4392,7 +4882,10 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                                for t in evals["kernel_times"]},
                             **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
                                f"{t['shape']['hd']}": t
-                               for t in hybrid_eval["kernel_times"]["flash_attention"]}},
+                               for t in hybrid_eval["kernel_times"]["flash_attention"]},
+                            **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
+                               f"{t['shape']['hd']}_window{t['shape']['window']}": t
+                               for t in moe_eval["kernel_times"]}},
         "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
                 **ssm_serve["kernel_times"]["ssd"],
                 **{t["at"]: t for t in hybrid_eval["kernel_times"]["ssd"]},
@@ -4487,7 +4980,7 @@ def main() -> int:
         params = cast_params(params_cpu, torch.bfloat16, "cuda")
         del params_cpu
         lap("ssm_parity")
-        ssm_serve = phase_ssm_serve(cfg, params)
+        ssm_serve = phase_ssm_serve(*first_layers(cfg, params, SSM_SERVE_LAYERS))
         lap("ssm_serve")
         ssm_eval = phase_ssm_eval(cfg, params, Path(tmp))
         del params
@@ -4497,7 +4990,7 @@ def main() -> int:
         hparams = cast_params(hparams_cpu, torch.bfloat16, "cuda")
         del hparams_cpu
         lap("hybrid_parity")
-        hybrid_serve = phase_hybrid_serve(hcfg, hparams)
+        hybrid_serve = phase_hybrid_serve(*first_layers(hcfg, hparams, HYBRID_SERVE_LAYERS))
         lap("hybrid_serve")
         save_s = save_hybrid_checkpoint(hparams, Path(tmp))
         hybrid_static = phase_hybrid_static(hcfg, hparams, Path(tmp))
@@ -4510,8 +5003,19 @@ def main() -> int:
     lap("zoo_parity")
     zoo_serve = phase_zoo_serve()
     lap("zoo_serve")
+    _, moe_params = phase_moe_parity()
+    lap("moe_parity")
+    phase_moe_window(moe_params)
+    del moe_params
+    release_device_memory()
+    lap("moe_window")
+    moe_serve = phase_moe_serve()
+    lap("moe_serve")
+    moe_eval = phase_moe_eval()
+    lap("moe_eval")
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
-                      ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve))
+                      ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve,
+                      moe_serve, moe_eval))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,6 +9,7 @@ from repro_torch.configs import (  # noqa: F401
     ds_paper_100m,
     granite_34b,
     mamba2_1p3b,
+    mixtral_8x7b,
     nemotron_4_340b,
     qwen2_72b,
     zamba2_1p2b,

@@ -3,7 +3,7 @@ registry and :func:`reduced` for CPU-sized tests.
 
 A copy of the reference package's ``configs/base.py`` (the port keeps
 its own: it imports nothing of the JAX package), restricted to what the
-port's dense, SSM and hybrid paths read.  Field names, defaults and derived
+port's dense, MoE, SSM and hybrid paths read.  Field names, defaults and derived
 properties are unchanged so a config means the same thing in both
 packages.
 """
@@ -131,14 +131,16 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A tiny same-family config for CPU tests (the reference package's
-    ``reduced`` for the dense, SSM and hybrid families: 2 layers, d_model
-    64, vocab 256; 4 query heads over at most 2 KV heads of 16, or SSM
-    state 16, head width 16 and chunk 16; a hybrid has 4 layers with the
-    shared block every 2 and a LoRA rank of at most 8)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    ``reduced`` for the dense, MoE, SSM and hybrid families: 2 layers,
+    d_model 64, vocab 256; 4 query heads over at most 2 KV heads of 16, or
+    SSM state 16, head width 16 and chunk 16; a MoE has 4 experts of width
+    64, top-k at most 2, at most 1 shared expert and 1 dense layer; a
+    hybrid has 4 layers with the shared block every 2 and a LoRA rank of
+    at most 8; a sliding window becomes 32)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"reduced() is ported for the dense family, the SSM family and the hybrid "
-            f"family only, got {cfg.family!r}"
+            f"reduced() is ported for the dense, MoE, SSM and hybrid families only, "
+            f"got {cfg.family!r}"
         )
     small: Dict = dict(
         n_layers=max(2, cfg.shared_attn_every or 0) * 2 if cfg.family == "hybrid" else 2,
@@ -149,6 +151,10 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         vocab_size=256,
         head_dim=16 if cfg.n_heads else 0,
     )
+    if cfg.family == "moe":
+        small.update(n_experts=4, top_k=min(cfg.top_k, 2), moe_d_ff=64,
+                     n_shared_experts=min(cfg.n_shared_experts, 1),
+                     first_k_dense=min(cfg.first_k_dense, 1))
     if cfg.family in ("ssm", "hybrid"):
         small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16, d_model=64)
     if cfg.shared_attn_every:

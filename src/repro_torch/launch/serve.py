@@ -128,6 +128,7 @@ def _model_key(job: Dict) -> tuple:
     return (
         job.get("arch"),
         _freeze(job.get("arch_overrides")),
+        job.get("moe_strategy", "dense"),
         job.get("dtype", "float32"),
     )
 

@@ -55,7 +55,8 @@ def build_model(job: Dict) -> Model:
         cfg = reduced(cfg)
     elif isinstance(overrides, dict):
         cfg = dataclasses.replace(cfg, **overrides)
-    return Model(cfg, ModelRuntime(dtype=DTYPES[job.get("dtype", "float32")]))
+    return Model(cfg, ModelRuntime(dtype=DTYPES[job.get("dtype", "float32")],
+                                   moe_strategy=job.get("moe_strategy", "dense")))
 
 
 def build_train_step(job: Dict, model: Model):

@@ -110,13 +110,15 @@ def gqa_attention(
     *,
     q_positions: torch.Tensor,  # (B, Sq)
     kv_positions: torch.Tensor,  # (B, Skv)
+    sliding_window: int = 0,  # > 0: keys within the window of the query only
     kv_mask: Optional[torch.Tensor] = None,  # (B, Skv) valid cache slots
     logit_softcap: float = 0.0,
 ) -> torch.Tensor:
     """Causal grouped-query attention over a contiguous cache without
     repeating KV heads (the reference's ``gqa_attention``: fp32 logits,
     optional tanh softcap, ``-1e30`` mask, probabilities in q's dtype).
-    Its sliding-window option waits for a ported path that uses it."""
+    With ``sliding_window`` a key at ``kp`` is seen from ``qp`` only where
+    ``qp - window < kp <= qp``, the reference's mask."""
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -124,7 +126,11 @@ def gqa_attention(
     logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float()) * (1.0 / math.sqrt(hd))
     if logit_softcap > 0:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
-    mask = kv_positions[:, None, None, None, :] <= q_positions[:, None, None, :, None]
+    qp = q_positions[:, None, None, :, None]
+    kp = kv_positions[:, None, None, None, :]
+    mask = kp <= qp
+    if sliding_window > 0:
+        mask = mask & (kp > qp - sliding_window)
     if kv_mask is not None:
         mask = mask & kv_mask[:, None, None, None, :]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))

@@ -1,9 +1,9 @@
-"""The dense decoder, the SSM (mamba2) family and the hybrid (zamba2)
-family: full-sequence forward, loss and the serving path on a paged or a
-dense (per-slot) cache.
+"""The dense decoder, the MoE family (mixtral), the SSM (mamba2) family
+and the hybrid (zamba2) family: full-sequence forward, loss and the
+serving path on a paged or a dense (per-slot) cache.
 
 Counterpart of the reference package's ``models/transformer.py`` for
-the dense, SSM and hybrid families:
+the dense, MoE, SSM and hybrid families:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
@@ -22,13 +22,16 @@ The full-sequence path chooses its attention by ``ModelRuntime``
 ``kernel`` (``ops.flash_attention``, the Hopper flash kernel, forward
 only); an SSM layer chooses its scan by ``resolve_ssd``: the plain
 ``ssm.ssd_chunked`` or ``ops.ssd`` (the Hopper SSD chunk kernel, forward
-only).  Layers run as a Python loop over the per-layer dicts (the
-reference scans stacked layers); remat is not ported.
+only); a MoE layer's feed-forward follows ``moe_strategy``
+(``moe.apply_moe``).  Layers run as a Python loop over the per-layer dicts
+(the reference scans stacked layers); remat is not ported.
 
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
 one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
-{wi, wg, wo}; or for an SSM layer ``ln1`` and ``mixer``, see
-``ssm.mamba2_param_tree``), ``ln_f`` and ``lm_head`` ``(d, Vp)``.  A
+{wi, wg, wo}, or in a MoE layer ``moe`` {router, wi, wg, wo, shared},
+see ``moe.moe_param_tree``, the ``first_k_dense`` dense layers first; or
+for an SSM layer ``ln1`` and ``mixer``, see ``ssm.mamba2_param_tree``),
+``ln_f`` and ``lm_head`` ``(d, Vp)``.  A
 hybrid model adds ``shared``: one transformer block at width ``2 d``
 (``ln1``, ``attn``, ``ln2``, ``mlp``, ``down`` back to ``d``) run before
 each full segment of ``shared_attn_every`` SSM layers, its ``wq`` offset
@@ -39,8 +42,10 @@ reference).
 Caches are stacked over the layers and updated in place (the reference
 returns a new cache pytree); both calls still return the cache so call
 sites read alike.  The paged cache holds ``page_table``, ``k_pages`` and
-``v_pages``; the dense cache ``k``/``v`` ``(L, B, max_len, Hkv, hd)`` for
-the dense family and, for an SSM, ``state``: the conv windows ``(L, B,
+``v_pages``; the dense cache ``k``/``v`` ``(L, B, t, Hkv, hd)`` for the
+attention families (``t = max_len``, or with a sliding window the rolling
+``min(max_len, pad128(window + 1))`` slots written at ``position % t``)
+and, for an SSM, ``state``: the conv windows ``(L, B,
 k-1, c)`` in the model dtype and ``ssm`` ``(L, B, h, p, n)`` in fp32; a
 hybrid adds the shared block's ``shared_k``/``shared_v`` ``(n_inv, B,
 max_len, Hkv, 2d / H)``.
@@ -68,7 +73,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.layers import (
     GATED,
     apply_mlp,
@@ -93,10 +98,13 @@ class ModelRuntime:
     attn_impl: str = "auto"  # auto | direct | chunked | kernel
     attn_chunk: int = 1024
     use_ssd_kernel: Optional[bool] = None  # None = resolve_ssd's rule
+    moe_strategy: str = "capacity"  # dense | capacity | capacity_scatter | shardmap
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in {ATTN_IMPLS}")
+        if self.moe_strategy not in moe.STRATEGIES:
+            raise ValueError(f"moe_strategy {self.moe_strategy!r} not in {moe.STRATEGIES}")
 
     def resolve_attn(self, seq_len: int, *, device=None, grad: bool = False,
                      head_dim: int = 0) -> str:
@@ -225,7 +233,8 @@ def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: Ar
     place, and every query attends to the slots at or before its position;
     slot ``s`` holds ``last - ((last - s) mod t)``, the reference's
     reconstruction (the slot itself while the cache does not wrap; negative
-    = never written).  The heads default to the config's."""
+    = never written), within ``cfg.sliding_window`` of it when there is
+    one.  The heads default to the config's."""
     h, hkv = n_heads or cfg.n_heads, n_kv or cfg.n_kv_heads
     hd = head_dim or cfg.resolved_head_dim
     b, T, _ = x.shape
@@ -240,7 +249,8 @@ def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: Ar
     last = positions[:, -1:]
     kv_pos = last - torch.remainder(last - torch.arange(t, device=x.device)[None, :], t)
     out = gqa_attention(q, cache_k, cache_v, q_positions=positions, kv_positions=kv_pos,
-                        kv_mask=kv_pos >= 0, logit_softcap=cfg.attn_logit_softcap)
+                        sliding_window=cfg.sliding_window, kv_mask=kv_pos >= 0,
+                        logit_softcap=cfg.attn_logit_softcap)
     return out.reshape(b, T, h * hd) @ p["wo"]
 
 
@@ -252,12 +262,19 @@ def _mixer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> 
     return _attn_forward(p["attn"], xn, cfg, rt, positions=positions)
 
 
+def _ffn(p: Params, hn, cfg: ArchConfig, rt: ModelRuntime) -> torch.Tensor:
+    """A layer's feed-forward on its normed input: the MoE (by
+    ``rt.moe_strategy``) where the layer has one, else its MLP."""
+    if "moe" in p:
+        return moe.apply_moe(p["moe"], hn, cfg, rt.moe_strategy)
+    return apply_mlp(p["mlp"], hn, cfg.activation)
+
+
 def _layer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> torch.Tensor:
     h = x + _mixer_apply(p, x, cfg, rt, positions)
     if "ln2" not in p:  # an SSM layer is its mixer alone
         return h
-    hn = apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps)
-    return h + apply_mlp(p["mlp"], hn, cfg.activation)
+    return h + _ffn(p, apply_norm(p["ln2"], h, cfg.norm, cfg.norm_eps), cfg, rt)
 
 
 def _shared_block_apply(p: Params, h, x0, inv: int, cfg: ArchConfig, rt: ModelRuntime,
@@ -291,9 +308,8 @@ class Model:
     def __init__(self, cfg: ArchConfig, runtime: Optional[ModelRuntime] = None):
         unsupported = [
             name for name, on in (
-                (f"family {cfg.family!r}", cfg.family not in ("dense", "ssm", "hybrid")),
+                (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "ssm", "hybrid")),
                 ("MLA", cfg.use_mla),
-                ("sliding-window attention", cfg.sliding_window > 0),
                 ("encoder-decoder", cfg.is_encoder_decoder),
                 ("vision tokens", cfg.n_vision_tokens > 0),
                 ("learned positions", cfg.max_position_embeddings > 0),
@@ -302,7 +318,7 @@ class Model:
         if unsupported:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
-                "(ROADMAP Queue 1: MLA paged, the model zoo)"
+                "(ROADMAP Queue 1: MLA, whisper, internvl)"
             )
         self.cfg = cfg
         self.rt = runtime or ModelRuntime()
@@ -318,7 +334,7 @@ class Model:
         dtype = self.rt.dtype
         rng = np.random.default_rng(seed)
 
-        def normal(shape, std) -> torch.Tensor:
+        def normal(shape, std, dtype=dtype) -> torch.Tensor:
             a = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
             return torch.from_numpy(a).to(device=device, dtype=dtype)
 
@@ -338,7 +354,7 @@ class Model:
         The draws differ from :meth:`init`'s numpy ones."""
         device, dtype = generator.device, self.rt.dtype
 
-        def normal(shape, std) -> torch.Tensor:
+        def normal(shape, std, dtype=dtype) -> torch.Tensor:
             return torch.empty(shape, dtype=dtype, device=device).normal_(
                 0.0, std, generator=generator)
 
@@ -355,7 +371,7 @@ class Model:
         nothing allocated (the counterpart of ``jax.eval_shape(model.init)``)."""
         dtype = self.rt.dtype
 
-        def empty(shape, _) -> torch.Tensor:
+        def empty(shape, _, dtype=dtype) -> torch.Tensor:
             return torch.empty(shape, dtype=dtype, device="meta")
 
         def fp32(a) -> torch.Tensor:
@@ -364,11 +380,12 @@ class Model:
         return self._param_tree(empty, empty, fp32)
 
     def _param_tree(self, normal, const, fp32) -> Params:
-        """The parameter tree, each leaf made by ``normal(shape, std)``,
-        ``const(shape, value)`` (both in the model dtype) or ``fp32(array)``
-        (float32 whatever the model dtype) in a fixed order."""
+        """The parameter tree, each leaf made by ``normal(shape, std,
+        dtype=None)``, ``const(shape, value)`` (both in the model dtype
+        unless named) or ``fp32(array)`` (float32 whatever the model dtype)
+        in a fixed order."""
         cfg = self.cfg
-        d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+        d, hd = cfg.d_model, cfg.resolved_head_dim
         h, hkv, vp = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
         depth_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
 
@@ -381,15 +398,16 @@ class Model:
                 p["b"] = const((width,), 0.0)
             return p
 
-        def mlp(width: int) -> Params:
+        def mlp(width: int, f: int = cfg.d_ff or cfg.moe_d_ff) -> Params:
             p = {"wi": dense(width, f)}
             if cfg.activation in GATED:
                 p["wg"] = dense(width, f)
             p["wo"] = dense(f, width, depth_scale)
             return p
 
+        n_dense = cfg.first_k_dense if cfg.family == "moe" else 0
         params: Params = {"embed": normal((vp, d), 0.02), "layers": []}
-        for _ in range(cfg.n_layers):
+        for i in range(cfg.n_layers):
             if cfg.family in ("ssm", "hybrid"):
                 params["layers"].append({
                     "ln1": norm(),
@@ -402,7 +420,12 @@ class Model:
             if cfg.qkv_bias:
                 attn.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
                             bv=const((hkv * hd,), 0.0))
-            params["layers"].append({"ln1": norm(), "attn": attn, "ln2": norm(), "mlp": mlp(d)})
+            layer = {"ln1": norm(), "attn": attn, "ln2": norm()}
+            if cfg.family == "moe" and i >= n_dense:
+                layer["moe"] = moe.moe_param_tree(cfg, normal, mlp, depth_scale)
+            else:
+                layer["mlp"] = mlp(d)
+            params["layers"].append(layer)
         if cfg.family == "hybrid":  # the reference's _shared_block_init
             d2 = 2 * d
             hd2 = d2 // h
@@ -500,8 +523,9 @@ class Model:
     ) -> Params:
         """Decode cache, stacked over the layers.  Dense (the default): the
         SSM ``state`` (a hybrid's also ``shared_k``/``shared_v`` ``(n_inv,
-        batch, max_len, Hkv, 2d / H)``) or ``k``/``v`` ``(L, batch, max_len,
-        Hkv, hd)``.
+        batch, max_len, Hkv, 2d / H)``) or ``k``/``v`` ``(L, batch, t, Hkv,
+        hd)``, ``t = max_len`` without a sliding window, else the rolling
+        ``min(max_len, pad128(window + 1))`` slots.
         ``paged=True``: ``k_pages``/``v_pages`` ``(L, n_pages, page_size,
         Hkv, hd)`` and a ``page_table`` ``(batch, ceil(max_len /
         page_size))`` int32 whose entries hold the sentinel ``n_pages``
@@ -520,7 +544,9 @@ class Model:
                     cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
                     cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
                 return cache
-            shape = (L, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            window = cfg.sliding_window  # rolling: the window + 1 slots, padded to 128
+            t = max_len if window == 0 else min(max_len, -(-(window + 1) // 128) * 128)
+            shape = (L, batch, t, cfg.n_kv_heads, cfg.resolved_head_dim)
             return {"k": torch.zeros(shape, dtype=dtype, device=device),
                     "v": torch.zeros(shape, dtype=dtype, device=device)}
         if not self.supports_paged_cache:
@@ -617,8 +643,7 @@ class Model:
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
             h = h + _attn_dense_cache(lp["attn"], hn, cache["k"][i], cache["v"][i], positions,
                                       writes, cfg)
-            hn = apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-            h = h + apply_mlp(lp["mlp"], hn, cfg.activation)
+            h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps), cfg, self.rt)
         return h
 
     def _decode_ssm(self, params, cache, h, pos) -> torch.Tensor:
@@ -675,8 +700,7 @@ class Model:
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
             h = h + self._attn_paged(lp["attn"], hn, cache["k_pages"][i],
                                      cache["v_pages"][i], table, positions, slots)
-            hn = apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps)
-            h = h + apply_mlp(lp["mlp"], hn, cfg.activation)
+            h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps), cfg, self.rt)
         return h
 
     def _attn_paged(self, p, x, k_pages, v_pages, table, positions, slots):

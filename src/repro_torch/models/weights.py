@@ -2,7 +2,9 @@
 
 The reference stacks every layer's leaves along a leading ``L`` axis
 (its layers run as a ``lax.scan``); the port keeps ``layers`` as a list
-of per-layer dicts.  Both directions are here:
+of per-layer dicts.  A MoE model's leading dense layers (``first_k_dense``)
+are the reference's separate ``dense_layers`` stack and the head of the
+port's ``layers`` list.  Both directions are here:
 
 - ``to_reference_layout`` / ``from_reference_layout`` restack torch
   trees on their device: parameters, gradients and optimizer states
@@ -24,37 +26,51 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.ssm import FP32_PARAMS
+from repro_torch.models import moe, ssm
 from repro_torch.tree import tree_map, tree_map_with_path
 
 Tree = Any
+FP32_PARAMS = ssm.FP32_PARAMS + moe.FP32_PARAMS  # float32 leaves in every model dtype
+
+
+def _stack(layers: list) -> Tree:
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
 
 
 def to_reference_layout(tree: Tree) -> Tree:
     """Stack the per-layer list of every ``layers`` entry along a new
-    leading axis (the reference's layout); other leaves are shared."""
+    leading axis (the reference's layout); other leaves are shared.  When
+    the list's head differs from its tail (a MoE model's dense layers
+    before its MoE layers), the head is stacked as ``dense_layers``."""
     if not isinstance(tree, dict):
         return tree
     out = {}
     for k, v in tree.items():
         if k == "layers" and isinstance(v, list):
-            out[k] = tree_map(lambda *xs: torch.stack(xs), *v)
+            n_dense = next((i for i, layer in enumerate(v) if layer.keys() != v[0].keys()), 0)
+            if n_dense:
+                out["dense_layers"] = _stack(v[:n_dense])
+            out[k] = _stack(v[n_dense:])
         else:
             out[k] = to_reference_layout(v)
     return out
 
 
 def from_reference_layout(tree: Tree) -> Tree:
-    """Split every stacked ``layers`` entry into the port's list of
-    per-layer dicts (each leaf its own contiguous tensor)."""
+    """Split every stacked ``layers`` entry (after ``dense_layers``, where
+    there is one) into the port's list of per-layer dicts (each leaf its
+    own contiguous tensor)."""
     if not isinstance(tree, dict):
         return tree
+
+    def split(stacked) -> list:
+        return [tree_map(lambda a, i=i: a[i].clone(), stacked) for i in range(_leading(stacked))]
+
     out = {}
     for k, v in tree.items():
         if k == "layers" and isinstance(v, dict):
-            n = _leading(v)
-            out[k] = [tree_map(lambda a, i=i: a[i].clone(), v) for i in range(n)]
-        else:
+            out[k] = (split(tree["dense_layers"]) if "dense_layers" in tree else []) + split(v)
+        elif k != "dense_layers" or "layers" not in tree:
             out[k] = from_reference_layout(v)
     return out
 
@@ -73,15 +89,17 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(
     np_params: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = torch.float32
 ) -> Dict[str, Any]:
-    """Port parameters from the reference's dense-, SSM- or hybrid-model
-    pytree of numpy leaves (layers stacked along ``L``; a hybrid's
-    ``shared`` block, its LoRA stacked over the invocations, kept as it
-    is), converted to ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias``
-    stay float32, as the reference keeps them in every model dtype."""
+    """Port parameters from the reference's dense-, MoE-, SSM- or
+    hybrid-model pytree of numpy leaves (layers stacked along ``L``, a
+    MoE's ``dense_layers`` before them; a hybrid's ``shared`` block, its
+    LoRA stacked over the invocations, kept as it is), converted to
+    ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias`` and a MoE's
+    ``router`` stay float32, as the reference keeps them in every model
+    dtype."""
     device = resolve_device(device)
-    if "dense_layers" in np_params or "layers" not in np_params:
+    if "layers" not in np_params:
         raise NotImplementedError(
-            "params_from_jax takes the dense, SSM or hybrid family's pytree only")
+            "params_from_jax takes the dense, MoE, SSM or hybrid family's pytree only")
 
     def leaf(path, a):
         return _tensor(a, device, torch.float32 if path[-1] in FP32_PARAMS else dtype)

@@ -121,6 +121,15 @@ class KVCacheManager:
             self.n_pages: Optional[int] = None
             self.cache = None
 
+    def cache_is_rolling(self) -> bool:
+        """Whether the dense KV cache rolls: a sliding-window cache holds
+        fewer slots than ``max_len`` and wraps its writes mod its length,
+        so a right-padded prefill chunk could alias still-visible slots;
+        prompts then ingest through the decode path.  A paged cache never
+        rolls (an adaptively sized pool may not exist yet)."""
+        k = self.cache.get("k") if isinstance(self.cache, dict) else None
+        return k is not None and k.shape[2] < self.max_len
+
     # ------------------------------------------------------------ pool setup
     def _init_paged_pool(self, total_pages: Optional[int], queue_depth: int,
                          pending: Optional[list] = None) -> None:

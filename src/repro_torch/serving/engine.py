@@ -193,7 +193,10 @@ class ServeEngine:
         self._rng_seed = rng_seed
         self._decode = make_decode_step(model, rng_seed, sample_on_device)
         self._use_prefill = (
-            dispatch_mode == "fused" and self.prefill_chunk > 0 and model.supports_fused_prefill
+            dispatch_mode == "fused"
+            and self.prefill_chunk > 0
+            and model.supports_fused_prefill
+            and not self.cache_mgr.cache_is_rolling()
         )
         self._prefill = (
             make_prefill_step(model, rng_seed, sample_on_device)

@@ -75,12 +75,15 @@ def test_unported_model_features_refuse(tiny):
     dense = m.init_cache(2, 32, paged=False, device="cpu")  # the dense cache runs now
     assert set(dense) == {"k", "v"} and dense["k"].shape == (2, 2, 32, 2, 16)
     assert set(m.init_cache(2, 32, device="cpu")) == {"k", "v"}  # and is the default
-    moe = ArchConfig(name="x-moe", family="moe", n_layers=2, d_model=64, n_heads=4,
-                     n_kv_heads=2, d_ff=128, vocab_size=256, n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        Model(moe)
-    with pytest.raises(NotImplementedError, match="dense family"):
-        reduced(moe)
+    mla = ArchConfig(name="x-mla", family="moe", n_layers=2, d_model=64, n_heads=4,
+                     n_kv_heads=4, d_ff=128, vocab_size=256, n_experts=4, top_k=2,
+                     use_mla=True, kv_lora_rank=32, rope_head_dim=8)
+    with pytest.raises(NotImplementedError, match="MLA not ported yet.*ROADMAP Queue 1"):
+        Model(mla)
+    audio = ArchConfig(name="x-audio", family="audio", n_layers=2, d_model=64, n_heads=4,
+                       n_kv_heads=4, d_ff=128, vocab_size=256, is_encoder_decoder=True)
+    with pytest.raises(NotImplementedError, match="dense, MoE, SSM and hybrid"):
+        reduced(audio)
 
 
 def test_engine_refuses_params_on_another_device(tiny):
