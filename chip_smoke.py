@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the hand-written
 kernels, holds each against its plain PyTorch version, drives the serving
 engine (paged and dense caches), training, eval, the SSM family, the
-hybrid family, the dense zoo and the MoE family (with the rolling
-sliding-window cache) at full width and prints what it measured.
+hybrid family, the dense zoo, the MoE family (with the rolling
+sliding-window cache) and MLA over the MoE (deepseek-v2-236b, its latent
+paged cache) at full width and prints what it measured.
 
     python3 chip_smoke.py
 
@@ -31,9 +32,13 @@ Phases, each printing one JSON line:
   G 48 x T 16, qwen2-72b's prefill at G 8 x T 16, nemotron-4-340b's decode
   and prefill at dk 192, each on the path ``CASE_PATHS`` names: the
   tensor cores in bf16, the CUDA cores in f32; and G 6 x T 16 at dk 128),
+  deepseek-v2-236b's MLA fold at full width in both dtypes (one latent
+  pool as K and V, B 16, Hkv 1, G 128, dk 576, v_width 512, 128-576 keys,
+  at T 1 and T 4, MLA's scale 1/sqrt(192), on the CUDA-core path),
   RMSNorm (and its gradient;
   d = 768, mamba2's 2048, zamba2's shared block at 4096 and the zoo's
-  6144, 8192 and 18432, each record naming its kernel path), flash
+  6144, 8192 and 18432, each record naming its kernel path; deepseek's
+  5120, 1536 and 512 at 16 and 256 rows on the generic path), flash
   attention over the reference's sweep,
   sliding windows, the model layout, and in both dtypes the eval phase's
   shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
@@ -76,7 +81,7 @@ Phases, each printing one JSON line:
   non-speculative paged and dense card engines at that depth, 4
   decode-path paged launches and 9 RMSNorm per verify dispatch, 9 RMSNorm
   per dispatch draft dispatches included, and a draft run that rolls back;
-- ``spec_serve``: bf16, paged, 4 of the 12 layers (a depth cut for the
+- ``spec_serve``: bf16, paged, 2 of the 12 layers (a depth cut for the
   time limit), 8 decode-heavy requests of 256 new tokens
   through the plain engine, ``ngram`` at ``spec_k`` 8 (verify T 9: the
   tensor-core path) and ``draft`` at ``spec_k`` 4 (T 5: the decode path):
@@ -102,7 +107,7 @@ Phases, each printing one JSON line:
   once, checkpoint resumes, tokens equal an uninterrupted run's) and a
   static ``mamba2-1.3b`` job at 3 of its 48 layers against a direct
   engine (3 SSD launches a prefill dispatch);
-- ``ds_serve``: ``serve``'s 32 requests in bf16 at 4 of the 12 layers (a
+- ``ds_serve``: ``serve``'s 32 requests in bf16 at 2 of the 12 layers (a
   depth cut) in one call: the bare
   engine, the lease payload called directly (no runner) and one streaming
   lease in the foreground, in turns (the queue's, the object store's, the
@@ -125,7 +130,7 @@ Phases, each printing one JSON line:
   empty), and that split again with one page truncated by the chaos
   monkey between the leases (the miss and one fallback counted, tokens
   still equal); 12 paged and 25 RMSNorm launches a dispatch, every
-  hydrated page bit-equal to the publisher's pool page.  bf16 numbers (4
+  hydrated page bit-equal to the publisher's pool page.  bf16 numbers (2
   of the 12 layers):
   ``serve``'s 32 requests behind a shared 256-token system prompt, in
   turns, one unified lease with the store and a prefill lease followed
@@ -157,7 +162,7 @@ Phases, each printing one JSON line:
   engine on the card against the same engine on the CPU: equal greedy
   tokens and counters, 6 SSD launches per prefill dispatch, none per
   decode dispatch, 7 RMSNorm per dispatch;
-- ``ssm_serve``: bf16, dense cache, the first 12 of the 48 layers (a depth
+- ``ssm_serve``: bf16, dense cache, the first 6 of the 48 layers (a depth
   cut), 32 requests: tokens/s, per-dispatch
   times, peak memory, 16 decode dispatches traced, the SSD kernel at the
   serve prefill shape and RMSNorm at d = 2048 timed beside their bounds;
@@ -181,7 +186,7 @@ Phases, each printing one JSON line:
   and counters, 8 SSD launches a prefill dispatch and none a decode one,
   11 RMSNorm a dispatch all on the one-pass path, no flash or paged
   launch;
-- ``hybrid_serve``: bf16, the first 14 of the 38 layers (two segments and
+- ``hybrid_serve``: bf16, the first 8 of the 38 layers (one segment and
   the trailing 2), ``ssm_serve``'s 32 requests and knobs: tokens/s,
   per-dispatch times, peak memory, the same launches; 16 decode dispatches
   traced and the per-invocation LoRA merge timed alone for its share;
@@ -212,7 +217,7 @@ Phases, each printing one JSON line:
   exact by path (``ZOO_PATHS``: e.g. granite's f32 prefill and decode on
   the CUDA-core path), RMSNorm all one-pass;
 - ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
-  granite-34b at 22 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
+  granite-34b at 11 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
   at 2, each freed before the next: tokens/s, dispatch times, peak
   memory, launches exact by path, a traced decode dispatch, and the paged
   kernel and RMSNorm at the model's decode and prefill shapes timed
@@ -230,9 +235,9 @@ Phases, each printing one JSON line:
   cache: each position's logits against one windowed full forward on the
   plain chunked path (1e-4) and through the flash kernel (1e-3), and a
   forward without the window that must miss past position 4096;
-- ``moe_serve``: 8 layers in bf16 (23.8 GB), ``serve``'s 32 requests on
+- ``moe_serve``: 4 layers in bf16 (12.1 GB), ``serve``'s 32 requests on
   the dense cache under ``dense`` (the entry points' default): tokens/s,
-  dispatch times, peak memory, 17 one-pass RMSNorm a dispatch, 8 decode
+  dispatch times, peak memory, 9 one-pass RMSNorm a dispatch, 8 decode
   dispatches traced (GEMM and routing device time); a ``capacity`` run's
   tokens/s beside it;
 - ``moe_eval``: 2 layers over 1 x 8192 tokens, ``dense``: f32 logits
@@ -240,7 +245,29 @@ Phases, each printing one JSON line:
   within 1e-3 of the plain path (chunked attention, plain RMSNorm), 2
   flash and 5 RMSNorm a forward; bf16 timed and reported; flash at BH 32
   x 8192 timed in both dtypes beside its bound (the windowed pair count),
-  its plain version and SDPA given the window as a boolean mask.
+  its plain version and SDPA given the window as a boolean mask;
+- ``mla_parity``: ``deepseek-v2-236b`` at 2 of its 60 layers (the dense
+  first layer and one MoE layer of 160 experts, top 6, 2 shared) in f32,
+  TF32 off (5.36 B parameters, 21.4 GB), weights drawn on the card, 16
+  requests (prompts 8-24, 4 new, ``max_batch`` 16, page 16) through the
+  paged engine, every prompt ingested one token a decode dispatch, on the
+  card against the same engine on the CPU, under ``capacity`` (drops
+  counted, required) and ``dense``: equal greedy tokens (the near-tie
+  exception), every counter, every dispatch's logits at 1e-4, a paged
+  launch a layer a dispatch on the CUDA-core path (the latent fold B 16 x
+  G 128, dk 576, v_width 512) and 4 L + 1 generic RMSNorm; the dense
+  ``c_kv``/``k_rope`` engine on the card against the paged one (tokens,
+  logits at 1e-4); one ``Model.forward`` of 2 x 128 tokens under
+  ``capacity`` card against CPU at 1e-4;
+- ``mla_serve``: 4 layers in bf16 (13.30 B, 26.6 GB), ``serve``'s 32
+  requests through the paged engine under ``dense``: tokens/s, dispatch
+  wall median and p99, peak memory, the latent cache's peak bytes beside
+  a per-head cache's for the same pages, launches exact, 8 decode
+  dispatches traced (GEMM, paged, RMSNorm and routing device time), and
+  the paged kernel at the MLA fold (T 1 and 4, both dtypes) and RMSNorm at
+  5120, 1536 and 512 timed beside their bounds (the paged kernel's on
+  the CUDA cores and on the tensor cores too), plain versions and SDPA /
+  ``F.rms_norm``.
 
 A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
@@ -485,6 +512,23 @@ def paged_cases():
         ]
     cases.append(("tc_dk128_rows96_bf16", dict(B=3, hkv=8, g=6, T=16, dk=128, ps=16, P=40,
                                                offsets=[0, 45, 600], seed=54, **bf), 0.0, 0))
+    # deepseek-v2-236b's MLA fold at full width: one latent pool passed as K
+    # and V (Hkv 1, G 128 query heads, dk 576, values from the first 512
+    # columns), 16 rows of 128-576 keys at decode (128 folded rows) and a
+    # T 4 chunk-extend (512 rows, a dense-family MLA's fused prefill); the
+    # CUDA-core path (CASE_PATHS)
+    mla_offsets = np.random.default_rng(61).integers(128, 576, 16).tolist()
+    for dtype in (torch.float32, torch.bfloat16):
+        d = {"dtype": dtype}
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases += [
+            (f"mla_full_decode_{tag}", dict(B=16, hkv=1, g=128, T=1, dk=576, ps=16, P=40,
+                                            offsets=mla_offsets, seed=62, shared_kv=True, **d),
+             0.0, 512),
+            (f"mla_full_t4_{tag}", dict(B=16, hkv=1, g=128, T=4, dk=576, ps=16, P=40,
+                                        offsets=mla_offsets, seed=63, shared_kv=True, **d),
+             0.0, 512),
+        ]
     # the tensor-core path's zoo edges: dk 192 prefill at pages of 8 and 64,
     # a 12-row fold at dk 64, granite's 768-row fold (6 row groups) with a
     # parked row and aliased first pages, MQA G 48 decode over one row of
@@ -526,7 +570,11 @@ CASE_PATHS = {
     "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "tensor_core",  # dk 192
     "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "tensor_core",
     "verify_g1_T9_f32": "cuda_core", "verify_g1_T9_bf16": "tensor_core",
+    **{f"mla_full_{at}_{tag}": "cuda_core" for at in ("decode", "t4") for tag in ("f32", "bf16")},
 }
+# MLA's scores are scaled by 1 / sqrt(nope + rope) = 1 / sqrt(128 + 64), not
+# by the 576-wide latent's own width (models/mla.py)
+MLA_SCALE = 1.0 / math.sqrt(192)
 
 
 def check_paged_attention() -> dict:
@@ -540,7 +588,7 @@ def check_paged_attention() -> dict:
     for name, kw, softcap, v_width in paged_cases():
         q, kp, vp, table, offs = paged_inputs(**kw)
         T = kw["T"]
-        scale = 1.0 / math.sqrt(kw["dk"])
+        scale = MLA_SCALE if v_width else 1.0 / math.sqrt(kw["dk"])
         got = paged_flash_attention_folded(q, kp, vp, table, offs, tokens_per_row=T,
                                            scale=scale, softcap=softcap, v_width=v_width)
         torch.cuda.synchronize()
@@ -605,6 +653,10 @@ def check_rmsnorm() -> dict:
               (5, 18432, torch.bfloat16, torch.float32), (16, 18432, torch.bfloat16, torch.bfloat16),
               (5, 18432, torch.float32, torch.bfloat16), (37, 18432, torch.float32, torch.float32)]
     cases += [(r, 6144, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
+    # deepseek-v2-236b's widths on the generic path: ln1/ln2/ln_f at 5120,
+    # q_norm at 1536, kv_norm at 512; a decode dispatch's 16 rows and 256
+    cases += [(r, d, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)
+              for d in (5120, 1536, 512)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(xdt)
@@ -1151,10 +1203,11 @@ def time_ms(fn, iters: int = 30) -> float:
     return sorted(s.elapsed_time(e) for s, e in pairs)[iters // 2]
 
 
-def paged_work(q, kp, table, offs, T, dv):
+def paged_work(q, kp, table, offs, T, dv, shared_kv: bool = False):
     """Bytes the paged-attention call must move and the flops it must do
-    for these inputs: q and out once, plus every attended K/V page once;
-    scores and values over the keys each query may see."""
+    for these inputs: q and out once, plus every attended K/V page once (a
+    page that holds both, MLA's latent, once: its ``dk`` columns); scores
+    and values over the keys each query may see."""
     b, hkv, ql, dk = q.shape
     n_pages, ps = kp.shape[0], kp.shape[1]
     item = q.element_size()
@@ -1166,7 +1219,8 @@ def paged_work(q, kp, table, offs, T, dv):
         pages += sum(1 for j, pid in enumerate(tab[r]) if j * ps <= last and 0 <= pid < n_pages)
         keys = sum(off[r] + (i % T) + 1 for i in range(ql))
         flops += 2 * (dk + dv) * keys * hkv
-    nbytes = (q.numel() + b * hkv * ql * dv) * item + pages * ps * hkv * (dk + dv) * item
+    page_cols = dk if shared_kv else dk + dv
+    nbytes = (q.numel() + b * hkv * ql * dv) * item + pages * ps * hkv * page_cols * item
     nbytes += table.numel() * 4 + offs.numel() * 4
     return nbytes, flops
 
@@ -1230,6 +1284,54 @@ def time_paged(label, B, T, offsets, dtype, P=40, hkv=12, g=1, dk=64):
             "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms,
             "bound_by": by, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on pre-gathered contiguous K/V"}
+
+
+def time_paged_mla(label, T, offsets, dtype) -> dict:
+    """The paged kernel at deepseek-v2-236b's MLA fold (one latent pool
+    passed as K and V, Hkv 1, G 128, dk 576, values from the first 512
+    columns, MLA's scale), 16 rows of ``T`` tokens: held against its plain
+    version and timed beside its bound (bytes: each attended latent page
+    once; operations at the dtype's peak, and on the CUDA cores and the
+    tensor cores each), its plain version and SDPA on K/V pre-gathered to
+    q width 576 and v width 512."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (
+        kernel_path,
+        paged_flash_attention_folded,
+        paged_flash_attention_folded_plain,
+    )
+
+    B, g, dk, dv, ps, P = len(offsets), 128, 576, 512, 16, 40
+    q, kv, _, table, offs = paged_inputs(B=B, hkv=1, g=g, T=T, dk=dk, ps=ps, P=P,
+                                         offsets=offsets, dtype=dtype, seed=23, shared_kv=True)
+    call = dict(tokens_per_row=T, scale=MLA_SCALE, v_width=dv)
+    kern = lambda: paged_flash_attention_folded(q, kv, kv, table, offs, **call)  # noqa: E731
+    plain = lambda: paged_flash_attention_folded_plain(  # noqa: E731
+        q, kv, kv, table, offs, **call)
+    safe = table.long().clamp(max=kv.shape[0] - 1)
+    kc = kv[safe].reshape(B, 1, P * ps, dk).contiguous()
+    vc = kc[..., :dv].contiguous()
+    q_pos = offs.long()[:, None] + torch.arange(g * T, device="cuda")[None] % T  # the fold
+    alloc = torch.repeat_interleave(table < kv.shape[0], ps, dim=1)
+    mask = ((torch.arange(P * ps, device="cuda")[None, None] <= q_pos[..., None])
+            & alloc[:, None])[:, None]
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, kc, vc, attn_mask=mask, scale=MLA_SCALE)
+    nbytes, flops = paged_work(q, kv, table, offs, T, dv, shared_kv=True)
+    bms, by = bound(nbytes, flops, dtype)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    tensor_ops = PEAK_OPS[torch.bfloat16] if dtype == torch.bfloat16 else TF32_OPS
+    err = check_at_shape(f"paged attention (MLA {label})", kern, plain, dtype)
+    return {"at": f"mla_{label}", "shape": {"B": B, "Hkv": 1, "G": g, "T": T, "dk": dk,
+                                            "dv": dv, "page_size": ps, "pages_per_slot": P},
+            "path": kernel_path(dtype, g * T, dk, dv), "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
+            "bound_ms_cuda_core": max(t_bytes, flops / PEAK_OPS[torch.float32] * 1e3),
+            "bound_ms_tensor_core": max(t_bytes, flops / tensor_ops * 1e3),
+            "bytes": nbytes, "flops": flops, "library_ms": time_ms(lib),
+            "library_call": "F.scaled_dot_product_attention on pre-gathered K/V (q and k "
+                            "width 576, v width 512)"}
 
 
 def time_rmsnorm(label, rows, d, dtype):
@@ -1586,8 +1688,8 @@ def decode_heavy_requests(n_requests: int, max_new: int, seed: int = 11):
 
 # Depth cuts for the script's time limit: spec_serve runs 4 of ds-paper-100m's
 # 12 layers, ds_serve and ds_store's bf16 leases 4, train and eval 2.
-SPEC_SERVE_LAYERS = 4
-DS_SERVE_LAYERS = 4
+SPEC_SERVE_LAYERS = 2
+DS_SERVE_LAYERS = 2
 TRAIN_LAYERS = 2
 SPEC_SERVE_KW = dict(max_batch=8, max_len=288, prefill_chunk=16, page_size=16,
                      cache_mode="paged")
@@ -3340,10 +3442,10 @@ def first_layers(cfg, params, n: int) -> tuple:
 
 
 # The first 6 of mamba2-1.3b's 48 layers: the depth cut keeps the CPU side
-# short and pays for the later phases; ssm_serve runs 12, ssm_eval
+# short and pays for the later phases; ssm_serve runs them too, ssm_eval
 # all 48.
 SSM_PARITY_LAYERS = 6
-SSM_SERVE_LAYERS = 12
+SSM_SERVE_LAYERS = 6
 
 
 def phase_ssm_parity(cfg, params_cpu) -> dict:
@@ -3649,10 +3751,10 @@ HYBRID_KW = dict(max_batch=4, max_len=128, prefill_chunk=16, cache_mode="dense")
 # The first 8 of zamba2-1.2b's 38 layers: one full segment of 6 (the shared
 # block's first invocation) and 2 trailing layers past it, so _shared_at's
 # trailing rule still runs; the depth cut keeps the CPU side short.
-# hybrid_serve runs 14 (two segments and the 2 trailing layers),
+# hybrid_serve runs them too (a depth cut of a timing phase),
 # hybrid_static and hybrid_eval all 38.
 HYBRID_PARITY_LAYERS = 8
-HYBRID_SERVE_LAYERS = 14
+HYBRID_SERVE_LAYERS = 8
 
 
 def phase_hybrid_parity(cfg, params_cpu) -> dict:
@@ -4075,10 +4177,10 @@ ZOO_SEED = 0  # of the card's generator: zoo weights are drawn on the card (Mode
 ZOO_BIAS_STD = 0.5  # qwen2's bq/bk/bv drawn non-zero: q, k and v are ~N(0, 1) at init
 # Depth cuts, never widths.  zoo_parity in f32: granite-34b and qwen2-72b at
 # 1 layer (card and CPU copies), nemotron-4-340b at 1 (51.6 GB, on the card
-# only).  zoo_serve in bf16: granite-34b at 22 of its 88 layers, qwen2-72b at
+# only).  zoo_serve in bf16: granite-34b at 11 of its 88 layers, qwen2-72b at
 # 8 (17.8 GiB), nemotron-4-340b at 2 (30.4 GiB).
 ZOO_PARITY_LAYERS = {"granite-34b": 1, "qwen2-72b": 1, "nemotron-4-340b": 1}
-ZOO_SERVE_LAYERS = {"granite-34b": 22, "qwen2-72b": 8, "nemotron-4-340b": 2}
+ZOO_SERVE_LAYERS = {"granite-34b": 11, "qwen2-72b": 8, "nemotron-4-340b": 2}
 # The paged kernel's path of a decode dispatch (T 1) and of a prefill one
 # (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
 ZOO_PATHS = {
@@ -4404,8 +4506,8 @@ def zoo_serve_arch(arch: str) -> dict:
 def phase_zoo_serve() -> dict:
     """The dense zoo in bf16 through the paged engine at ``serve``'s knobs
     and requests (32, prompts 128-512, 64 new tokens, ``max_batch`` 16,
-    page 16), each model freed before the next: granite-34b whole,
-    qwen2-72b at 8 layers, nemotron-4-340b at 2; tokens/s, dispatch times,
+    page 16), each model freed before the next: granite-34b at 11
+    layers, qwen2-72b at 8, nemotron-4-340b at 2; tokens/s, dispatch times,
     peak memory, launches exact by path, a traced decode dispatch, and
     the paged kernel and RMSNorm at the model's decode and prefill shapes
     beside their bounds, plain versions and library calls."""
@@ -4423,11 +4525,11 @@ MOE_WINDOW = 4096  # mixtral-8x7b's sliding window
 # Depth cuts, never widths: mixtral-8x7b whole is 46.7 B parameters (93.4 GB
 # in bf16).  moe_parity and moe_window in f32 at 1 layer (1.72 B, 6.9 GB on
 # the card and again on the host for parity), moe_eval at 2 (3.17 B, 12.7 GB
-# in f32), moe_serve in bf16 at 8 (11.88 B, 23.8 GB).  Weights are drawn on
+# in f32), moe_serve in bf16 at 4 (6.07 B, 12.1 GB).  Weights are drawn on
 # the card (``zoo_weights``: Model.draw from ZOO_SEED).
 MOE_PARITY_LAYERS = 1
 MOE_EVAL_LAYERS = 2
-MOE_SERVE_LAYERS = 8
+MOE_SERVE_LAYERS = 4
 MOE_PARITY_KW = dict(max_batch=16, max_len=128, prefill_chunk=16, cache_mode="dense")
 MOE_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, cache_mode="dense")
 MOE_WINDOW_POSITIONS = 4608  # past the rolling cache's 4,224 slots and the window
@@ -4636,11 +4738,11 @@ def phase_moe_window(params) -> dict:
 
 
 def phase_moe_serve() -> dict:
-    """mixtral-8x7b at 8 layers in bf16 on the dense (rolling-capable)
+    """mixtral-8x7b at 4 layers in bf16 on the dense (rolling-capable)
     cache, ``dense`` as the entry points default: ``serve``'s 32 requests
     (prompts 128-512, 64 new, ``max_batch`` 16), every prompt ingested one
     token a decode dispatch (MoE takes no fused prefill, as in the
-    reference): tokens/s, dispatch times, peak memory, 17 one-pass RMSNorm
+    reference): tokens/s, dispatch times, peak memory, 9 one-pass RMSNorm
     a dispatch; one ``capacity`` run's tokens/s beside it (reported: its
     drops make other tokens); 8 decode dispatches traced (GEMM and routing
     device time)."""
@@ -4833,6 +4935,270 @@ def phase_moe_eval() -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ MLA (deepseek)
+MLA_ARCH = "deepseek-v2-236b"
+# Depth cuts, never widths: deepseek-v2-236b whole is 235.7 B parameters
+# (472 GB in bf16).  mla_parity in f32 at 2 layers, the dense first layer
+# and one MoE layer (5.36 B, 21.4 GB on the card and again on the host),
+# mla_serve in bf16 at 4 (13.30 B, 26.6 GB).  Weights are drawn on the
+# card (``zoo_weights``: Model.draw from ZOO_SEED).
+MLA_PARITY_LAYERS = 2
+MLA_SERVE_LAYERS = 4
+MLA_PARITY_KW = dict(max_batch=16, max_len=32, prefill_chunk=16, page_size=16,
+                     cache_mode="paged")
+MLA_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
+                    cache_mode="paged")
+MLA_FORWARD_SHAPE = (2, 128)
+MLA_COUNTERS = MOE_COUNTERS + ("prefix_hit_tokens", "peak_pages", "page_allocs", "pages_in_use",
+                               "n_pages", "page_bytes")
+MLA_TRACE_TICKS = 8
+
+
+def mla_model(layers: int, dtype, strategy: str = "dense"):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+
+    cfg = dataclasses.replace(get_arch(MLA_ARCH), n_layers=layers)
+    return Model(cfg, ModelRuntime(dtype=dtype, moe_strategy=strategy))
+
+
+def mla_parity_requests(vocab: int):
+    """16 greedy requests, prompts of 8-24 tokens, 4 new each."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(8)
+    return [Request(uid=f"d{i}", prompt=rng.integers(1, vocab, int(n)).tolist(),
+                    max_new_tokens=4)
+            for i, n in enumerate(rng.integers(8, 25, 16))]
+
+
+def require_mla_launches(cfg, launches: dict, dispatches: int, what: str,
+                         paged: bool = True) -> None:
+    """An MLA run's exact launches a dispatch or forward: one paged launch a
+    layer on the CUDA-core path (the latent fold, dk 576 / dv 512) on the
+    paged cache, none on the dense cache or in a forward; 4 L + 1 RMSNorm
+    (``ln1``, ``q_norm``, ``kv_norm``, ``ln2`` a layer, ``ln_f``), every one
+    on the generic path (5120, 1536 and 512 are not compiled into the one
+    pass); no flash (MLA is plain einsums, as in the reference) or SSD."""
+    L = cfg.n_layers
+    want_paged = L * dispatches if paged else 0
+    got = {p: launches[f"paged_attention_{p}"] for p in ("cuda_core", "tensor_core", "decode")}
+    require(got == {"cuda_core": want_paged, "tensor_core": 0, "decode": 0}
+            and launches["paged_attention"] == want_paged,
+            f"{what}: paged launches by path {got}, want {want_paged} on the CUDA-core path "
+            f"({L} layers, {dispatches} dispatches)")
+    want = (4 * L + 1) * dispatches
+    require(launches["rmsnorm"] == want == launches["rmsnorm_generic"],
+            f"{what}: rmsnorm launched {launches['rmsnorm']} times "
+            f"({launches['rmsnorm_generic']} generic), want {want}, all generic")
+    require(launches["flash_attention"] == 0 and launches["ssd"] == 0,
+            f"{what}: flash or SSD launched: {launches}")
+
+
+def phase_mla_parity() -> dict:
+    """deepseek-v2-236b at 2 layers (the dense first layer and one MoE
+    layer) in f32 with TF32 off, weights drawn on the card.  The paged
+    engine (the latent pool through the paged kernel) on the card against
+    the same engine on a CPU copy of the tree, 16 requests at ``max_batch``
+    16 (the fold B 16 x G 128), prompts ingested one token a decode
+    dispatch, under ``capacity`` (entries must drop) and ``dense``: equal
+    greedy tokens (the near-tie exception), every engine counter, every
+    dispatch's logits at parity's 1e-4, launches exact.  Then the dense
+    ``c_kv``/``k_rope`` engine on the card against the paged one on the
+    card (tokens, logits at 1e-4), and one ``Model.forward`` of 2 x 128
+    tokens under ``capacity`` (the eval path) card against CPU at 1e-4."""
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    base = mla_model(MLA_PARITY_LAYERS, torch.float32)
+    cfg = base.cfg
+    params, weights = zoo_weights(base)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    rec = {"phase": "mla_parity", "arch": cfg.name, "dtype": "float32", "weights": weights,
+           "against": "the same engine on the CPU", "requests": 16, "knobs": MLA_PARITY_KW,
+           "strategies": {}}
+    card = {}
+    for strategy in ("capacity", "dense"):
+        model = Model(cfg, ModelRuntime(dtype=torch.float32, moe_strategy=strategy))
+        reset_launches()
+        counting = counting_drops(cfg) if strategy == "capacity" else contextlib.nullcontext([])
+        with counting as drops:
+            gpu, gpu_s, gpu_calls = run_recorded(model, params, mla_parity_requests(cfg.vocab_size),
+                                                 "cuda", **MLA_PARITY_KW)
+            dropped = int(sum(int(c) for c in drops))
+        launches = read_launches()
+        cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu,
+                                             mla_parity_requests(cfg.vocab_size), "cpu",
+                                             **MLA_PARITY_KW)
+        what = f"mla_parity {strategy}, card against CPU"
+        divs = compare_greedy(model, params_cpu, gpu, cpu, what)
+        counters = compare_counters(gpu, cpu, what, MLA_COUNTERS)
+        logits = compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what)
+        require_mla_launches(cfg, launches, gpu.dispatches, what)
+        require(gpu.prefill_dispatches == 0, f"{what}: a MoE prompt took the fused prefill")
+        if strategy == "capacity":
+            require(dropped > 0, f"{what}: no entry was dropped; the capacity drops went untested")
+        card[strategy] = (gpu, gpu_calls)
+        rec["strategies"][strategy] = {
+            "tokens_equal": not divs, "divergences": divs, "counters_card_cpu": counters,
+            "logits": logits, "entries_dropped_on_card": dropped if strategy == "capacity" else 0,
+            "launches": launches,
+            "launches_per_dispatch": {k: v / gpu.dispatches for k, v in launches.items()},
+            "card_s": gpu_s, "cpu_s": cpu_s}
+    # the dense latent cache against the paged one, both on the card
+    model = Model(cfg, ModelRuntime(dtype=torch.float32, moe_strategy="dense"))
+    dense_kw = {k: v for k, v in MLA_PARITY_KW.items() if k != "page_size"}
+    reset_launches()
+    dense, dense_s, dense_calls = run_recorded(model, params, mla_parity_requests(cfg.vocab_size),
+                                               "cuda", **dict(dense_kw, cache_mode="dense"))
+    launches = read_launches()
+    what = "mla_parity dense cache against paged, on the card"
+    require_mla_launches(cfg, launches, dense.dispatches, what, paged=False)
+    paged, paged_calls = card["dense"]
+    divs = compare_greedy(model, params_cpu, dense, paged, what)
+    rec["dense_cache_against_paged"] = {
+        "tokens_equal": not divs, "divergences": divs,
+        "counters": compare_counters(dense, paged, what, ZOO_DISPATCH_COUNTERS),
+        "logits": compare_dispatch_logits(dense_calls, paged_calls, bool(divs), what),
+        "launches": launches, "card_s": dense_s,
+        "cache_bytes": {"dense": dense.peak_cache_bytes, "paged": paged.peak_cache_bytes}}
+    del dense, paged, card
+    # one forward (the eval path) under capacity, card against CPU
+    model = Model(cfg, ModelRuntime(dtype=torch.float32, moe_strategy="capacity"))
+    gen = torch.Generator().manual_seed(9)
+    tokens = torch.randint(1, cfg.vocab_size, MLA_FORWARD_SHAPE, generator=gen)
+    reset_launches()
+    with torch.no_grad():
+        got = model.forward(params, tokens.cuda())[..., :cfg.vocab_size].cpu()
+    launches = read_launches()
+    require_mla_launches(cfg, launches, 1, "mla_parity forward", paged=False)
+    with torch.no_grad():
+        want = model.forward(params_cpu, tokens)[..., :cfg.vocab_size]
+    gate = worst_over(got, want, PARITY_RTOL)
+    rec["forward"] = {"shape": list(MLA_FORWARD_SHAPE), "moe_strategy": "capacity",
+                      "tol": PARITY_RTOL, "max_abs_err": (got - want).abs().max().item(),
+                      "worst_over_tol": gate, "finite": bool(torch.isfinite(got).all()),
+                      "launches": launches}
+    del params, params_cpu
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    require(rec["forward"]["finite"] and gate <= 1.0,
+            f"mla_parity: forward logits {gate}x past {PARITY_RTOL} card against CPU")
+    return rec
+
+
+def phase_mla_serve() -> dict:
+    """deepseek-v2-236b at 4 layers in bf16 through the paged engine,
+    ``dense`` as the entry points' default: ``serve``'s 32 requests (prompts
+    128-512, 64 new, ``max_batch`` 16, page 16), every prompt ingested one
+    token a decode dispatch (a MoE takes no fused prefill, as in the
+    reference): tokens/s, dispatch wall median and p99, peak memory, the
+    latent cache's peak bytes beside what a per-head cache (128 heads x
+    (192 K + 128 V)) would hold for the same pages, launches exact; 8
+    decode dispatches traced (busy, idle share, GEMM, paged, RMSNorm and
+    routing device time); the paged kernel at the MLA fold and RMSNorm at
+    5120, 1536 and 512 timed beside their bounds, plain versions and
+    library calls."""
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    dtype = torch.bfloat16
+    t_phase = time.perf_counter()
+    model = mla_model(MLA_SERVE_LAYERS, dtype)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 20 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **MLA_SERVE_KW)
+    reqs = serve_requests(cfg.vocab_size)
+    eng = ServeEngine(model, params, device="cuda", **MLA_SERVE_KW)
+    eng._decode = DispatchTimer(eng._decode)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []  # host clock: each step syncs on its sampled tokens
+    t0 = time.perf_counter()
+    while eng.pending or eng.scheduler.has_active():
+        t_step = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    outs = {r.uid: r.output for r in eng.finished}
+    require(len(outs) == len(reqs), "mla_serve: not every request finished")
+    require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+            "mla_serve: a request emitted a wrong number of tokens or an id outside the vocab")
+    require(eng.prefill_dispatches == 0, "mla_serve: a MoE prompt took the fused prefill")
+    require_mla_launches(cfg, launches, eng.dispatches, "mla_serve")
+    d, ps, item = eng.dispatches, MLA_SERVE_KW["page_size"], 2
+    per_head = (eng.peak_pages * ps * cfg.n_layers * cfg.n_heads
+                * (cfg.nope_head_dim + cfg.rope_head_dim + cfg.v_head_dim) * item)
+    rec = {
+        "phase": "mla_serve", "arch": cfg.name, "dtype": "bfloat16", "weights": weights,
+        "moe_strategy": "dense", "cache_mode": "paged", "requests": len(reqs),
+        "prompt_tokens": sum(len(r.prompt) for r in reqs), "max_new_tokens": 64,
+        "max_batch": 16, "page_size": ps, "wall_s": wall, "tokens_emitted": eng.tokens_emitted,
+        "tokens_per_s": eng.tokens_emitted / wall, "dispatches": d,
+        "decode_dispatches": eng.decode_dispatches, "dispatch_wall_ms": summary(step_ms),
+        "decode_dispatch_device_span_ms": summary(eng._decode.ms()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_pages": eng.peak_pages, "total_pages": eng.n_pages, "page_bytes": eng.page_bytes,
+        "peak_cache_bytes": eng.peak_cache_bytes,
+        "per_head_cache_bytes_same_pages": per_head,
+        "per_head_over_latent": per_head / eng.peak_cache_bytes,
+        "launches": launches, "launches_per_dispatch": {k: v / d for k, v in launches.items()},
+    }
+    del eng
+    # where a decode dispatch's time goes: 16 rows deep in their prompts
+    rng = np.random.default_rng(5)
+    eng = ServeEngine(model, params, device="cuda", **MLA_SERVE_KW)
+    eng.submit([Request(uid=f"q{i}", prompt=rng.integers(1, cfg.vocab_size, 256).tolist(),
+                        max_new_tokens=64) for i in range(16)])
+    for _ in range(4):
+        eng.step()
+    d0 = eng.decode_dispatches
+    profile = trace(eng.step, MLA_TRACE_TICKS, "dispatch",
+                    watch=MOE_GEMM_OPS + MOE_ROUTING_OPS + ("paged_attention_kernel",
+                                                            "rmsnorm_generic_kernel"))
+    require(eng.decode_dispatches - d0 == 2 * MLA_TRACE_TICKS,
+            "mla_serve: traced ticks were not all decode dispatches")
+    watched = profile["watched_ops"]
+    profile["gemm_ms_per_dispatch"] = sum(watched[w]["ms_per_dispatch"] for w in MOE_GEMM_OPS)
+    profile["routing_ms_per_dispatch"] = sum(watched[w]["ms_per_dispatch"]
+                                             for w in MOE_ROUTING_OPS)
+    profile["paged_ms_per_dispatch"] = watched["paged_attention_kernel"]["ms_per_dispatch"]
+    profile["rmsnorm_ms_per_dispatch"] = watched["rmsnorm_generic_kernel"]["ms_per_dispatch"]
+    rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256", "ticks": MLA_TRACE_TICKS,
+                      **profile}
+    del eng, params
+    release_device_memory()
+    rng = np.random.default_rng(3)
+    offsets = rng.integers(128, 576, 16).tolist()
+    rec["kernel_times"] = {
+        "paged_attention": {
+            **{f"{at}_{tag}": time_paged_mla(f"{at}_{tag}", T, offsets, dt)
+               for dt, tag in ((dtype, "bf16"), (torch.float32, "f32"))
+               for at, T in (("decode", 1), ("t4", 4))}},
+        "rmsnorm": {f"d{dd}_{at}": time_rmsnorm(at, rows, dd, dtype)
+                    for dd in (cfg.d_model, cfg.q_lora_rank, cfg.kv_lora_rank)
+                    for at, rows in (("decode", 16), ("prefill", 256))}}
+    for name, t in rec["kernel_times"]["paged_attention"].items():
+        require(t["path"] == "cuda_core", f"mla_serve: the MLA fold {name} took {t['path']}")
+    for t in rec["kernel_times"]["rmsnorm"].values():
+        require(t["path"] == "generic", f"mla_serve: rmsnorm at {t['shape']} took {t['path']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -4846,13 +5212,13 @@ KERNELS = {
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
                  ds_store: dict, train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict,
                  hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict,
-                 zoo_serve: dict, moe_serve: dict, moe_eval: dict) -> dict:
+                 zoo_serve: dict, moe_serve: dict, moe_eval: dict, mla_serve: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
     spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
     eval, ssm_serve, ssm_eval, the hybrid's static job through the control
     plane, hybrid_serve, hybrid_eval, each zoo model's serve run,
-    moe_serve's dense and capacity runs, moe_eval's forwards: counts set to
-    0 before each run and read after), the paged kernel's and
+    moe_serve's dense and capacity runs, moe_eval's forwards, mla_serve's
+    run: counts set to 0 before each run and read after), the paged kernel's and
     RMSNorm's also by kernel path, its worst error, and its times at its
     first timed shape with the others beside."""
     def total(runs):
@@ -4867,17 +5233,21 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
              **{f"zoo_serve_{arch}": r["launches"] for arch, r in zoo_serve.items()},
              "moe_serve": moe_serve["launches"],
              "moe_serve_capacity": moe_serve["capacity"]["launches"],
-             "moe_eval": total(moe_eval["runs"])}
+             "moe_eval": total(moe_eval["runs"]), "mla_serve": mla_serve["launches"]}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
                             **spec_serve["kernel_times"]["paged_attention"],
                             **{f"{arch}_{k}": t for arch, r in zoo_serve.items()
-                               for k, t in r["kernel_times"]["paged_attention"].items()}},
+                               for k, t in r["kernel_times"]["paged_attention"].items()},
+                            **{f"deepseek_{k}": t for k, t in
+                               mla_serve["kernel_times"]["paged_attention"].items()}},
         "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
                     **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()},
                     **{f"d4096_{k}": t for k, t in hybrid_serve["kernel_times"]["rmsnorm"].items()},
                     **{f"d{t['shape']['d']}_{k}": t for r in zoo_serve.values()
-                       for k, t in r["kernel_times"]["rmsnorm"].items()}},
+                       for k, t in r["kernel_times"]["rmsnorm"].items()},
+                    **{f"deepseek_{k}": t
+                       for k, t in mla_serve["kernel_times"]["rmsnorm"].items()}},
         "flash_attention": {**{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
                                for t in evals["kernel_times"]},
                             **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
@@ -4913,7 +5283,8 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                if f in first},
             "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "bound_route", "bound_ms_cuda_core",
-                                                   "library_ms", "launch_floor_ms", "path",
+                                                   "bound_ms_tensor_core", "library_ms",
+                                                   "launch_floor_ms", "path",
                                                    "max_abs_err") if f in t}
                              for k, t in list(timed.items())[1:]},
         })
@@ -5013,9 +5384,13 @@ def main() -> int:
     lap("moe_serve")
     moe_eval = phase_moe_eval()
     lap("moe_eval")
+    phase_mla_parity()
+    lap("mla_parity")
+    mla_serve = phase_mla_serve()
+    lap("mla_serve")
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
                       ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve,
-                      moe_serve, moe_eval))
+                      moe_serve, moe_eval, mla_serve))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

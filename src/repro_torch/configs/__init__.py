@@ -6,6 +6,7 @@ from repro_torch.configs.base import (  # noqa: F401
     reduced,
 )
 from repro_torch.configs import (  # noqa: F401
+    deepseek_v2_236b,
     ds_paper_100m,
     granite_34b,
     mamba2_1p3b,

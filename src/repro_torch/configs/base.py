@@ -3,9 +3,9 @@ registry and :func:`reduced` for CPU-sized tests.
 
 A copy of the reference package's ``configs/base.py`` (the port keeps
 its own: it imports nothing of the JAX package), restricted to what the
-port's dense, MoE, SSM and hybrid paths read.  Field names, defaults and derived
-properties are unchanged so a config means the same thing in both
-packages.
+port's dense, MoE (MLA included), SSM and hybrid paths read.  Field
+names, defaults and derived properties are unchanged so a config means
+the same thing in both packages.
 """
 
 from __future__ import annotations
@@ -134,9 +134,10 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     ``reduced`` for the dense, MoE, SSM and hybrid families: 2 layers,
     d_model 64, vocab 256; 4 query heads over at most 2 KV heads of 16, or
     SSM state 16, head width 16 and chunk 16; a MoE has 4 experts of width
-    64, top-k at most 2, at most 1 shared expert and 1 dense layer; a
-    hybrid has 4 layers with the shared block every 2 and a LoRA rank of
-    at most 8; a sliding window becomes 32)."""
+    64, top-k at most 2, at most 1 shared expert and 1 dense layer; MLA
+    has a latent of rank 32 (queries 48), RoPE keys of 8, no-RoPE and value
+    heads of 16; a hybrid has 4 layers with the shared block every 2 and a
+    LoRA rank of at most 8; a sliding window becomes 32)."""
     if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"reduced() is ported for the dense, MoE, SSM and hybrid families only, "
@@ -155,6 +156,9 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
         small.update(n_experts=4, top_k=min(cfg.top_k, 2), moe_d_ff=64,
                      n_shared_experts=min(cfg.n_shared_experts, 1),
                      first_k_dense=min(cfg.first_k_dense, 1))
+    if cfg.use_mla:
+        small.update(kv_lora_rank=32, q_lora_rank=48, rope_head_dim=8,
+                     nope_head_dim=16, v_head_dim=16, head_dim=0)
     if cfg.family in ("ssm", "hybrid"):
         small.update(ssm_state=16, ssm_headdim=16, ssm_chunk=16, d_model=64)
     if cfg.shared_attn_every:

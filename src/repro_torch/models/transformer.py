@@ -1,6 +1,7 @@
-"""The dense decoder, the MoE family (mixtral), the SSM (mamba2) family
-and the hybrid (zamba2) family: full-sequence forward, loss and the
-serving path on a paged or a dense (per-slot) cache.
+"""The dense decoder, the MoE family (mixtral; deepseek with MLA), the
+SSM (mamba2) family and the hybrid (zamba2) family: full-sequence
+forward, loss and the serving path on a paged or a dense (per-slot)
+cache.
 
 Counterpart of the reference package's ``models/transformer.py`` for
 the dense, MoE, SSM and hybrid families:
@@ -23,11 +24,14 @@ The full-sequence path chooses its attention by ``ModelRuntime``
 only); an SSM layer chooses its scan by ``resolve_ssd``: the plain
 ``ssm.ssd_chunked`` or ``ops.ssd`` (the Hopper SSD chunk kernel, forward
 only); a MoE layer's feed-forward follows ``moe_strategy``
-(``moe.apply_moe``).  Layers run as a Python loop over the per-layer dicts
-(the reference scans stacked layers); remat is not ported.
+(``moe.apply_moe``); an MLA layer (``cfg.use_mla``) runs
+``mla.apply_mla``, plain einsums and never the flash kernel, as in the
+reference.  Layers run as a Python loop over the per-layer dicts (the
+reference scans stacked layers); remat is not ported.
 
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
-one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo}, ``ln2``, ``mlp``
+one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo} (MLA's leaves, see
+``mla.mla_param_tree``, when ``cfg.use_mla``), ``ln2``, ``mlp``
 {wi, wg, wo}, or in a MoE layer ``moe`` {router, wi, wg, wo, shared},
 see ``moe.moe_param_tree``, the ``first_k_dense`` dense layers first; or
 for an SSM layer ``ln1`` and ``mixer``, see ``ssm.mamba2_param_tree``),
@@ -42,10 +46,12 @@ reference).
 Caches are stacked over the layers and updated in place (the reference
 returns a new cache pytree); both calls still return the cache so call
 sites read alike.  The paged cache holds ``page_table``, ``k_pages`` and
-``v_pages``; the dense cache ``k``/``v`` ``(L, B, t, Hkv, hd)`` for the
+``v_pages`` (MLA: one latent pool ``kv_pages`` ``(L, n_pages, ps, r +
+rope)``); the dense cache ``k``/``v`` ``(L, B, t, Hkv, hd)`` for the
 attention families (``t = max_len``, or with a sliding window the rolling
-``min(max_len, pad128(window + 1))`` slots written at ``position % t``)
-and, for an SSM, ``state``: the conv windows ``(L, B,
+``min(max_len, pad128(window + 1))`` slots written at ``position % t``;
+MLA: ``c_kv`` ``(L, B, max_len, r)`` and ``k_rope`` ``(L, B, max_len,
+rope)``) and, for an SSM, ``state``: the conv windows ``(L, B,
 k-1, c)`` in the model dtype and ``ssm`` ``(L, B, h, p, n)`` in fp32; a
 hybrid adds the shared block's ``shared_k``/``shared_v`` ``(n_inv, B,
 max_len, Hkv, 2d / H)``.
@@ -73,7 +79,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import ops
-from repro_torch.models import moe, ssm
+from repro_torch.models import mla, moe, ssm
 from repro_torch.models.layers import (
     GATED,
     apply_mlp,
@@ -259,6 +265,8 @@ def _mixer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> 
     if "mixer" in p:
         use_kernel = rt.resolve_ssd(device=xn.device, grad=xn.requires_grad)
         return ssm.apply_mamba2(p["mixer"], xn, cfg, use_kernel=use_kernel)
+    if cfg.use_mla:
+        return mla.apply_mla(p["attn"], xn, cfg, positions=positions)
     return _attn_forward(p["attn"], xn, cfg, rt, positions=positions)
 
 
@@ -309,7 +317,6 @@ class Model:
         unsupported = [
             name for name, on in (
                 (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "ssm", "hybrid")),
-                ("MLA", cfg.use_mla),
                 ("encoder-decoder", cfg.is_encoder_decoder),
                 ("vision tokens", cfg.n_vision_tokens > 0),
                 ("learned positions", cfg.max_position_embeddings > 0),
@@ -318,7 +325,7 @@ class Model:
         if unsupported:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
-                "(ROADMAP Queue 1: MLA, whisper, internvl)"
+                "(ROADMAP Queue 1: whisper, internvl)"
             )
         self.cfg = cfg
         self.rt = runtime or ModelRuntime()
@@ -413,10 +420,13 @@ class Model:
                     "ln1": norm(),
                     "mixer": ssm.mamba2_param_tree(cfg, normal, const, fp32, depth_scale)})
                 continue
-            attn = {
-                "wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
-                "wo": dense(h * hd, d, depth_scale),
-            }
+            if cfg.use_mla:
+                attn = mla.mla_param_tree(cfg, dense, norm, depth_scale)
+            else:
+                attn = {
+                    "wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
+                    "wo": dense(h * hd, d, depth_scale),
+                }
             if cfg.qkv_bias:
                 attn.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
                             bv=const((hkv * hd,), 0.0))
@@ -526,10 +536,14 @@ class Model:
         batch, max_len, Hkv, 2d / H)``) or ``k``/``v`` ``(L, batch, t, Hkv,
         hd)``, ``t = max_len`` without a sliding window, else the rolling
         ``min(max_len, pad128(window + 1))`` slots.
+        MLA: ``c_kv`` ``(L, batch, max_len, r)`` and ``k_rope`` ``(L, batch,
+        max_len, rope)``.
         ``paged=True``: ``k_pages``/``v_pages`` ``(L, n_pages, page_size,
-        Hkv, hd)`` and a ``page_table`` ``(batch, ceil(max_len /
-        page_size))`` int32 whose entries hold the sentinel ``n_pages``
-        until the allocator backs them."""
+        Hkv, hd)`` (MLA: ``kv_pages`` ``(L, n_pages, page_size, r +
+        rope)``, a slot's latent and RoPE key side by side) and a
+        ``page_table`` ``(batch, ceil(max_len / page_size))`` int32 whose
+        entries hold the sentinel ``n_pages`` until the allocator backs
+        them."""
         device = resolve_device(device)
         cfg, dtype = self.cfg, self.rt.dtype
         L = cfg.n_layers
@@ -544,6 +558,10 @@ class Model:
                     cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
                     cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
                 return cache
+            if cfg.use_mla:
+                one = mla.mla_decode_cache(cfg, batch, max_len, dtype, "meta")
+                return {k: torch.zeros((L,) + v.shape, dtype=dtype, device=device)
+                        for k, v in one.items()}
             window = cfg.sliding_window  # rolling: the window + 1 slots, padded to 128
             t = max_len if window == 0 else min(max_len, -(-(window + 1) // 128) * 128)
             shape = (L, batch, t, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -558,13 +576,16 @@ class Model:
         ps = int(page_size)
         pages_per_slot = -(-max_len // ps)
         pool = batch * pages_per_slot if n_pages is None else int(n_pages)
+        cache = {"page_table": torch.full((batch, pages_per_slot), pool, dtype=torch.int32,
+                                          device=device)}
+        if cfg.use_mla:
+            shape = (L, pool, ps, mla.mla_page_width(cfg))
+            cache["kv_pages"] = torch.zeros(shape, dtype=dtype, device=device)
+            return cache
         shape = (L, pool, ps, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {
-            "page_table": torch.full((batch, pages_per_slot), pool, dtype=torch.int32,
-                                     device=device),
-            "k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device),
-        }
+        cache["k_pages"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v_pages"] = torch.zeros(shape, dtype=dtype, device=device)
+        return cache
 
     # ------------------------------------------------------------- steps
     def decode_step(
@@ -641,8 +662,13 @@ class Model:
         cfg = self.cfg
         for i, lp in enumerate(params["layers"]):
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
-            h = h + _attn_dense_cache(lp["attn"], hn, cache["k"][i], cache["v"][i], positions,
-                                      writes, cfg)
+            if cfg.use_mla:
+                layer_cache = {"c_kv": cache["c_kv"][i], "k_rope": cache["k_rope"][i]}
+                h = h + mla.apply_mla_extend(lp["attn"], hn, layer_cache, positions, cfg,
+                                             writes)[0]
+            else:
+                h = h + _attn_dense_cache(lp["attn"], hn, cache["k"][i], cache["v"][i],
+                                          positions, writes, cfg)
             h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps), cfg, self.rt)
         return h
 
@@ -694,12 +720,17 @@ class Model:
     def _run_layers_paged(self, params, cache, h, positions, valid) -> torch.Tensor:
         cfg = self.cfg
         table = cache["page_table"]
-        n_pages, page_size = cache["k_pages"].shape[1], cache["k_pages"].shape[2]
+        pool = cache["kv_pages" if cfg.use_mla else "k_pages"]
+        n_pages, page_size = pool.shape[1], pool.shape[2]
         slots = write_slots(table, n_pages, page_size, positions, valid)
         for i, lp in enumerate(params["layers"]):
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
-            h = h + self._attn_paged(lp["attn"], hn, cache["k_pages"][i],
-                                     cache["v_pages"][i], table, positions, slots)
+            if cfg.use_mla:
+                h = h + mla.apply_mla_paged(lp["attn"], hn, pool[i], table, positions, cfg,
+                                            slots)[0]
+            else:
+                h = h + self._attn_paged(lp["attn"], hn, cache["k_pages"][i],
+                                         cache["v_pages"][i], table, positions, slots)
             h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps), cfg, self.rt)
         return h
 

@@ -91,9 +91,9 @@ def params_from_jax(
 ) -> Dict[str, Any]:
     """Port parameters from the reference's dense-, MoE-, SSM- or
     hybrid-model pytree of numpy leaves (layers stacked along ``L``, a
-    MoE's ``dense_layers`` before them; a hybrid's ``shared`` block, its
-    LoRA stacked over the invocations, kept as it is), converted to
-    ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias`` and a MoE's
+    MoE's ``dense_layers`` before them, MLA's attention leaves as any
+    other's; a hybrid's ``shared`` block, its LoRA stacked over the
+    invocations, kept as it is), converted to ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias`` and a MoE's
     ``router`` stay float32, as the reference keeps them in every model
     dtype."""
     device = resolve_device(device)

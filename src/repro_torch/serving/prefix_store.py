@@ -28,10 +28,10 @@ Key scheme (chained content hash):
   reference computes them from a given root.
 
 Page payloads are the page's slice of every pool leaf (``k_pages`` /
-``v_pages``), ``npz``-serialized with an embedded content digest.  numpy
-has no bfloat16, so a bf16 leaf travels as its ``int16`` view
-(:func:`host_page` / :func:`device_page`); the fetch template
-(:func:`host_dtype`) carries the same encoded dtype.
+``v_pages``, or MLA's latent ``kv_pages``), ``npz``-serialized with an
+embedded content digest.  numpy has no bfloat16, so a bf16 leaf travels
+as its ``int16`` view (:func:`host_page` / :func:`device_page`); the
+fetch template (:func:`host_dtype`) carries the same encoded dtype.
 
 Consistency: publication is atomic per page (temp-file + rename) and
 last-writer-wins over identical bytes; a page is published only once

@@ -78,8 +78,11 @@ def test_unported_model_features_refuse(tiny):
     mla = ArchConfig(name="x-mla", family="moe", n_layers=2, d_model=64, n_heads=4,
                      n_kv_heads=4, d_ff=128, vocab_size=256, n_experts=4, top_k=2,
                      use_mla=True, kv_lora_rank=32, rope_head_dim=8)
-    with pytest.raises(NotImplementedError, match="MLA not ported yet.*ROADMAP Queue 1"):
-        Model(mla)
+    assert Model(mla).cfg.use_mla  # MLA builds now
+    vision = ArchConfig(name="x-vlm", family="dense", n_layers=2, d_model=64, n_heads=4,
+                        n_kv_heads=4, d_ff=128, vocab_size=256, n_vision_tokens=8)
+    with pytest.raises(NotImplementedError, match="vision tokens not ported yet.*ROADMAP Queue 1"):
+        Model(vision)
     audio = ArchConfig(name="x-audio", family="audio", n_layers=2, d_model=64, n_heads=4,
                        n_kv_heads=4, d_ff=128, vocab_size=256, is_encoder_decoder=True)
     with pytest.raises(NotImplementedError, match="dense, MoE, SSM and hybrid"):

@@ -119,6 +119,13 @@ def test_paged_attention_tensor_core_folds_vs_reference(hkv, g, T, ps, dk, parke
     (torch.float32, 12, 192, 192, "cuda_core"),
     (torch.float32, 192, 192, 192, "cuda_core"),
     (torch.bfloat16, 12, 192, 128, "cuda_core"),     # mixed 192 widths: not instantiated
+    # deepseek-v2-236b's MLA at full width: Hkv 1, G 128, the 576-wide latent
+    # page with values from its first 512 columns; decode (128 rows) and a
+    # T 4 chunk-extend (512 rows)
+    (torch.bfloat16, 128, 576, 512, "cuda_core"),
+    (torch.float32, 128, 576, 512, "cuda_core"),
+    (torch.bfloat16, 512, 576, 512, "cuda_core"),
+    (torch.float32, 512, 576, 512, "cuda_core"),
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
