@@ -34,11 +34,16 @@ Phases, each printing one JSON line:
   tensor cores in bf16, the CUDA cores in f32; and G 6 x T 16 at dk 128),
   deepseek-v2-236b's MLA fold at full width in both dtypes (one latent
   pool as K and V, B 16, Hkv 1, G 128, dk 576, v_width 512, 128-576 keys,
-  at T 1 and T 4, MLA's scale 1/sqrt(192), on the CUDA-core path),
-  RMSNorm (and its gradient;
-  d = 768, mamba2's 2048, zamba2's shared block at 4096 and the zoo's
-  6144, 8192 and 18432, each record naming its kernel path; deepseek's
-  5120, 1536 and 512 at 16 and 256 rows on the generic path), flash
+  at T 1 and T 4, MLA's scale 1/sqrt(192), bf16 on the tensor-core path
+  (csrc/paged_mla.cu), f32 on the CUDA-core path) and the bf16 MLA fold's
+  edges (the ``mla_tc_*`` cases: a parked row, unallocated table entries
+  mid-row, pages of 8, 32 and 64, one row of 4096 keys in the most key
+  splits, softcap 5 over split rows, G 16 over 2 rows in one partial row
+  group; separate K and V pools at MLA's widths, which the CUDA-core path
+  takes, the ``mla_pools_*`` cases), RMSNorm (and its
+  gradient; d = 768, mamba2's 2048, zamba2's shared block at 4096, the
+  zoo's 6144, 8192 and 18432 and deepseek's 5120, 1536 and 512, each
+  record naming its kernel path: all one pass), flash
   attention over the reference's sweep,
   sliding windows, the model layout, and in both dtypes the eval phase's
   shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
@@ -254,8 +259,8 @@ Phases, each printing one JSON line:
   card against the same engine on the CPU, under ``capacity`` (drops
   counted, required) and ``dense``: equal greedy tokens (the near-tie
   exception), every counter, every dispatch's logits at 1e-4, a paged
-  launch a layer a dispatch on the CUDA-core path (the latent fold B 16 x
-  G 128, dk 576, v_width 512) and 4 L + 1 generic RMSNorm; the dense
+  launch a layer a dispatch on the CUDA-core path (the f32 latent fold B 16
+  x G 128, dk 576, v_width 512) and 4 L + 1 one-pass RMSNorm; the dense
   ``c_kv``/``k_rope`` engine on the card against the paged one (tokens,
   logits at 1e-4); one ``Model.forward`` of 2 x 128 tokens under
   ``capacity`` card against CPU at 1e-4;
@@ -264,10 +269,10 @@ Phases, each printing one JSON line:
   wall median and p99, peak memory, the latent cache's peak bytes beside
   a per-head cache's for the same pages, launches exact, 8 decode
   dispatches traced (GEMM, paged, RMSNorm and routing device time), and
-  the paged kernel at the MLA fold (T 1 and 4, both dtypes) and RMSNorm at
-  5120, 1536 and 512 timed beside their bounds (the paged kernel's on
-  the CUDA cores and on the tensor cores too), plain versions and SDPA /
-  ``F.rms_norm``.
+  the paged kernel at the MLA fold (T 1 and 4, both dtypes; bf16 also
+  forced onto the CUDA-core path) and RMSNorm at 5120, 1536 and 512 timed
+  beside their bounds (the paged kernel's on the CUDA cores and on the
+  tensor cores too), plain versions and SDPA / ``F.rms_norm``.
 
 A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
@@ -374,11 +379,12 @@ def tol(dtype) -> float:
 
 
 def paged_inputs(*, B, hkv, g, T, dk, ps, P, offsets, dtype, seed, dv_store=None,
-                 shared_kv=False, n_pages=None, alias=False, parked=()):
+                 shared_kv=False, n_pages=None, alias=False, parked=(), holes=()):
     """Random pools and a page table backing each row's positions
     [0, offsets[b] + T) with distinct physical pages (the allocator
     invariant), sentinel elsewhere; ``alias`` maps every row's first page
-    to one physical page; ``parked`` rows hold only sentinels."""
+    to one physical page; ``parked`` rows hold only sentinels; the logical
+    pages ``holes`` of every row are left unallocated (sentinels)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     need = [-(-(int(o) + T) // ps) for o in offsets]
     n_pages = n_pages or sum(need) + 3
@@ -393,7 +399,8 @@ def paged_inputs(*, B, hkv, g, T, dk, ps, P, offsets, dtype, seed, dv_store=None
         if b in parked:
             continue
         for j in range(need[b]):
-            table[b, j] = shared if (alias and j == 0) else perm.pop()
+            if j not in holes:
+                table[b, j] = shared if (alias and j == 0) else perm.pop()
     q = torch.randn((B, hkv, g * T, dk), generator=gen, device="cuda").to(dtype)
     return q, kp, vp, table.cuda(), torch.as_tensor(offsets, dtype=torch.int32).cuda()
 
@@ -529,6 +536,33 @@ def paged_cases():
                                         offsets=mla_offsets, seed=63, shared_kv=True, **d),
              0.0, 512),
         ]
+    # the bf16 MLA fold's edges on the tensor cores (csrc/paged_mla.cu): a
+    # parked row (zeros), unallocated table entries mid-row, pages of 8, 32
+    # and 64, one row of 2048-4096 keys (the most key splits), each at G 128
+    # (the mla_bf16 case above holds G 16 over 2 rows: one partial group)
+    mla = dict(hkv=1, g=128, T=1, dk=576, shared_kv=True, **bf)
+    cases += [
+        ("mla_tc_parked_bf16", dict(B=4, ps=16, P=40, offsets=[300, 77, 511, 128], seed=64,
+                                    parked=(1,), **mla), 0.0, 512),
+        ("mla_tc_holes_bf16", dict(B=3, ps=16, P=40, offsets=[400, 130, 600], seed=65,
+                                   holes=(2, 5, 6), **mla), 0.0, 512),
+        *((f"mla_tc_page{ps}_bf16", dict(B=3, ps=ps, P=640 // ps, offsets=[0, ps + 3, 575],
+                                          seed=66 + ps, **mla), 0.0, 512) for ps in (8, 32, 64)),
+        ("mla_tc_ctx4096_bf16", dict(B=2, ps=16, P=256, offsets=[4095, 2047], seed=67, **mla),
+         0.0, 512),
+        # softcap (MLA passes 0) over rows long enough for the most splits
+        ("mla_tc_softcap5_bf16", dict(B=2, ps=16, P=256, offsets=[2047, 300], seed=69, **mla),
+         5.0, 512),
+    ]
+    # separate K and V pools at MLA's widths (values the first 512 columns
+    # of a 576-wide pool, or a 512-wide one): the tensor-core kernel reads
+    # the values from the key pages, so the wrapper sends these to the
+    # CUDA-core path (CASE_PATHS)
+    mla_pools = dict(B=2, hkv=1, g=16, T=1, dk=576, ps=16, P=40, offsets=[150, 31], **bf)
+    cases += [
+        ("mla_pools_bf16", dict(seed=70, **mla_pools), 0.0, 512),
+        ("mla_pools_v512_bf16", dict(seed=71, dv_store=512, **mla_pools), 0.0, 512),
+    ]
     # the tensor-core path's zoo edges: dk 192 prefill at pages of 8 and 64,
     # a 12-row fold at dk 64, granite's 768-row fold (6 row groups) with a
     # parked row and aliased first pages, MQA G 48 decode over one row of
@@ -561,16 +595,19 @@ def paged_cases():
     return cases
 
 
-# The path these cases must take (kernel_path, which the wrapper follows);
-# every tc_* case takes the tensor-core path and every dec_* case the
-# decode path
+# The path these cases must take (as the wrapper counted its launch);
+# every tc_* and mla_tc_* case takes the tensor-core path and every dec_*
+# case the decode path
 CASE_PATHS = {
     "zoo_granite_prefill_f32": "cuda_core", "zoo_granite_prefill_bf16": "tensor_core",  # G*T 768
     "zoo_qwen2_prefill_f32": "cuda_core", "zoo_qwen2_prefill_bf16": "tensor_core",  # 8 M-tiles
     "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "tensor_core",  # dk 192
     "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "tensor_core",
     "verify_g1_T9_f32": "cuda_core", "verify_g1_T9_bf16": "tensor_core",
-    **{f"mla_full_{at}_{tag}": "cuda_core" for at in ("decode", "t4") for tag in ("f32", "bf16")},
+    "mla_f32": "cuda_core", "mla_bf16": "tensor_core",  # G 16
+    **{f"mla_full_{at}_f32": "cuda_core" for at in ("decode", "t4")},
+    **{f"mla_full_{at}_bf16": "tensor_core" for at in ("decode", "t4")},
+    "mla_pools_bf16": "cuda_core", "mla_pools_v512_bf16": "cuda_core",  # separate pools
 }
 # MLA's scores are scaled by 1 / sqrt(nope + rope) = 1 / sqrt(128 + 64), not
 # by the 576-wide latent's own width (models/mla.py)
@@ -579,7 +616,6 @@ MLA_SCALE = 1.0 / math.sqrt(192)
 
 def check_paged_attention() -> dict:
     from repro_torch.kernels.flash_decode import (
-        kernel_path,
         paged_flash_attention_folded,
         paged_flash_attention_folded_plain,
     )
@@ -589,23 +625,26 @@ def check_paged_attention() -> dict:
         q, kp, vp, table, offs = paged_inputs(**kw)
         T = kw["T"]
         scale = MLA_SCALE if v_width else 1.0 / math.sqrt(kw["dk"])
+        before = dict(paged_flash_attention_folded.launches_by_path)
         got = paged_flash_attention_folded(q, kp, vp, table, offs, tokens_per_row=T,
                                            scale=scale, softcap=softcap, v_width=v_width)
         torch.cuda.synchronize()
+        took = [p for p, n in paged_flash_attention_folded.launches_by_path.items()
+                if n != before[p]]
+        require(len(took) == 1, f"paged_attention case {name} counted launches on {took}")
+        path = took[0]
         want = paged_flash_attention_folded_plain(q, kp, vp, table, offs, tokens_per_row=T,
                                                   scale=scale, softcap=softcap,
                                                   v_width=v_width)
         err = (got.float() - want.float()).abs().max().item()
         t = tol(kw["dtype"])
         ok = bool(torch.allclose(got.float(), want.float(), atol=t, rtol=t))
-        dv = v_width or vp.shape[-1]
-        path = kernel_path(q.dtype, q.shape[2], q.shape[3], dv)
         rec = {"phase": "kernels", "kernel": "paged_attention", "case": name,
                "shape": list(q.shape), "page_size": kw["ps"], "path": path,
                "max_abs_err": err, "ok": ok}
         require(not name.startswith("dec_") or path == "decode",
                 f"paged_attention case {name} did not take the decode path")
-        require(not name.startswith("tc_") or path == "tensor_core",
+        require(not name.startswith(("tc_", "mla_tc_")) or path == "tensor_core",
                 f"paged_attention case {name} did not take the tensor-core path")
         require(CASE_PATHS.get(name, path) == path,
                 f"paged_attention case {name} took the {path} path, not {CASE_PATHS.get(name)}")
@@ -620,7 +659,8 @@ def check_paged_attention() -> dict:
     return worst
 
 
-RMSNORM_ONE_PASS_WIDTHS = (768, 2048, 3840, 4096, 6144, 8192, 18432)  # compiled into csrc/rmsnorm.cu
+# compiled into csrc/rmsnorm.cu
+RMSNORM_ONE_PASS_WIDTHS = (512, 768, 1536, 2048, 3840, 4096, 5120, 6144, 8192, 18432)
 
 
 def rmsnorm_path(call):
@@ -653,10 +693,13 @@ def check_rmsnorm() -> dict:
               (5, 18432, torch.bfloat16, torch.float32), (16, 18432, torch.bfloat16, torch.bfloat16),
               (5, 18432, torch.float32, torch.bfloat16), (37, 18432, torch.float32, torch.float32)]
     cases += [(r, 6144, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
-    # deepseek-v2-236b's widths on the generic path: ln1/ln2/ln_f at 5120,
-    # q_norm at 1536, kv_norm at 512; a decode dispatch's 16 rows and 256
+    # deepseek-v2-236b's widths, one pass: ln1/ln2/ln_f at 5120, q_norm at
+    # 1536, kv_norm at 512; a decode dispatch's 16 rows and 256, and w in
+    # the other dtype
     cases += [(r, d, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)
               for d in (5120, 1536, 512)]
+    cases += [(37, d, torch.bfloat16, torch.float32) for d in (5120, 1536, 512)]
+    cases += [(37, d, torch.float32, torch.bfloat16) for d in (5120, 1536, 512)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(xdt)
@@ -1293,9 +1336,12 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
     version and timed beside its bound (bytes: each attended latent page
     once; operations at the dtype's peak, and on the CUDA cores and the
     tensor cores each), its plain version and SDPA on K/V pre-gathered to
-    q width 576 and v width 512."""
+    q width 576 and v width 512; in bf16 also forced onto the CUDA-core
+    path (path code 0 through the C entry), the route it took before the
+    tensor-core kernel of csrc/paged_mla.cu."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_decode
     from repro_torch.kernels.flash_decode import (
         kernel_path,
         paged_flash_attention_folded,
@@ -1323,10 +1369,26 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     tensor_ops = PEAK_OPS[torch.bfloat16] if dtype == torch.bfloat16 else TF32_OPS
     err = check_at_shape(f"paged attention (MLA {label})", kern, plain, dtype)
+    path = kernel_path(dtype, g * T, dk, dv)
+    forced = {}
+    if path != "cuda_core":
+        def on_cuda_cores():
+            real = flash_decode.kernel_path
+            flash_decode.kernel_path = lambda *_a: "cuda_core"
+            try:
+                return kern()
+            finally:
+                flash_decode.kernel_path = real
+
+        forced = {"cuda_core_max_abs_err": check_at_shape(
+                      f"paged attention (MLA {label}, CUDA-core path)", on_cuda_cores, plain,
+                      dtype),
+                  "cuda_core_ms": time_ms(on_cuda_cores)}
     return {"at": f"mla_{label}", "shape": {"B": B, "Hkv": 1, "G": g, "T": T, "dk": dk,
                                             "dv": dv, "page_size": ps, "pages_per_slot": P},
-            "path": kernel_path(dtype, g * T, dk, dv), "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
+            "path": path, "max_abs_err": err, "keys_per_row": [o + T for o in offsets],
+            "ms": time_ms(kern), **forced, "plain_ms": time_ms(plain), "bound_ms": bms,
+            "bound_by": by,
             "bound_ms_cuda_core": max(t_bytes, flops / PEAK_OPS[torch.float32] * 1e3),
             "bound_ms_tensor_core": max(t_bytes, flops / tensor_ops * 1e3),
             "bytes": nbytes, "flops": flops, "library_ms": time_ms(lib),
@@ -4974,25 +5036,28 @@ def mla_parity_requests(vocab: int):
             for i, n in enumerate(rng.integers(8, 25, 16))]
 
 
-def require_mla_launches(cfg, launches: dict, dispatches: int, what: str,
+def require_mla_launches(cfg, launches: dict, dispatches: int, what: str, dtype,
                          paged: bool = True) -> None:
     """An MLA run's exact launches a dispatch or forward: one paged launch a
-    layer on the CUDA-core path (the latent fold, dk 576 / dv 512) on the
-    paged cache, none on the dense cache or in a forward; 4 L + 1 RMSNorm
-    (``ln1``, ``q_norm``, ``kv_norm``, ``ln2`` a layer, ``ln_f``), every one
-    on the generic path (5120, 1536 and 512 are not compiled into the one
-    pass); no flash (MLA is plain einsums, as in the reference) or SSD."""
+    layer on the paged cache (the latent fold, dk 576 / dv 512: on the
+    tensor-core path in bf16, on the CUDA-core path in f32), none on the
+    dense cache or in a forward; 4 L + 1 RMSNorm (``ln1``, ``q_norm``,
+    ``kv_norm``, ``ln2`` a layer, ``ln_f``), every one on the one-pass path
+    (5120, 1536 and 512 are compiled in); no flash (MLA is plain einsums,
+    as in the reference) or SSD."""
     L = cfg.n_layers
     want_paged = L * dispatches if paged else 0
+    path = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
     got = {p: launches[f"paged_attention_{p}"] for p in ("cuda_core", "tensor_core", "decode")}
-    require(got == {"cuda_core": want_paged, "tensor_core": 0, "decode": 0}
-            and launches["paged_attention"] == want_paged,
-            f"{what}: paged launches by path {got}, want {want_paged} on the CUDA-core path "
+    want_paths = dict.fromkeys(got, 0)
+    want_paths[path] = want_paged
+    require(got == want_paths and launches["paged_attention"] == want_paged,
+            f"{what}: paged launches by path {got}, want {want_paged} on the {path} path "
             f"({L} layers, {dispatches} dispatches)")
     want = (4 * L + 1) * dispatches
-    require(launches["rmsnorm"] == want == launches["rmsnorm_generic"],
+    require(launches["rmsnorm"] == want == launches["rmsnorm_one_pass"],
             f"{what}: rmsnorm launched {launches['rmsnorm']} times "
-            f"({launches['rmsnorm_generic']} generic), want {want}, all generic")
+            f"({launches['rmsnorm_one_pass']} one pass), want {want}, all one pass")
     require(launches["flash_attention"] == 0 and launches["ssd"] == 0,
             f"{what}: flash or SSD launched: {launches}")
 
@@ -5039,7 +5104,7 @@ def phase_mla_parity() -> dict:
         divs = compare_greedy(model, params_cpu, gpu, cpu, what)
         counters = compare_counters(gpu, cpu, what, MLA_COUNTERS)
         logits = compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what)
-        require_mla_launches(cfg, launches, gpu.dispatches, what)
+        require_mla_launches(cfg, launches, gpu.dispatches, what, torch.float32)
         require(gpu.prefill_dispatches == 0, f"{what}: a MoE prompt took the fused prefill")
         if strategy == "capacity":
             require(dropped > 0, f"{what}: no entry was dropped; the capacity drops went untested")
@@ -5058,7 +5123,7 @@ def phase_mla_parity() -> dict:
                                                "cuda", **dict(dense_kw, cache_mode="dense"))
     launches = read_launches()
     what = "mla_parity dense cache against paged, on the card"
-    require_mla_launches(cfg, launches, dense.dispatches, what, paged=False)
+    require_mla_launches(cfg, launches, dense.dispatches, what, torch.float32, paged=False)
     paged, paged_calls = card["dense"]
     divs = compare_greedy(model, params_cpu, dense, paged, what)
     rec["dense_cache_against_paged"] = {
@@ -5076,7 +5141,7 @@ def phase_mla_parity() -> dict:
     with torch.no_grad():
         got = model.forward(params, tokens.cuda())[..., :cfg.vocab_size].cpu()
     launches = read_launches()
-    require_mla_launches(cfg, launches, 1, "mla_parity forward", paged=False)
+    require_mla_launches(cfg, launches, 1, "mla_parity forward", torch.float32, paged=False)
     with torch.no_grad():
         want = model.forward(params_cpu, tokens)[..., :cfg.vocab_size]
     gate = worst_over(got, want, PARITY_RTOL)
@@ -5137,7 +5202,7 @@ def phase_mla_serve() -> dict:
     require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
             "mla_serve: a request emitted a wrong number of tokens or an id outside the vocab")
     require(eng.prefill_dispatches == 0, "mla_serve: a MoE prompt took the fused prefill")
-    require_mla_launches(cfg, launches, eng.dispatches, "mla_serve")
+    require_mla_launches(cfg, launches, eng.dispatches, "mla_serve", dtype)
     d, ps, item = eng.dispatches, MLA_SERVE_KW["page_size"], 2
     per_head = (eng.peak_pages * ps * cfg.n_layers * cfg.n_heads
                 * (cfg.nope_head_dim + cfg.rope_head_dim + cfg.v_head_dim) * item)
@@ -5165,17 +5230,23 @@ def phase_mla_serve() -> dict:
     for _ in range(4):
         eng.step()
     d0 = eng.decode_dispatches
+    # the keys each row attends in the traced dispatches: its prompt is
+    # ingested one token a dispatch, so the rows stand early in it
+    positions = [[s.pos for s in eng.scheduler.slots if s.req is not None]]
     profile = trace(eng.step, MLA_TRACE_TICKS, "dispatch",
-                    watch=MOE_GEMM_OPS + MOE_ROUTING_OPS + ("paged_attention_kernel",
-                                                            "rmsnorm_generic_kernel"))
+                    watch=MOE_GEMM_OPS + MOE_ROUTING_OPS + ("paged_mla_kernel",
+                                                            "rmsnorm_row_kernel"))
+    positions.append([s.pos for s in eng.scheduler.slots if s.req is not None])
+    profile["keys_per_row"] = {"before": [min(positions[0]) + 1, max(positions[0]) + 1],
+                               "after": [min(positions[1]), max(positions[1])]}
     require(eng.decode_dispatches - d0 == 2 * MLA_TRACE_TICKS,
             "mla_serve: traced ticks were not all decode dispatches")
     watched = profile["watched_ops"]
     profile["gemm_ms_per_dispatch"] = sum(watched[w]["ms_per_dispatch"] for w in MOE_GEMM_OPS)
     profile["routing_ms_per_dispatch"] = sum(watched[w]["ms_per_dispatch"]
                                              for w in MOE_ROUTING_OPS)
-    profile["paged_ms_per_dispatch"] = watched["paged_attention_kernel"]["ms_per_dispatch"]
-    profile["rmsnorm_ms_per_dispatch"] = watched["rmsnorm_generic_kernel"]["ms_per_dispatch"]
+    profile["paged_ms_per_dispatch"] = watched["paged_mla_kernel"]["ms_per_dispatch"]
+    profile["rmsnorm_ms_per_dispatch"] = watched["rmsnorm_row_kernel"]["ms_per_dispatch"]
     rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256", "ticks": MLA_TRACE_TICKS,
                       **profile}
     del eng, params
@@ -5191,9 +5262,10 @@ def phase_mla_serve() -> dict:
                     for dd in (cfg.d_model, cfg.q_lora_rank, cfg.kv_lora_rank)
                     for at, rows in (("decode", 16), ("prefill", 256))}}
     for name, t in rec["kernel_times"]["paged_attention"].items():
-        require(t["path"] == "cuda_core", f"mla_serve: the MLA fold {name} took {t['path']}")
+        want = "tensor_core" if name.endswith("bf16") else "cuda_core"
+        require(t["path"] == want, f"mla_serve: the MLA fold {name} took {t['path']}")
     for t in rec["kernel_times"]["rmsnorm"].values():
-        require(t["path"] == "generic", f"mla_serve: rmsnorm at {t['shape']} took {t['path']}")
+        require(t["path"] == "one_pass", f"mla_serve: rmsnorm at {t['shape']} took {t['path']}")
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
     return rec
@@ -5207,6 +5279,14 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:99"),
     "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:61"),
 }
+
+
+# the paged kernel's paths live in three sources (one C entry)
+PATH_SOURCES = {"paged_attention": {
+    "cuda_core": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "decode": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "tensor_core": "src/repro_torch/kernels/csrc/paged_tensor_core.cu",
+    "tensor_core_mla": "src/repro_torch/kernels/csrc/paged_mla.cu"}}
 
 
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
@@ -5273,6 +5353,7 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
         errs = [*checks["max_abs_err"][name].values(), *(t["max_abs_err"] for t in timed.values())]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            **({"path_sources": PATH_SOURCES[name]} if name in PATH_SOURCES else {}),
             "launches": sum(launches.values()), "launches_by_path": launches,
             "max_abs_err": max(errs), "max_abs_err_by_dtype": checks["max_abs_err"][name],
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
@@ -5284,7 +5365,7 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
             "other_shapes": {k: {f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                    "bound_route", "bound_ms_cuda_core",
                                                    "bound_ms_tensor_core", "library_ms",
-                                                   "launch_floor_ms", "path",
+                                                   "launch_floor_ms", "path", "cuda_core_ms",
                                                    "max_abs_err") if f in t}
                              for k, t in list(timed.items())[1:]},
         })

@@ -43,12 +43,13 @@
 // at 2048-4096: a cluster's blocks wait for its slowest split.
 //
 // Tensor-core path (path 1: bf16 from flash_decode.TENSOR_CORE_MIN_ROWS
-// folded rows at dk, dv in {64, 128}, every fold at dk = dv = 192): in
-// csrc/paged_tensor_core.cu, compiled apart so the build runs it in
-// parallel; its note there.
+// folded rows at dk, dv in {64, 128}, every fold at dk = dv = 192 and at
+// MLA's dk 576 / dv 512): in csrc/paged_tensor_core.cu, and MLA's fold in
+// csrc/paged_mla.cu, compiled apart so the build runs them in parallel;
+// their notes there.
 //
 // CUDA-core path (path 0: every other call -- f32 chunk-extend, f32 at dk
-// 192, MLA's dk 576 / dv 512, other widths).  One thread block per (query
+// 192, f32 at MLA's dk 576 / dv 512, other widths).  One thread block per (query
 // tile, kv head, batch row).  The
 // tile holds up to 32 / NV folded query rows (NV value columns per lane),
 // and the host shrinks it while the grid would leave the card's SMs
@@ -821,8 +822,9 @@ cudaError_t launch_decode(const Args& a, int dtype, int splits, int round_pages,
 // With more than one split, workspace holds batch * hkv * splits * ql *
 // (dv + 2) floats and counters batch * hkv (path 2) or batch * hkv * groups
 // (path 1) int32 that are zero before the launch and zero again after it
-// (both may be null with one split).  Returns cudaGetLastError() after the
-// launch.
+// (both may be null with one split, and on path 1 at MLA's dk 576 / dv 512,
+// whose splits merge in a thread-block cluster).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_attention_fwd(int dtype, const void* q, const void* k_pages,
                                    const void* v_pages, const void* table, const void* offsets,
                                    void* out, int batch, int hkv, int ql, int dk, int n_pages,

@@ -1,7 +1,7 @@
-// What the paged attention kernel's two sources share: csrc/paged_attention.cu
-// (the C entry, the CUDA-core and split-KV decode paths) and
-// csrc/paged_tensor_core.cu (the bf16 tensor-core path), compiled apart so
-// the build runs them in parallel.
+// What the paged attention kernel's sources share: csrc/paged_attention.cu
+// (the C entry, the CUDA-core and split-KV decode paths),
+// csrc/paged_tensor_core.cu (the bf16 tensor-core path) and csrc/paged_mla.cu
+// (its MLA fold), compiled apart so the build runs them in parallel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,10 +27,16 @@ struct Args {
 };
 
 // The tensor-core path (csrc/paged_tensor_core.cu): bf16, dk and dv in
-// {64, 128} or both 192, 16-byte-aligned rows, in the row groups and key
-// splits of the host's plan; with more than one split the workspace and
-// the zeroed counters (one a (row, kv head, group)).
+// {64, 128} or both 192, or MLA's dk 576 / dv 512 (launch_mla), 16-byte-
+// aligned rows, in the row groups and key splits of the host's plan; with
+// more than one split the workspace and the zeroed counters (one a (row,
+// kv head, group)).
 cudaError_t launch_tc(const Args& a, int dtype, int groups, int splits, void* ws, void* counters,
                       cudaStream_t s);
+
+// The tensor-core path at MLA's fold (csrc/paged_mla.cu): bf16, dk 576, the
+// values the first 512 columns of the same pages (k_pages == v_pages).
+// One key split or a thread-block cluster of them; no workspace.
+cudaError_t launch_mla(const Args& a, int groups, int splits, cudaStream_t s);
 
 }  // namespace paged

@@ -16,7 +16,10 @@
 // Why mma.sync and not wgmma: only the G*T queries of one (b, kv head)
 // share a K tile, and at the serve prefill that is 16 rows, exactly one
 // mma.sync.m16n8k16 M-tile; wgmma's 64-row M would leave 3/4 of every
-// product empty at 16 rows and pad nemotron's 12 to 64.
+// product empty at 16 rows and pad nemotron's 12 to 64.  That does not
+// hold for MLA's fold (all 128 heads on one latent fill a 64-row M-tile):
+// launch_tc sends (dk, dv) = (576, 512) to csrc/paged_mla.cu, whose note
+// says why it keeps mma.sync there too.
 //
 // Design.  The fold is cut into row groups of at most 8 M-tiles of 16
 // rows; a block takes one (key split, row group, batch row x kv head), a
@@ -541,6 +544,7 @@ cudaError_t paged::launch_tc(const Args& a, int dtype, int groups, int splits, v
   if (a.dk == 128 && a.dv == 64) return run_tc<128, 64>(a, groups, splits, w, c, s);
   if (a.dk == 128 && a.dv == 128) return run_tc<128, 128>(a, groups, splits, w, c, s);
   if (a.dk == 192 && a.dv == 192) return run_tc<192, 192>(a, groups, splits, w, c, s);
+  if (a.dk == 576 && a.dv == 512) return paged::launch_mla(a, groups, splits, s);
   return cudaErrorInvalidValue;
 }
 

@@ -9,15 +9,17 @@
 // registers for the scale-and-store: one memory round trip where a second
 // pass over x (and w read after the reduction) made two.
 //   - The widths the models use (768, 2048, zamba2's shared block at
-//     4096, and the dense zoo's 6144, 8192 and 18432) and 3840 are
+//     4096, the dense zoo's 6144, 8192 and 18432, deepseek-v2-236b's
+//     512 (kv_norm), 1536 (q_norm) and 5120 (d_model)) and 3840 are
 //     instantiated with a compile-time count of 16-byte vectors a row,
 //     shared by the fewest warps that keep a lane at 2 vectors or under
-//     (kMaxVecPerLane: 768 bf16 takes 64 threads, 2048 128, 4096 256), up
-//     to the block's 256 threads, where a lane takes up to 4 (f32 at 3840
-//     and 4096, bf16 at 6144 and 8192: 3 and 4 vectors); a row past 4
-//     vectors a lane at 256 threads takes more lanes, up to a block of
-//     1,024 threads a row (f32 at 6144 and 8192: 512 threads, 3 and 4
-//     vectors; 18432: 1,024 threads, 3 vectors in bf16 and 5 in f32), so
+//     (kMaxVecPerLane: 512 bf16 takes one warp, 768 64 threads, 1536 and
+//     2048 128, 4096 256), up to the block's 256 threads, where a lane
+//     takes up to 4 (f32 at 3840 and 4096, bf16 at 5120, 6144 and 8192:
+//     2.5, 3 and 4 vectors); a row past 4 vectors a lane at 256 threads
+//     takes more lanes, up to a block of 1,024 threads a row (f32 at 5120,
+//     6144 and 8192: 512 threads, 2.5, 3 and 4 vectors; 18432: 1,024
+//     threads, 3 vectors in bf16 and 5 in f32), so
 //     the row still stays in registers, read once.  The warps of a row
 //     meet in shared memory.  A warp a row with up to 8 vectors a lane
 //     measured 0.5 us slower at 2048 (tools/kernel_variants.py).
@@ -215,10 +217,13 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int d, flo
   *path = 0;
   if (aligned) {
     switch (d) {
+      case 512: return launch_rows<TX, TW, 512 / kVec>(x, w, out, rows, eps, stream);
       case 768: return launch_rows<TX, TW, 768 / kVec>(x, w, out, rows, eps, stream);
+      case 1536: return launch_rows<TX, TW, 1536 / kVec>(x, w, out, rows, eps, stream);
       case 2048: return launch_rows<TX, TW, 2048 / kVec>(x, w, out, rows, eps, stream);
       case 3840: return launch_rows<TX, TW, 3840 / kVec>(x, w, out, rows, eps, stream);
       case 4096: return launch_rows<TX, TW, 4096 / kVec>(x, w, out, rows, eps, stream);
+      case 5120: return launch_rows<TX, TW, 5120 / kVec>(x, w, out, rows, eps, stream);
       case 6144: return launch_rows<TX, TW, 6144 / kVec>(x, w, out, rows, eps, stream);
       case 8192: return launch_rows<TX, TW, 8192 / kVec>(x, w, out, rows, eps, stream);
       case 18432: return launch_rows<TX, TW, 18432 / kVec>(x, w, out, rows, eps, stream);

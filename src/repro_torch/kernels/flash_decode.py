@@ -22,13 +22,19 @@ live pages shared out among the blocks :func:`decode_plan` counts, each
 streaming its pages through a 2-stage ring of rounds, and the last block
 of a (row, kv head) to finish merging the splits); bf16 with ``dk, dv`` in
 {64, 128} from ``TENSOR_CORE_MIN_ROWS`` folded queries up, and bf16 at
-``dk = dv = 192`` at any fold, runs on the tensor cores (``mma.sync``):
-the fold is cut into row groups of at most 8 M-tiles of 16 rows, a block's
-warps share one ``cp.async`` ring of 32-key K/V units, so a block reads
-the row's K/V once, and where the grid would leave most SMs idle the
-row's keys are shared out among blocks that merge as the decode path's do
-(:func:`tensor_core_plan`); every other call (f32 chunk-extend, f32 at
-dk 192, MLA's 576/512, odd widths) runs the CUDA-core kernel.
+``dk = dv = 192`` or MLA's ``dk 576 / dv 512`` at any fold, runs on the
+tensor cores (``mma.sync``): the fold is cut into row groups of at most 8
+M-tiles of 16 rows (4 at MLA's fold, whose kernel keeps the group's Q in
+shared memory and gives each M-tile 4 warps, each a quarter of S's depth
+and of O's columns), a block's warps share one ``cp.async`` ring of
+32-key K/V units (MLA's values read from the first 512 columns of the
+staged latent, one pool passed as K and V), so a block reads the row's
+K/V once, and where the grid would leave most SMs idle the row's keys are
+shared out among blocks that merge as the decode path's do, or at MLA's
+widths in a thread-block cluster (:func:`tensor_core_plan`); every other
+call (f32 chunk-extend, f32 at dk 192, f32 at MLA's 576/512, bf16 at
+576/512 with separate K and V pools, odd widths) runs the CUDA-core
+kernel.
 Launches are counted in total (``launches``) and per path
 (``launches_by_path``).
 
@@ -58,8 +64,27 @@ PATHS = ("cuda_core", "tensor_core", "decode")  # the C entry's `path` codes 0, 
 # rows (0.0217 / 0.0220 ms against 0.0424 / 0.0436) and at 8 rows of dk 128
 # (0.0288 against 0.0605); the decode path keeps its folds of up to 8 for
 # now (ROADMAP Queue 2).
-TENSOR_CORE_WIDTHS = ((64, 64), (64, 128), (128, 64), (128, 128), (192, 192))
+TENSOR_CORE_WIDTHS = ((64, 64), (64, 128), (128, 64), (128, 128), (192, 192), (576, 512))
 TENSOR_CORE_MIN_ROWS = 9
+# MLA's fold (csrc/paged_mla.cu): one latent pool as K and V, values its
+# first 512 columns; a block takes a row group of at most MLA_MAX_TILES
+# M-tiles (its Q rows staged in shared memory, 4 warps an M-tile).  A row's
+# key splits merge as one thread-block cluster, so at most MLA_MAX_SPLITS,
+# and the card holds fewer blocks at once in clusters (117, 120, 110, 102,
+# 105, 120 of 132 in clusters of 3-8, cudaOccupancyMaxActiveClusters): the
+# splits fill at most MLA_FILL of the SMs.  Measured with
+# tools/kernel_variants.py (mla) on an H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W; bf16, B 16, G 128, 128-576 keys): 64-row groups in 3 splits
+# took the decode in 0.03571 ms, against 0.03818 in 4 (30 clusters of 4
+# fit at once, the grid needs 32), 0.04512 in 2 and 0.07341 unsplit, and
+# 32-row groups in 2 splits 0.03610; 2 warps an M-tile took 0.03629 (the
+# T 4 fold 0.07562 against 0.07565), each warp computing S whole 0.05098
+# (0.1184), and merging the splits through the f32 workspace by the last
+# block (as the other widths do) 0.04810 against 0.03584 in a cluster.
+MLA_WIDTHS = (576, 512)
+MLA_MAX_TILES = 4
+MLA_MAX_SPLITS = 8
+MLA_FILL = 0.75
 # A block of the tensor-core path takes a row group of at most
 # TENSOR_CORE_MAX_TILES 16-row M-tiles, a warp each, and walks the row's
 # keys in units of TENSOR_CORE_UNIT (csrc/paged_tensor_core.cu: tc_block
@@ -113,20 +138,27 @@ def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int) -> str:
 
 
 def tensor_core_plan(batch: int, hkv: int, ql: int, pages_per_slot: int, page_size: int,
-                     sms: int) -> tuple:
-    """``(groups, splits)`` of a tensor-core call on a card of ``sms`` SMs:
-    the row groups the fold of ``ql`` rows is cut into (as few as keep a
-    group at ``TENSOR_CORE_MAX_TILES`` M-tiles, balanced, none empty), and
+                     sms: int, widths: tuple) -> tuple:
+    """``(groups, splits)`` of a tensor-core call on a card of ``sms`` SMs
+    at ``widths`` ``(dk, dv)``: the row groups the fold of ``ql`` rows is
+    cut into (as few as keep a group at ``TENSOR_CORE_MAX_TILES`` M-tiles,
+    ``MLA_MAX_TILES`` at ``MLA_WIDTHS``, balanced, none empty), and
     how many blocks share a row's 32-key units (the grid's B x Hkv x groups
-    blocks raised to ``TENSOR_CORE_BLOCKS_PER_SM`` an SM where each split
-    keeps ``TENSOR_CORE_MIN_UNITS`` units of the page table's span, at
-    most ``TENSOR_CORE_MAX_SPLITS``)."""
+    blocks raised to ``TENSOR_CORE_BLOCKS_PER_SM`` an SM, ``MLA_FILL`` of
+    the SMs at ``MLA_WIDTHS``, where each split keeps
+    ``TENSOR_CORE_MIN_UNITS`` units of the page table's span, at most
+    ``TENSOR_CORE_MAX_SPLITS``, ``MLA_MAX_SPLITS`` at ``MLA_WIDTHS``)."""
+    mla = tuple(widths) == MLA_WIDTHS
     mtiles = -(-ql // 16)
-    tiles = -(-mtiles // -(-mtiles // TENSOR_CORE_MAX_TILES))
+    tiles = -(-mtiles // -(-mtiles // (MLA_MAX_TILES if mla else TENSOR_CORE_MAX_TILES)))
     groups = -(-mtiles // tiles)
     units = -(-pages_per_slot * page_size // TENSOR_CORE_UNIT)
-    fill = TENSOR_CORE_BLOCKS_PER_SM * sms // (batch * hkv * groups)
-    return groups, max(1, min(fill, units // TENSOR_CORE_MIN_UNITS, TENSOR_CORE_MAX_SPLITS))
+    if mla:
+        fill, max_splits = int(MLA_FILL * sms) // (batch * hkv * groups), MLA_MAX_SPLITS
+    else:
+        fill = TENSOR_CORE_BLOCKS_PER_SM * sms // (batch * hkv * groups)
+        max_splits = TENSOR_CORE_MAX_SPLITS
+    return groups, max(1, min(fill, units // TENSOR_CORE_MIN_UNITS, max_splits))
 
 
 def decode_plan(batch: int, hkv: int, pages_per_slot: int, page_size: int, dk: int, dv: int,
@@ -224,7 +256,8 @@ def paged_flash_attention_folded(
     the splits' partial softmax states go to an f32 workspace and a
     per-(row, kv head) int32 counter (per row group on the tensor-core
     path) tells the last block of each to merge them; it resets the
-    counter to 0.  Workspace and counters are one pair per device, kept
+    counter to 0.  At MLA's widths the splits merge in a thread-block
+    cluster and take neither.  Workspace and counters are one pair per device, kept
     here and reused by every call, so calls on one device must run on one
     stream (or be ordered between streams by the caller).  Threads may
     call at once: the pair is looked up and grown under a lock, and worker
@@ -265,14 +298,19 @@ def paged_flash_attention_folded(
     if out.numel() == 0:
         return out
     path = kernel_path(q.dtype, ql, dk, dv)
+    mla = (dk, dv) == MLA_WIDTHS
+    if path == "tensor_core" and mla and (v_pages.data_ptr() != k_pages.data_ptr()
+                                          or dv_store != dk):
+        path = "cuda_core"  # MLA's tensor-core kernel reads the values from the key pages
     splits, round_pages, groups, ws_ptr, counters_ptr = 1, 1, 1, None, None
     P = page_table.shape[1]
     if path == "decode":
         splits, round_pages = decode_plan(b, hkv, P, page_size, dk, dv, q.element_size(),
                                           _sm_count(q.device.index))
     elif path == "tensor_core":
-        groups, splits = tensor_core_plan(b, hkv, ql, P, page_size, _sm_count(q.device.index))
-    if splits > 1:
+        groups, splits = tensor_core_plan(b, hkv, ql, P, page_size, _sm_count(q.device.index),
+                                          (dk, dv))
+    if splits > 1 and not (path == "tensor_core" and mla):
         ws, counters = _decode_buffers(q.device, b * hkv * splits * ql * (dv + 2),
                                        b * hkv * groups)
         ws_ptr, counters_ptr = ws.data_ptr(), counters.data_ptr()

@@ -88,13 +88,13 @@ def test_paged_attention_tensor_core_folds_vs_reference(hkv, g, T, ps, dk, parke
     (torch.float32, 8, 64, 64, "decode"),
     (torch.float32, 5, 128, 64, "decode"),           # verify T 5 at G 1
     (torch.bfloat16, 9, 64, 64, "tensor_core"),      # verify spec_k 8, the reference bench's
-    (torch.bfloat16, 1, 576, 512, "cuda_core"),      # MLA decode
+    (torch.bfloat16, 1, 576, 512, "tensor_core"),    # MLA decode at G 1
     (torch.float32, 1, 576, 512, "cuda_core"),
     (torch.bfloat16, 1, 32, 32, "cuda_core"),
     (torch.float32, 16, 128, 128, "cuda_core"),      # f32 chunk-extend
     (torch.bfloat16, 15, 64, 64, "tensor_core"),
     (torch.bfloat16, 136, 64, 64, "tensor_core"),    # two row groups
-    (torch.bfloat16, 16, 576, 512, "cuda_core"),     # MLA
+    (torch.bfloat16, 16, 576, 512, "tensor_core"),   # MLA, G 16: one partial row group
     (torch.bfloat16, 16, 32, 32, "cuda_core"),
     (torch.bfloat16, 16, 64, 48, "cuda_core"),
     (torch.float32, 16, 64, 64, "cuda_core"),        # f32 parity
@@ -121,11 +121,18 @@ def test_paged_attention_tensor_core_folds_vs_reference(hkv, g, T, ps, dk, parke
     (torch.bfloat16, 12, 192, 128, "cuda_core"),     # mixed 192 widths: not instantiated
     # deepseek-v2-236b's MLA at full width: Hkv 1, G 128, the 576-wide latent
     # page with values from its first 512 columns; decode (128 rows) and a
-    # T 4 chunk-extend (512 rows)
-    (torch.bfloat16, 128, 576, 512, "cuda_core"),
+    # T 4 chunk-extend (512 rows): bf16 on the tensor cores (csrc/
+    # paged_mla.cu) at every fold, f32 on the CUDA cores (mla_parity)
+    (torch.bfloat16, 128, 576, 512, "tensor_core"),
     (torch.float32, 128, 576, 512, "cuda_core"),
-    (torch.bfloat16, 512, 576, 512, "cuda_core"),
+    (torch.bfloat16, 512, 576, 512, "tensor_core"),
     (torch.float32, 512, 576, 512, "cuda_core"),
+    (torch.bfloat16, 4, 576, 512, "tensor_core"),     # G 1 x T 4: under the decode path's 8
+    (torch.bfloat16, 8, 576, 512, "tensor_core"),
+    (torch.bfloat16, 64, 576, 512, "tensor_core"),    # one full 64-row group
+    (torch.bfloat16, 65, 576, 512, "tensor_core"),    # a second group of one row
+    (torch.float32, 16, 576, 512, "cuda_core"),
+    (torch.float32, 4, 576, 512, "cuda_core"),
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
@@ -162,12 +169,15 @@ def test_tensor_core_calls_fit_the_blocks_shared_memory():
     before it failed to launch qwen2-72b's bf16 prefill (G*T 128 at
     dk = dv = 128: 272 KiB)."""
     for dk, dv in flash_decode.TENSOR_CORE_WIDTHS:
+        if (dk, dv) == flash_decode.MLA_WIDTHS:
+            continue  # its own block: test_mla_calls_fit_the_blocks_shared_memory
         for ql in range(1, 8 * 16 * 3 + 1):
             if flash_decode.kernel_path(torch.bfloat16, ql, dk, dv) != "tensor_core":
                 assert ql < flash_decode.TENSOR_CORE_MIN_ROWS and dk != 192, (ql, dk, dv)
                 continue
             for batch, hkv in ((16, 1), (1, 1), (16, 8)):
-                groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, 256, 16, sms=132)
+                groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, 256, 16, sms=132,
+                                                               widths=(dk, dv))
                 mtiles = -(-ql // 16)
                 tiles = -(-mtiles // groups)  # as run_tc derives it
                 assert tiles <= 8 and (groups - 1) * tiles < mtiles, (ql, groups)
@@ -185,6 +195,61 @@ def test_tensor_core_calls_fit_the_blocks_shared_memory():
     assert tensor_core_block(8, 64, 64, splits=132)[2] == 133 * 128 * 4
 
 
+def mla_block(tiles, splits=1):
+    """``(stages, smem_bytes)`` of an MLA block of ``tiles`` M-tiles under
+    ``splits`` key splits, as ``csrc/paged_mla.cu``'s ``mla_block`` lays it
+    out: the group's Q rows (576 bf16 padded to 584), 3 stages of one
+    32-key latent unit (2 where 3 pass the 226 KiB budget), the partial S
+    of the 4 warps of each M-tile and the M-tile's summed S (16 x 32 f32
+    each); with key splits, where larger, the merge over them: the block's
+    state (each row's f32 o, padded to 520 floats, and (m, l)) and the
+    weights of the rows it merges."""
+    ld = 576 + 8
+
+    def total(stages):
+        return tiles * 16 * ld * 2 + stages * 32 * ld * 2 + tiles * (4 + 1) * 16 * 32 * 4
+
+    stages = 3 if total(3) <= 226 * 1024 else 2
+    merge = tiles * 16 * (520 * 4 + 8) + (splits + 1) * tiles * 16 * 4 if splits > 1 else 0
+    return stages, max(total(stages), merge)
+
+
+def test_mla_calls_fit_the_blocks_shared_memory():
+    """Every bf16 fold at MLA's widths takes the tensor-core path, and its
+    block fits the C launcher's budget (``launch_mla``/``mla_block``: a row
+    group of at most 4 M-tiles of 4 warps each, at most 512 threads; Q, a
+    3-stage latent ring and the partial-S slots within 226 KiB of the
+    H100's 227 KiB a block) under
+    every key split the plan gives: G*T 1-200, MLA's decode at G 16 and
+    G 128 and the T 4 fold of 512 rows, rows of 1-16 batch rows over page
+    tables of 2-256 pages."""
+    seen_splits = set()
+    for ql in [*range(1, 201), 256, 512]:
+        assert flash_decode.kernel_path(torch.bfloat16, ql, 576, 512) == "tensor_core", ql
+        assert flash_decode.kernel_path(torch.float32, ql, 576, 512) == "cuda_core", ql
+        for batch in (1, 2, 16):
+            for P, ps in ((2, 16), (40, 16), (80, 8), (10, 64), (256, 16)):
+                groups, splits = flash_decode.tensor_core_plan(batch, 1, ql, P, ps, sms=132,
+                                                               widths=(576, 512))
+                mtiles = -(-ql // 16)
+                tiles = -(-mtiles // groups)  # as launch_mla derives it
+                assert tiles <= flash_decode.MLA_MAX_TILES and (groups - 1) * tiles < mtiles
+                assert 1 <= splits <= max(1, -(-P * ps // 32)), (ql, batch, P)
+                seen_splits.add(splits)
+                for any_splits in range(1, flash_decode.MLA_MAX_SPLITS + 1):
+                    smem = mla_block(tiles, any_splits)[1]
+                    assert smem <= 226 * 1024 and tiles * 4 * 32 <= 512, (ql, tiles, any_splits)
+    assert min(seen_splits) == 1 and max(seen_splits) == flash_decode.MLA_MAX_SPLITS == 8
+    # a 64-row group: Q 73 KiB, 3 stages of 36.5 KiB, 40 KiB of partial
+    # and summed S
+    assert mla_block(4) == (3, 4 * 16 * 584 * 2 + 3 * 32 * 584 * 2 + 4 * 5 * 2048) == (3, 227840)
+    assert mla_block(1) == (3, 141056)
+    # the split merge (the block's state, 130.5 KiB at 64 rows, and the
+    # weights) fits beneath Q and the ring at the most splits
+    assert mla_block(4, splits=8) == (3, 227840)
+    assert 4 * 16 * (520 * 4 + 8) + 9 * 64 * 4 < 4 * 16 * 584 * 2 + 3 * 32 * 584 * 2
+
+
 @pytest.mark.parametrize("batch,hkv,ql,P,ps,want", [
     (16, 12, 16, 40, 16, (1, 1)),     # ds-paper-100m's serve prefill: 192 blocks, no split
     (16, 1, 48, 40, 16, (1, 8)),      # granite-34b's MQA decode: 16 blocks -> 8 splits
@@ -199,8 +264,12 @@ def test_tensor_core_calls_fit_the_blocks_shared_memory():
     (2, 8, 144, 40, 16, (2, 4)),      # 32 blocks of 9 M-tiles in 2 groups -> 4 splits
 ])
 def test_tc_plan(batch, hkv, ql, P, ps, want):
-    groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132)
-    assert (groups, splits) == want
+    # one plan at every tensor-core width but MLA's
+    for widths in flash_decode.TENSOR_CORE_WIDTHS:
+        if widths != flash_decode.MLA_WIDTHS:
+            plan = flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132, widths=widths)
+            assert plan == want, widths
+    groups, splits = want
     mtiles = -(-ql // 16)
     tiles = -(-mtiles // groups)
     assert tiles <= flash_decode.TENSOR_CORE_MAX_TILES and (groups - 1) * tiles < mtiles
@@ -208,6 +277,30 @@ def test_tc_plan(batch, hkv, ql, P, ps, want):
     assert 1 <= splits <= max(1, units)
     if splits > 1:
         assert batch * hkv * groups * splits <= 132 and units // splits >= 2 and splits <= 16
+
+
+@pytest.mark.parametrize("batch,hkv,ql,P,ps,want", [
+    (16, 1, 128, 40, 16, (2, 3)),     # deepseek-v2-236b's decode: 32 blocks -> 3 splits
+    (16, 1, 512, 40, 16, (8, 1)),     # its T 4 fold: 8 groups of 64 rows, 128 blocks
+    (2, 1, 16, 40, 16, (1, 8)),       # G 16 over 2 rows: one partial group, 8 splits
+    (1, 1, 128, 256, 16, (2, 8)),     # one row of 4096 keys: the most splits, a cluster's 8
+    (16, 1, 128, 2, 16, (2, 1)),      # a row of one unit keeps one split
+])
+def test_tc_plan_mla(batch, hkv, ql, P, ps, want):
+    """The plan at MLA's widths: row groups of at most ``MLA_MAX_TILES``
+    M-tiles (64 rows), then key splits filling ``MLA_FILL`` of the SMs, at
+    most a cluster's ``MLA_MAX_SPLITS``."""
+    groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132,
+                                                   widths=flash_decode.MLA_WIDTHS)
+    assert (groups, splits) == want
+    mtiles = -(-ql // 16)
+    tiles = -(-mtiles // groups)
+    assert tiles <= flash_decode.MLA_MAX_TILES and (groups - 1) * tiles < mtiles
+    if splits > 1:  # the split grid fits the clusters the card holds at once (99 of 132)
+        assert batch * hkv * groups * splits <= 99 and splits <= flash_decode.MLA_MAX_SPLITS
+    # the same fold at other widths keeps groups of up to 8 M-tiles
+    assert flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132,
+                                         widths=(192, 192))[0] == -(-mtiles // 8)
 
 
 # The decode path's shapes (G*T <= 8, dk and dv in {64, 128}, f32 and

@@ -1,7 +1,9 @@
 """Design measurements behind the f32 flash kernel, the paged decode path,
-the SSD chunk kernel and RMSNorm, on one CUDA card.
+the paged tensor-core path and its MLA fold, the SSD chunk kernel and
+RMSNorm, on one CUDA card.
 
-    python3 tools/kernel_variants.py [flash] [decode] [tc] [ssd] [rmsnorm] [mma] [ssd_logits]
+    python3 tools/kernel_variants.py [flash] [decode] [tc] [mla] [ssd] [rmsnorm] [mma]
+        [ssd_logits]
 
 (no argument: every group).  Each variant is the committed source (its
 ``mma_sm80.cuh`` inlined) with one design choice undone by a text
@@ -29,6 +31,17 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   row of 4096 keys; and the kernel rebuilt with a 112 KiB ring budget
   instead of 200, the copy as a loop at every width or unrolled at 192
   too, and 8 warps a block as the target instead of 4;
+- the paged kernel's MLA fold (``mla``: deepseek-v2-236b's bf16 decode, B
+  16, Hkv 1, G 128, dk 576, v_width 512, 128-576 keys, and its T 4 fold of
+  512 rows): row groups of 32 and 64 rows (``flash_decode.MLA_MAX_TILES``
+  2 and 4) for the committed kernel (4 warps an M-tile sharing S's
+  depth, the key splits merged in a cluster), the kernel rebuilt with 2
+  warps an M-tile and with each warp computing S whole (the partial-S
+  exchange skipped); copies that stop after the main loop and before the
+  merge;
+  plans forced to 1-8 key splits at 64- and 32-row groups; the CUDA-core
+  path forced through ``flash_decode.kernel_path``; and the clusters of
+  2-8 blocks the card holds at once (``cudaOccupancyMaxActiveClusters``);
 - the SSD chunk kernel at mamba2-1.3b's eval shapes (b 8 x nc 4 and b 2 x
   nc 32 chunks of 128, h 64, p 64, n 128) and the serve prefill shape (b
   16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate
@@ -93,11 +106,12 @@ def source(name: str) -> str:
 
 
 def paged_source() -> str:
-    """The paged kernel's two sources as one (a variant builds one file):
+    """The paged kernel's three sources as one (a variant builds one file):
     the entry with the CUDA-core and decode paths, then the tensor-core
-    path."""
-    tc = (_build.CSRC / "paged_tensor_core.cu").read_text()
-    return source("paged_attention.cu") + "\n" + tc.replace('#include "mma_sm80.cuh"\n', "")
+    path and its MLA fold."""
+    rest = [(_build.CSRC / name).read_text().replace('#include "mma_sm80.cuh"\n', "")
+            for name in ("paged_tensor_core.cu", "paged_mla.cu")]
+    return "\n".join([source("paged_attention.cu"), *rest])
 
 
 FLASH_EDITS = {
@@ -389,7 +403,7 @@ def tc_variants(libs: dict) -> None:
                 flash_decode.TENSOR_CORE_BLOCKS_PER_SM = bps
                 flash_decode.TENSOR_CORE_MIN_UNITS = min_units
                 flash_decode.TENSOR_CORE_MAX_SPLITS = max_splits
-                plan = flash_decode.tensor_core_plan(B, hkv, g * T, P, 16, 132)
+                plan = flash_decode.tensor_core_plan(B, hkv, g * T, P, 16, 132, (dk, dk))
                 c.emit({"what": "tc_plan", "at": label, "blocks_per_sm": bps,
                         "min_units": min_units, "max_splits": max_splits, "plan": plan,
                         **_checked_ms(f"tc plan {plan} at {label}", fn, want)})
@@ -430,6 +444,134 @@ def tc_variants(libs: dict) -> None:
         for n in names:
             c.emit({"what": "tc_variant", "variant": n, "at": label, "ms": ms[n],
                     "max_abs_err": errs[n]})
+
+
+# the MLA fold's kernel with one design choice undone
+MLA_EDITS = {
+    "colwarps2": [("constexpr int kMlaColWarps = 4;", "constexpr int kMlaColWarps = 2;")],
+    # each warp computes S over all 576 columns: no partial-S exchange
+    # (nor its shared memory)
+    "s_recomputed": [("  constexpr int KS = DK / 16 / NW;", "  constexpr int KS = DK / 16;"),
+                     ("    const int kc0 = wc * KS;", "    const int kc0 = 0;"),
+                     ("    {\n      float4* tile_partials",
+                      "    if (false) {\n      float4* tile_partials"),
+                     ("  const size_t sums = (size_t)tiles * (kMlaColWarps + 1) * 16 * 32 * 4;",
+                      "  const size_t sums = 0;")],
+}
+# how many clusters of the committed MLA kernel the card holds at once, by
+# cluster size (cudaOccupancyMaxActiveClusters), appended to its source
+MLA_CLUSTERS = r"""
+extern "C" int mla_max_clusters(int tiles, int splits, int* n) {
+  const MlaBlock blk = mla_block(tiles, splits);
+  auto kernel = paged_mla_kernel<kMlaColWarps>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)blk.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, 1, 132);
+  cfg.blockDim = dim3(tiles * kMlaColWarps * 32);
+  cfg.dynamicSmemBytes = blk.smem;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+"""
+# copies that stop short (their output is then not the op's): after the
+# main loop, and after each split's state is written (before the merge)
+_MLA_OUT = ("  __nv_bfloat16* __restrict__ out = static_cast<__nv_bfloat16*>(a.out) + "
+            "(size_t)bh * ql * DV;\n  if (splits == 1) {")
+MLA_STOPS = {
+    "loop_only": [(_MLA_OUT, "  return;\n" + _MLA_OUT)],
+    "before_merge": [("  cg::cluster_group cluster = cg::this_cluster();\n  cluster.sync();",
+                      "  return;\n  cg::cluster_group cluster = cg::this_cluster();\n"
+                      "  cluster.sync();")],
+}
+
+
+def mla_variants(libs: dict) -> None:
+    """The MLA fold at mla_serve's timed shapes (bf16, B 16, G 128, offsets
+    128-576 from seed 3, T 1 and 4), after the clusters the card holds at
+    once by size: the committed kernel and ``MLA_EDITS`` at 64- and 32-row
+    groups in turns, ``MLA_STOPS`` beside the committed kernel, plans of
+    1-8 key splits at both row groups, and the CUDA-core path."""
+    probe = libs["mla_committed"].mla_max_clusters
+    probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for tiles in (4, 2):
+        for splits in range(2, 9):
+            n = ctypes.c_int(-1)
+            c.emit({"what": "mla_max_active_clusters", "rows": 16 * tiles, "cluster": splits,
+                    "status": probe(tiles, splits, ctypes.byref(n)), "clusters": n.value,
+                    "blocks": n.value * splits})
+    rng = np.random.default_rng(3)
+    offs = rng.integers(128, 576, 16).tolist()
+    names = ["committed", *MLA_EDITS]
+    for n in (*names, *MLA_STOPS):
+        libs[f"mla_{n}"].paged_attention_fwd.argtypes = _build.SIGNATURES["paged_attention_fwd"]
+    lib0 = _build.library()
+    real_path, real_plan = flash_decode.kernel_path, flash_decode.tensor_core_plan
+    tiles0 = flash_decode.MLA_MAX_TILES
+    for label, T in (("decode", 1), ("t4", 4)):
+        q, kv, _, table, offt = c.paged_inputs(B=16, hkv=1, g=128, T=T, dk=576, ps=16, P=40,
+                                               offsets=offs, dtype=torch.bfloat16, seed=23,
+                                               shared_kv=True)
+        call = dict(tokens_per_row=T, scale=c.MLA_SCALE, v_width=512)
+        fn = lambda: flash_decode.paged_flash_attention_folded(  # noqa: E731
+            q, kv, kv, table, offt, **call)
+        want = flash_decode.paged_flash_attention_folded_plain(q, kv, kv, table, offt, **call)
+        fns, errs = {}, {}
+        for n in names:
+            for tiles in (4, 2):
+                def run(lib=libs[f"mla_{n}"], tiles=tiles):
+                    _build._lib = lib
+                    flash_decode.MLA_MAX_TILES = tiles
+                    try:
+                        return fn()
+                    finally:
+                        _build._lib = lib0
+                        flash_decode.MLA_MAX_TILES = tiles0
+                key = f"{n}_rows{16 * tiles}"
+                fns[key] = run
+                got = run()
+                torch.cuda.synchronize()
+                errs[key] = (got.float() - want.float()).abs().max().item()
+                c.require(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+                          f"mla variant {key} misses 2e-2 at {label} ({errs[key]})")
+        ms = in_turns(fns)
+        for key in fns:
+            c.emit({"what": "mla_variant", "variant": key, "at": label, "ms": ms[key],
+                    "max_abs_err": errs[key]})
+        stops = {}
+        for n in ("committed", *MLA_STOPS):
+            def run(lib=libs[f"mla_{n}"]):
+                _build._lib = lib
+                try:
+                    fn()
+                finally:
+                    _build._lib = lib0
+            stops[n] = run
+        for n, t in in_turns(stops).items():
+            c.emit({"what": "mla_phases", "at": label, "variant": n, "ms": t})
+        plan = real_plan(16, 1, 128 * T, 40, 16, 132, flash_decode.MLA_WIDTHS)
+        try:
+            for groups in (8 * T // 4, 8 * T // 2):  # 64- and 32-row groups
+                for splits in range(1, 9):
+                    flash_decode.tensor_core_plan = lambda *_a, p=(groups, splits): p
+                    c.emit({"what": "mla_plan", "at": label, "groups": groups,
+                            "splits": splits, "planned": (groups, splits) == plan,
+                            **_checked_ms(f"mla plan {splits} splits at {label}", fn, want)})
+        finally:
+            flash_decode.tensor_core_plan = real_plan
+        try:
+            flash_decode.kernel_path = lambda *_a: "cuda_core"
+            c.emit({"what": "mla_path", "at": label, "path": "cuda_core",
+                    **_checked_ms(f"mla CUDA-core path at {label}", fn, want)})
+        finally:
+            flash_decode.kernel_path = real_path
 
 
 def ssd_variants(libs: dict) -> None:
@@ -573,7 +715,7 @@ def mma_ceilings(lib) -> None:
                 "tflops": 2 * macs * n_mma / (ms * 1e-3) / 1e12})
 
 
-GROUPS = ("flash", "decode", "tc", "ssd", "rmsnorm", "mma", "ssd_logits")
+GROUPS = ("flash", "decode", "tc", "mla", "ssd", "rmsnorm", "mma", "ssd_logits")
 
 
 def main() -> int:
@@ -590,7 +732,7 @@ def main() -> int:
         flash = source("flash_attention.cu")
         sources["flash_committed"] = flash
         sources.update({f"flash_{n}": substitute(flash, e) for n, e in FLASH_EDITS.items()})
-    if "decode" in groups or "tc" in groups:
+    if "decode" in groups or "tc" in groups or "mla" in groups:
         paged = paged_source()
     if "decode" in groups:
         sources["paged_committed"] = paged
@@ -598,6 +740,10 @@ def main() -> int:
     if "tc" in groups:
         sources["tc_committed"] = paged
         sources.update({f"tc_{n}": substitute(paged, e) for n, e in TC_EDITS.items()})
+    if "mla" in groups:
+        sources["mla_committed"] = paged + MLA_CLUSTERS
+        sources.update({f"mla_{n}": substitute(paged, e) for n, e in MLA_EDITS.items()})
+        sources.update({f"mla_{n}": substitute(paged, e) for n, e in MLA_STOPS.items()})
     if "ssd" in groups:
         ssd = source("ssd.cu")
         sources["ssd_committed"] = ssd
@@ -612,7 +758,8 @@ def main() -> int:
     _build.library()
     libs = build_all(sources)
     for group, fn in (("flash", flash_variants), ("decode", decode_variants),
-                      ("tc", tc_variants), ("ssd", ssd_variants), ("rmsnorm", rmsnorm_variants),
+                      ("tc", tc_variants), ("mla", mla_variants), ("ssd", ssd_variants),
+                      ("rmsnorm", rmsnorm_variants),
                       ("ssd_logits", ssd_logits)):
         if group in groups:
             fn(libs)
