@@ -34,13 +34,13 @@ Phases, each printing one JSON line:
   tensor cores in bf16, the CUDA cores in f32; and G 6 x T 16 at dk 128),
   deepseek-v2-236b's MLA fold at full width in both dtypes (one latent
   pool as K and V, B 16, Hkv 1, G 128, dk 576, v_width 512, 128-576 keys,
-  at T 1 and T 4, MLA's scale 1/sqrt(192), bf16 on the tensor-core path
-  (csrc/paged_mla.cu), f32 on the CUDA-core path) and the bf16 MLA fold's
-  edges (the ``mla_tc_*`` cases: a parked row, unallocated table entries
-  mid-row, pages of 8, 32 and 64, one row of 4096 keys in the most key
-  splits, softcap 5 over split rows, G 16 over 2 rows in one partial row
-  group; separate K and V pools at MLA's widths, which the CUDA-core path
-  takes, the ``mla_pools_*`` cases), RMSNorm (and its
+  at T 1 and T 4, MLA's scale 1/sqrt(192), on the tensor-core path
+  (csrc/paged_mla.cu) in bf16 and in f32 (3xTF32)) and the MLA fold's
+  edges in both dtypes (the ``mla_tc_*`` cases: a parked row, unallocated
+  table entries mid-row, pages of 8, 32 and 64, one row of 4096 keys in
+  the most key splits, softcap 5 over split rows, G 16 over 2 rows in one
+  partial row group; separate K and V pools at MLA's widths, which the
+  CUDA-core path takes in both dtypes, the ``mla_pools_*`` cases), RMSNorm (and its
   gradient; d = 768, mamba2's 2048, zamba2's shared block at 4096, the
   zoo's 6144, 8192 and 18432 and deepseek's 5120, 1536 and 512, each
   record naming its kernel path: all one pass), flash
@@ -259,8 +259,9 @@ Phases, each printing one JSON line:
   card against the same engine on the CPU, under ``capacity`` (drops
   counted, required) and ``dense``: equal greedy tokens (the near-tie
   exception), every counter, every dispatch's logits at 1e-4, a paged
-  launch a layer a dispatch on the CUDA-core path (the f32 latent fold B 16
-  x G 128, dk 576, v_width 512) and 4 L + 1 one-pass RMSNorm; the dense
+  launch a layer a dispatch on the tensor-core path (the f32 latent fold B
+  16 x G 128, dk 576, v_width 512, in 3xTF32) and 4 L + 1 one-pass
+  RMSNorm; the dense
   ``c_kv``/``k_rope`` engine on the card against the paged one (tokens,
   logits at 1e-4); one ``Model.forward`` of 2 x 128 tokens under
   ``capacity`` card against CPU at 1e-4;
@@ -269,10 +270,11 @@ Phases, each printing one JSON line:
   wall median and p99, peak memory, the latent cache's peak bytes beside
   a per-head cache's for the same pages, launches exact, 8 decode
   dispatches traced (GEMM, paged, RMSNorm and routing device time), and
-  the paged kernel at the MLA fold (T 1 and 4, both dtypes; bf16 also
+  the paged kernel at the MLA fold (T 1 and 4, both dtypes, each also
   forced onto the CUDA-core path) and RMSNorm at 5120, 1536 and 512 timed
-  beside their bounds (the paged kernel's on the CUDA cores and on the
-  tensor cores too), plain versions and SDPA / ``F.rms_norm``.
+  beside their bounds (the paged kernel's on the tensor cores, f32 as
+  three TF32 passes, and on the CUDA cores), plain versions and SDPA /
+  ``F.rms_norm``.
 
 A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
@@ -523,7 +525,7 @@ def paged_cases():
     # and V (Hkv 1, G 128 query heads, dk 576, values from the first 512
     # columns), 16 rows of 128-576 keys at decode (128 folded rows) and a
     # T 4 chunk-extend (512 rows, a dense-family MLA's fused prefill); the
-    # CUDA-core path (CASE_PATHS)
+    # tensor-core path in both dtypes (CASE_PATHS)
     mla_offsets = np.random.default_rng(61).integers(128, 576, 16).tolist()
     for dtype in (torch.float32, torch.bfloat16):
         d = {"dtype": dtype}
@@ -536,32 +538,37 @@ def paged_cases():
                                         offsets=mla_offsets, seed=63, shared_kv=True, **d),
              0.0, 512),
         ]
-    # the bf16 MLA fold's edges on the tensor cores (csrc/paged_mla.cu): a
-    # parked row (zeros), unallocated table entries mid-row, pages of 8, 32
-    # and 64, one row of 2048-4096 keys (the most key splits), each at G 128
-    # (the mla_bf16 case above holds G 16 over 2 rows: one partial group)
-    mla = dict(hkv=1, g=128, T=1, dk=576, shared_kv=True, **bf)
-    cases += [
-        ("mla_tc_parked_bf16", dict(B=4, ps=16, P=40, offsets=[300, 77, 511, 128], seed=64,
-                                    parked=(1,), **mla), 0.0, 512),
-        ("mla_tc_holes_bf16", dict(B=3, ps=16, P=40, offsets=[400, 130, 600], seed=65,
-                                   holes=(2, 5, 6), **mla), 0.0, 512),
-        *((f"mla_tc_page{ps}_bf16", dict(B=3, ps=ps, P=640 // ps, offsets=[0, ps + 3, 575],
-                                          seed=66 + ps, **mla), 0.0, 512) for ps in (8, 32, 64)),
-        ("mla_tc_ctx4096_bf16", dict(B=2, ps=16, P=256, offsets=[4095, 2047], seed=67, **mla),
-         0.0, 512),
-        # softcap (MLA passes 0) over rows long enough for the most splits
-        ("mla_tc_softcap5_bf16", dict(B=2, ps=16, P=256, offsets=[2047, 300], seed=69, **mla),
-         5.0, 512),
-    ]
+    # the MLA fold's edges on the tensor cores (csrc/paged_mla.cu), bf16 and
+    # f32 (3xTF32): a parked row (zeros), unallocated table entries mid-row,
+    # pages of 8, 32 and 64, one row of 2048-4096 keys (the most key
+    # splits), each at G 128 (the mla_* cases above hold G 16 over 2 rows:
+    # one partial group)
+    for dtype in (torch.bfloat16, torch.float32):
+        mla = dict(hkv=1, g=128, T=1, dk=576, shared_kv=True, dtype=dtype)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        cases += [
+            (f"mla_tc_parked_{tag}", dict(B=4, ps=16, P=40, offsets=[300, 77, 511, 128],
+                                          seed=64, parked=(1,), **mla), 0.0, 512),
+            (f"mla_tc_holes_{tag}", dict(B=3, ps=16, P=40, offsets=[400, 130, 600], seed=65,
+                                         holes=(2, 5, 6), **mla), 0.0, 512),
+            *((f"mla_tc_page{ps}_{tag}", dict(B=3, ps=ps, P=640 // ps,
+                                               offsets=[0, ps + 3, 575], seed=66 + ps, **mla),
+               0.0, 512) for ps in (8, 32, 64)),
+            (f"mla_tc_ctx4096_{tag}", dict(B=2, ps=16, P=256, offsets=[4095, 2047], seed=67,
+                                           **mla), 0.0, 512),
+            # softcap (MLA passes 0) over rows long enough for the most splits
+            (f"mla_tc_softcap5_{tag}", dict(B=2, ps=16, P=256, offsets=[2047, 300], seed=69,
+                                            **mla), 5.0, 512),
+        ]
     # separate K and V pools at MLA's widths (values the first 512 columns
     # of a 576-wide pool, or a 512-wide one): the tensor-core kernel reads
-    # the values from the key pages, so the wrapper sends these to the
-    # CUDA-core path (CASE_PATHS)
-    mla_pools = dict(B=2, hkv=1, g=16, T=1, dk=576, ps=16, P=40, offsets=[150, 31], **bf)
+    # the values from the key pages, so kernel_path sends these to the
+    # CUDA-core path in both dtypes (CASE_PATHS), which stays held at 576/512
+    mla_pools = dict(B=2, hkv=1, g=16, T=1, dk=576, ps=16, P=40, offsets=[150, 31])
     cases += [
-        ("mla_pools_bf16", dict(seed=70, **mla_pools), 0.0, 512),
-        ("mla_pools_v512_bf16", dict(seed=71, dv_store=512, **mla_pools), 0.0, 512),
+        ("mla_pools_bf16", dict(seed=70, **mla_pools, **bf), 0.0, 512),
+        ("mla_pools_v512_bf16", dict(seed=71, dv_store=512, **mla_pools, **bf), 0.0, 512),
+        ("mla_pools_f32", dict(seed=72, **mla_pools, dtype=torch.float32), 0.0, 512),
     ]
     # the tensor-core path's zoo edges: dk 192 prefill at pages of 8 and 64,
     # a 12-row fold at dk 64, granite's 768-row fold (6 row groups) with a
@@ -604,10 +611,10 @@ CASE_PATHS = {
     "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "tensor_core",  # dk 192
     "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "tensor_core",
     "verify_g1_T9_f32": "cuda_core", "verify_g1_T9_bf16": "tensor_core",
-    "mla_f32": "cuda_core", "mla_bf16": "tensor_core",  # G 16
-    **{f"mla_full_{at}_f32": "cuda_core" for at in ("decode", "t4")},
-    **{f"mla_full_{at}_bf16": "tensor_core" for at in ("decode", "t4")},
-    "mla_pools_bf16": "cuda_core", "mla_pools_v512_bf16": "cuda_core",  # separate pools
+    "mla_f32": "tensor_core", "mla_bf16": "tensor_core",  # G 16
+    **{f"mla_full_{at}_{tag}": "tensor_core" for at in ("decode", "t4") for tag in ("f32", "bf16")},
+    # separate pools
+    "mla_pools_bf16": "cuda_core", "mla_pools_v512_bf16": "cuda_core", "mla_pools_f32": "cuda_core",
 }
 # MLA's scores are scaled by 1 / sqrt(nope + rope) = 1 / sqrt(128 + 64), not
 # by the 576-wide latent's own width (models/mla.py)
@@ -1334,11 +1341,12 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
     passed as K and V, Hkv 1, G 128, dk 576, values from the first 512
     columns, MLA's scale), 16 rows of ``T`` tokens: held against its plain
     version and timed beside its bound (bytes: each attended latent page
-    once; operations at the dtype's peak, and on the CUDA cores and the
-    tensor cores each), its plain version and SDPA on K/V pre-gathered to
-    q width 576 and v width 512; in bf16 also forced onto the CUDA-core
-    path (path code 0 through the C entry), the route it took before the
-    tensor-core kernel of csrc/paged_mla.cu."""
+    once; operations on the tensor cores, bf16 at its peak and f32 as three
+    TF32 passes, as the f32 flash kernel's, and on the CUDA cores), its
+    plain version and SDPA on K/V pre-gathered to q width 576 and v width
+    512; also forced onto the CUDA-core path (path code 0 through the C
+    entry), the route each dtype took before the tensor-core kernel of
+    csrc/paged_mla.cu."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_decode
@@ -1365,32 +1373,32 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, kc, vc, attn_mask=mask, scale=MLA_SCALE)
     nbytes, flops = paged_work(q, kv, table, offs, T, dv, shared_kv=True)
-    bms, by = bound(nbytes, flops, dtype)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    tensor_ops = PEAK_OPS[torch.bfloat16] if dtype == torch.bfloat16 else TF32_OPS
+    # the route's operations: bf16 products at its peak, f32 as three TF32 passes
+    t_tensor = (flops / PEAK_OPS[torch.bfloat16] if dtype == torch.bfloat16
+                else 3 * flops / TF32_OPS) * 1e3
+    bms, by = max(t_bytes, t_tensor), "bytes" if t_bytes >= t_tensor else "operations"
     err = check_at_shape(f"paged attention (MLA {label})", kern, plain, dtype)
     path = kernel_path(dtype, g * T, dk, dv)
-    forced = {}
-    if path != "cuda_core":
-        def on_cuda_cores():
-            real = flash_decode.kernel_path
-            flash_decode.kernel_path = lambda *_a: "cuda_core"
-            try:
-                return kern()
-            finally:
-                flash_decode.kernel_path = real
 
-        forced = {"cuda_core_max_abs_err": check_at_shape(
-                      f"paged attention (MLA {label}, CUDA-core path)", on_cuda_cores, plain,
-                      dtype),
-                  "cuda_core_ms": time_ms(on_cuda_cores)}
+    def on_cuda_cores():
+        real = flash_decode.kernel_path
+        flash_decode.kernel_path = lambda *_a, **_k: "cuda_core"
+        try:
+            return kern()
+        finally:
+            flash_decode.kernel_path = real
+
+    forced = {"cuda_core_max_abs_err": check_at_shape(
+                  f"paged attention (MLA {label}, CUDA-core path)", on_cuda_cores, plain, dtype),
+              "cuda_core_ms": time_ms(on_cuda_cores)}
     return {"at": f"mla_{label}", "shape": {"B": B, "Hkv": 1, "G": g, "T": T, "dk": dk,
                                             "dv": dv, "page_size": ps, "pages_per_slot": P},
             "path": path, "max_abs_err": err, "keys_per_row": [o + T for o in offsets],
             "ms": time_ms(kern), **forced, "plain_ms": time_ms(plain), "bound_ms": bms,
             "bound_by": by,
             "bound_ms_cuda_core": max(t_bytes, flops / PEAK_OPS[torch.float32] * 1e3),
-            "bound_ms_tensor_core": max(t_bytes, flops / tensor_ops * 1e3),
+            "bound_ms_tensor_core": bms,
             "bytes": nbytes, "flops": flops, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on pre-gathered K/V (q and k "
                             "width 576, v width 512)"}
@@ -5040,14 +5048,14 @@ def require_mla_launches(cfg, launches: dict, dispatches: int, what: str, dtype,
                          paged: bool = True) -> None:
     """An MLA run's exact launches a dispatch or forward: one paged launch a
     layer on the paged cache (the latent fold, dk 576 / dv 512: on the
-    tensor-core path in bf16, on the CUDA-core path in f32), none on the
+    tensor-core path in bf16 and f32), none on the
     dense cache or in a forward; 4 L + 1 RMSNorm (``ln1``, ``q_norm``,
     ``kv_norm``, ``ln2`` a layer, ``ln_f``), every one on the one-pass path
     (5120, 1536 and 512 are compiled in); no flash (MLA is plain einsums,
     as in the reference) or SSD."""
     L = cfg.n_layers
     want_paged = L * dispatches if paged else 0
-    path = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    path = "tensor_core"
     got = {p: launches[f"paged_attention_{p}"] for p in ("cuda_core", "tensor_core", "decode")}
     want_paths = dict.fromkeys(got, 0)
     want_paths[path] = want_paged
@@ -5262,8 +5270,7 @@ def phase_mla_serve() -> dict:
                     for dd in (cfg.d_model, cfg.q_lora_rank, cfg.kv_lora_rank)
                     for at, rows in (("decode", 16), ("prefill", 256))}}
     for name, t in rec["kernel_times"]["paged_attention"].items():
-        want = "tensor_core" if name.endswith("bf16") else "cuda_core"
-        require(t["path"] == want, f"mla_serve: the MLA fold {name} took {t['path']}")
+        require(t["path"] == "tensor_core", f"mla_serve: the MLA fold {name} took {t['path']}")
     for t in rec["kernel_times"]["rmsnorm"].values():
         require(t["path"] == "one_pass", f"mla_serve: rmsnorm at {t['shape']} took {t['path']}")
     rec["seconds"] = time.perf_counter() - t_phase

@@ -43,19 +43,20 @@
 // at 2048-4096: a cluster's blocks wait for its slowest split.
 //
 // Tensor-core path (path 1: bf16 from flash_decode.TENSOR_CORE_MIN_ROWS
-// folded rows at dk, dv in {64, 128}, every fold at dk = dv = 192 and at
-// MLA's dk 576 / dv 512): in csrc/paged_tensor_core.cu, and MLA's fold in
+// folded rows at dk, dv in {64, 128}, every fold at dk = dv = 192, and
+// every fold at MLA's dk 576 / dv 512 with one latent pool as K and V, in
+// bf16 or f32): in csrc/paged_tensor_core.cu, and MLA's fold in
 // csrc/paged_mla.cu, compiled apart so the build runs them in parallel;
 // their notes there.
 //
 // CUDA-core path (path 0: every other call -- f32 chunk-extend, f32 at dk
-// 192, f32 at MLA's dk 576 / dv 512, other widths).  One thread block per (query
-// tile, kv head, batch row).  The
-// tile holds up to 32 / NV folded query rows (NV value columns per lane),
-// and the host shrinks it while the grid would leave the card's SMs
-// idle, so chunk-extend spreads over more blocks.  The block's warps
-// split the row's logical pages among themselves (warp w takes pages w,
-// w + nw, ...), so at decode (G*T = 1) every warp walks its own pages
+// 192, MLA's dk 576 / dv 512 with separate K and V pools, other widths).
+// One thread block per (query tile, kv head, batch row).  The tile holds
+// up to 32 / NV folded query rows (NV value columns per lane), and the
+// host shrinks it while the grid would leave the card's SMs idle, so
+// chunk-extend spreads over more blocks.  The block's warps split the
+// row's logical pages among themselves (warp w takes pages w, w + nw,
+// ...), so at decode (G*T = 1) every warp walks its own pages
 // instead of one warp computing while the others wait at barriers.  Each
 // warp keeps m, l and an output accumulator for every row of the tile in
 // registers, stages its page through its own slice of shared memory in
@@ -815,8 +816,9 @@ cudaError_t launch_decode(const Args& a, int dtype, int splits, int round_pages,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pages and out share it).  table and
 // offsets are int32.  path: 0 = the CUDA-core kernel (every shape), 1 = the
-// bf16 tensor-core kernel, 2 = the split-KV decode kernel (paths 1 and 2 are
-// refused with cudaErrorInvalidValue where they do not apply).  splits: the
+// tensor-core kernel (bf16, and f32 at MLA's fold), 2 = the split-KV
+// decode kernel (paths 1 and 2 are refused with cudaErrorInvalidValue
+// where they do not apply).  splits: the
 // key splits of paths 1 and 2; round_pages: the pages a path-2 split loads
 // a round; groups: path 1's row groups (flash_decode.tensor_core_plan).
 // With more than one split, workspace holds batch * hkv * splits * ql *

@@ -536,7 +536,10 @@ cudaError_t paged::launch_tc(const Args& a, int dtype, int groups, int splits, v
                              void* counters, cudaStream_t s) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pages) |
                          reinterpret_cast<uintptr_t>(a.v_pages)) & 15) == 0;
-  if (dtype != 1 || !aligned || a.dv_store % 8 != 0) return cudaErrorInvalidValue;
+  if (!aligned || a.dv_store % 8 != 0) return cudaErrorInvalidValue;
+  // MLA's fold in either dtype; every other width in bf16 only
+  if (a.dk == 576 && a.dv == 512) return paged::launch_mla(a, dtype, groups, splits, s);
+  if (dtype != 1) return cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
   if (a.dk == 64 && a.dv == 64) return run_tc<64, 64>(a, groups, splits, w, c, s);
@@ -544,7 +547,6 @@ cudaError_t paged::launch_tc(const Args& a, int dtype, int groups, int splits, v
   if (a.dk == 128 && a.dv == 64) return run_tc<128, 64>(a, groups, splits, w, c, s);
   if (a.dk == 128 && a.dv == 128) return run_tc<128, 128>(a, groups, splits, w, c, s);
   if (a.dk == 192 && a.dv == 192) return run_tc<192, 192>(a, groups, splits, w, c, s);
-  if (a.dk == 576 && a.dv == 512) return paged::launch_mla(a, groups, splits, s);
   return cudaErrorInvalidValue;
 }
 

@@ -21,20 +21,20 @@ queries (``G*T <= 8``: decode, GQA decode up to G 8) and ``dk, dv`` in
 live pages shared out among the blocks :func:`decode_plan` counts, each
 streaming its pages through a 2-stage ring of rounds, and the last block
 of a (row, kv head) to finish merging the splits); bf16 with ``dk, dv`` in
-{64, 128} from ``TENSOR_CORE_MIN_ROWS`` folded queries up, and bf16 at
-``dk = dv = 192`` or MLA's ``dk 576 / dv 512`` at any fold, runs on the
-tensor cores (``mma.sync``): the fold is cut into row groups of at most 8
-M-tiles of 16 rows (4 at MLA's fold, whose kernel keeps the group's Q in
-shared memory and gives each M-tile 4 warps, each a quarter of S's depth
-and of O's columns), a block's warps share one ``cp.async`` ring of
-32-key K/V units (MLA's values read from the first 512 columns of the
-staged latent, one pool passed as K and V), so a block reads the row's
-K/V once, and where the grid would leave most SMs idle the row's keys are
-shared out among blocks that merge as the decode path's do, or at MLA's
-widths in a thread-block cluster (:func:`tensor_core_plan`); every other
-call (f32 chunk-extend, f32 at dk 192, f32 at MLA's 576/512, bf16 at
-576/512 with separate K and V pools, odd widths) runs the CUDA-core
-kernel.
+{64, 128} from ``TENSOR_CORE_MIN_ROWS`` folded queries up, bf16 at
+``dk = dv = 192``, and MLA's ``dk 576 / dv 512`` with one latent pool
+passed as K and V at any fold in bf16 or f32 (3xTF32), runs on the tensor
+cores (``mma.sync``): the fold is cut into row groups of at most 8
+M-tiles of 16 rows (4 at MLA's fold in bf16, 2 in f32, whose kernel keeps
+the group's Q in shared memory and gives each M-tile 4 warps, each a
+quarter of S's depth and of O's columns), a block's warps share one
+``cp.async`` ring of K/V units (MLA's values read from the first 512
+columns of the staged latent), so a block reads the row's K/V once, and
+where the grid would leave most SMs idle the row's keys are shared out
+among blocks that merge as the decode path's do, or at MLA's widths in a
+thread-block cluster (:func:`tensor_core_plan`); every other call (f32
+chunk-extend, f32 at dk 192, 576/512 with separate K and V pools, odd
+widths) runs the CUDA-core kernel.
 Launches are counted in total (``launches``) and per path
 (``launches_by_path``).
 
@@ -85,6 +85,19 @@ MLA_WIDTHS = (576, 512)
 MLA_MAX_TILES = 4
 MLA_MAX_SPLITS = 8
 MLA_FILL = 0.75
+# The f32 fold (3xTF32): its Q and latent units take twice the bytes, so
+# a block takes at most MLA_F32_MAX_TILES M-tiles (csrc/paged_mla.cu: Q
+# of 32 rows, 3 stages of 16-key units), and its splits fill MLA_F32_FILL
+# of the SMs.  Measured with tools/kernel_variants.py (mla) on an H100
+# (NVIDIA H100 80GB HBM3, 700.00 W; f32, B 16, G 128, 146-518 keys a row):
+# 32-row groups in 3 splits took the decode in 0.08010 ms, against 0.08579
+# in 2, 0.08413 in 4 and 0.1522 unsplit (the T 4 fold 0.2189 unsplit,
+# 0.2157 in 2), and 16-row groups 0.1293 (in their best plan, 2 splits,
+# 0.1092); 32-key units (which fit beside 16 rows only) 0.1244, 8 warps an
+# M-tile 0.08032, 2 warps 0.09434, 2 ring stages 0.08102, S's three
+# products in one accumulator 0.08442, four accumulators 0.08058.
+MLA_F32_MAX_TILES = 2
+MLA_F32_FILL = 1.5
 # A block of the tensor-core path takes a row group of at most
 # TENSOR_CORE_MAX_TILES 16-row M-tiles, a warp each, and walks the row's
 # keys in units of TENSOR_CORE_UNIT (csrc/paged_tensor_core.cu: tc_block
@@ -121,13 +134,18 @@ DECODE_MIN_PAGES = 4
 DECODE_MAX_ROUNDS = 8
 
 
-def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int) -> str:
-    """Which of the kernel's paths takes a call: ``"tensor_core"`` for bf16
-    at ``(dk, dv)`` in ``TENSOR_CORE_WIDTHS`` with at least
-    ``TENSOR_CORE_MIN_ROWS`` folded queries (``ql = G*T``), or at widths
-    the decode path does not take; ``"decode"`` for at most 8 folded
-    queries with ``dk, dv`` in {64, 128}, f32 or bf16; ``"cuda_core"`` for
-    every other call."""
+def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int, *,
+                shared_pool: bool = True) -> str:
+    """Which of the kernel's paths takes a call: ``"tensor_core"`` at
+    ``MLA_WIDTHS`` in either dtype where one pool is passed as K and V
+    (``shared_pool``), ``"cuda_core"`` there with separate pools; else
+    ``"tensor_core"`` for bf16 at ``(dk, dv)`` in ``TENSOR_CORE_WIDTHS``
+    with at least ``TENSOR_CORE_MIN_ROWS`` folded queries (``ql = G*T``),
+    or at widths the decode path does not take; ``"decode"`` for at most 8
+    folded queries with ``dk, dv`` in {64, 128}, f32 or bf16;
+    ``"cuda_core"`` for every other call."""
+    if (dk, dv) == MLA_WIDTHS:
+        return "tensor_core" if shared_pool else "cuda_core"
     decode_widths = dk in DECODE_WIDTHS and dv in DECODE_WIDTHS
     if (dtype == torch.bfloat16 and (dk, dv) in TENSOR_CORE_WIDTHS
             and (ql >= TENSOR_CORE_MIN_ROWS or not decode_widths)):
@@ -138,23 +156,27 @@ def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int) -> str:
 
 
 def tensor_core_plan(batch: int, hkv: int, ql: int, pages_per_slot: int, page_size: int,
-                     sms: int, widths: tuple) -> tuple:
+                     sms: int, widths: tuple, dtype: torch.dtype = torch.bfloat16) -> tuple:
     """``(groups, splits)`` of a tensor-core call on a card of ``sms`` SMs
     at ``widths`` ``(dk, dv)``: the row groups the fold of ``ql`` rows is
     cut into (as few as keep a group at ``TENSOR_CORE_MAX_TILES`` M-tiles,
-    ``MLA_MAX_TILES`` at ``MLA_WIDTHS``, balanced, none empty), and
-    how many blocks share a row's 32-key units (the grid's B x Hkv x groups
-    blocks raised to ``TENSOR_CORE_BLOCKS_PER_SM`` an SM, ``MLA_FILL`` of
-    the SMs at ``MLA_WIDTHS``, where each split keeps
+    ``MLA_MAX_TILES`` at ``MLA_WIDTHS``, ``MLA_F32_MAX_TILES`` there in
+    f32, balanced, none empty), and how many blocks share a row's 32-key
+    units (the grid's B x Hkv x groups blocks raised to
+    ``TENSOR_CORE_BLOCKS_PER_SM`` an SM, ``MLA_FILL`` of the SMs at
+    ``MLA_WIDTHS``, ``MLA_F32_FILL`` in f32, where each split keeps
     ``TENSOR_CORE_MIN_UNITS`` units of the page table's span, at most
     ``TENSOR_CORE_MAX_SPLITS``, ``MLA_MAX_SPLITS`` at ``MLA_WIDTHS``)."""
     mla = tuple(widths) == MLA_WIDTHS
+    f32 = mla and dtype == torch.float32
+    max_tiles = (MLA_F32_MAX_TILES if f32 else MLA_MAX_TILES) if mla else TENSOR_CORE_MAX_TILES
     mtiles = -(-ql // 16)
-    tiles = -(-mtiles // -(-mtiles // (MLA_MAX_TILES if mla else TENSOR_CORE_MAX_TILES)))
+    tiles = -(-mtiles // -(-mtiles // max_tiles))
     groups = -(-mtiles // tiles)
     units = -(-pages_per_slot * page_size // TENSOR_CORE_UNIT)
     if mla:
-        fill, max_splits = int(MLA_FILL * sms) // (batch * hkv * groups), MLA_MAX_SPLITS
+        fill = int((MLA_F32_FILL if f32 else MLA_FILL) * sms) // (batch * hkv * groups)
+        max_splits = MLA_MAX_SPLITS
     else:
         fill = TENSOR_CORE_BLOCKS_PER_SM * sms // (batch * hkv * groups)
         max_splits = TENSOR_CORE_MAX_SPLITS
@@ -297,11 +319,10 @@ def paged_flash_attention_folded(
     out = torch.empty((b, hkv, ql, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    path = kernel_path(q.dtype, ql, dk, dv)
+    # MLA's tensor-core kernel reads the values from the key pages
+    shared_pool = v_pages.data_ptr() == k_pages.data_ptr() and dv_store == dk
+    path = kernel_path(q.dtype, ql, dk, dv, shared_pool=shared_pool)
     mla = (dk, dv) == MLA_WIDTHS
-    if path == "tensor_core" and mla and (v_pages.data_ptr() != k_pages.data_ptr()
-                                          or dv_store != dk):
-        path = "cuda_core"  # MLA's tensor-core kernel reads the values from the key pages
     splits, round_pages, groups, ws_ptr, counters_ptr = 1, 1, 1, None, None
     P = page_table.shape[1]
     if path == "decode":
@@ -309,7 +330,7 @@ def paged_flash_attention_folded(
                                           _sm_count(q.device.index))
     elif path == "tensor_core":
         groups, splits = tensor_core_plan(b, hkv, ql, P, page_size, _sm_count(q.device.index),
-                                          (dk, dv))
+                                          (dk, dv), q.dtype)
     if splits > 1 and not (path == "tensor_core" and mla):
         ws, counters = _decode_buffers(q.device, b * hkv * splits * ql * (dv + 2),
                                        b * hkv * groups)

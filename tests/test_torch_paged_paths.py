@@ -1,20 +1,26 @@
-"""The paged-attention kernel's three paths: which calls take the bf16
+"""The paged-attention kernel's three paths: which calls take the
 tensor-core path and which the split-KV decode path
-(``flash_decode.kernel_path``), how a decode call is split and streamed
-(``flash_decode.decode_plan``), how a tensor-core call is cut into row
-groups and key splits and what its blocks hold in shared memory
-(``flash_decode.tensor_core_plan``, and the C launcher's budget), and
-the plain version that
-``chip_smoke.py`` holds those paths to, against the reference package
-(its kernel in interpret mode and its oracle) at the paths' shapes, on
-identical numpy inputs, at the f32 (2e-5) and bf16 (2e-2) tolerances."""
+(``flash_decode.kernel_path``, MLA's fold by its pools in both dtypes),
+how a decode call is split and streamed (``flash_decode.decode_plan``),
+how a tensor-core call is cut into row groups and key splits and what its
+blocks hold in shared memory (``flash_decode.tensor_core_plan``, and the C
+launchers' budgets), the f32 MLA route's 3xTF32 arithmetic emulated on
+the CPU, and the plain version that ``chip_smoke.py`` holds those paths
+to, against the reference package (its kernel in interpret mode and its
+oracle) at the paths' shapes, on identical numpy inputs, at the f32
+(2e-5) and bf16 (2e-2) tolerances."""
 
+import math
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ref as jref
 from repro_torch.kernels import flash_decode
-from test_torch_kernels import _paged_case, _run_both, f32, tol
+from test_torch_flash import _mm_3xtf32, _tf32
+from test_torch_kernels import _alloc_table, _paged_case, _run_both, f32, tol
 
 torch.set_num_threads(1)  # the test workers share the host's cores
 
@@ -89,7 +95,7 @@ def test_paged_attention_tensor_core_folds_vs_reference(hkv, g, T, ps, dk, parke
     (torch.float32, 5, 128, 64, "decode"),           # verify T 5 at G 1
     (torch.bfloat16, 9, 64, 64, "tensor_core"),      # verify spec_k 8, the reference bench's
     (torch.bfloat16, 1, 576, 512, "tensor_core"),    # MLA decode at G 1
-    (torch.float32, 1, 576, 512, "cuda_core"),
+    (torch.float32, 1, 576, 512, "tensor_core"),     # one latent pool: 3xTF32
     (torch.bfloat16, 1, 32, 32, "cuda_core"),
     (torch.float32, 16, 128, 128, "cuda_core"),      # f32 chunk-extend
     (torch.bfloat16, 15, 64, 64, "tensor_core"),
@@ -121,21 +127,37 @@ def test_paged_attention_tensor_core_folds_vs_reference(hkv, g, T, ps, dk, parke
     (torch.bfloat16, 12, 192, 128, "cuda_core"),     # mixed 192 widths: not instantiated
     # deepseek-v2-236b's MLA at full width: Hkv 1, G 128, the 576-wide latent
     # page with values from its first 512 columns; decode (128 rows) and a
-    # T 4 chunk-extend (512 rows): bf16 on the tensor cores (csrc/
-    # paged_mla.cu) at every fold, f32 on the CUDA cores (mla_parity)
+    # T 4 chunk-extend (512 rows): one pool as K and V on the tensor cores
+    # (csrc/paged_mla.cu) at every fold, bf16 and f32 (mla_parity, 3xTF32)
     (torch.bfloat16, 128, 576, 512, "tensor_core"),
-    (torch.float32, 128, 576, 512, "cuda_core"),
+    (torch.float32, 128, 576, 512, "tensor_core"),
     (torch.bfloat16, 512, 576, 512, "tensor_core"),
-    (torch.float32, 512, 576, 512, "cuda_core"),
+    (torch.float32, 512, 576, 512, "tensor_core"),
     (torch.bfloat16, 4, 576, 512, "tensor_core"),     # G 1 x T 4: under the decode path's 8
     (torch.bfloat16, 8, 576, 512, "tensor_core"),
     (torch.bfloat16, 64, 576, 512, "tensor_core"),    # one full 64-row group
     (torch.bfloat16, 65, 576, 512, "tensor_core"),    # a second group of one row
-    (torch.float32, 16, 576, 512, "cuda_core"),
-    (torch.float32, 4, 576, 512, "cuda_core"),
+    (torch.float32, 16, 576, 512, "tensor_core"),
+    (torch.float32, 4, 576, 512, "tensor_core"),
 ])
 def test_paged_kernel_path_table(dtype, ql, dk, dv, path):
     assert flash_decode.kernel_path(dtype, ql, dk, dv) == path
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ql", [1, 4, 16, 128, 512])
+def test_paged_kernel_path_mla_pools(dtype, ql):
+    """At MLA's widths ``kernel_path`` alone decides on the pools: one
+    latent pool passed as K and V takes the tensor-core kernel (which reads
+    the values from the key pages) in both dtypes, separate K and V pools
+    the CUDA-core kernel; the default is one pool."""
+    assert flash_decode.kernel_path(dtype, ql, 576, 512, shared_pool=True) == "tensor_core"
+    assert flash_decode.kernel_path(dtype, ql, 576, 512) == "tensor_core"
+    assert flash_decode.kernel_path(dtype, ql, 576, 512, shared_pool=False) == "cuda_core"
+    # the pools do not move a call at any other width
+    for dk in (64, 128, 192):
+        assert (flash_decode.kernel_path(dtype, ql, dk, dk, shared_pool=False)
+                == flash_decode.kernel_path(dtype, ql, dk, dk))
 
 
 def tensor_core_block(tiles, dk, dv, splits=1):
@@ -195,19 +217,26 @@ def test_tensor_core_calls_fit_the_blocks_shared_memory():
     assert tensor_core_block(8, 64, 64, splits=132)[2] == 133 * 128 * 4
 
 
-def mla_block(tiles, splits=1):
+# csrc/paged_mla.cu's MlaCfg: (padded row in elements, element bytes, unit
+# keys, M-tiles a block, warps an M-tile) of each route
+MLA_CFG = {torch.bfloat16: (576 + 8, 2, 32, 4, 4), torch.float32: (576 + 4, 4, 16, 2, 4)}
+
+
+def mla_block(tiles, splits=1, dtype=torch.bfloat16):
     """``(stages, smem_bytes)`` of an MLA block of ``tiles`` M-tiles under
     ``splits`` key splits, as ``csrc/paged_mla.cu``'s ``mla_block`` lays it
-    out: the group's Q rows (576 bf16 padded to 584), 3 stages of one
-    32-key latent unit (2 where 3 pass the 226 KiB budget), the partial S
-    of the 4 warps of each M-tile and the M-tile's summed S (16 x 32 f32
-    each); with key splits, where larger, the merge over them: the block's
-    state (each row's f32 o, padded to 520 floats, and (m, l)) and the
-    weights of the rows it merges."""
-    ld = 576 + 8
+    out: the group's Q rows (576 bf16 padded to 584, or 576 f32 padded to
+    580), 3 stages of one latent unit (32 keys in bf16, 16 in f32; 2 stages
+    where 3 pass the 226 KiB budget), the partial S of the 4 warps of each
+    M-tile and the M-tile's summed S (16 x unit f32 each); with key splits,
+    where larger, the merge over them: the block's state (each row's f32 o,
+    padded to 520 floats, and (m, l)) and the weights of the rows it
+    merges."""
+    ld, item, unit, _, nw = MLA_CFG[dtype]
 
     def total(stages):
-        return tiles * 16 * ld * 2 + stages * 32 * ld * 2 + tiles * (4 + 1) * 16 * 32 * 4
+        return (tiles * 16 * ld * item + stages * unit * ld * item
+                + tiles * (nw + 1) * 16 * unit * 4)
 
     stages = 3 if total(3) <= 226 * 1024 else 2
     merge = tiles * 16 * (520 * 4 + 8) + (splits + 1) * tiles * 16 * 4 if splits > 1 else 0
@@ -215,31 +244,35 @@ def mla_block(tiles, splits=1):
 
 
 def test_mla_calls_fit_the_blocks_shared_memory():
-    """Every bf16 fold at MLA's widths takes the tensor-core path, and its
-    block fits the C launcher's budget (``launch_mla``/``mla_block``: a row
-    group of at most 4 M-tiles of 4 warps each, at most 512 threads; Q, a
-    3-stage latent ring and the partial-S slots within 226 KiB of the
-    H100's 227 KiB a block) under
-    every key split the plan gives: G*T 1-200, MLA's decode at G 16 and
-    G 128 and the T 4 fold of 512 rows, rows of 1-16 batch rows over page
-    tables of 2-256 pages."""
-    seen_splits = set()
-    for ql in [*range(1, 201), 256, 512]:
-        assert flash_decode.kernel_path(torch.bfloat16, ql, 576, 512) == "tensor_core", ql
-        assert flash_decode.kernel_path(torch.float32, ql, 576, 512) == "cuda_core", ql
-        for batch in (1, 2, 16):
-            for P, ps in ((2, 16), (40, 16), (80, 8), (10, 64), (256, 16)):
-                groups, splits = flash_decode.tensor_core_plan(batch, 1, ql, P, ps, sms=132,
-                                                               widths=(576, 512))
-                mtiles = -(-ql // 16)
-                tiles = -(-mtiles // groups)  # as launch_mla derives it
-                assert tiles <= flash_decode.MLA_MAX_TILES and (groups - 1) * tiles < mtiles
-                assert 1 <= splits <= max(1, -(-P * ps // 32)), (ql, batch, P)
-                seen_splits.add(splits)
-                for any_splits in range(1, flash_decode.MLA_MAX_SPLITS + 1):
-                    smem = mla_block(tiles, any_splits)[1]
-                    assert smem <= 226 * 1024 and tiles * 4 * 32 <= 512, (ql, tiles, any_splits)
-    assert min(seen_splits) == 1 and max(seen_splits) == flash_decode.MLA_MAX_SPLITS == 8
+    """Every fold at MLA's widths with one latent pool takes the tensor-core
+    path in both dtypes, and its block fits the C launcher's budget
+    (``run_mla``/``mla_block``: a row group of at most 4 M-tiles in bf16, 2
+    in f32, of 4 warps each, at most 512 threads; Q, a 3-stage latent ring
+    and the partial-S slots within 226 KiB of the H100's 227 KiB a block)
+    under every key split the plan gives: G*T 1-200, MLA's decode at G 16
+    and G 128 and the T 4 fold of 512 rows, rows of 1-16 batch rows over
+    page tables of 2-256 pages."""
+    for dtype in (torch.bfloat16, torch.float32):
+        max_tiles = MLA_CFG[dtype][3]
+        seen_splits = set()
+        for ql in [*range(1, 201), 256, 512]:
+            assert flash_decode.kernel_path(dtype, ql, 576, 512) == "tensor_core", ql
+            for batch in (1, 2, 16):
+                for P, ps in ((2, 16), (40, 16), (80, 8), (10, 64), (256, 16)):
+                    groups, splits = flash_decode.tensor_core_plan(
+                        batch, 1, ql, P, ps, sms=132, widths=(576, 512), dtype=dtype)
+                    mtiles = -(-ql // 16)
+                    tiles = -(-mtiles // groups)  # as run_mla derives it
+                    assert tiles <= max_tiles and (groups - 1) * tiles < mtiles, (dtype, ql)
+                    assert 1 <= splits <= max(1, -(-P * ps // 32)), (ql, batch, P)
+                    seen_splits.add(splits)
+                    for any_splits in range(1, flash_decode.MLA_MAX_SPLITS + 1):
+                        smem = mla_block(tiles, any_splits, dtype)[1]
+                        assert smem <= 226 * 1024 and tiles * 4 * 32 <= 512, (
+                            dtype, ql, tiles, any_splits)
+        assert min(seen_splits) == 1 and max(seen_splits) == flash_decode.MLA_MAX_SPLITS == 8
+    assert flash_decode.MLA_F32_MAX_TILES == MLA_CFG[torch.float32][3]
+    assert flash_decode.MLA_MAX_TILES == MLA_CFG[torch.bfloat16][3]
     # a 64-row group: Q 73 KiB, 3 stages of 36.5 KiB, 40 KiB of partial
     # and summed S
     assert mla_block(4) == (3, 4 * 16 * 584 * 2 + 3 * 32 * 584 * 2 + 4 * 5 * 2048) == (3, 227840)
@@ -248,6 +281,17 @@ def test_mla_calls_fit_the_blocks_shared_memory():
     # weights) fits beneath Q and the ring at the most splits
     assert mla_block(4, splits=8) == (3, 227840)
     assert 4 * 16 * (520 * 4 + 8) + 9 * 64 * 4 < 4 * 16 * 584 * 2 + 3 * 32 * 584 * 2
+    # f32: a 32-row group's Q 72.5 KiB, 3 stages of 16 keys at 36.25 KiB,
+    # 10 KiB of partial and summed S; a 64-row group's Q (145 KiB) leaves no
+    # room for a ring of two 16-key units, and 32-key units fit two stages
+    # only beside one M-tile's Q
+    f32 = torch.float32
+    assert mla_block(2, dtype=f32) == (3, 2 * 16 * 580 * 4 + 3 * 16 * 580 * 4 + 2 * 5 * 1024)
+    assert mla_block(2, dtype=f32) == (3, 195840) and mla_block(1, dtype=f32) == (3, 153600)
+    assert mla_block(2, splits=8, dtype=f32) == (3, 195840)
+    assert 4 * 16 * 580 * 4 + 2 * 16 * 580 * 4 + 4 * 5 * 1024 > 226 * 1024
+    assert 2 * 16 * 580 * 4 + 2 * 32 * 580 * 4 + 2 * 5 * 2048 > 226 * 1024
+    assert 16 * 580 * 4 + 2 * 32 * 580 * 4 + 5 * 2048 <= 226 * 1024
 
 
 @pytest.mark.parametrize("batch,hkv,ql,P,ps,want", [
@@ -301,6 +345,86 @@ def test_tc_plan_mla(batch, hkv, ql, P, ps, want):
     # the same fold at other widths keeps groups of up to 8 M-tiles
     assert flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132,
                                          widths=(192, 192))[0] == -(-mtiles // 8)
+
+
+@pytest.mark.parametrize("batch,hkv,ql,P,ps,want", [
+    (16, 1, 128, 40, 16, (4, 3)),     # deepseek-v2-236b's f32 decode: 64 blocks -> 3 splits
+    (16, 1, 512, 40, 16, (16, 1)),    # its T 4 fold: 16 groups of 32 rows, 256 blocks
+    (2, 1, 16, 40, 16, (1, 8)),       # G 16 over 2 rows: one partial group, 8 splits
+    (1, 1, 128, 256, 16, (4, 8)),     # one row of 4096 keys: the most splits, a cluster's 8
+    (16, 1, 128, 2, 16, (4, 1)),      # a row of one unit keeps one split
+])
+def test_tc_plan_mla_f32(batch, hkv, ql, P, ps, want):
+    """The plan of the f32 MLA fold (3xTF32): row groups of at most
+    ``MLA_F32_MAX_TILES`` M-tiles (32 rows), then key splits filling
+    ``MLA_F32_FILL`` of the SMs, at most a cluster's ``MLA_MAX_SPLITS``;
+    bf16 keeps its own plan."""
+    groups, splits = flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132,
+                                                   widths=flash_decode.MLA_WIDTHS,
+                                                   dtype=torch.float32)
+    assert (groups, splits) == want
+    mtiles = -(-ql // 16)
+    tiles = -(-mtiles // groups)
+    assert tiles <= flash_decode.MLA_F32_MAX_TILES and (groups - 1) * tiles < mtiles
+    if splits > 1:  # the split grid fills at most MLA_F32_FILL of the SMs
+        assert batch * hkv * groups * splits <= flash_decode.MLA_F32_FILL * 132
+        assert splits <= flash_decode.MLA_MAX_SPLITS
+    assert flash_decode.tensor_core_plan(batch, hkv, ql, P, ps, sms=132,
+                                         widths=flash_decode.MLA_WIDTHS)[0] == -(-mtiles // 4)
+
+
+def _mla_f32_route(q, pool, table, offs, scale, tf32_only=False):
+    """The f32 MLA fold's arithmetic on the CPU: each row's latent gathered
+    through its page table, S = Q.K^T over 576 columns and P.V over the
+    first 512 in 3xTF32 (plain TF32 with ``tf32_only``), S scaled in fp32,
+    P unnormalised and divided by the fp32 row sum after; a row with
+    nothing to attend gives zeros."""
+    mm = (lambda a, b: _tf32(a) @ _tf32(b)) if tf32_only else _mm_3xtf32
+    n_pages, ps = pool.shape[0], pool.shape[1]
+    B, T, H, dk = q.shape
+    out = torch.zeros((B, T, H, 512))
+    for b in range(B):
+        kv = pool[table[b].clamp(max=n_pages - 1)].reshape(-1, dk)
+        alloc = (table[b] < n_pages).repeat_interleave(ps)
+        qpos = offs[b] + torch.arange(T)
+        mask = (torch.arange(kv.shape[0])[None] <= qpos[:, None]) & alloc[None]  # (T, keys)
+        s = mm(q[b].reshape(T * H, dk), kv.T).reshape(T, H, -1) * scale
+        s = s.masked_fill(~mask[:, None], -math.inf)
+        m = s.amax(-1, keepdim=True).clamp(min=-1e30)
+        p = torch.exp(s - m)
+        out[b] = mm(p.reshape(T * H, -1), kv[:, :512]).reshape(T, H, 512) / p.sum(
+            -1, keepdim=True).clamp(min=1e-30)
+    return out
+
+
+@pytest.mark.parametrize("T,g,ps,parked", [(1, 16, 16, False), (4, 8, 8, False),
+                                           (1, 32, 16, True)])
+def test_mla_f32_3xtf32_arithmetic_meets_the_gate(T, g, ps, parked):
+    """The f32 MLA route's 3xTF32 arithmetic (csrc/paged_mla.cu), emulated
+    on the CPU with TF32 rounding by integer bit arithmetic, holds the
+    reference package's paged oracle at the f32 gate (2e-5) at MLA's widths
+    (one 576-wide pool as K and V, values its first 512 columns, scale
+    1 / sqrt(192)), a parked row giving zeros; plain TF32 misses it."""
+    B, P = 3, 160 // ps
+    rng = np.random.default_rng(T + g + ps)
+    pool = rng.standard_normal((B * P + 2, ps, 1, 576)).astype(np.float32)
+    q = rng.standard_normal((B, T, g, 576)).astype(np.float32)
+    offs = np.asarray([150 - T, 37, 90], np.int32)
+    table = _alloc_table(B, P, pool.shape[0], offs + T, ps)
+    if parked:
+        table[1] = pool.shape[0]
+    scale = 1.0 / math.sqrt(192)
+    want = f32(jref.paged_attention_reference(
+        jnp.asarray(q), jnp.asarray(pool), jnp.asarray(pool), jnp.asarray(table),
+        jnp.asarray(offs), scale=scale, v_width=512))
+    tq, tpool = torch.from_numpy(q), torch.from_numpy(pool)
+    tt, to = torch.from_numpy(table).long(), torch.from_numpy(offs).long()
+    got = _mla_f32_route(tq, tpool[:, :, 0], tt, to, scale)
+    np.testing.assert_allclose(f32(got), want, rtol=2e-5, atol=2e-5)
+    if parked:
+        assert bool((got[1] == 0).all())
+    rough = _mla_f32_route(tq, tpool[:, :, 0], tt, to, scale, tf32_only=True)
+    assert not np.allclose(f32(rough), want, rtol=2e-5, atol=2e-5)
 
 
 # The decode path's shapes (G*T <= 8, dk and dv in {64, 128}, f32 and

@@ -42,6 +42,15 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   plans forced to 1-8 key splits at 64- and 32-row groups; the CUDA-core
   path forced through ``flash_decode.kernel_path``; and the clusters of
   2-8 blocks the card holds at once (``cudaOccupancyMaxActiveClusters``);
+  then the f32 route (3xTF32) at the same shapes against the plain version
+  at 2e-5: 32- and 16-row groups (``flash_decode.MLA_F32_MAX_TILES``), 8
+  or 2 warps an M-tile, 32-key units, 2 ring stages, S's three products
+  in one accumulator or in four, copies skipping S, P.V, the ring's reads
+  or copies, or the partial-S exchange, plans of 1-8 key splits, the
+  CUDA-core path and the timed shape's record; and the CUDA-core path's
+  other f32 serve shapes (nemotron-4-340b's dk 192 decode and prefill,
+  granite-34b's G 48 decode and 768-row prefill) beside bound, plain
+  version and SDPA;
 - the SSD chunk kernel at mamba2-1.3b's eval shapes (b 8 x nc 4 and b 2 x
   nc 32 chunks of 128, h 64, p 64, n 128) and the serve prefill shape (b
   16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate
@@ -349,12 +358,12 @@ def _tc_case(label, B, hkv, g, T, dk, offs, P=40):
     return fn, want
 
 
-def _checked_ms(what: str, fn, want) -> dict:
+def _checked_ms(what: str, fn, want, tol: float = 2e-2) -> dict:
     got = fn()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    c.require(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
-              f"{what} misses 2e-2 ({err})")
+    c.require(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"{what} misses {tol} ({err})")
     return {"ms": c.time_ms(fn), "max_abs_err": err}
 
 
@@ -377,7 +386,7 @@ def tc_variants(libs: dict) -> None:
             for path in ("decode", "tensor_core", "cuda_core"):
                 if path == "decode" and rows > flash_decode.DECODE_MAX_ROWS:
                     continue
-                flash_decode.kernel_path = lambda *_a, p=path: p
+                flash_decode.kernel_path = lambda *_a, p=path, **_k: p
                 c.emit({"what": "tc_boundary", "rows": rows, "G": g, "T": T, "dk": dk,
                         "Hkv": hkv, "path": path,
                         **_checked_ms(f"{path} at {rows} rows, dk {dk}", fn, want)})
@@ -410,7 +419,7 @@ def tc_variants(libs: dict) -> None:
             for k, v in committed.items():
                 setattr(flash_decode, k, v)
             for plan in forced.get(label, ()):
-                flash_decode.tensor_core_plan = lambda *_a, p=plan: p
+                flash_decode.tensor_core_plan = lambda *_a, p=plan, **_k: p
                 c.emit({"what": "tc_plan", "at": label, "forced": plan,
                         **_checked_ms(f"tc plan {plan} at {label}", fn, want)})
                 flash_decode.tensor_core_plan = real_plan
@@ -451,25 +460,60 @@ MLA_EDITS = {
     "colwarps2": [("constexpr int kMlaColWarps = 4;", "constexpr int kMlaColWarps = 2;")],
     # each warp computes S over all 576 columns: no partial-S exchange
     # (nor its shared memory)
-    "s_recomputed": [("  constexpr int KS = DK / 16 / NW;", "  constexpr int KS = DK / 16;"),
+    "s_recomputed": [("  constexpr int KS = DK / KW / NW;", "  constexpr int KS = DK / KW;"),
                      ("    const int kc0 = wc * KS;", "    const int kc0 = 0;"),
                      ("    {\n      float4* tile_partials",
                       "    if (false) {\n      float4* tile_partials"),
-                     ("  const size_t sums = (size_t)tiles * (kMlaColWarps + 1) * 16 * 32 * 4;",
+                     ("  const size_t sums = (size_t)tiles * (C::NW + 1) * 16 * C::UNIT * 4;",
                       "  const size_t sums = 0;")],
 }
+# the f32 route (3xTF32) with one design choice undone, and the row groups
+# (MLA_F32_MAX_TILES) each runs at: 8 or 2 warps an M-tile instead of 4;
+# 32-key units instead of 16 (two stages fit beside 16 rows only); 2 ring
+# stages instead of 3; S's three products in one accumulator
+# (mma_3xtf32) instead of hi.hi apart from the cross products; and the
+# even and odd k-steps of S in separate accumulators too (four chains a
+# key tile)
+_F32_S_MMA = ("            mma_tf32(sx[nt + u], al, bh[2 * u], bh[2 * u + 1]);\n"
+              "            mma_tf32(sx[nt + u], ah, bl[2 * u], bl[2 * u + 1]);\n"
+              "            mma_tf32(sc[nt + u], ah, bh[2 * u], bh[2 * u + 1]);\n")
+MLA_F32_EDITS = {
+    "colwarps8": [("constexpr int kMlaF32ColWarps = 4;", "constexpr int kMlaF32ColWarps = 8;")],
+    "colwarps2": [("constexpr int kMlaF32ColWarps = 4;", "constexpr int kMlaF32ColWarps = 2;")],
+    "unit32": [("constexpr int kMlaF32Unit = 16;", "constexpr int kMlaF32Unit = 32;")],
+    "stages2": [("  MlaBlock p{mla_bytes<T>(tiles, 3) <= kMlaSmemBudget ? 3 : 2, 0};",
+                 "  MlaBlock p{sizeof(T) == 2 && mla_bytes<T>(tiles, 3) <= kMlaSmemBudget ? 3 : 2,"
+                 " 0};")],
+    "one_acc": [(_F32_S_MMA,
+                 "            mma_3xtf32(sc[nt + u], ah, al, bh[2 * u], bh[2 * u + 1], "
+                 "bl[2 * u], bl[2 * u + 1]);\n")],
+    "acc4": [("      float sx[NT][4];\n",
+              "      float sx[NT][4], sc2[NT][4] = {}, sx2[NT][4] = {};\n"),
+             (_F32_S_MMA,
+              "            if (kk & 1) {\n"
+              "              mma_tf32(sx2[nt + u], al, bh[2 * u], bh[2 * u + 1]);\n"
+              "              mma_tf32(sx2[nt + u], ah, bl[2 * u], bl[2 * u + 1]);\n"
+              "              mma_tf32(sc2[nt + u], ah, bh[2 * u], bh[2 * u + 1]);\n"
+              "            } else {\n" + _F32_S_MMA + "            }\n"),
+             ("        for (int e = 0; e < 4; ++e) sc[nt][e] += sx[nt][e];",
+              "        for (int e = 0; e < 4; ++e)\n"
+              "          sc[nt][e] += sc2[nt][e] + (sx[nt][e] + sx2[nt][e]);")],
+}
+MLA_F32_TILES = {"committed": (2, 1), "colwarps8": (2, 1), "colwarps2": (2,), "unit32": (1,),
+                 "stages2": (2,), "one_acc": (2,), "acc4": (2, 1)}
 # how many clusters of the committed MLA kernel the card holds at once, by
 # cluster size (cudaOccupancyMaxActiveClusters), appended to its source
 MLA_CLUSTERS = r"""
-extern "C" int mla_max_clusters(int tiles, int splits, int* n) {
-  const MlaBlock blk = mla_block(tiles, splits);
-  auto kernel = paged_mla_kernel<kMlaColWarps>;
+template <typename T>
+int max_clusters(int tiles, int splits, int* n) {
+  const MlaBlock blk = mla_block<T>(tiles, splits);
+  auto kernel = paged_mla_kernel<T>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)blk.smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, 1, 132);
-  cfg.blockDim = dim3(tiles * kMlaColWarps * 32);
+  cfg.blockDim = dim3(tiles * MlaCfg<T>::NW * 32);
   cfg.dynamicSmemBytes = blk.smem;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -480,16 +524,41 @@ extern "C" int mla_max_clusters(int tiles, int splits, int* n) {
   cfg.numAttrs = 1;
   return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
 }
+
+extern "C" int mla_max_clusters(int f32, int tiles, int splits, int* n) {
+  return f32 ? max_clusters<float>(tiles, splits, n)
+             : max_clusters<__nv_bfloat16>(tiles, splits, n);
+}
 """
 # copies that stop short (their output is then not the op's): after the
 # main loop, and after each split's state is written (before the merge)
-_MLA_OUT = ("  __nv_bfloat16* __restrict__ out = static_cast<__nv_bfloat16*>(a.out) + "
-            "(size_t)bh * ql * DV;\n  if (splits == 1) {")
+_MLA_OUT = ("  T* __restrict__ out = static_cast<T*>(a.out) + (size_t)bh * ql * DV;\n"
+            "  if (splits == 1) {")
 MLA_STOPS = {
     "loop_only": [(_MLA_OUT, "  return;\n" + _MLA_OUT)],
     "before_merge": [("  cg::cluster_group cluster = cg::this_cluster();\n  cluster.sync();",
                       "  return;\n  cg::cluster_group cluster = cg::this_cluster();\n"
                       "  cluster.sync();")],
+}
+# f32 copies that skip a part of each unit's work: a product (P.V, or S's
+# k-steps), the ring's global reads (zero fill instead), the copies
+# themselves (the units computed on what shared memory holds), or the
+# partial-S exchange (each warp keeps its own partial S): their shares of
+# the f32 route's time
+MLA_F32_STOPS = {
+    "no_read": [("      cp_async16(dst + r * LD + col, kp + (src >= 0 ? (size_t)src * kstride + col "
+                 ": 0),\n                 src >= 0);",
+                 "      cp_async16(dst + r * LD + col, kp, false);")],
+    "no_copy": [("    for (int i = warp * 32 + lane; i < UNIT * NC; i += 32 * nwarps) {",
+                 "    for (int i = warp * 32 + lane; i < 0; i += 32 * nwarps) {")],
+    "no_exchange": [("    {\n      float4* tile_partials",
+                     "    if (false) {\n      float4* tile_partials")],
+    "no_pv": [("      for (int kc = 0; kc < NT; ++kc) {\n        uint32_t ph[4], pl[4];",
+               "      for (int kc = 0; kc < 0; ++kc) {\n        uint32_t ph[4], pl[4];")],
+    "no_s": [("      for (int kk = 0; kk < KS; ++kk) {\n        const int kc = kc0 + kk;\n"
+              "        uint32_t raw[4], ah[4], al[4];",
+              "      for (int kk = 0; kk < 0; ++kk) {\n        const int kc = kc0 + kk;\n"
+              "        uint32_t raw[4], ah[4], al[4];")],
 }
 
 
@@ -498,15 +567,19 @@ def mla_variants(libs: dict) -> None:
     128-576 from seed 3, T 1 and 4), after the clusters the card holds at
     once by size: the committed kernel and ``MLA_EDITS`` at 64- and 32-row
     groups in turns, ``MLA_STOPS`` beside the committed kernel, plans of
-    1-8 key splits at both row groups, and the CUDA-core path."""
+    1-8 key splits at both row groups, and the CUDA-core path; then the
+    f32 route (``mla_f32_variants``) and the CUDA-core path's f32 zoo
+    shapes (``paged_f32_shapes``)."""
     probe = libs["mla_committed"].mla_max_clusters
-    probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    for tiles in (4, 2):
-        for splits in range(2, 9):
-            n = ctypes.c_int(-1)
-            c.emit({"what": "mla_max_active_clusters", "rows": 16 * tiles, "cluster": splits,
-                    "status": probe(tiles, splits, ctypes.byref(n)), "clusters": n.value,
-                    "blocks": n.value * splits})
+    probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for f32, all_tiles in ((0, (4, 2)), (1, (2, 1))):
+        for tiles in all_tiles:
+            for splits in range(2, 9):
+                n = ctypes.c_int(-1)
+                c.emit({"what": "mla_max_active_clusters", "dtype": "f32" if f32 else "bf16",
+                        "rows": 16 * tiles, "cluster": splits,
+                        "status": probe(f32, tiles, splits, ctypes.byref(n)),
+                        "clusters": n.value, "blocks": n.value * splits})
     rng = np.random.default_rng(3)
     offs = rng.integers(128, 576, 16).tolist()
     names = ["committed", *MLA_EDITS]
@@ -560,18 +633,129 @@ def mla_variants(libs: dict) -> None:
         try:
             for groups in (8 * T // 4, 8 * T // 2):  # 64- and 32-row groups
                 for splits in range(1, 9):
-                    flash_decode.tensor_core_plan = lambda *_a, p=(groups, splits): p
+                    flash_decode.tensor_core_plan = lambda *_a, p=(groups, splits), **_k: p
                     c.emit({"what": "mla_plan", "at": label, "groups": groups,
                             "splits": splits, "planned": (groups, splits) == plan,
                             **_checked_ms(f"mla plan {splits} splits at {label}", fn, want)})
         finally:
             flash_decode.tensor_core_plan = real_plan
         try:
-            flash_decode.kernel_path = lambda *_a: "cuda_core"
+            flash_decode.kernel_path = lambda *_a, **_k: "cuda_core"
             c.emit({"what": "mla_path", "at": label, "path": "cuda_core",
                     **_checked_ms(f"mla CUDA-core path at {label}", fn, want)})
         finally:
             flash_decode.kernel_path = real_path
+    mla_f32_variants(libs, offs)
+    paged_f32_shapes()
+
+
+def mla_f32_variants(libs: dict, offs: list) -> None:
+    """The f32 MLA fold (3xTF32) at mla_serve's timed shapes (B 16, G 128,
+    T 1 and 4): the committed kernel and ``MLA_F32_EDITS`` at their row
+    groups in turns (against the plain version at 2e-5), ``MLA_STOPS`` and
+    ``MLA_F32_STOPS`` beside the committed kernel, plans of 1-8 key splits
+    at 32- and 16-row groups, the CUDA-core path, and the timed shape's
+    record (bound, plain and SDPA) from ``chip_smoke.time_paged_mla``."""
+    names = ["committed", *MLA_F32_EDITS]
+    lib_of = {n: libs["mla_committed" if n == "committed" else f"mla_f32_{n}"] for n in names}
+    for n in MLA_F32_STOPS:
+        lib_of[n] = libs[f"mla_f32_{n}"]
+    for n in MLA_STOPS:
+        lib_of[n] = libs[f"mla_{n}"]
+    for lib in lib_of.values():
+        lib.paged_attention_fwd.argtypes = _build.SIGNATURES["paged_attention_fwd"]
+    lib0 = _build.library()
+    real_path, real_plan = flash_decode.kernel_path, flash_decode.tensor_core_plan
+    tiles0 = flash_decode.MLA_F32_MAX_TILES
+    for label, T in (("decode", 1), ("t4", 4)):
+        q, kv, _, table, offt = c.paged_inputs(B=16, hkv=1, g=128, T=T, dk=576, ps=16, P=40,
+                                               offsets=offs, dtype=torch.float32, seed=23,
+                                               shared_kv=True)
+        call = dict(tokens_per_row=T, scale=c.MLA_SCALE, v_width=512)
+        fn = lambda: flash_decode.paged_flash_attention_folded(  # noqa: E731
+            q, kv, kv, table, offt, **call)
+        want = flash_decode.paged_flash_attention_folded_plain(q, kv, kv, table, offt, **call)
+        fns, errs = {}, {}
+        for n in names:
+            for tiles in MLA_F32_TILES[n]:
+                def run(lib=lib_of[n], tiles=tiles):
+                    _build._lib = lib
+                    flash_decode.MLA_F32_MAX_TILES = tiles
+                    try:
+                        return fn()
+                    finally:
+                        _build._lib = lib0
+                        flash_decode.MLA_F32_MAX_TILES = tiles0
+                key = f"{n}_rows{16 * tiles}"
+                fns[key] = run
+                got = run()
+                torch.cuda.synchronize()
+                errs[key] = (got.float() - want.float()).abs().max().item()
+                c.require(torch.allclose(got.float(), want.float(), atol=c.F32_TOL,
+                                         rtol=c.F32_TOL),
+                          f"mla f32 variant {key} misses {c.F32_TOL} at {label} ({errs[key]})")
+        ms = in_turns(fns)
+        for key in fns:
+            c.emit({"what": "mla_f32_variant", "variant": key, "at": label, "ms": ms[key],
+                    "max_abs_err": errs[key]})
+        stops = {}
+        for n in ("committed", *MLA_STOPS, *MLA_F32_STOPS):
+            def run(lib=lib_of[n]):
+                _build._lib = lib
+                try:
+                    fn()
+                finally:
+                    _build._lib = lib0
+            stops[n] = run
+        for n, t in in_turns(stops).items():
+            c.emit({"what": "mla_f32_phases", "at": label, "variant": n, "ms": t})
+        plan = real_plan(16, 1, 128 * T, 40, 16, 132, flash_decode.MLA_WIDTHS, torch.float32)
+        try:
+            for tiles in (2, 1):
+                groups = 8 * T // tiles
+                for splits in range(1, 9):
+                    flash_decode.MLA_F32_MAX_TILES = tiles
+                    flash_decode.tensor_core_plan = lambda *_a, p=(groups, splits), **_k: p
+                    c.emit({"what": "mla_f32_plan", "at": label, "groups": groups,
+                            "splits": splits, "planned": (groups, splits) == plan,
+                            **_checked_ms(f"mla f32 plan {splits} splits at {label}", fn, want,
+                                          c.F32_TOL)})
+        finally:
+            flash_decode.tensor_core_plan = real_plan
+            flash_decode.MLA_F32_MAX_TILES = tiles0
+        try:
+            flash_decode.kernel_path = lambda *_a, **_k: "cuda_core"
+            c.emit({"what": "mla_f32_path", "at": label, "path": "cuda_core",
+                    **_checked_ms(f"mla f32 CUDA-core path at {label}", fn, want, c.F32_TOL)})
+        finally:
+            flash_decode.kernel_path = real_path
+        c.emit({"what": "mla_f32_timed", **c.time_paged_mla(f"{label}_f32", T, offs,
+                                                            torch.float32)})
+
+
+def paged_f32_shapes() -> None:
+    """The CUDA-core path's other f32 serve shapes, timed as zoo_serve times
+    their bf16 counterparts (chip_smoke.time_paged: B 16, page 16, 40 pages
+    a slot, decode offsets 128-576 and prefill offsets from seed 3) beside
+    their bound (the route's, on the CUDA cores; and apart, its bytes and
+    three TF32 passes), plain version and SDPA: nemotron-4-340b's dk 192
+    decode (Hkv 8, G 12) and prefill (G 12 x T 16), granite-34b's MQA
+    decode (G 48) and 768-row prefill (G 48 x T 16)."""
+    for arch, hkv, g, dk in (("nemotron", 8, 12, 192), ("granite", 1, 48, 128)):
+        rng = np.random.default_rng(3)
+        decode_offs = rng.integers(128, 576, 16).tolist()
+        prefill_offs = (16 * rng.integers(0, 32, 16)).tolist()
+        for at, T, offs in (("decode", 1, decode_offs), ("prefill", 16, prefill_offs)):
+            rec = c.time_paged(f"{arch}_{at}_f32", 16, T, offs, torch.float32, hkv=hkv, g=g,
+                               dk=dk)
+            c.require(rec["path"] == "cuda_core", f"{arch} f32 {at} took {rec['path']}")
+            # time_paged's inputs again (its seed), for the bound's two parts
+            q, kp, _, table, offt = c.paged_inputs(B=16, hkv=hkv, g=g, T=T, dk=dk, ps=16, P=40,
+                                                   offsets=offs, dtype=torch.float32, seed=21)
+            nbytes, flops = c.paged_work(q, kp, table, offt, T, dk)
+            c.emit({"what": "paged_f32_shape", **rec,
+                    "bytes_ms": nbytes / c.HBM_BYTES_PER_S * 1e3,
+                    "tf32x3_ms": 3 * flops / c.TF32_OPS * 1e3})
 
 
 def ssd_variants(libs: dict) -> None:
@@ -744,6 +928,8 @@ def main() -> int:
         sources["mla_committed"] = paged + MLA_CLUSTERS
         sources.update({f"mla_{n}": substitute(paged, e) for n, e in MLA_EDITS.items()})
         sources.update({f"mla_{n}": substitute(paged, e) for n, e in MLA_STOPS.items()})
+        sources.update({f"mla_f32_{n}": substitute(paged, e)
+                        for n, e in {**MLA_F32_EDITS, **MLA_F32_STOPS}.items()})
     if "ssd" in groups:
         ssd = source("ssd.cu")
         sources["ssd_committed"] = ssd
