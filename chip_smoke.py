@@ -24,14 +24,19 @@ Phases, each printing one JSON line:
   first pages, softcap 30, dk 192 at pages of 8 and 64, a 12-row fold,
   granite's 768-row fold with a parked row and aliased pages, MQA G 48
   over one row of 4096 keys in 16 key splits, qwen2's 128 rows straddling
-  a page; each record names the path), its split-KV decode path's
+  a page; each record names the path) and its f32 route's (3xTF32, the
+  ``tc_*_f32`` cases: dk 192 at pages of 8 and 64 straddling a page,
+  granite's 768-row fold with a parked row and aliased pages, MQA G 48
+  decode in 10 and in 16 key splits, softcap 30 at nemotron's 12-row
+  decode, 144 rows at dk 128 whose second row group is cut short, the
+  mixed widths 64/128 and 128/64), its split-KV decode path's
   edges in f32 and bf16 (the ``dec_*`` cases: one row over 1 and 4096
   keys, mixed long and short rows, pages of 8 and 64, softcap 30 at T 1,
   a G 2 x T 4 fold, GQA G 8 at dk 128, a parked row beside aliased first
   pages), the dense zoo's serving shapes (granite-34b's MQA prefill at
   G 48 x T 16, qwen2-72b's prefill at G 8 x T 16, nemotron-4-340b's decode
   and prefill at dk 192, each on the path ``CASE_PATHS`` names: the
-  tensor cores in bf16, the CUDA cores in f32; and G 6 x T 16 at dk 128),
+  tensor cores in both dtypes, f32 in 3xTF32; and G 6 x T 16 at dk 128),
   deepseek-v2-236b's MLA fold at full width in both dtypes (one latent
   pool as K and V, B 16, Hkv 1, G 128, dk 576, v_width 512, 128-576 keys,
   at T 1 and T 4, MLA's scale 1/sqrt(192), on the tensor-core path
@@ -57,9 +62,9 @@ Phases, each printing one JSON line:
   state at 1e-4);
 - ``parity``: full-width ``ds-paper-100m`` in f32 from seed 0, the engine
   on ``cuda`` (kernel path) against the same engine on ``cpu`` (plain
-  path), in paged mode (12 paged-attention launches per dispatch, none on
-  the bf16 tensor-core path, 12 per decode dispatch on the decode path,
-  and 25 RMSNorm) and in dense mode, now the
+  path), in paged mode (12 paged-attention launches per dispatch, exact by
+  path: a prefill dispatch's on the tensor-core path in 3xTF32, a decode
+  dispatch's on the decode path; and 25 RMSNorm) and in dense mode, now the
   engine's default as in the reference (25 RMSNorm, no paged launch):
   equal greedy tokens (a near-tie below 1e-3 of the CPU's top-2 logit gap
   is the one allowed exception) and counters, and dense tokens equal to
@@ -69,8 +74,9 @@ Phases, each printing one JSON line:
   launches per prefill dispatch, 12 decode-path ones per decode dispatch
   and none on the CUDA-core path, and each kernel at the decode and
   prefill shapes (the paged kernel also at ``decode_long``: 16 rows of
-  2048-4096 keys, and on its CUDA-core path at parity's f32 chunk-extend
-  shape: 4 rows of 16 tokens, 8 pages a slot), held against its plain
+  2048-4096 keys, and at parity's f32 chunk-extend shape: 4 rows of 16
+  tokens, 8 pages a slot, on the tensor-core path and forced onto the
+  CUDA-core one), held against its plain
   version and timed beside its bound, its plain version and one PyTorch
   call as a yardstick (RMSNorm also beside an empty launch through the
   same library, ``launch_floor_ms``);
@@ -219,8 +225,9 @@ Phases, each printing one JSON line:
   layer (51.6 GB in f32), the card's paged engine without its prefix
   cache against its dense engine: equal greedy tokens (the near-tie
   exception), counters and every dispatch's logits at 1e-4, launches
-  exact by path (``ZOO_PATHS``: e.g. granite's f32 prefill and decode on
-  the CUDA-core path), RMSNorm all one-pass;
+  exact by path (``ZOO_PATHS``: every f32 fold on the tensor-core path in
+  3xTF32 but qwen2's 8-row decode, on the decode path), RMSNorm all
+  one-pass;
 - ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
   granite-34b at 11 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
   at 2, each freed before the next: tokens/s, dispatch times, peak
@@ -430,8 +437,8 @@ def paged_cases():
             (f"verify_T5_{tag}", dict(B=3, hkv=8, g=8, T=5, dk=128, ps=16, P=40,
                                       offsets=[17, 0, 250], seed=7, **d), 0.0, 0),
             # ds-paper-100m's verify dispatch (G 1): spec_k 4 on the decode
-            # path, spec_k 8 on the CUDA-core one in f32 and the tensor-core
-            # one in bf16; page-crossing offsets
+            # path, spec_k 8 on the tensor-core one (f32 in 3xTF32);
+            # page-crossing offsets
             (f"verify_g1_T5_{tag}", dict(B=4, hkv=12, g=1, T=5, dk=64, ps=16, P=40,
                                          offsets=[0, 13, 130, 571], seed=14, **d), 0.0, 0),
             (f"verify_g1_T9_{tag}", dict(B=4, hkv=12, g=1, T=9, dk=64, ps=16, P=40,
@@ -590,6 +597,35 @@ def paged_cases():
         ("tc_qwen2_rows128_straddle_bf16", dict(B=3, hkv=8, g=8, T=16, dk=128, ps=16, P=40,
                                                 offsets=[7, 23, 599], seed=60, **bf), 0.0, 0),
     ]
+    # the f32 tensor-core route's edges (3xTF32, csrc/paged_tensor_core.cu)
+    # at the zoo's shapes: dk 192 prefill at pages of 8 and 64 straddling a
+    # page, granite's 768-row fold (6 row groups) with a parked row and
+    # aliased first pages, MQA G 48 decode over 2 rows (10 key splits) and
+    # over one row of 4096 keys (16), a softcap at nemotron's 12-row decode
+    # (2 in-block splits), 144 rows at dk 128 (a second row group cut short
+    # to 4 M-tiles), the mixed widths at 64 rows
+    f = {"dtype": torch.float32}
+    cases += [
+        ("tc_dk192_page8_f32", dict(B=3, hkv=4, g=12, T=16, dk=192, ps=8, P=80,
+                                    offsets=[0, 13, 600], seed=80, **f), 0.0, 0),
+        ("tc_dk192_page64_f32", dict(B=3, hkv=4, g=12, T=16, dk=192, ps=64, P=10,
+                                     offsets=[0, 70, 600], seed=81, **f), 0.0, 0),
+        ("tc_granite768_parked_aliased_f32", dict(B=4, hkv=1, g=48, T=16, dk=128, ps=16,
+                                                  P=40, offsets=[20, 33, 20, 400], seed=82,
+                                                  alias=True, parked=(1,), **f), 0.0, 0),
+        ("tc_mqa_g48_splits_f32", dict(B=2, hkv=1, g=48, T=1, dk=128, ps=16, P=40,
+                                       offsets=[200, 9], seed=83, **f), 0.0, 0),
+        ("tc_mqa_g48_ctx4096_f32", dict(B=1, hkv=1, g=48, T=1, dk=128, ps=16, P=256,
+                                        offsets=[4095], seed=84, **f), 0.0, 0),
+        ("tc_softcap30_dk192_decode_f32", dict(B=3, hkv=8, g=12, T=1, dk=192, ps=16, P=40,
+                                               offsets=[0, 48, 600], seed=85, **f), 30.0, 0),
+        ("tc_rows144_groups_cut_f32", dict(B=3, hkv=2, g=9, T=16, dk=128, ps=16, P=40,
+                                           offsets=[7, 23, 599], seed=86, **f), 0.0, 0),
+        ("tc_dk64_dv128_f32", dict(B=3, hkv=4, g=4, T=16, dk=64, dv_store=128, ps=16, P=40,
+                                   offsets=[0, 45, 300], seed=87, **f), 0.0, 0),
+        ("tc_dk128_dv64_f32", dict(B=3, hkv=4, g=4, T=16, dk=128, dv_store=64, ps=16, P=40,
+                                   offsets=[0, 45, 300], seed=88, **f), 0.0, 0),
+    ]
     # the parity engine's slots (max_len 128: 8 pages of 16), its own dtype
     cases += [
         ("parity_decode_f32", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
@@ -606,11 +642,11 @@ def paged_cases():
 # every tc_* and mla_tc_* case takes the tensor-core path and every dec_*
 # case the decode path
 CASE_PATHS = {
-    "zoo_granite_prefill_f32": "cuda_core", "zoo_granite_prefill_bf16": "tensor_core",  # G*T 768
-    "zoo_qwen2_prefill_f32": "cuda_core", "zoo_qwen2_prefill_bf16": "tensor_core",  # 8 M-tiles
-    "zoo_nemotron_decode_f32": "cuda_core", "zoo_nemotron_decode_bf16": "tensor_core",  # dk 192
-    "zoo_nemotron_prefill_f32": "cuda_core", "zoo_nemotron_prefill_bf16": "tensor_core",
-    "verify_g1_T9_f32": "cuda_core", "verify_g1_T9_bf16": "tensor_core",
+    # the zoo's folds in both dtypes (f32 in 3xTF32): G*T 768, 8 M-tiles, dk 192
+    **{f"zoo_{at}_{tag}": "tensor_core" for at in ("granite_prefill", "qwen2_prefill",
+                                                  "nemotron_decode", "nemotron_prefill")
+       for tag in ("f32", "bf16")},
+    "verify_g1_T9_f32": "tensor_core", "verify_g1_T9_bf16": "tensor_core",
     "mla_f32": "tensor_core", "mla_bf16": "tensor_core",  # G 16
     **{f"mla_full_{at}_{tag}": "tensor_core" for at in ("decode", "t4") for tag in ("f32", "bf16")},
     # separate pools
@@ -1142,6 +1178,7 @@ def phase_parity() -> tuple:
     over the per-slot cache), and dense against paged on the card.
     Returns the record and the card's engines by mode."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_decode import PATHS
     from repro_torch.models import Model, ModelRuntime
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity: full-precision matmuls
@@ -1169,14 +1206,16 @@ def phase_parity() -> tuple:
                 f"{d} dispatches")
         require(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * d,
                 f"{mode}: rmsnorm launched {launches['rmsnorm']} times for {d} dispatches")
-        require(launches["paged_attention_tensor_core"] == 0,
-                f"{mode}: f32 paged attention took the bf16 tensor-core path")
         # f32 decode dispatches (G*T 1) run the split-KV decode path, f32
-        # prefill (G*T 16) the CUDA-core one
-        want_decode = cfg.n_layers * gpu.decode_dispatches if mode == "paged" else 0
-        require(launches["paged_attention_decode"] == want_decode,
-                f"{mode}: decode-path paged launches {launches['paged_attention_decode']} != "
-                f"{want_decode} (12 per decode dispatch)")
+        # prefill (G*T 16) the tensor-core one in 3xTF32
+        want = dict.fromkeys(PATHS, 0)
+        if mode == "paged":
+            want["decode"] += cfg.n_layers * gpu.decode_dispatches
+            want["tensor_core"] += cfg.n_layers * gpu.prefill_dispatches
+        got = {p: launches[f"paged_attention_{p}"] for p in PATHS}
+        require(got == want, f"{mode}: paged launches by path {got}, want {want} (12 a "
+                             f"dispatch: {gpu.decode_dispatches} decode, "
+                             f"{gpu.prefill_dispatches} prefill)")
         if mode == "paged":
             require(gpu.prefix_hit_tokens > 0, "the shared prefix was never hit")
         card[mode] = gpu
@@ -1294,11 +1333,43 @@ def check_at_shape(what: str, kern, plain, dtype) -> float:
     return err
 
 
-def time_paged(label, B, T, offsets, dtype, P=40, hkv=12, g=1, dk=64):
+def on_path(path: str, fn):
+    """``fn`` with the paged kernel's path forced to ``path`` (through
+    ``flash_decode.kernel_path``) for the length of each call."""
+    from repro_torch.kernels import flash_decode
+
+    def forced():
+        real = flash_decode.kernel_path
+        flash_decode.kernel_path = lambda *_a, **_k: path
+        try:
+            return fn()
+        finally:
+            flash_decode.kernel_path = real
+    return forced
+
+
+def paged_route_bound(nbytes, flops, dtype, path) -> tuple:
+    """``(bound_ms, bound_by, bytes_ms)`` of a paged call on its route: its
+    bytes over the memory rate against its operations in fp32 outside the
+    tensor cores on the CUDA-core path, as three TF32 passes on the f32
+    tensor-core route, else at the dtype's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if path == "cuda_core":
+        t_ops = flops / PEAK_OPS[torch.float32] * 1e3
+    elif path == "tensor_core" and dtype == torch.float32:
+        t_ops = 3 * flops / TF32_OPS * 1e3
+    else:
+        t_ops = flops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes
+
+
+def time_paged(label, B, T, offsets, dtype, P=40, hkv=12, g=1, dk=64, cuda_core=False):
     """The paged kernel at ``B`` rows of ``T`` tokens, ``hkv`` KV heads of
     ``g`` query heads each (the fold ``G*T``) and head width ``dk``: held
-    against its plain version and timed beside its bound, its plain
-    version and SDPA."""
+    against its plain version and timed beside its route's bound, its
+    plain version and SDPA; with ``cuda_core``, also forced onto the
+    CUDA-core path (path code 0 through the C entry) beside that route's
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode import (
@@ -1325,14 +1396,21 @@ def time_paged(label, B, T, offsets, dtype, P=40, hkv=12, g=1, dk=64):
     mask = ((torch.arange(P * ps, device="cuda")[None, None] <= q_pos[..., None])
             & alloc[:, None])[:, None]
     lib = lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask)  # noqa: E731
+    path = kernel_path(dtype, g * T, dk, dk)
     nbytes, flops = paged_work(q, kp, table, offs, T, dk)
-    bms, by = bound(nbytes, flops, dtype)
+    bms, by, _ = paged_route_bound(nbytes, flops, dtype, path)
     err = check_at_shape(f"paged attention ({label})", kern, plain, dtype)
-    return {"at": label, "shape": {"B": B, "Hkv": hkv, "G": g, "T": T, "dk": dk,
-                                   "page_size": ps, "pages_per_slot": P},
-            "path": kernel_path(dtype, g * T, dk, dk), "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms,
-            "bound_by": by, "library_ms": time_ms(lib),
+    rec = {"at": label, "shape": {"B": B, "Hkv": hkv, "G": g, "T": T, "dk": dk,
+                                  "page_size": ps, "pages_per_slot": P},
+           "path": path, "max_abs_err": err, "ms": time_ms(kern)}
+    if cuda_core:
+        forced = on_path("cuda_core", kern)
+        rec["cuda_core_max_abs_err"] = check_at_shape(
+            f"paged attention ({label}, CUDA-core path)", forced, plain, dtype)
+        rec["cuda_core_ms"] = time_ms(forced)
+        rec["bound_ms_cuda_core"] = paged_route_bound(nbytes, flops, dtype, "cuda_core")[0]
+    return {**rec, "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on pre-gathered contiguous K/V"}
 
 
@@ -1349,7 +1427,6 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
     csrc/paged_mla.cu."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_decode
     from repro_torch.kernels.flash_decode import (
         kernel_path,
         paged_flash_attention_folded,
@@ -1373,22 +1450,10 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, kc, vc, attn_mask=mask, scale=MLA_SCALE)
     nbytes, flops = paged_work(q, kv, table, offs, T, dv, shared_kv=True)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    # the route's operations: bf16 products at its peak, f32 as three TF32 passes
-    t_tensor = (flops / PEAK_OPS[torch.bfloat16] if dtype == torch.bfloat16
-                else 3 * flops / TF32_OPS) * 1e3
-    bms, by = max(t_bytes, t_tensor), "bytes" if t_bytes >= t_tensor else "operations"
-    err = check_at_shape(f"paged attention (MLA {label})", kern, plain, dtype)
     path = kernel_path(dtype, g * T, dk, dv)
-
-    def on_cuda_cores():
-        real = flash_decode.kernel_path
-        flash_decode.kernel_path = lambda *_a, **_k: "cuda_core"
-        try:
-            return kern()
-        finally:
-            flash_decode.kernel_path = real
-
+    bms, by, _ = paged_route_bound(nbytes, flops, dtype, path)
+    err = check_at_shape(f"paged attention (MLA {label})", kern, plain, dtype)
+    on_cuda_cores = on_path("cuda_core", kern)
     forced = {"cuda_core_max_abs_err": check_at_shape(
                   f"paged attention (MLA {label}, CUDA-core path)", on_cuda_cores, plain, dtype),
               "cuda_core_ms": time_ms(on_cuda_cores)}
@@ -1397,7 +1462,7 @@ def time_paged_mla(label, T, offsets, dtype) -> dict:
             "path": path, "max_abs_err": err, "keys_per_row": [o + T for o in offsets],
             "ms": time_ms(kern), **forced, "plain_ms": time_ms(plain), "bound_ms": bms,
             "bound_by": by,
-            "bound_ms_cuda_core": max(t_bytes, flops / PEAK_OPS[torch.float32] * 1e3),
+            "bound_ms_cuda_core": paged_route_bound(nbytes, flops, dtype, "cuda_core")[0],
             "bound_ms_tensor_core": bms,
             "bytes": nbytes, "flops": flops, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on pre-gathered K/V (q and k "
@@ -1504,10 +1569,11 @@ def phase_serve() -> dict:
             # long contexts on the decode path: 2048-4096 keys, 256 pages a slot
             "decode_long": time_paged("decode_long", 16, 1,
                                       rng.integers(2047, 4096, 16).tolist(), dtype, P=256),
-            # the CUDA-core path at parity's f32 prefill: 4 rows of 16 tokens
-            # at page-aligned offsets, 8 pages a slot (max_len 128)
+            # parity's f32 prefill: 4 rows of 16 tokens at page-aligned
+            # offsets, 8 pages a slot (max_len 128), on the tensor-core path
+            # in 3xTF32 and forced onto the CUDA-core one
             "f32_chunk_extend": time_paged("f32_chunk_extend", 4, 16, [0, 16, 32, 48],
-                                           torch.float32, P=8),
+                                           torch.float32, P=8, cuda_core=True),
         },
         "rmsnorm": {
             "decode": time_rmsnorm("decode", 16, cfg.d_model, dtype),
@@ -1644,8 +1710,9 @@ def phase_spec_parity() -> dict:
     (near-tie exception) and counters, tokens equal to the same model's
     non-speculative paged and dense engines on the card, a paged launch a
     layer and 2 L + 1 RMSNorm a verify dispatch (T 5 on the decode path,
-    T 9 on the CUDA-core path), 2 L + 1 RMSNorm a dispatch draft dispatches
-    included, and rollback exercised: the seed-7 draft rejects, the
+    T 9 on the tensor-core path), none on the CUDA-core path, 2 L + 1
+    RMSNorm a dispatch draft dispatches included, and rollback exercised:
+    the seed-7 draft rejects, the
     self-draft keeps some drafts and loses the rest."""
     import dataclasses
 
@@ -1712,12 +1779,14 @@ def phase_spec_parity() -> dict:
         require(launches["paged_attention"] == (L * n if mode == "paged" else 0),
                 f"{what}: paged attention launched {launches['paged_attention']} times for "
                 f"{n} dispatches")
-        require(launches["paged_attention_tensor_core"] == 0,
-                f"{what}: f32 paged attention took the bf16 tensor-core path")
+        # every f32 fold of dk 64 takes the decode path (up to 8 rows) or the
+        # tensor-core one (3xTF32)
+        require(launches["paged_attention_cuda_core"] == 0,
+                f"{what}: f32 paged attention took the CUDA-core path")
         if kw.get("speculative"):
             require(gpu.decode_dispatches == gpu.spec_dispatches > 0,
                     f"{what}: not every decode dispatch was a verify dispatch")
-            # G 1: T = spec_k + 1 up to 8 takes the decode path, 9-15 the CUDA-core one (f32)
+            # G 1: T = spec_k + 1 up to 8 takes the decode path, from 9 the tensor-core one
             path = kernel_path(torch.float32, kw["spec_k"] + 1, 64, 64)
             require_verify_launches(gpu, mode == "paged", path, what)
         else:
@@ -4253,13 +4322,13 @@ ZOO_PARITY_LAYERS = {"granite-34b": 1, "qwen2-72b": 1, "nemotron-4-340b": 1}
 ZOO_SERVE_LAYERS = {"granite-34b": 11, "qwen2-72b": 8, "nemotron-4-340b": 2}
 # The paged kernel's path of a decode dispatch (T 1) and of a prefill one
 # (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
-ZOO_PATHS = {
-    ("granite-34b", torch.float32): ("cuda_core", "cuda_core"),  # G*T 48 and 768 in f32
+ZOO_PATHS = {  # f32 on the tensor cores in 3xTF32
+    ("granite-34b", torch.float32): ("tensor_core", "tensor_core"),  # G*T 48 and 768
     ("granite-34b", torch.bfloat16): ("tensor_core", "tensor_core"),  # key splits; 6 row groups
-    ("qwen2-72b", torch.float32): ("decode", "cuda_core"),  # G*T 8 at dk 128
+    ("qwen2-72b", torch.float32): ("decode", "tensor_core"),  # G*T 8 at dk 128; 128 rows
     ("qwen2-72b", torch.bfloat16): ("decode", "tensor_core"),  # 128 rows: 8 M-tiles
-    ("nemotron-4-340b", torch.float32): ("cuda_core", "cuda_core"),  # f32 at dk 192
-    ("nemotron-4-340b", torch.bfloat16): ("tensor_core", "tensor_core"),  # dk 192: 12, 192 rows
+    ("nemotron-4-340b", torch.float32): ("tensor_core", "tensor_core"),  # dk 192: 12, 192 rows
+    ("nemotron-4-340b", torch.bfloat16): ("tensor_core", "tensor_core"),
 }
 ZOO_PARITY_KW = dict(max_batch=4, max_len=128, prefill_chunk=16)
 ZOO_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,

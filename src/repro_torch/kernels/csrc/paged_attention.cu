@@ -42,15 +42,18 @@
 // distributed shared memory measured no faster at 128-576 keys and slower
 // at 2048-4096: a cluster's blocks wait for its slowest split.
 //
-// Tensor-core path (path 1: bf16 from flash_decode.TENSOR_CORE_MIN_ROWS
-// folded rows at dk, dv in {64, 128}, every fold at dk = dv = 192, and
-// every fold at MLA's dk 576 / dv 512 with one latent pool as K and V, in
-// bf16 or f32): in csrc/paged_tensor_core.cu, and MLA's fold in
-// csrc/paged_mla.cu, compiled apart so the build runs them in parallel;
-// their notes there.
+// Tensor-core path (path 1, bf16 and f32 (3xTF32) alike: from
+// flash_decode.TENSOR_CORE_MIN_ROWS folded rows at dk, dv in {64, 128},
+// every fold at dk = dv = 192, and every fold at MLA's dk 576 / dv 512
+// with one latent pool as K and V): in csrc/paged_tensor_core.cu, and
+// MLA's fold in csrc/paged_mla.cu, compiled apart so the build runs them
+// in parallel; their notes there.
 //
-// CUDA-core path (path 0: every other call -- f32 chunk-extend, f32 at dk
-// 192, MLA's dk 576 / dv 512 with separate K and V pools, other widths).
+// CUDA-core path (path 0: every other call -- MLA's dk 576 / dv 512 with
+// separate K and V pools, other widths, in either dtype; since the f32
+// tensor-core route, no f32 fold of the widths above: the route measured
+// faster at every one of them from 9 rows, parity's f32 chunk-extend and
+// verify T 9 included, flash_decode.py).
 // One thread block per (query tile, kv head, batch row).  The tile holds
 // up to 32 / NV folded query rows (NV value columns per lane), and the
 // host shrinks it while the grid would leave the card's SMs idle, so

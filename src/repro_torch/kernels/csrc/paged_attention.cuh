@@ -1,7 +1,8 @@
 // What the paged attention kernel's sources share: csrc/paged_attention.cu
 // (the C entry, the CUDA-core and split-KV decode paths),
-// csrc/paged_tensor_core.cu (the bf16 tensor-core path) and csrc/paged_mla.cu
-// (its MLA fold, bf16 and f32), compiled apart so the build runs them in parallel.
+// csrc/paged_tensor_core.cu (the tensor-core path, bf16 and f32) and
+// csrc/paged_mla.cu (its MLA fold, bf16 and f32), compiled apart so the
+// build runs them in parallel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,9 +27,9 @@ struct Args {
   int vec;        // 16-byte global loads are aligned
 };
 
-// The tensor-core path (csrc/paged_tensor_core.cu): bf16 with dk and dv
-// in {64, 128} or both 192, or MLA's dk 576 / dv 512 in bf16 or f32
-// (launch_mla), 16-byte-aligned rows, in the row groups and key splits of
+// The tensor-core path (csrc/paged_tensor_core.cu): dtype 1 (bf16) or 0
+// (f32, 3xTF32) with dk and dv in {64, 128} or both 192, or MLA's dk 576 /
+// dv 512 (launch_mla), 16-byte-aligned rows, in the row groups and key splits of
 // the host's plan; with more than one split the workspace and the zeroed
 // counters (one a (row, kv head, group)).
 cudaError_t launch_tc(const Args& a, int dtype, int groups, int splits, void* ws, void* counters,

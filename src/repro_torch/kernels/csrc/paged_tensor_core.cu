@@ -1,4 +1,5 @@
-// Paged attention for Hopper (sm_90a), the bf16 tensor-core path.
+// Paged attention for Hopper (sm_90a), the tensor-core path: bf16, and
+// f32 in 3xTF32.
 //
 // Part of the port of the TPU kernel
 // src/repro/kernels/flash_decode.py::_paged_kernel (reached through
@@ -6,12 +7,12 @@
 // the other two paths and the function the three compute.
 //
 // The paged attention kernel's tensor-core path (path 1 of
-// csrc/paged_attention.cu's entry): bf16, dk and dv in {64, 128} from
-// flash_decode.TENSOR_CORE_MIN_ROWS folded rows up, any number of them, and
-// dk = dv = 192 at every fold -- the serve prefill, speculative verify from
-// T 9, and the dense zoo's folds: granite-34b's MQA (G 48: 48 decode rows,
-// 768 prefill rows), qwen2-72b's 128 prefill rows at dk 128,
-// nemotron-4-340b's 12 and 192 rows at dk 192.
+// csrc/paged_attention.cu's entry), in either dtype: dk and dv in {64, 128}
+// from flash_decode.TENSOR_CORE_MIN_ROWS folded rows up, any number of
+// them, and dk = dv = 192 at every fold -- the serve prefill, speculative
+// verify from T 9, parity's f32 chunk-extend, and the dense zoo's folds:
+// granite-34b's MQA (G 48: 48 decode rows, 768 prefill rows), qwen2-72b's
+// 128 prefill rows at dk 128, nemotron-4-340b's 12 and 192 rows at dk 192.
 //
 // Why mma.sync and not wgmma: only the G*T queries of one (b, kv head)
 // share a K tile, and at the serve prefill that is 16 rows, exactly one
@@ -22,15 +23,15 @@
 // says why it keeps mma.sync there too.
 //
 // Design.  The fold is cut into row groups of at most 8 M-tiles of 16
-// rows; a block takes one (key split, row group, batch row x kv head), a
-// warp an M-tile (Q as A fragments loaded once, straight from memory),
-// times in-block key splits while the group has under 4 M-tiles (halved
-// while two stages of them pass 200 KiB).  The block walks its share of
+// rows (flash_decode.TENSOR_CORE_F32_MAX_TILES in f32: 4 at dk 192); a
+// block takes one (key split, row group, batch row x kv head), a warp an
+// M-tile, times in-block key splits while the group has under 4 M-tiles
+// (halved while two stages of them pass 200 KiB).  The block walks its share of
 // the row's units of 32 logical keys (one unit spans four 8-key pages, two
 // 16-key pages, one 32-key page or half a 64-key page) in stages of one
 // unit per in-block split.  The warps of a split copy each of its units'
-// K and V rows together (ps rows of dk bf16 per page at stride Hkv*dk) with
-// 16-byte cp.async into padded shared rows (stride d + 8, so ldmatrix reads
+// K and V rows together (ps rows of dk elements per page at stride Hkv*dk) with
+// 16-byte cp.async into shared rows padded by 16 bytes (so ldmatrix reads
 // hit distinct banks), and every M-tile warp of the split reads the unit
 // from there: K and V are read from memory once per block, where private
 // per-warp rings read them once per warp (and ran out of shared memory at
@@ -39,7 +40,7 @@
 // flight while one is computed, one __syncthreads a stage (a barrier for
 // each in-block split's warps alone measured no faster).  A key on an unallocated page or a page past the row's
 // last query is not read and is masked.  S = Q.K^T and O += P.V run on
-// mma.sync (P packed from the S fragments, V through ldmatrix.trans); the
+// mma.sync; the
 // scale multiplies the fp32 S (as the plain version's einsum(q, k) *
 // scale: pre-scaling bf16 Q would round differently), then softcap; only a
 // unit that reaches past the tile's smallest query position, or holds an
@@ -54,10 +55,35 @@
 // counter, as on the decode path.  The plan comes from the host; run_tc
 // refuses one that does not fit, and the wrapper raises.
 //
-// Bound on this card: memory at every shape the port serves (csrc/
-// paged_attention.cu's note).  ptxas -v (sm_90a, nvcc 12.9): 156 registers
-// at dk = dv = 64, 247 at 128, 246 at 192, 226 and 248 at the mixed
-// widths, no spills.
+// The two routes, one kernel body (paged_tc_kernel<T, DK, DV>).  bf16: Q
+// as A fragments loaded once a warp, straight from memory;
+// mma.sync.m16n8k16, P packed from the S fragments, V through
+// ldmatrix.trans.  f32 (3xTF32; csrc/paged_mla.cu's f32 route carried over
+// to the GQA folds): split into TF32 hi and lo, Q would take dk registers a
+// lane beside O's dv / 2 (the bf16 kernel runs at 246 already), so the
+// group's Q rows are copied into shared memory once a block, ahead of the
+// ring, in the first stage's copy group.  Every operand is split into TF32
+// hi and lo (mma_sm80::split_tf32) as its fragment is read, and each
+// product is taken as three mma.sync.m16n8k8 passes (lo.hi + hi.lo +
+// hi.hi, about 2^-22 of a product): S sums hi.hi apart from the cross
+// products (one chain took nemotron's decode 1.17x as long), P.V takes
+// mma_sm80::mma_3xtf32.  Q's and K's fragments move as 32-bit words
+// through ldmatrix's b16 form, V's B fragment by word loads (rows padded
+// by 4 floats put the 32 words in distinct banks), P's A fragment comes
+// straight from S's accumulators with a key tile's keys taken in the
+// order 2q, 2q + 1.  f32 doubles the ring (a 32-key unit at 192/192 is
+// 49 KiB), so its stages are 3 where Q and the ring fit 226 KiB, else 2 (8
+// M-tiles at 192).  Q staged pre-split into hi and lo (twice its bytes;
+// no room at 6 M-tiles of 192) took granite's MQA decode 1.19x as long,
+// and two ring stages gained nothing (tools/kernel_variants.py tc_f32).
+//
+// Bound on this card: memory at every bf16 shape the port serves (csrc/
+// paged_attention.cu's note).  f32 counts three TF32 passes at 494.7
+// TFLOP/s: the prefill folds (granite's 768 rows, nemotron's 192 at dk
+// 192) are bound by them, the decode folds by their bytes.  ptxas -v
+// (sm_90a, nvcc 12.9): bf16 156 registers at dk = dv = 64, 247 at 128, 246
+// at 192, 226 and 248 at the mixed widths; f32 200 at 64, 166 at 128, 216
+// at 192, 198 at 128/64 and 234 at 64/128; no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,43 +105,57 @@ using mma_sm80::cp_async_commit;
 using mma_sm80::cp_async_wait;
 using mma_sm80::ldmatrix_x4;
 using mma_sm80::ldmatrix_x4_trans;
+using mma_sm80::mma_3xtf32;
 using mma_sm80::mma_bf16;
+using mma_sm80::mma_tf32;
 using mma_sm80::pack_bf16;
+using mma_sm80::split_tf32;
 
 constexpr int kTcUnit = 32;      // logical keys per staged unit: two k16 steps of P.V
 constexpr int kTcMaxTiles = 8;   // 16-row M-tiles a block (a warp each)
 constexpr int kTcWarps = 4;      // warps a block aims at: with fewer M-tiles, key splits in it
 constexpr size_t kTcRingBudget = 200 * 1024;  // a ring with splits in the block
+// f32: the group's Q and the ring (the card's 227 KiB a block, a KiB to spare)
+constexpr size_t kTcSmemBudget = 226 * 1024;
 
-template <int DK, int DV>
+// A route's layout: shared rows padded by 16 bytes (ldmatrix's 8 rows and
+// f32 V's 32 words hit distinct banks), a K + V unit's elements, one
+// warp's merge slot (floats).
+template <typename T, int DK, int DV>
 struct TcCfg {
-  static constexpr int LDK = DK + 8;  // padded shared rows: ldmatrix rows hit distinct banks
-  static constexpr int LDV = DV + 8;
-  static constexpr int UNIT = kTcUnit * (LDK + LDV);  // bf16 elements of one K + V unit
-  static constexpr int RED = 32 + 16 * DV;            // floats of one warp's merge slot
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int EPC = 16 / (int)sizeof(T);  // elements a 16-byte chunk
+  static constexpr int LDK = DK + EPC;
+  static constexpr int LDV = DV + EPC;
+  static constexpr int UNIT = kTcUnit * (LDK + LDV);
+  static constexpr int RED = 32 + 16 * DV;
 };
 
 // A block of `tiles` M-tiles under `splits` key splits: its warps are
 // tiles x wsplits (the in-block key splits: the `tiles` warps of one split
-// stage and read every wsplits-th unit of the block's share), its ring
-// holds `stages` stages of one unit a split (3 where they fit the budget,
-// else 2), and the warps' merge slots (wsplits > 1) and the split merge's
-// weights (splits > 1) reuse the ring.  The CPU tests mirror it
+// stage and read every wsplits-th unit of the block's share); in f32 the
+// group's Q rows (q bytes, padded) come first, then the ring of `stages`
+// stages of one unit a split (3 where they fit the budgets, else 2); the
+// warps' merge slots (wsplits > 1) and the split merge's weights (splits >
+// 1) reuse it.  The CPU tests mirror it
 // (tests/test_torch_paged_paths.py::tensor_core_block).
 struct TcBlock {
   int wsplits, stages;
   size_t smem;
 };
 
-inline size_t tc_ring_bytes(int stages, int wsplits, int dk, int dv) {
-  return (size_t)stages * wsplits * kTcUnit * (dk + 8 + dv + 8) * 2;
+inline size_t tc_ring_bytes(int stages, int wsplits, int dk, int dv, int item) {
+  return (size_t)stages * wsplits * kTcUnit * ((dk + dv) * item + 32);
 }
 
-inline TcBlock tc_block(int tiles, int splits, int dk, int dv) {
+inline TcBlock tc_block(int tiles, int splits, int dk, int dv, int item) {
+  const size_t q = item == 4 ? (size_t)tiles * 16 * (dk * 4 + 16) : 0;  // bf16: in registers
   TcBlock p{tiles >= kTcWarps ? 1 : kTcWarps / tiles, 3, 0};
-  while (p.wsplits > 1 && tc_ring_bytes(2, p.wsplits, dk, dv) > kTcRingBudget) p.wsplits >>= 1;
-  if (p.wsplits > 1 && tc_ring_bytes(3, p.wsplits, dk, dv) > kTcRingBudget) p.stages = 2;
-  size_t smem = tc_ring_bytes(p.stages, p.wsplits, dk, dv);
+  while (p.wsplits > 1 && tc_ring_bytes(2, p.wsplits, dk, dv, item) > kTcRingBudget)
+    p.wsplits >>= 1;
+  const size_t ring3 = tc_ring_bytes(3, p.wsplits, dk, dv, item);
+  if ((p.wsplits > 1 && ring3 > kTcRingBudget) || q + ring3 > kTcSmemBudget) p.stages = 2;
+  size_t smem = q + tc_ring_bytes(p.stages, p.wsplits, dk, dv, item);
   const size_t red = p.wsplits > 1 ? (size_t)tiles * p.wsplits * (32 + 16 * dv) * 4 : 0;
   const size_t weights = splits > 1 ? (size_t)(splits + 1) * tiles * 16 * 4 : 0;
   if (red > smem) smem = red;
@@ -124,18 +164,35 @@ inline TcBlock tc_block(int tiles, int splits, int dk, int dv) {
   return p;
 }
 
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+
 // Warp mt of the `tiles` warps staging a unit copies its share of the
 // unit's NC 16-byte chunks a row into rows of LD elements, key r's from
 // base + row(r) * stride (row(r): lane r's `row`; -1 zero-fills).  A
 // unit's 32 * NC chunks are a multiple of 32, so every lane of the warp
 // takes the same number and the shuffles see the whole warp.  Unrolled at
-// dk 64 and 128 (0.5-3% faster than a loop on an H100); a loop at 192,
-// where unrolling measured 19-33% slower (tools/kernel_variants.py tc).
-template <int NC, int LD>
-__device__ __forceinline__ void copy_unit(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          size_t stride, int row, int mt, int tiles, int lane) {
+// 16 chunks a row or fewer (bf16 dk 64 and 128: 0.5-3% faster than a loop
+// on an H100); a loop above, where unrolling bf16's 24 measured 19-33%
+// slower (tools/kernel_variants.py tc).
+template <typename T, int NC, int LD>
+__device__ __forceinline__ void copy_unit(T* dst, const T* base, size_t stride, int row, int mt,
+                                          int tiles, int lane) {
+  constexpr int EPC = 16 / (int)sizeof(T);
   auto one = [&](int i) {
-    const int r = i / NC, c = (i % NC) * 8;
+    const int r = i / NC, c = (i % NC) * EPC;
     const int src = __shfl_sync(0xffffffffu, row, r);
     cp_async16(dst + r * LD + c, base + (src >= 0 ? (size_t)src * stride + c : 0), src >= 0);
   };
@@ -158,12 +215,12 @@ __device__ __forceinline__ void copy_unit(__nv_bfloat16* dst, const __nv_bfloat1
 // unit with no such key, or at or past u_end, copies nothing.  Returns the
 // unit's valid-key bits (bit r: key 32 u + r lies on a read page), the same
 // in every warp that stages it.
-template <int DK, int DV>
-__device__ __forceinline__ uint32_t tc_stage(const Args& a, const __nv_bfloat16* __restrict__ kp,
-                                             const __nv_bfloat16* __restrict__ vp, int b, int h,
-                                             int last_q, int u, int u_end, __nv_bfloat16* ks,
-                                             int mt, int tiles, int lane) {
-  using C = TcCfg<DK, DV>;
+template <typename T, int DK, int DV>
+__device__ __forceinline__ uint32_t tc_stage(const Args& a, const T* __restrict__ kp,
+                                             const T* __restrict__ vp, int b, int h, int last_q,
+                                             int u, int u_end, T* ks, int mt, int tiles,
+                                             int lane) {
+  using C = TcCfg<T, DK, DV>;
   if (u >= u_end) return 0u;
   const int key = u * kTcUnit + lane;
   const int j = key / a.page_size;
@@ -174,9 +231,10 @@ __device__ __forceinline__ uint32_t tc_stage(const Args& a, const __nv_bfloat16*
   }
   const uint32_t valid = __ballot_sync(0xffffffffu, row >= 0);
   if (valid == 0u) return 0u;
-  copy_unit<DK / 8, C::LDK>(ks, kp + (size_t)h * DK, (size_t)a.hkv * DK, row, mt, tiles, lane);
-  copy_unit<DV / 8, C::LDV>(ks + kTcUnit * C::LDK, vp + (size_t)h * a.dv_store,
-                            (size_t)a.hkv * a.dv_store, row, mt, tiles, lane);
+  copy_unit<T, DK / C::EPC, C::LDK>(ks, kp + (size_t)h * DK, (size_t)a.hkv * DK, row, mt, tiles,
+                                    lane);
+  copy_unit<T, DV / C::EPC, C::LDV>(ks + kTcUnit * C::LDK, vp + (size_t)h * a.dv_store,
+                                    (size_t)a.hkv * a.dv_store, row, mt, tiles, lane);
   return valid;
 }
 
@@ -188,15 +246,17 @@ __device__ __forceinline__ uint32_t tc_stage(const Args& a, const __nv_bfloat16*
 // in-block split: K/V are read from memory once per block.  A split's
 // state goes straight to out (one split) or to the f32 workspace (o, then
 // every slot's (m, l) after all of o), whose last block of a (row, kv head,
-// group) merges the splits and resets the counter.
-template <int DK, int DV>
+// group) merges the splits and resets the counter.  bf16 takes Q as A
+// fragments in registers and its products on mma.sync.m16n8k16; f32 stages
+// the group's Q rows in shared memory and takes every product in 3xTF32.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(256)
     paged_tc_kernel(const Args a, int tiles, int wsplits, int stages, float* __restrict__ ws,
                     int* __restrict__ counters) {
-  using C = TcCfg<DK, DV>;
+  using C = TcCfg<T, DK, DV>;
+  constexpr bool F32 = C::F32;
   extern __shared__ float4 smem4[];
   __shared__ int last_block;
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem4);
   const int split = blockIdx.x, splits = gridDim.x, grp = blockIdx.y, bh = blockIdx.z;
   const int b = bh / a.hkv, h = bh - b * a.hkv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -206,16 +266,29 @@ __global__ void __launch_bounds__(256)
   const bool active = tile * 16 < ql;  // the last group may hold fewer tiles
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row
   const int g = lane >> 2, tq4 = lane & 3;  // accumulator: rows g, g + 8; cols 2 tq4
-  const __nv_bfloat16* __restrict__ kp = static_cast<const __nv_bfloat16*>(a.k_pages);
-  const __nv_bfloat16* __restrict__ vp = static_cast<const __nv_bfloat16*>(a.v_pages);
+  const T* __restrict__ kp = static_cast<const T*>(a.k_pages);
+  const T* __restrict__ vp = static_cast<const T*>(a.v_pages);
   const int row_a = tile * 16 + g, row_b = row_a + 8;
+  const int rows0 = grp * tiles * 16, rows1 = min(ql, rows0 + tiles * 16);
+  // f32: the group's Q rows (padded, zeros past QL), then the ring
+  T* qs = reinterpret_cast<T*>(smem4);
+  T* ring = qs + (F32 ? tiles * 16 * C::LDK : 0);
 
-  // this warp's 16 folded rows as A fragments, straight from memory (rows
-  // past QL are zeros)
-  uint32_t qf[DK / 16][4];
-  {
-    const uint32_t* __restrict__ q32 = reinterpret_cast<const uint32_t*>(
-        static_cast<const __nv_bfloat16*>(a.q) + (size_t)bh * ql * DK);
+  // bf16: this warp's 16 folded rows as A fragments, straight from memory
+  // (rows past QL are zeros); f32: the group's rows into shared memory, in
+  // the first stage's copy group
+  uint32_t qf[F32 ? 1 : DK / 16][4];
+  if constexpr (F32) {
+    constexpr int NC = DK / C::EPC;
+    const T* qg = static_cast<const T*>(a.q) + ((size_t)bh * ql + rows0) * DK;
+    for (int i = threadIdx.x; i < tiles * 16 * NC; i += blockDim.x) {
+      const int r = i / NC, col = (i - r * NC) * C::EPC;
+      const bool in = rows0 + r < ql;
+      cp_async16(qs + r * C::LDK + col, qg + (in ? (size_t)r * DK + col : 0), in);
+    }
+  } else {
+    const uint32_t* __restrict__ q32 =
+        reinterpret_cast<const uint32_t*>(static_cast<const T*>(a.q) + (size_t)bh * ql * DK);
     const bool in_a = row_a < ql, in_b = row_b < ql;
 #pragma unroll
     for (int kc = 0; kc < DK / 16; ++kc) {
@@ -252,8 +325,8 @@ __global__ void __launch_bounds__(256)
     return ring + (size_t)((s % stages) * wsplits + wsplit) * C::UNIT;
   };
   auto issue = [&](int s) {
-    const uint32_t v = tc_stage<DK, DV>(a, kp, vp, b, h, last_q, u0 + s * wsplits + wsplit, u1,
-                                        unit_at(s), mt, tiles, lane);
+    const uint32_t v = tc_stage<T, DK, DV>(a, kp, vp, b, h, last_q, u0 + s * wsplits + wsplit,
+                                           u1, unit_at(s), mt, tiles, lane);
     cp_async_commit();
     return v;
   };
@@ -263,7 +336,7 @@ __global__ void __launch_bounds__(256)
       cp_async_wait<1>();
     else
       cp_async_wait<0>();
-    __syncthreads();  // stage s has landed from every thread; stage s - 1 is consumed
+    __syncthreads();  // stage s (and Q) landed from every thread; stage s - 1 is consumed
     const uint32_t vn = issue(s + stages - 1);  // into stage s - 1's slot
     if (stages == 3)
       v2 = vn;
@@ -273,19 +346,55 @@ __global__ void __launch_bounds__(256)
     v0 = v1;
     v1 = v2;
     if (!active || valid == 0u) continue;
-    const __nv_bfloat16* ks = unit_at(s);
-    const __nv_bfloat16* vs = ks + kTcUnit * C::LDK;
+    const T* ks = unit_at(s);
+    const T* vs = ks + kTcUnit * C::LDK;
     float sc[4][4];  // 16 rows x 32 keys: 4 key tiles of 8
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    if constexpr (F32) {
+      // Q's A fragment of a k8 step and K's B fragments of two key tiles,
+      // each an ldmatrix of 32-bit words (4 floats a 16-byte row), split
+      // into hi and lo; the cross products lo.hi + hi.lo summed apart from
+      // hi.hi, so a key tile's S is two dependent chains of mma.sync, not
+      // one of three times the length (csrc/paged_mla.cu's f32 route)
+      float sx[4][4];
 #pragma unroll
-    for (int kc = 0; kc < DK / 16; ++kc) {
+      for (int nt = 0; nt < 4; ++nt) sx[nt][0] = sx[nt][1] = sx[nt][2] = sx[nt][3] = 0.f;
+      const T* qt = qs + (mt * 16 + (mi & 1) * 8 + mr) * C::LDK + (mi >> 1) * 4;
 #pragma unroll
-      for (int nt = 0; nt < 4; nt += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, ks + (nt * 8 + (mi >> 1) * 8 + mr) * C::LDK + kc * 16 + (mi & 1) * 8);
-        mma_bf16(sc[nt], qf[kc], bk[0], bk[1]);
-        mma_bf16(sc[nt + 1], qf[kc], bk[2], bk[3]);
+      for (int kc = 0; kc < DK / 8; ++kc) {
+        uint32_t raw[4], ah[4], al[4];
+        ldmatrix_x4(raw, qt + kc * 8);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), ah[i], al[i]);
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          uint32_t bk[4], bh[4], bl[4];
+          ldmatrix_x4(bk, ks + (nt * 8 + (mi >> 1) * 8 + mr) * C::LDK + kc * 8 + (mi & 1) * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(bk[i]), bh[i], bl[i]);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            mma_tf32(sx[nt + u], al, bh[2 * u], bh[2 * u + 1]);
+            mma_tf32(sx[nt + u], ah, bl[2 * u], bl[2 * u + 1]);
+            mma_tf32(sc[nt + u], ah, bh[2 * u], bh[2 * u + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] += sx[nt][e];
+    } else {
+#pragma unroll
+      for (int kc = 0; kc < DK / 16; ++kc) {
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, ks + (nt * 8 + (mi >> 1) * 8 + mr) * C::LDK + kc * 16 + (mi & 1) * 8);
+          mma_bf16(sc[nt], qf[kc], bk[0], bk[1]);
+          mma_bf16(sc[nt + 1], qf[kc], bk[2], bk[3]);
+        }
       }
     }
     // scale (fp32, as the plain version), softcap, mask only a unit that
@@ -348,19 +457,43 @@ __global__ void __launch_bounds__(256)
       o[dt][2] *= corr_b;
       o[dt][3] *= corr_b;
     }
-    // O += P.V: two key tiles' accumulator fragments are one A fragment
+    if constexpr (F32) {
+      // O += P.V in 3xTF32: a key tile's accumulator fragment is P's A
+      // fragment with the tile's keys taken in the order k = q <-> key 2q,
+      // k = q + 4 <-> key 2q + 1; V's B fragment (keys 2 tq4 and 2 tq4 + 1,
+      // column g) is read in the same order, a word at a time
 #pragma unroll
-    for (int kc = 0; kc < 2; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[kc][0], ph[0], pl[0]);
+        split_tf32(sc[kc][2], ph[1], pl[1]);
+        split_tf32(sc[kc][1], ph[2], pl[2]);
+        split_tf32(sc[kc][3], ph[3], pl[3]);
+        const T* vk = vs + (kc * 8 + 2 * tq4) * C::LDV + g;
 #pragma unroll
-      for (int dt = 0; dt < DV / 8; dt += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + (kc * 16 + (mi & 1) * 8 + mr) * C::LDV + (dt + (mi >> 1)) * 8);
-        mma_bf16(o[dt], pa, bv[0], bv[1]);
-        mma_bf16(o[dt + 1], pa, bv[2], bv[3]);
+        for (int dt = 0; dt < DV / 8; ++dt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vk[dt * 8], bh0, bl0);
+          split_tf32(vk[C::LDV + dt * 8], bh1, bl1);
+          mma_3xtf32(o[dt], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    } else {
+      // O += P.V: two key tiles' accumulator fragments are one A fragment
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
+                                pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
+                                pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
+                                pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
+#pragma unroll
+        for (int dt = 0; dt < DV / 8; dt += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv,
+                            vs + (kc * 16 + (mi & 1) * 8 + mr) * C::LDV + (dt + (mi >> 1)) * 8);
+          mma_bf16(o[dt], pa, bv[0], bv[1]);
+          mma_bf16(o[dt + 1], pa, bv[2], bv[3]);
+        }
       }
     }
   }
@@ -373,9 +506,7 @@ __global__ void __launch_bounds__(256)
 
   // The block's state: to out with one split, else to its workspace slots
   // [split][row] = {m, l, o[DV]} (f32, unnormalised).
-  const int rows0 = grp * tiles * 16, rows1 = min(ql, rows0 + tiles * 16);
-  __nv_bfloat16* __restrict__ out =
-      static_cast<__nv_bfloat16*>(a.out) + (size_t)bh * ql * DV;
+  T* __restrict__ out = static_cast<T*>(a.out) + (size_t)bh * ql * DV;
   // workspace slot (split, row): o at wo + (split * ql + row) * DV, (m, l)
   // at wml + split * ql + row
   float* wo = splits > 1 ? ws + (size_t)bh * splits * ql * DV : nullptr;
@@ -395,8 +526,8 @@ __global__ void __launch_bounds__(256)
           const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
           for (int dt = 0; dt < DV / 8; ++dt)
-            *reinterpret_cast<uint32_t*>(out + (size_t)row * DV + dt * 8 + tq4 * 2) =
-                pack_bf16(o[dt][2 * half] * inv, o[dt][2 * half + 1] * inv);
+            store2(out + (size_t)row * DV + dt * 8 + tq4 * 2, o[dt][2 * half] * inv,
+                   o[dt][2 * half + 1] * inv);
         } else {
           float* slot = wo + ((size_t)split * ql + row) * DV;
           if (tq4 == 0) wml[(size_t)split * ql + row] = make_float2(m, l);
@@ -407,7 +538,7 @@ __global__ void __launch_bounds__(256)
         }
       }
     }
-  } else {  // merge the in-block splits through shared memory (over the ring)
+  } else {  // merge the in-block splits through shared memory (over Q and the ring)
     __syncthreads();  // every warp is done with the ring
     float* red = reinterpret_cast<float*>(smem4);
     float* slot = red + warp * C::RED;  // {m[16], l[16], o[16][DV]}
@@ -440,7 +571,7 @@ __global__ void __launch_bounds__(256)
       }
       if (splits == 1) {
         // a query with nothing attendable keeps l == 0 and writes zeros
-        out[(size_t)qi * DV + d] = __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
+        store1(out + (size_t)qi * DV + d, acc / fmaxf(lsum, 1e-30f));
       } else {
         wo[((size_t)split * ql + qi) * DV + d] = acc;
         if (d == 0) wml[(size_t)split * ql + qi] = make_float2(mx, lsum);
@@ -494,13 +625,13 @@ __global__ void __launch_bounds__(256)
       acc.w = fmaf(v.w, w, acc.w);
     }
     const float sc = inv[r];
-    *reinterpret_cast<uint2*>(out + (size_t)(rows0 + r) * DV + c4 * 4) =
-        make_uint2(pack_bf16(acc.x * sc, acc.y * sc), pack_bf16(acc.z * sc, acc.w * sc));
+    store4(out + (size_t)(rows0 + r) * DV + c4 * 4,
+           make_float4(acc.x * sc, acc.y * sc, acc.z * sc, acc.w * sc));
   }
   if (threadIdx.x == 0) *counter = 0;
 }
 
-template <int DK, int DV>
+template <typename T, int DK, int DV>
 cudaError_t run_tc(const Args& a, int groups, int splits, float* ws, int* counters,
                    cudaStream_t stream) {
   int dev = 0, smem_max = 0;
@@ -518,9 +649,9 @@ cudaError_t run_tc(const Args& a, int groups, int splits, float* ws, int* counte
       (splits > 1 && (ws == nullptr || counters == nullptr)) ||
       (long)a.batch * a.hkv > 65535)
     return cudaErrorInvalidValue;
-  const TcBlock blk = tc_block(tiles, splits, DK, DV);
+  const TcBlock blk = tc_block(tiles, splits, DK, DV, (int)sizeof(T));
   if (blk.smem > (size_t)smem_max) return cudaErrorInvalidValue;
-  auto kernel = paged_tc_kernel<DK, DV>;
+  auto kernel = paged_tc_kernel<T, DK, DV>;
   if (blk.smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)blk.smem);
     if (e != cudaSuccess) return e;
@@ -530,23 +661,28 @@ cudaError_t run_tc(const Args& a, int groups, int splits, float* ws, int* counte
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t run_widths(const Args& a, int groups, int splits, float* w, int* c,
+                       cudaStream_t s) {
+  if (a.dk == 64 && a.dv == 64) return run_tc<T, 64, 64>(a, groups, splits, w, c, s);
+  if (a.dk == 64 && a.dv == 128) return run_tc<T, 64, 128>(a, groups, splits, w, c, s);
+  if (a.dk == 128 && a.dv == 64) return run_tc<T, 128, 64>(a, groups, splits, w, c, s);
+  if (a.dk == 128 && a.dv == 128) return run_tc<T, 128, 128>(a, groups, splits, w, c, s);
+  if (a.dk == 192 && a.dv == 192) return run_tc<T, 192, 192>(a, groups, splits, w, c, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 cudaError_t paged::launch_tc(const Args& a, int dtype, int groups, int splits, void* ws,
                              void* counters, cudaStream_t s) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pages) |
                          reinterpret_cast<uintptr_t>(a.v_pages)) & 15) == 0;
-  if (!aligned || a.dv_store % 8 != 0) return cudaErrorInvalidValue;
-  // MLA's fold in either dtype; every other width in bf16 only
+  if (!aligned || a.dv_store * (dtype == 1 ? 2 : 4) % 16 != 0) return cudaErrorInvalidValue;
   if (a.dk == 576 && a.dv == 512) return paged::launch_mla(a, dtype, groups, splits, s);
-  if (dtype != 1) return cudaErrorInvalidValue;
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
-  if (a.dk == 64 && a.dv == 64) return run_tc<64, 64>(a, groups, splits, w, c, s);
-  if (a.dk == 64 && a.dv == 128) return run_tc<64, 128>(a, groups, splits, w, c, s);
-  if (a.dk == 128 && a.dv == 64) return run_tc<128, 64>(a, groups, splits, w, c, s);
-  if (a.dk == 128 && a.dv == 128) return run_tc<128, 128>(a, groups, splits, w, c, s);
-  if (a.dk == 192 && a.dv == 192) return run_tc<192, 192>(a, groups, splits, w, c, s);
+  if (dtype == 1) return run_widths<__nv_bfloat16>(a, groups, splits, w, c, s);
+  if (dtype == 0) return run_widths<float>(a, groups, splits, w, c, s);
   return cudaErrorInvalidValue;
 }
-

@@ -20,21 +20,25 @@ queries (``G*T <= 8``: decode, GQA decode up to G 8) and ``dk, dv`` in
 {64, 128}, f32 or bf16, take the split-KV ``decode`` kernel (each row's
 live pages shared out among the blocks :func:`decode_plan` counts, each
 streaming its pages through a 2-stage ring of rounds, and the last block
-of a (row, kv head) to finish merging the splits); bf16 with ``dk, dv`` in
-{64, 128} from ``TENSOR_CORE_MIN_ROWS`` folded queries up, bf16 at
-``dk = dv = 192``, and MLA's ``dk 576 / dv 512`` with one latent pool
-passed as K and V at any fold in bf16 or f32 (3xTF32), runs on the tensor
-cores (``mma.sync``): the fold is cut into row groups of at most 8
-M-tiles of 16 rows (4 at MLA's fold in bf16, 2 in f32, whose kernel keeps
-the group's Q in shared memory and gives each M-tile 4 warps, each a
-quarter of S's depth and of O's columns), a block's warps share one
-``cp.async`` ring of K/V units (MLA's values read from the first 512
-columns of the staged latent), so a block reads the row's K/V once, and
-where the grid would leave most SMs idle the row's keys are shared out
-among blocks that merge as the decode path's do, or at MLA's widths in a
-thread-block cluster (:func:`tensor_core_plan`); every other call (f32
-chunk-extend, f32 at dk 192, 576/512 with separate K and V pools, odd
-widths) runs the CUDA-core kernel.
+of a (row, kv head) to finish merging the splits); ``dk, dv`` in {64, 128}
+from ``TENSOR_CORE_MIN_ROWS`` folded queries up, ``dk = dv = 192`` at
+every fold, and MLA's ``dk 576 / dv 512`` with one latent pool passed as K
+and V at any fold run on the tensor cores (``mma.sync``), bf16 and f32
+alike, f32 in 3xTF32 (every operand split into TF32 hi and lo, three
+products a pass): the fold is cut into row groups of at most 8 M-tiles of
+16 rows (4 at dk 192 in f32, whose kernel keeps the group's Q in shared
+memory; 4 at MLA's fold in bf16, 2 in f32, each M-tile there taking 4
+warps, each a quarter of S's depth and of O's columns), a block's warps
+share one ``cp.async`` ring of K/V units (MLA's values read from the
+first 512 columns of the staged latent), so a block reads the row's K/V
+once, and where the grid would leave most SMs idle the row's keys are
+shared out among blocks that merge as the decode path's do, or at MLA's
+widths in a thread-block cluster (:func:`tensor_core_plan`); every other
+call (576/512 with separate K and V pools, odd widths) runs the CUDA-core
+kernel.  So the f32 folds that took the CUDA cores before the f32
+tensor-core route (parity's chunk-extend, verify from T 9, the zoo's
+folds) take the tensor cores; f32 folds of up to 8 rows keep the decode
+path.
 Launches are counted in total (``launches``) and per path
 (``launches_by_path``).
 
@@ -56,14 +60,22 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 PATHS = ("cuda_core", "tensor_core", "decode")  # the C entry's `path` codes 0, 1 and 2
-# The tensor-core path's (dk, dv), and the least bf16 fold it takes at the
-# widths the decode path also takes (it takes every fold at 192).  Measured
-# with tools/kernel_variants.py (tc) on an H100 (B 16, 128-576 keys): at
-# 9-15 rows (G 1, Hkv 12, dk 64) it took 0.0225-0.0235 ms against the
-# CUDA-core path's 0.0677-0.0810.  It also beat the decode path at 5 and 8
-# rows (0.0217 / 0.0220 ms against 0.0424 / 0.0436) and at 8 rows of dk 128
-# (0.0288 against 0.0605); the decode path keeps its folds of up to 8 for
-# now (ROADMAP Queue 2).
+# The tensor-core path's (dk, dv), and the least fold it takes at the
+# widths the decode path also takes, in either dtype (it takes every fold
+# at 192).  Measured with tools/kernel_variants.py (tc) on an H100 (B 16,
+# 128-576 keys): at 9-15 bf16 rows (G 1, Hkv 12, dk 64) it took
+# 0.0225-0.0235 ms against the CUDA-core path's 0.0677-0.0810.  It also
+# beat the decode path at 5 and 8 rows (0.0217 / 0.0220 ms against 0.0424
+# / 0.0436) and at 8 rows of dk 128 (0.0288 against 0.0605).  In f32
+# (3xTF32; tc_f32, NVIDIA H100 80GB HBM3, 700.00 W) it took verify T 9 in
+# 0.04102 ms against 0.07229, 12 and 16 rows in 0.04163 / 0.0416 against
+# 0.0729 / 0.08605, G 8 x T 5 at dk 128 in 0.09469 against 0.2513, and
+# the smallest f32 calls served: ds-paper-100m's spec_parity verify T 9 (B
+# 4, 8 pages a slot) in 0.01773 against 0.01907 and parity's chunk-extend
+# (B 4, T 16) in 0.01846 against 0.02422, so no f32 fold from 9 rows stays
+# on the CUDA cores; at 8 rows of dk 128 (qwen2-72b's G 8 decode) it took
+# 0.08179 against the decode path's 0.1070.  The decode path keeps its
+# folds of up to 8 in both dtypes for now (ROADMAP Queue 2).
 TENSOR_CORE_WIDTHS = ((64, 64), (64, 128), (128, 64), (128, 128), (192, 192), (576, 512))
 TENSOR_CORE_MIN_ROWS = 9
 # MLA's fold (csrc/paged_mla.cu): one latent pool as K and V, values its
@@ -113,6 +125,19 @@ MLA_F32_FILL = 1.5
 # in 16 and 0.0259 in 3 row groups of one M-tile and 2 splits; one MQA
 # row of 4096 keys took 0.0366 ms in 16 splits against 0.0548 in 64.
 TENSOR_CORE_MAX_TILES = 8
+# An f32 block stages its group's Q in shared memory beside a ring of
+# twice the bytes (csrc/paged_tensor_core.cu), so its group's cap is set
+# by dk: TENSOR_CORE_F32_MAX_TILES[dk].  Measured with
+# tools/kernel_variants.py (tc_f32) on an H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W; f32, B 16, page 16, prefill offsets 0-496): nemotron-4-340b's
+# prefill (12 M-tiles at 192) took 0.2277 ms in 3 groups of 4 against
+# 0.2528 in 2 of 6 (3 ring stages either way); granite-34b's 768 rows
+# 0.1060 in 8 groups of 6 against 0.1064 in 6 of 8 and 0.1156 in 12 of 4;
+# qwen2-72b's 128 rows at 128 0.1076 in one group of 8 against 0.1372 in
+# 2 of 4.  The f32 plan's key splits are the bf16 plan's: granite's MQA
+# decode took 0.03018 ms in 8 splits against 0.03638 in 16, 0.04774 in 4
+# and 0.08563 unsplit.
+TENSOR_CORE_F32_MAX_TILES = {64: 8, 128: 8, 192: 4}
 TENSOR_CORE_UNIT = 32
 TENSOR_CORE_BLOCKS_PER_SM = 1
 TENSOR_CORE_MIN_UNITS = 2
@@ -139,16 +164,19 @@ def kernel_path(dtype: torch.dtype, ql: int, dk: int, dv: int, *,
     """Which of the kernel's paths takes a call: ``"tensor_core"`` at
     ``MLA_WIDTHS`` in either dtype where one pool is passed as K and V
     (``shared_pool``), ``"cuda_core"`` there with separate pools; else
-    ``"tensor_core"`` for bf16 at ``(dk, dv)`` in ``TENSOR_CORE_WIDTHS``
-    with at least ``TENSOR_CORE_MIN_ROWS`` folded queries (``ql = G*T``),
-    or at widths the decode path does not take; ``"decode"`` for at most 8
-    folded queries with ``dk, dv`` in {64, 128}, f32 or bf16;
-    ``"cuda_core"`` for every other call."""
+    ``"tensor_core"`` at ``(dk, dv)`` in ``TENSOR_CORE_WIDTHS`` with at
+    least ``TENSOR_CORE_MIN_ROWS`` folded queries (``ql = G*T``), or at
+    widths the decode path does not take (192), bf16 or f32 (3xTF32);
+    ``"decode"`` for at most 8 folded queries with ``dk, dv`` in {64, 128},
+    f32 or bf16; ``"cuda_core"`` for every other call: odd widths and
+    MLA's separate pools.  No f32 call stays on the CUDA cores where the
+    tensor-core route measured faster: at every f32 fold from 9 rows it did
+    (verify T 9, parity's 16-row chunk-extend, the zoo's folds; see
+    ``TENSOR_CORE_MIN_ROWS``)."""
     if (dk, dv) == MLA_WIDTHS:
         return "tensor_core" if shared_pool else "cuda_core"
     decode_widths = dk in DECODE_WIDTHS and dv in DECODE_WIDTHS
-    if (dtype == torch.bfloat16 and (dk, dv) in TENSOR_CORE_WIDTHS
-            and (ql >= TENSOR_CORE_MIN_ROWS or not decode_widths)):
+    if (dk, dv) in TENSOR_CORE_WIDTHS and (ql >= TENSOR_CORE_MIN_ROWS or not decode_widths):
         return "tensor_core"
     if ql <= DECODE_MAX_ROWS and decode_widths:
         return "decode"
@@ -160,16 +188,20 @@ def tensor_core_plan(batch: int, hkv: int, ql: int, pages_per_slot: int, page_si
     """``(groups, splits)`` of a tensor-core call on a card of ``sms`` SMs
     at ``widths`` ``(dk, dv)``: the row groups the fold of ``ql`` rows is
     cut into (as few as keep a group at ``TENSOR_CORE_MAX_TILES`` M-tiles,
-    ``MLA_MAX_TILES`` at ``MLA_WIDTHS``, ``MLA_F32_MAX_TILES`` there in
-    f32, balanced, none empty), and how many blocks share a row's 32-key
+    ``TENSOR_CORE_F32_MAX_TILES[dk]`` in f32, ``MLA_MAX_TILES`` at
+    ``MLA_WIDTHS``, ``MLA_F32_MAX_TILES`` there in f32, balanced, none
+    empty), and how many blocks share a row's 32-key
     units (the grid's B x Hkv x groups blocks raised to
     ``TENSOR_CORE_BLOCKS_PER_SM`` an SM, ``MLA_FILL`` of the SMs at
     ``MLA_WIDTHS``, ``MLA_F32_FILL`` in f32, where each split keeps
     ``TENSOR_CORE_MIN_UNITS`` units of the page table's span, at most
     ``TENSOR_CORE_MAX_SPLITS``, ``MLA_MAX_SPLITS`` at ``MLA_WIDTHS``)."""
     mla = tuple(widths) == MLA_WIDTHS
-    f32 = mla and dtype == torch.float32
-    max_tiles = (MLA_F32_MAX_TILES if f32 else MLA_MAX_TILES) if mla else TENSOR_CORE_MAX_TILES
+    f32 = dtype == torch.float32
+    if mla:
+        max_tiles = MLA_F32_MAX_TILES if f32 else MLA_MAX_TILES
+    else:
+        max_tiles = TENSOR_CORE_F32_MAX_TILES[widths[0]] if f32 else TENSOR_CORE_MAX_TILES
     mtiles = -(-ql // 16)
     tiles = -(-mtiles // -(-mtiles // max_tiles))
     groups = -(-mtiles // tiles)

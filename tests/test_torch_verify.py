@@ -156,19 +156,16 @@ def test_ngram_proposer_matches_reference():
 
 # ------------------------------------------------------------ the paged kernel
 # The verify dispatch of ds-paper-100m (G 1) folds T = spec_k + 1 rows: the
-# decode path up to spec_k 7, from spec_k 8 the CUDA-core path in f32 and
-# the tensor-core path in bf16; rows from 0, crossing a page and at a page
-# boundary.  `path` is the f32 path.
+# decode path up to spec_k 7, from spec_k 8 the tensor-core path (f32 in
+# 3xTF32); rows from 0, crossing a page and at a page boundary.
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,ps,path", [(7, 16, "decode"), (9, 8, "cuda_core"),
-                                       (9, 16, "cuda_core")])
+@pytest.mark.parametrize("T,ps,path", [(7, 16, "decode"), (9, 8, "tensor_core"),
+                                       (9, 16, "tensor_core")])
 def test_paged_attention_at_verify_shapes_vs_reference(T, ps, path, dtype):
     hkv = 2
     case = _paged_case(B=3, T=T, hkv=hkv, g=1, dk=64, ps=ps, P=128 // ps,
                        n_pages=3 * 128 // ps + 2, offsets=[0, ps + 3, 2 * ps], seed=ps + T)
     tdtype = torch.float32 if dtype == "float32" else torch.bfloat16
-    if tdtype == torch.bfloat16 and T >= flash_decode.TENSOR_CORE_MIN_ROWS:
-        path = "tensor_core"
     assert flash_decode.kernel_path(tdtype, T, 64, 64) == path
     got, want_kernel, want_ref, port_ref = _run_both(*case, dtype=dtype)
     assert got.shape == (3, T, hkv, 64)

@@ -197,16 +197,16 @@ def test_dense_prefill_then_decode_match_reference(models, arch):
 SERVING_PATHS = {
     ("granite-34b", torch.bfloat16, 1): "tensor_core",  # G*T 48, key splits
     ("granite-34b", torch.bfloat16, 16): "tensor_core",  # G*T 768: 6 row groups of 8 M-tiles
-    ("granite-34b", torch.float32, 1): "cuda_core",
-    ("granite-34b", torch.float32, 16): "cuda_core",
+    ("granite-34b", torch.float32, 1): "tensor_core",  # f32 in 3xTF32
+    ("granite-34b", torch.float32, 16): "tensor_core",
     ("qwen2-72b", torch.bfloat16, 1): "decode",  # G*T 8 at dk 128
     ("qwen2-72b", torch.bfloat16, 16): "tensor_core",  # G*T 128: 8 M-tiles on one stage
     ("qwen2-72b", torch.float32, 1): "decode",
-    ("qwen2-72b", torch.float32, 16): "cuda_core",
+    ("qwen2-72b", torch.float32, 16): "tensor_core",
     ("nemotron-4-340b", torch.bfloat16, 1): "tensor_core",  # dk 192: G*T 12
     ("nemotron-4-340b", torch.bfloat16, 16): "tensor_core",  # 192 rows: 2 groups of 6
-    ("nemotron-4-340b", torch.float32, 1): "cuda_core",  # f32 at dk 192
-    ("nemotron-4-340b", torch.float32, 16): "cuda_core",
+    ("nemotron-4-340b", torch.float32, 1): "tensor_core",  # f32 at dk 192 in 3xTF32
+    ("nemotron-4-340b", torch.float32, 16): "tensor_core",
 }
 
 

@@ -1,9 +1,9 @@
 """Design measurements behind the f32 flash kernel, the paged decode path,
-the paged tensor-core path and its MLA fold, the SSD chunk kernel and
-RMSNorm, on one CUDA card.
+the paged tensor-core path (bf16 and f32) and its MLA fold, the SSD chunk
+kernel and RMSNorm, on one CUDA card.
 
-    python3 tools/kernel_variants.py [flash] [decode] [tc] [mla] [ssd] [rmsnorm] [mma]
-        [ssd_logits]
+    python3 tools/kernel_variants.py [flash] [decode] [tc] [tc_f32] [mla] [ssd] [rmsnorm]
+        [mma] [ssd_logits]
 
 (no argument: every group).  Each variant is the committed source (its
 ``mma_sm80.cuh`` inlined) with one design choice undone by a text
@@ -31,6 +31,18 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   row of 4096 keys; and the kernel rebuilt with a 112 KiB ring budget
   instead of 200, the copy as a loop at every width or unrolled at 192
   too, and 8 warps a block as the target instead of 4;
+- the paged tensor-core path's f32 route (``tc_f32``, 3xTF32): the
+  routing boundary against the decode and CUDA-core paths at f32 folds of
+  8-40 rows (ds-paper-100m's verify T 9 at B 16 and at spec_parity's B 4,
+  12 and 16 rows, parity's chunk-extend, G 8 x T 5 and qwen2-72b's G 8
+  decode at dk 128); the f32 group cap (``TENSOR_CORE_F32_MAX_TILES`` 4,
+  6 and 8) at the zoo's f32 prefill shapes and forced key splits at its
+  decode shapes; the kernel rebuilt with two ring stages, S's three
+  products on one accumulator chain, and Q staged pre-split; then each
+  f32 shape's record (``paged_f32_shapes``: nemotron-4-340b's dk 192
+  decode and prefill, granite-34b's G 48 decode and 768-row prefill,
+  qwen2-72b's prefill, verify T 9, parity's chunk-extend) beside the
+  CUDA-core path forced in the same call, bound, plain version and SDPA;
 - the paged kernel's MLA fold (``mla``: deepseek-v2-236b's bf16 decode, B
   16, Hkv 1, G 128, dk 576, v_width 512, 128-576 keys, and its T 4 fold of
   512 rows): row groups of 32 and 64 rows (``flash_decode.MLA_MAX_TILES``
@@ -47,10 +59,7 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   or 2 warps an M-tile, 32-key units, 2 ring stages, S's three products
   in one accumulator or in four, copies skipping S, P.V, the ring's reads
   or copies, or the partial-S exchange, plans of 1-8 key splits, the
-  CUDA-core path and the timed shape's record; and the CUDA-core path's
-  other f32 serve shapes (nemotron-4-340b's dk 192 decode and prefill,
-  granite-34b's G 48 decode and 768-row prefill) beside bound, plain
-  version and SDPA;
+  CUDA-core path and the timed shape's record;
 - the SSD chunk kernel at mamba2-1.3b's eval shapes (b 8 x nc 4 and b 2 x
   nc 32 chunks of 128, h 64, p 64, n 128) and the serve prefill shape (b
   16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate
@@ -154,6 +163,38 @@ TC_EDITS = {
     "copy_unrolled_192": [("  if constexpr (NC <= 16) {\n#pragma unroll",
                            "  if constexpr (true) {\n#pragma unroll")],
     "eight_warps": [("constexpr int kTcWarps = 4;", "constexpr int kTcWarps = 8;")],
+}
+
+# the f32 tensor-core route (3xTF32) with one design choice undone: two
+# ring stages wherever three fit; S's three products on one accumulator
+# chain; Q staged pre-split into TF32 hi and lo (twice its bytes, plain
+# loads) instead of split as each fragment is read
+TC_F32_EDITS = {
+    "two_stages": [("  if ((p.wsplits > 1 && ring3 > kTcRingBudget) || q + ring3 > kTcSmemBudget)",
+                    "  if (item == 4 || (p.wsplits > 1 && ring3 > kTcRingBudget) ||\n"
+                    "      q + ring3 > kTcSmemBudget)")],
+    "s_one_chain": [("            mma_tf32(sx[nt + u], al, bh[2 * u], bh[2 * u + 1]);\n"
+                     "            mma_tf32(sx[nt + u], ah, bl[2 * u], bl[2 * u + 1]);\n",
+                     "            mma_tf32(sc[nt + u], al, bh[2 * u], bh[2 * u + 1]);\n"
+                     "            mma_tf32(sc[nt + u], ah, bl[2 * u], bl[2 * u + 1]);\n")],
+    "q_presplit": [
+        ("  const size_t q = item == 4 ? (size_t)tiles * 16 * (dk * 4 + 16) : 0;",
+         "  const size_t q = item == 4 ? 2 * (size_t)tiles * 16 * (dk * 4 + 16) : 0;"),
+        ("  T* ring = qs + (F32 ? tiles * 16 * C::LDK : 0);",
+         "  T* ring = qs + (F32 ? 2 * tiles * 16 * C::LDK : 0);"),
+        ("      cp_async16(qs + r * C::LDK + col, qg + (in ? (size_t)r * DK + col : 0), in);\n",
+         "      const float4 x = in ? *reinterpret_cast<const float4*>(qg + (size_t)r * DK + col)\n"
+         "                          : make_float4(0.f, 0.f, 0.f, 0.f);\n"
+         "      uint4 hi, lo;\n"
+         "      split_tf32(x.x, hi.x, lo.x);\n      split_tf32(x.y, hi.y, lo.y);\n"
+         "      split_tf32(x.z, hi.z, lo.z);\n      split_tf32(x.w, hi.w, lo.w);\n"
+         "      *reinterpret_cast<uint4*>(qs + r * C::LDK + col) = hi;\n"
+         "      *reinterpret_cast<uint4*>(qs + (tiles * 16 + r) * C::LDK + col) = lo;\n"),
+        ("        uint32_t raw[4], ah[4], al[4];\n        ldmatrix_x4(raw, qt + kc * 8);\n"
+         "#pragma unroll\n"
+         "        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(raw[i]), ah[i], al[i]);\n",
+         "        uint32_t ah[4], al[4];\n        ldmatrix_x4(ah, qt + kc * 8);\n"
+         "        ldmatrix_x4(al, qt + tiles * 16 * C::LDK + kc * 8);\n")],
 }
 
 SSD_EDITS = {  # name: (edits, the dtypes it is timed in)
@@ -346,10 +387,11 @@ def decode_variants(libs: dict) -> None:
         c.emit({"what": "empty_launch", "ms": c.time_ms(lambda: torch.cuda._sleep(0))})
 
 
-def _tc_case(label, B, hkv, g, T, dk, offs, P=40):
-    """A bf16 paged call at the given fold and its plain output."""
+def _fold_case(B, hkv, g, T, dk, offs, P=40, dtype=torch.bfloat16):
+    """A paged call at the given fold (page 16, time_paged's seed) and its
+    plain output."""
     q, kp, vp, table, offt = c.paged_inputs(B=B, hkv=hkv, g=g, T=T, dk=dk, ps=16, P=P,
-                                            offsets=offs, dtype=torch.bfloat16, seed=21)
+                                            offsets=offs, dtype=dtype, seed=21)
     scale = 1.0 / math.sqrt(dk)
     fn = lambda: flash_decode.paged_flash_attention_folded(  # noqa: E731
         q, kp, vp, table, offt, tokens_per_row=T, scale=scale)
@@ -376,22 +418,18 @@ def tc_variants(libs: dict) -> None:
     rng = np.random.default_rng(3)
     decode_offs = rng.integers(128, 576, 16).tolist()  # the serve phase's decode offsets
     prefill_offs = (16 * rng.integers(0, 32, 16)).tolist()
-    real_path, real_plan = flash_decode.kernel_path, flash_decode.tensor_core_plan
+    real_plan = flash_decode.tensor_core_plan
     folds = [(5, 12, 1, 5, 64), (8, 12, 1, 8, 64), (9, 12, 1, 9, 64), (12, 12, 1, 12, 64),
              (15, 12, 1, 15, 64), (8, 8, 8, 1, 128), (12, 8, 12, 1, 128)]
-    try:
-        for rows, hkv, g, T, dk in folds:
-            fn, want = _tc_case("boundary", 16, hkv, g, T, dk,
-                                [o - T + 1 for o in decode_offs])
-            for path in ("decode", "tensor_core", "cuda_core"):
-                if path == "decode" and rows > flash_decode.DECODE_MAX_ROWS:
-                    continue
-                flash_decode.kernel_path = lambda *_a, p=path, **_k: p
-                c.emit({"what": "tc_boundary", "rows": rows, "G": g, "T": T, "dk": dk,
-                        "Hkv": hkv, "path": path,
-                        **_checked_ms(f"{path} at {rows} rows, dk {dk}", fn, want)})
-    finally:
-        flash_decode.kernel_path = real_path
+    for rows, hkv, g, T, dk in folds:
+        fn, want = _fold_case(16, hkv, g, T, dk, [o - T + 1 for o in decode_offs])
+        for path in ("decode", "tensor_core", "cuda_core"):
+            if path == "decode" and rows > flash_decode.DECODE_MAX_ROWS:
+                continue
+            c.emit({"what": "tc_boundary", "rows": rows, "G": g, "T": T, "dk": dk,
+                    "Hkv": hkv, "path": path,
+                    **_checked_ms(f"{path} at {rows} rows, dk {dk}", c.on_path(path, fn),
+                                  want)})
     consts = ("TENSOR_CORE_BLOCKS_PER_SM", "TENSOR_CORE_MIN_UNITS", "TENSOR_CORE_MAX_SPLITS")
     committed = {k: getattr(flash_decode, k) for k in consts}
     shapes = {"granite_decode": (16, 1, 48, 1, 128, decode_offs, 40),
@@ -406,7 +444,7 @@ def tc_variants(libs: dict) -> None:
               "mqa_row_4096": [(1, 16), (1, 32), (1, 64), (3, 16)]}
     try:
         for label, (B, hkv, g, T, dk, offs, P) in shapes.items():
-            fn, want = _tc_case(label, B, hkv, g, T, dk, offs, P)
+            fn, want = _fold_case(B, hkv, g, T, dk, offs, P)
             for bps, min_units, max_splits in ((1, 2, 16), (2, 2, 16), (1, 1, 16), (1, 4, 16),
                                                (1, 2, 64)):
                 flash_decode.TENSOR_CORE_BLOCKS_PER_SM = bps
@@ -434,7 +472,7 @@ def tc_variants(libs: dict) -> None:
     for label, (B, hkv, g, T, dk, offs, P) in shapes.items():
         if label == "mqa_row_4096":
             continue
-        fn, want = _tc_case(label, B, hkv, g, T, dk, offs, P)
+        fn, want = _fold_case(B, hkv, g, T, dk, offs, P)
         fns, errs = {}, {}
         for n in names:
             def run(lib=libs[f"tc_{n}"]):
@@ -568,8 +606,7 @@ def mla_variants(libs: dict) -> None:
     once by size: the committed kernel and ``MLA_EDITS`` at 64- and 32-row
     groups in turns, ``MLA_STOPS`` beside the committed kernel, plans of
     1-8 key splits at both row groups, and the CUDA-core path; then the
-    f32 route (``mla_f32_variants``) and the CUDA-core path's f32 zoo
-    shapes (``paged_f32_shapes``)."""
+    f32 route (``mla_f32_variants``)."""
     probe = libs["mla_committed"].mla_max_clusters
     probe.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     for f32, all_tiles in ((0, (4, 2)), (1, (2, 1))):
@@ -586,7 +623,7 @@ def mla_variants(libs: dict) -> None:
     for n in (*names, *MLA_STOPS):
         libs[f"mla_{n}"].paged_attention_fwd.argtypes = _build.SIGNATURES["paged_attention_fwd"]
     lib0 = _build.library()
-    real_path, real_plan = flash_decode.kernel_path, flash_decode.tensor_core_plan
+    real_plan = flash_decode.tensor_core_plan
     tiles0 = flash_decode.MLA_MAX_TILES
     for label, T in (("decode", 1), ("t4", 4)):
         q, kv, _, table, offt = c.paged_inputs(B=16, hkv=1, g=128, T=T, dk=576, ps=16, P=40,
@@ -639,14 +676,10 @@ def mla_variants(libs: dict) -> None:
                             **_checked_ms(f"mla plan {splits} splits at {label}", fn, want)})
         finally:
             flash_decode.tensor_core_plan = real_plan
-        try:
-            flash_decode.kernel_path = lambda *_a, **_k: "cuda_core"
-            c.emit({"what": "mla_path", "at": label, "path": "cuda_core",
-                    **_checked_ms(f"mla CUDA-core path at {label}", fn, want)})
-        finally:
-            flash_decode.kernel_path = real_path
+        c.emit({"what": "mla_path", "at": label, "path": "cuda_core",
+                **_checked_ms(f"mla CUDA-core path at {label}", c.on_path("cuda_core", fn),
+                              want)})
     mla_f32_variants(libs, offs)
-    paged_f32_shapes()
 
 
 def mla_f32_variants(libs: dict, offs: list) -> None:
@@ -665,7 +698,7 @@ def mla_f32_variants(libs: dict, offs: list) -> None:
     for lib in lib_of.values():
         lib.paged_attention_fwd.argtypes = _build.SIGNATURES["paged_attention_fwd"]
     lib0 = _build.library()
-    real_path, real_plan = flash_decode.kernel_path, flash_decode.tensor_core_plan
+    real_plan = flash_decode.tensor_core_plan
     tiles0 = flash_decode.MLA_F32_MAX_TILES
     for label, T in (("decode", 1), ("t4", 4)):
         q, kv, _, table, offt = c.paged_inputs(B=16, hkv=1, g=128, T=T, dk=576, ps=16, P=40,
@@ -723,39 +756,130 @@ def mla_f32_variants(libs: dict, offs: list) -> None:
         finally:
             flash_decode.tensor_core_plan = real_plan
             flash_decode.MLA_F32_MAX_TILES = tiles0
-        try:
-            flash_decode.kernel_path = lambda *_a, **_k: "cuda_core"
-            c.emit({"what": "mla_f32_path", "at": label, "path": "cuda_core",
-                    **_checked_ms(f"mla f32 CUDA-core path at {label}", fn, want, c.F32_TOL)})
-        finally:
-            flash_decode.kernel_path = real_path
+        c.emit({"what": "mla_f32_path", "at": label, "path": "cuda_core",
+                **_checked_ms(f"mla f32 CUDA-core path at {label}", c.on_path("cuda_core", fn),
+                              want, c.F32_TOL)})
         c.emit({"what": "mla_f32_timed", **c.time_paged_mla(f"{label}_f32", T, offs,
                                                             torch.float32)})
 
 
+def _f32_shapes() -> dict:
+    """The zoo's f32 serve shapes (B 16, page 16, 40 pages a slot; decode
+    offsets 128-576 and prefill offsets from seed 3, as zoo_serve times
+    their bf16 counterparts) and the f32 calls of ds-paper-100m (verify T 9
+    at B 16, and parity's chunk-extend: B 4, 8 pages a slot):
+    label -> (B, Hkv, G, T, dk, offsets, P)."""
+    rng = np.random.default_rng(3)
+    decode_offs = rng.integers(128, 576, 16).tolist()
+    prefill_offs = (16 * rng.integers(0, 32, 16)).tolist()
+    return {"nemotron_decode": (16, 8, 12, 1, 192, decode_offs, 40),
+            "nemotron_prefill": (16, 8, 12, 16, 192, prefill_offs, 40),
+            "granite_decode": (16, 1, 48, 1, 128, decode_offs, 40),
+            "granite_prefill": (16, 1, 48, 16, 128, prefill_offs, 40),
+            "qwen2_prefill": (16, 8, 8, 16, 128, prefill_offs, 40),
+            "verify_T9": (16, 12, 1, 9, 64, [o - 8 for o in decode_offs], 40),
+            "f32_chunk_extend": (4, 12, 1, 16, 64, [0, 16, 32, 48], 8)}
+
+
+def tc_f32_variants(libs: dict) -> None:
+    """The f32 tensor-core route (3xTF32): its routing boundary against the
+    decode and CUDA-core paths (each forced through
+    ``flash_decode.kernel_path``) at f32 folds of 8-40 rows at dk 64 and
+    128; the f32 group cap (``TENSOR_CORE_F32_MAX_TILES`` at the shape's dk:
+    4, 6 and 8) and
+    forced key splits at the zoo's f32 shapes; the committed kernel
+    against each of ``TC_F32_EDITS`` in turns (against the plain version
+    at 2e-5); then each shape's record (``paged_f32_shapes``)."""
+    f32, tol = torch.float32, c.F32_TOL
+    shapes = _f32_shapes()
+    decode_offs = shapes["nemotron_decode"][5]
+    prefill_offs = shapes["nemotron_prefill"][5]
+    folds = {"qwen2_decode_g8": (16, 8, 8, 1, 128, decode_offs, 40),
+             "verify_T9": shapes["verify_T9"],
+             "spec_parity_T9": (4, 12, 1, 9, 64, [0, 13, 40, 100], 8),
+             "rows12": (16, 12, 1, 12, 64, [o - 11 for o in decode_offs], 40),
+             "rows16": (16, 12, 1, 16, 64, prefill_offs, 40),
+             "f32_chunk_extend": shapes["f32_chunk_extend"],
+             "verify_T5_g8": (16, 8, 8, 5, 128, [o - 4 for o in decode_offs], 40)}
+    real_plan = flash_decode.tensor_core_plan
+    for label, (B, hkv, g, T, dk, offs, P) in folds.items():
+        fn, want = _fold_case(B, hkv, g, T, dk, offs, P, f32)
+        for path in ("decode", "tensor_core", "cuda_core"):
+            if path == "decode" and g * T > flash_decode.DECODE_MAX_ROWS:
+                continue
+            c.emit({"what": "tc_f32_boundary", "at": label, "rows": g * T, "B": B, "dk": dk,
+                    "path": path,
+                    **_checked_ms(f"f32 {path} at {label}", c.on_path(path, fn), want, tol)})
+    tiles0 = dict(flash_decode.TENSOR_CORE_F32_MAX_TILES)
+    forced = {"granite_decode": [(1, 1), (1, 4), (1, 8), (1, 16), (3, 2)],
+              "nemotron_decode": [(1, 1), (1, 2)]}
+    try:
+        for label, (B, hkv, g, T, dk, offs, P) in shapes.items():
+            fn, want = _fold_case(B, hkv, g, T, dk, offs, P, f32)
+            if g * T > 64:
+                for tiles in (4, 6, 8):
+                    flash_decode.TENSOR_CORE_F32_MAX_TILES = {**tiles0, dk: tiles}
+                    plan = real_plan(B, hkv, g * T, P, 16, 132, (dk, dk), f32)
+                    c.emit({"what": "tc_f32_plan", "at": label, "max_tiles": tiles,
+                            "plan": plan,
+                            **_checked_ms(f"f32 plan {plan} at {label}", fn, want, tol)})
+                flash_decode.TENSOR_CORE_F32_MAX_TILES = tiles0
+            for plan in forced.get(label, ()):
+                flash_decode.tensor_core_plan = lambda *_a, p=plan, **_k: p
+                c.emit({"what": "tc_f32_plan", "at": label, "forced": plan,
+                        **_checked_ms(f"f32 plan {plan} at {label}", fn, want, tol)})
+                flash_decode.tensor_core_plan = real_plan
+    finally:
+        flash_decode.TENSOR_CORE_F32_MAX_TILES = tiles0
+        flash_decode.tensor_core_plan = real_plan
+    names = ["committed", *TC_F32_EDITS]
+    for n in names:
+        libs[f"tc_f32_{n}"].paged_attention_fwd.argtypes = _build.SIGNATURES["paged_attention_fwd"]
+    lib0 = _build.library()
+    for label, (B, hkv, g, T, dk, offs, P) in shapes.items():
+        if flash_decode.kernel_path(f32, g * T, dk, dk) != "tensor_core":
+            continue
+        fn, want = _fold_case(B, hkv, g, T, dk, offs, P, f32)
+        fns, errs = {}, {}
+        for n in names:
+            def run(lib=libs[f"tc_f32_{n}"]):
+                _build._lib = lib
+                try:
+                    return fn()
+                finally:
+                    _build._lib = lib0
+            try:
+                got = run()
+                torch.cuda.synchronize()
+            except RuntimeError as e:  # a variant's block may not fit this shape
+                c.emit({"what": "tc_f32_variant", "variant": n, "at": label, "error": str(e)})
+                continue
+            fns[n] = run
+            errs[n] = (got.float() - want.float()).abs().max().item()
+            c.require(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+                      f"tc f32 variant {n} misses {tol} at {label} ({errs[n]})")
+        for n, t in in_turns(fns).items():
+            c.emit({"what": "tc_f32_variant", "variant": n, "at": label, "ms": t,
+                    "max_abs_err": errs[n]})
+    paged_f32_shapes()
+
+
 def paged_f32_shapes() -> None:
-    """The CUDA-core path's other f32 serve shapes, timed as zoo_serve times
-    their bf16 counterparts (chip_smoke.time_paged: B 16, page 16, 40 pages
-    a slot, decode offsets 128-576 and prefill offsets from seed 3) beside
-    their bound (the route's, on the CUDA cores; and apart, its bytes and
-    three TF32 passes), plain version and SDPA: nemotron-4-340b's dk 192
-    decode (Hkv 8, G 12) and prefill (G 12 x T 16), granite-34b's MQA
-    decode (G 48) and 768-row prefill (G 48 x T 16)."""
-    for arch, hkv, g, dk in (("nemotron", 8, 12, 192), ("granite", 1, 48, 128)):
-        rng = np.random.default_rng(3)
-        decode_offs = rng.integers(128, 576, 16).tolist()
-        prefill_offs = (16 * rng.integers(0, 32, 16)).tolist()
-        for at, T, offs in (("decode", 1, decode_offs), ("prefill", 16, prefill_offs)):
-            rec = c.time_paged(f"{arch}_{at}_f32", 16, T, offs, torch.float32, hkv=hkv, g=g,
-                               dk=dk)
-            c.require(rec["path"] == "cuda_core", f"{arch} f32 {at} took {rec['path']}")
-            # time_paged's inputs again (its seed), for the bound's two parts
-            q, kp, _, table, offt = c.paged_inputs(B=16, hkv=hkv, g=g, T=T, dk=dk, ps=16, P=40,
-                                                   offsets=offs, dtype=torch.float32, seed=21)
-            nbytes, flops = c.paged_work(q, kp, table, offt, T, dk)
-            c.emit({"what": "paged_f32_shape", **rec,
-                    "bytes_ms": nbytes / c.HBM_BYTES_PER_S * 1e3,
-                    "tf32x3_ms": 3 * flops / c.TF32_OPS * 1e3})
+    """The f32 paged calls of ``_f32_shapes`` timed as zoo_serve times their
+    bf16 counterparts (``chip_smoke.time_paged``), each on the path
+    ``flash_decode.kernel_path`` gives it and forced onto the CUDA-core
+    path beside it, with the bound of each route (and apart, the bytes
+    and three TF32 passes), the plain version and SDPA."""
+    for label, (B, hkv, g, T, dk, offs, P) in _f32_shapes().items():
+        rec = c.time_paged(f"{label}_f32", B, T, offs, torch.float32, P=P, hkv=hkv, g=g, dk=dk,
+                           cuda_core=True)
+        # time_paged's inputs again (its seed), for the bound's two parts
+        q, kp, _, table, offt = c.paged_inputs(B=B, hkv=hkv, g=g, T=T, dk=dk, ps=16, P=P,
+                                               offsets=offs, dtype=torch.float32, seed=21)
+        nbytes, flops = c.paged_work(q, kp, table, offt, T, dk)
+        c.emit({"what": "paged_f32_shape", **rec,
+                "bytes_ms": nbytes / c.HBM_BYTES_PER_S * 1e3,
+                "tf32x3_ms": 3 * flops / c.TF32_OPS * 1e3})
 
 
 def ssd_variants(libs: dict) -> None:
@@ -899,7 +1023,7 @@ def mma_ceilings(lib) -> None:
                 "tflops": 2 * macs * n_mma / (ms * 1e-3) / 1e12})
 
 
-GROUPS = ("flash", "decode", "tc", "mla", "ssd", "rmsnorm", "mma", "ssd_logits")
+GROUPS = ("flash", "decode", "tc", "tc_f32", "mla", "ssd", "rmsnorm", "mma", "ssd_logits")
 
 
 def main() -> int:
@@ -916,7 +1040,7 @@ def main() -> int:
         flash = source("flash_attention.cu")
         sources["flash_committed"] = flash
         sources.update({f"flash_{n}": substitute(flash, e) for n, e in FLASH_EDITS.items()})
-    if "decode" in groups or "tc" in groups or "mla" in groups:
+    if any(g in groups for g in ("decode", "tc", "tc_f32", "mla")):
         paged = paged_source()
     if "decode" in groups:
         sources["paged_committed"] = paged
@@ -924,6 +1048,9 @@ def main() -> int:
     if "tc" in groups:
         sources["tc_committed"] = paged
         sources.update({f"tc_{n}": substitute(paged, e) for n, e in TC_EDITS.items()})
+    if "tc_f32" in groups:
+        sources["tc_f32_committed"] = paged
+        sources.update({f"tc_f32_{n}": substitute(paged, e) for n, e in TC_F32_EDITS.items()})
     if "mla" in groups:
         sources["mla_committed"] = paged + MLA_CLUSTERS
         sources.update({f"mla_{n}": substitute(paged, e) for n, e in MLA_EDITS.items()})
@@ -944,7 +1071,8 @@ def main() -> int:
     _build.library()
     libs = build_all(sources)
     for group, fn in (("flash", flash_variants), ("decode", decode_variants),
-                      ("tc", tc_variants), ("mla", mla_variants), ("ssd", ssd_variants),
+                      ("tc", tc_variants), ("tc_f32", tc_f32_variants),
+                      ("mla", mla_variants), ("ssd", ssd_variants),
                       ("rmsnorm", rmsnorm_variants),
                       ("ssd_logits", ssd_logits)):
         if group in groups:
