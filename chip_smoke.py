@@ -2,8 +2,10 @@
 kernels, holds each against its plain PyTorch version, drives the serving
 engine (paged and dense caches), training, eval, the SSM family, the
 hybrid family, the dense zoo, the MoE family (with the rolling
-sliding-window cache) and MLA over the MoE (deepseek-v2-236b, its latent
-paged cache) at full width and prints what it measured.
+sliding-window cache), MLA over the MoE (deepseek-v2-236b, its latent
+paged cache), h2o-danube-3-4b (head width 120, a 4096 window) and the
+VLM backbone internvl2-1b (stub vision tokens) at full width and prints
+what it measured.
 
     python3 chip_smoke.py
 
@@ -54,7 +56,11 @@ Phases, each printing one JSON line:
   shapes and the kernels' edges (S 192 and 320 with a ragged last tile,
   S 1216 with a ragged last 192-row one, ``sq != skv``, windows 32
   and 128, hd 128 and 192, and mixtral's hd 128 with a 4096 window over
-  8192 positions), and
+  8192 positions; h2o-danube-3-4b's head width 120, at a padded depth of
+  128: causal at BH 32 x 512, S 320 causal and not, a 128 window over
+  S 1216, its 4096 window over 8192 positions), internvl2-1b's 7-row
+  decode fold on the paged kernel's decode path (``dec_vlm_g7_*``) and
+  RMSNorm at its 896 (16 and 256 rows, one pass), and
   the SSD chunk kernel over the reference's
   sweep, chunks of 1-16 positions, the serve prefill shape with padded
   tokens and idle rows, mamba2's eval shapes, zamba2's (state 64) serve
@@ -220,7 +226,8 @@ Phases, each printing one JSON line:
 - ``zoo_parity``: the dense zoo in f32 (TF32 off), weights drawn on the
   card (``Model.draw``; qwen2-72b's QKV bias drawn non-zero, its reference
   init being zeros), ``parity``'s 6 requests through the paged and the
-  dense engine: granite-34b and qwen2-72b at 1 layer, the card
+  dense engine, 8 new tokens each (``parity``'s 24 cut for the time
+  limit: the CPU side's decode dispatches): granite-34b and qwen2-72b at 1 layer, the card
   against the CPU (a CPU copy of the card's tree); nemotron-4-340b at 1
   layer (51.6 GB in f32), the card's paged engine without its prefix
   cache against its dense engine: equal greedy tokens (the near-tie
@@ -281,7 +288,46 @@ Phases, each printing one JSON line:
   forced onto the CUDA-core path) and RMSNorm at 5120, 1536 and 512 timed
   beside their bounds (the paged kernel's on the tensor cores, f32 as
   three TF32 passes, and on the CUDA cores), plain versions and SDPA /
-  ``F.rms_norm``.
+  ``F.rms_norm``;
+- ``danube_parity``: ``h2o-danube-3-4b`` at 1 of its 24 layers in f32
+  (TF32 off), weights drawn on the card, 4 requests (prompts 24-48, 16
+  new, ``max_batch`` 4, 64 positions: under the window, so the fused
+  prefill) through the dense engine on the card against the same engine
+  on the CPU: equal greedy tokens (the near-tie exception), every counter,
+  every dispatch's logits at 1e-4, 3 one-pass RMSNorm at 3840 a dispatch;
+- ``danube_serve``: all 24 layers in bf16 (7.9 GB) on the rolling cache
+  (4,608 positions a row, 4,224 slots under the 4096 window: 3.1 GB at 16
+  rows), 16 requests of 128 tokens, 64 new, every prompt ingested one
+  token a decode dispatch: tokens/s, dispatch wall median and p99, peak
+  memory, 49 one-pass RMSNorm a dispatch and nothing else launched, a
+  traced decode dispatch (busy, idle share, ops, RMSNorm's device time),
+  RMSNorm at 16 x 3840 timed;
+- ``danube_eval``: all 24 layers over 1 x 8192 tokens of the eval runner's
+  stream: f32 (TF32 off) logits with the kernels (flash at hd 120 with
+  the 4096 window, RMSNorm) within 1e-3 of the plain path (chunked
+  attention, plain RMSNorm), 24 flash and 49 one-pass RMSNorm a forward,
+  a finite loss; bf16 timed and reported (its distance from the f32 plain
+  path); flash at BH 32 x 8192, hd 120, window 4096 timed in both dtypes
+  beside its bound (the windowed pairs at 120, not the padded 128), its
+  plain version and SDPA given the window as a boolean mask, and causal
+  at BH 32 x 512;
+- ``vlm_parity``: ``internvl2-1b`` at 2 of its 24 layers in f32, its QKV
+  bias drawn non-zero, ``danube_parity``'s requests through the paged
+  engine (page 16), every prompt ingested one token a decode dispatch
+  (a VLM takes no fused prefill), card against CPU as ``danube_parity``:
+  a paged launch a layer a dispatch, all on the decode path (the 7-row
+  fold), 5 one-pass RMSNorm at 896 a dispatch;
+- ``vlm_serve``: all 24 layers in bf16 (1.3 GB), 16 requests of 128
+  tokens, 32 new, on the paged engine: ``danube_serve``'s numbers, 24
+  decode-path paged launches and 49 one-pass RMSNorm a dispatch; the
+  paged kernel at the G 7 decode fold (B 16, Hkv 2, dk 64, 128-158 keys)
+  in both dtypes and RMSNorm at 896 (16 and 256 rows) timed beside their
+  bounds, plain versions and SDPA on pre-gathered K/V / ``F.rms_norm``;
+- ``vlm_eval``: all 24 layers over 8 rows of 256 patches (``SyntheticLM``'s,
+  drawn by ``prng.normal``) and 768 tokens, S 1024: f32 held at 1e-3
+  against the plain path with 24 flash (hd 64) and 49 one-pass RMSNorm a
+  forward and a finite loss, bf16 reported; flash at BH 112 x 1024, hd 64
+  timed in both dtypes beside its bound, plain version and SDPA.
 
 A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
@@ -626,6 +672,12 @@ def paged_cases():
         ("tc_dk128_dv64_f32", dict(B=3, hkv=4, g=4, T=16, dk=128, dv_store=64, ps=16, P=40,
                                    offsets=[0, 45, 300], seed=88, **f), 0.0, 0),
     ]
+    # internvl2-1b's decode: 14 query heads over 2 KV heads, a 7-row fold at
+    # dk 64 (under TENSOR_CORE_MIN_ROWS: the decode path), 16 rows of
+    # 128-160 keys
+    cases += [(f"dec_vlm_g7_{tag}", dict(B=16, hkv=2, g=7, T=1, dk=64, ps=16, P=40,
+                                         offsets=list(range(128, 160, 2)), seed=90, dtype=dt),
+               0.0, 0) for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))]
     # the parity engine's slots (max_len 128: 8 pages of 16), its own dtype
     cases += [
         ("parity_decode_f32", dict(B=4, hkv=12, g=1, T=1, dk=64, ps=16, P=8,
@@ -703,7 +755,7 @@ def check_paged_attention() -> dict:
 
 
 # compiled into csrc/rmsnorm.cu
-RMSNORM_ONE_PASS_WIDTHS = (512, 768, 1536, 2048, 3840, 4096, 5120, 6144, 8192, 18432)
+RMSNORM_ONE_PASS_WIDTHS = (512, 768, 896, 1536, 2048, 3840, 4096, 5120, 6144, 8192, 18432)
 
 
 def rmsnorm_path(call):
@@ -743,6 +795,8 @@ def check_rmsnorm() -> dict:
               for d in (5120, 1536, 512)]
     cases += [(37, d, torch.bfloat16, torch.float32) for d in (5120, 1536, 512)]
     cases += [(37, d, torch.float32, torch.bfloat16) for d in (5120, 1536, 512)]
+    # internvl2-1b's 896, one pass: a decode dispatch's 16 rows and 256
+    cases += [(r, 896, dt, dt) for dt in (torch.float32, torch.bfloat16) for r in (16, 256)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for rows, d, xdt, wdt in cases:
         x = torch.randn((rows, d), generator=gen, device="cuda").to(xdt)
@@ -834,6 +888,17 @@ def flash_cases():
         # version's (BH, S, S) scores
         cases.append((f"mixtral_hd128_window4096_s8192_{tag}", 2, 8192, 128, 512, True,
                       MOE_WINDOW, dtype))
+        # h2o-danube-3-4b's head width 120, run at a padded depth of 128:
+        # causal at BH 32 x 512, ragged S 320 causal and not, a window
+        # crossed at S 1216 with a ragged last tile, and the eval's 4096
+        # window over 8192 positions at a small BH
+        cases.append((f"hd120_causal_32x512_{tag}", 32, 512, 120, 512, True, 0, dtype))
+        for causal in (True, False):
+            cases.append((f"hd120_s320_{'causal' if causal else 'full'}_{tag}", 2, 320, 120, 64,
+                          causal, 0, dtype))
+        cases.append((f"hd120_window128_s1216_{tag}", 2, 1216, 120, 64, True, 128, dtype))
+        cases.append((f"danube_hd120_window4096_s8192_{tag}", 2, 8192, 120, 512, True,
+                      DANUBE_WINDOW, dtype))
     return cases
 
 
@@ -1037,9 +1102,10 @@ def phase_kernels() -> dict:
 NEAR_TIE_GAP = 1e-3
 
 
-def parity_requests(vocab: int):
-    """6 greedy requests, ragged prompts of 5-70 tokens; p0 and p5 share a
-    40-token prefix (p5 is admitted after p0 published it)."""
+def parity_requests(vocab: int, max_new_tokens: int = 24):
+    """6 greedy requests, ragged prompts of 5-70 tokens, ``max_new_tokens``
+    new each; p0 and p5 share a 40-token prefix (p5 is admitted after p0
+    published it)."""
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(1)
@@ -1052,7 +1118,8 @@ def parity_requests(vocab: int):
             prompts.append(prefix + rng.integers(1, vocab, tails[i]).tolist())
         else:
             prompts.append(rng.integers(1, vocab, n).tolist())
-    return [Request(uid=f"p{i}", prompt=p, max_new_tokens=24) for i, p in enumerate(prompts)]
+    return [Request(uid=f"p{i}", prompt=p, max_new_tokens=max_new_tokens)
+            for i, p in enumerate(prompts)]
 
 
 def next_token_logits(model, params, tokens, device) -> torch.Tensor:
@@ -4331,11 +4398,20 @@ ZOO_PATHS = {  # f32 on the tensor cores in 3xTF32
     ("nemotron-4-340b", torch.bfloat16): ("tensor_core", "tensor_core"),
 }
 ZOO_PARITY_KW = dict(max_batch=4, max_len=128, prefill_chunk=16)
+# parity's 6 requests at 8 new tokens each, not 24: the CPU side's decode
+# dispatches (qwen2-72b's 152k-entry head on the host) are most of the
+# phase's time (a cut of the time limit's, made for the danube and
+# internvl phases)
+ZOO_PARITY_NEW = 8
 ZOO_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
                     cache_mode="paged")
 ZOO_TRACE_TICKS = 8
 ZOO_DISPATCH_COUNTERS = ("dispatches", "prefill_dispatches", "decode_dispatches",
                          "tokens_emitted")
+
+
+def zoo_requests(vocab: int):
+    return parity_requests(vocab, ZOO_PARITY_NEW)
 
 
 def zoo_model(arch: str, layers: int, dtype):
@@ -4482,10 +4558,10 @@ def zoo_parity_cpu(arch: str) -> dict:
              "dense": dict(ZOO_PARITY_KW, cache_mode="dense")}
     for mode, kw in modes.items():
         reset_launches()
-        gpu, gpu_s, gpu_calls = run_recorded(model, params, parity_requests(cfg.vocab_size),
+        gpu, gpu_s, gpu_calls = run_recorded(model, params, zoo_requests(cfg.vocab_size),
                                              "cuda", **kw)
         launches = read_launches()
-        cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu, parity_requests(cfg.vocab_size),
+        cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu, zoo_requests(cfg.vocab_size),
                                              "cpu", **kw)
         what = f"zoo_parity {arch} {mode}, card against CPU"
         divs = compare_greedy(model, params_cpu, gpu, cpu, what)
@@ -4517,7 +4593,7 @@ def zoo_parity_card(arch: str) -> dict:
     runs = {}
     for mode, kw in modes.items():
         reset_launches()
-        eng, seconds, calls = run_recorded(model, params, parity_requests(cfg.vocab_size),
+        eng, seconds, calls = run_recorded(model, params, zoo_requests(cfg.vocab_size),
                                            "cuda", **kw)
         launches = read_launches()
         require_zoo_launches(cfg, torch.float32, launches, eng, mode == "paged",
@@ -4539,8 +4615,9 @@ def zoo_parity_card(arch: str) -> dict:
 
 def phase_zoo_parity() -> dict:
     """The dense zoo in f32 with TF32 off, weights drawn on the card,
-    ``parity``'s 6 requests through the paged and the dense engine:
-    granite-34b (2 layers) and qwen2-72b (1) card against CPU, nemotron-4-340b
+    ``parity``'s 6 requests at ``ZOO_PARITY_NEW`` new tokens
+    (``zoo_requests``) through the paged and the dense engine:
+    granite-34b (1 layer) and qwen2-72b (1) card against CPU, nemotron-4-340b
     (1) paged against dense on the card (``zoo_parity_cpu``,
     ``zoo_parity_card``): equal greedy tokens (the near-tie exception of
     ``phase_parity``), counters, every dispatch's logits at parity's
@@ -4661,6 +4738,7 @@ def phase_zoo_serve() -> dict:
 # ------------------------------------------------------------------ the MoE family
 MOE_ARCH = "mixtral-8x7b"
 MOE_WINDOW = 4096  # mixtral-8x7b's sliding window
+DANUBE_WINDOW = 4096  # h2o-danube-3-4b's
 # Depth cuts, never widths: mixtral-8x7b whole is 46.7 B parameters (93.4 GB
 # in bf16).  moe_parity and moe_window in f32 at 1 layer (1.72 B, 6.9 GB on
 # the card and again on the host for parity), moe_eval at 2 (3.17 B, 12.7 GB
@@ -4703,18 +4781,24 @@ def moe_parity_requests(vocab: int):
             for i, n in enumerate(rng.integers(16, 49, 16))]
 
 
-def require_moe_launches(cfg, launches: dict, dispatches: int, what: str, flash: int = 0) -> None:
-    """A MoE run's exact launches: 2 L + 1 RMSNorm a dispatch or forward,
-    every one on the one-pass path (4096 is compiled into it), ``flash``
-    flash launches, no paged or SSD launch (a windowed cache is never
-    paged; the expert products are plain GEMMs, as in the reference)."""
+def require_exact_launches(cfg, launches: dict, dispatches: int, what: str, flash: int = 0,
+                           paged: int = 0) -> None:
+    """A mixtral, danube or internvl run's exact launches: 2 L + 1 RMSNorm
+    a dispatch or forward, every one on the one-pass path (4096, 3840 and
+    896 are compiled into it); ``flash`` flash launches; ``paged`` paged
+    launches, every one on the decode path (internvl's 7-row fold; a
+    windowed cache is never paged); no SSD (a MoE's expert products are
+    plain GEMMs, as in the reference)."""
     want = (2 * cfg.n_layers + 1) * dispatches
     require(launches["rmsnorm"] == want == launches["rmsnorm_one_pass"],
             f"{what}: rmsnorm launched {launches['rmsnorm']} times "
             f"({launches['rmsnorm_one_pass']} one-pass), want {want}, all one-pass")
-    require(launches["flash_attention"] == flash and launches["paged_attention"] == 0
-            and launches["ssd"] == 0,
-            f"{what}: launches {launches}, want {flash} flash and no paged or SSD")
+    got = {p: launches[f"paged_attention_{p}"] for p in ("cuda_core", "tensor_core", "decode")}
+    want_paths = dict(dict.fromkeys(got, 0), decode=paged)
+    require(got == want_paths and launches["paged_attention"] == paged,
+            f"{what}: paged launches by path {got}, want {paged} on the decode path")
+    require(launches["flash_attention"] == flash and launches["ssd"] == 0,
+            f"{what}: launches {launches}, want {flash} flash and no SSD")
 
 
 @contextlib.contextmanager
@@ -4774,7 +4858,7 @@ def phase_moe_parity() -> tuple:
         divs = compare_greedy(model, params_cpu, gpu, cpu, what)
         counters = compare_counters(gpu, cpu, what, MOE_COUNTERS)
         logits = compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what)
-        require_moe_launches(cfg, launches, gpu.dispatches, what)
+        require_exact_launches(cfg, launches, gpu.dispatches, what)
         require(gpu.prefill_dispatches == 0, f"{what}: a MoE prompt took the fused prefill")
         if strategy == "capacity":
             require(dropped > 0, f"{what}: no entry was dropped; the capacity drops went untested")
@@ -4826,7 +4910,7 @@ def phase_moe_window(params) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     launches = read_launches()
-    require_moe_launches(cfg, launches, n, "moe_window decode")
+    require_exact_launches(cfg, launches, n, "moe_window decode")
     decode = decode.transpose(0, 1)  # (2, n, vocab)
     del cache
 
@@ -4869,7 +4953,7 @@ def phase_moe_window(params) -> dict:
             "windowed chunked forward")
     require(gate_kernel <= 1.0, f"moe_window: decode logits {gate_kernel}x past {tol_kernel} of "
             "the windowed flash forward")
-    require_moe_launches(cfg, kernel_launches, 1, "moe_window flash forward", flash=cfg.n_layers)
+    require_exact_launches(cfg, kernel_launches, 1, "moe_window flash forward", flash=cfg.n_layers)
     require(control["worst_over_tol_past_window"] > 1.0,
             "moe_window: a forward without the window matches the decode past position "
             f"{w}; the gate cannot see the window")
@@ -4918,7 +5002,7 @@ def phase_moe_serve() -> dict:
     require(all(len(o) == 64 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
             "moe_serve: a request emitted a wrong number of tokens or an id outside the vocab")
     require(eng.prefill_dispatches == 0, "moe_serve: a MoE prompt took the fused prefill")
-    require_moe_launches(cfg, launches, eng.dispatches, "moe_serve")
+    require_exact_launches(cfg, launches, eng.dispatches, "moe_serve")
     d = eng.dispatches
     rec = {
         "phase": "moe_serve", "arch": cfg.name, "dtype": "bfloat16", "weights": weights,
@@ -4939,7 +5023,7 @@ def phase_moe_serve() -> dict:
     cap_eng, cap_wall = run_engine(capacity, params, serve_requests(cfg.vocab_size), "cuda",
                                    **MOE_SERVE_KW)
     cap_launches = read_launches()
-    require_moe_launches(cfg, cap_launches, cap_eng.dispatches, "moe_serve capacity")
+    require_exact_launches(cfg, cap_launches, cap_eng.dispatches, "moe_serve capacity")
     cap_outs = {r.uid: r.output for r in cap_eng.finished}
     require(len(cap_outs) == len(reqs), "moe_serve capacity: not every request finished")
     rec["capacity"] = {
@@ -4999,12 +5083,8 @@ def phase_moe_eval() -> dict:
     at BH 32 x 8192, hd 128, window 4096 timed in both dtypes beside its
     bound (the windowed pair count), its plain version and SDPA with the
     same window as a boolean mask."""
-    from repro_torch.kernels import ops
-    from repro_torch.models import Model, ModelRuntime
     from repro_torch.train.data import DataConfig, SyntheticLM
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
     model = moe_model(MOE_EVAL_LAYERS, torch.float32)
     cfg = model.cfg
@@ -5012,57 +5092,9 @@ def phase_moe_eval() -> dict:
     batch = SyntheticLM(cfg, DataConfig(seq_len=MOE_EVAL_TOKENS, global_batch=1, seed=1234),
                         device="cuda").batch(0)
     rec = {"phase": "moe_eval", "arch": cfg.name, "weights": weights, "batch": 1,
-           "seq_len": MOE_EVAL_TOKENS, "moe_strategy": "dense", "runs": [], "kernel_times": []}
-
-    def timed_loss(m, p) -> tuple:
-        ms = []
-        for _ in range(2):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            with torch.no_grad():
-                loss = float(m.loss(p, batch)[0])
-            e.record()
-            torch.cuda.synchronize()
-            ms.append(s.elapsed_time(e))
-        return loss, min(ms)
-
-    def logits(m, p) -> torch.Tensor:
-        with torch.no_grad():
-            return m.forward(p, batch["tokens"])[..., :cfg.vocab_size]
-
-    plain_rt = dict(attn_impl="chunked", moe_strategy="dense")
-    with patched(ops, "rmsnorm", plain_rmsnorm):
-        witness = logits(Model(cfg, ModelRuntime(**plain_rt)), params)
-    misses = []
-    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
-        p = params if dtype == torch.float32 else cast_params(params, dtype, "cuda")
-        kern_model = Model(cfg, ModelRuntime(dtype=dtype, moe_strategy="dense"))
-        reset_launches()
-        kern = logits(kern_model, p)
-        launches = read_launches()
-        require_moe_launches(cfg, launches, 1, f"moe_eval {name}", flash=cfg.n_layers)
-        loss, forward_ms = timed_loss(kern_model, p)
-        require(math.isfinite(loss) and bool(torch.isfinite(kern).all()),
-                f"moe_eval {name}: loss or logits not finite")
-        run = {"dtype": name, "loss": loss, "forward_ms": forward_ms,
-               "tokens_per_s": MOE_EVAL_TOKENS / (forward_ms / 1e3), "launches": launches,
-               "from_f32_plain": {"max": (kern - witness).abs().max().item(),
-                                  "mean": (kern - witness).abs().mean().item()}}
-        if dtype == torch.float32:
-            t = EVAL_LOGIT_TOL[dtype]
-            run["gate"] = {"tol": t, "against_plain_max_abs": run["from_f32_plain"]["max"],
-                           "worst_over_tol": worst_over(kern, witness, t)}
-            if run["gate"]["worst_over_tol"] > 1.0:
-                misses.append(f"f32 kernels against the plain path: {run['gate']}")
-        else:
-            with patched(ops, "rmsnorm", plain_rmsnorm):
-                plain = logits(Model(cfg, ModelRuntime(dtype=dtype, **plain_rt)), p)
-            run["bf16_plain_from_f32_plain"] = {"max": (plain - witness).abs().max().item(),
-                                                "mean": (plain - witness).abs().mean().item()}
-            del plain
-        rec["runs"].append(run)
-        del kern, p
-    del params, witness
+           "seq_len": MOE_EVAL_TOKENS, "moe_strategy": "dense", "kernel_times": []}
+    rec["runs"], misses = eval_runs("moe_eval", cfg, params, batch, moe_strategy="dense")
+    del params
     release_device_memory()
     for dtype in (torch.bfloat16, torch.float32):  # BH: 1 row of n_heads
         rec["kernel_times"].append(time_flash(cfg.n_heads, MOE_EVAL_TOKENS, dtype,
@@ -5347,6 +5379,374 @@ def phase_mla_serve() -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ danube and internvl
+DANUBE_ARCH = "h2o-danube-3-4b"
+VLM_ARCH = "internvl2-1b"
+# Depth cuts, never widths.  danube_parity in f32 at 1 of its 24 layers
+# (0.64 B parameters, 2.6 GB on the card and again on the host),
+# vlm_parity at 2 of 24 (0.21 B); the serve and eval phases at full depth
+# (h2o-danube-3-4b 3.97 B, 7.9 GB in bf16; internvl2-1b 0.63 B, 1.3 GB).
+# Weights are drawn on the card (``zoo_weights``: Model.draw from ZOO_SEED;
+# internvl's QKV bias redrawn non-zero).
+DANUBE_PARITY_LAYERS = 1
+VLM_PARITY_LAYERS = 2
+SLICE_PARITY_KW = dict(max_batch=4, max_len=64, prefill_chunk=16)
+# 4608 positions a row make the rolling cache's min(4608, pad128(4097)) =
+# 4224 slots: 3.1 GB in bf16 at 16 rows over 24 layers
+DANUBE_SERVE_KW = dict(max_batch=16, max_len=4608, prefill_chunk=16, cache_mode="dense")
+VLM_SERVE_KW = dict(max_batch=16, max_len=256, prefill_chunk=16, page_size=16,
+                    cache_mode="paged")
+DANUBE_EVAL_TOKENS = 8192
+VLM_EVAL_SHAPE = (8, 768)  # rows x text tokens: the 256 patches ahead make S 1024
+SLICE_TRACE_TICKS = 8
+
+
+def slice_parity_requests(vocab: int):
+    """4 greedy requests, prompts of 24-48 tokens, 16 new each."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(9)
+    return [Request(uid=f"v{i}", prompt=rng.integers(1, vocab, int(n)).tolist(),
+                    max_new_tokens=16)
+            for i, n in enumerate(rng.integers(24, 49, 4))]
+
+
+def slice_parity(arch: str, layers: int, kw: dict) -> dict:
+    """f32 (TF32 off), weights drawn on the card: the engine on the card
+    against the same engine on a CPU copy of the tree over
+    ``slice_parity_requests``: equal greedy tokens (the near-tie
+    exception), every engine counter, every dispatch's logits at parity's
+    1e-4, launches exact."""
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    model = zoo_model(arch, layers, torch.float32)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    params_cpu = tree_map(lambda t: t.cpu(), params)
+    reset_launches()
+    gpu, gpu_s, gpu_calls = run_recorded(model, params, slice_parity_requests(cfg.vocab_size),
+                                         "cuda", **kw)
+    launches = read_launches()
+    cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu,
+                                         slice_parity_requests(cfg.vocab_size), "cpu", **kw)
+    what = f"{arch} parity, card against CPU"
+    divs = compare_greedy(model, params_cpu, gpu, cpu, what)
+    on_pages = kw["cache_mode"] == "paged"
+    counters = compare_counters(gpu, cpu, what, MLA_COUNTERS if on_pages else MOE_COUNTERS)
+    logits = compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what)
+    paged = cfg.n_layers * gpu.dispatches if on_pages else 0
+    require_exact_launches(cfg, launches, gpu.dispatches, what, paged=paged)
+    rec = {"arch": arch, "dtype": "float32", "weights": weights,
+           "against": "the same engine on the CPU", "requests": 4, "knobs": kw,
+           "tokens_equal": not divs, "divergences": divs, "counters_card_cpu": counters,
+           "logits": logits, "launches": launches,
+           "launches_per_dispatch": {k: v / gpu.dispatches for k, v in launches.items()},
+           "card_s": gpu_s, "cpu_s": cpu_s}
+    del params, params_cpu
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def phase_danube_parity() -> dict:
+    """h2o-danube-3-4b at 1 layer (d_model 3840, 32 query heads of 120 over
+    8) in f32 on the dense cache: 64 positions a row, under the 4096
+    window, so prompts take the fused prefill (``slice_parity``); 2 L + 1
+    RMSNorm at 3840 a dispatch, all one pass."""
+    rec = {"phase": "danube_parity",
+           **slice_parity(DANUBE_ARCH, DANUBE_PARITY_LAYERS,
+                          dict(SLICE_PARITY_KW, cache_mode="dense"))}
+    emit(rec)
+    return rec
+
+
+def phase_vlm_parity() -> dict:
+    """internvl2-1b at 2 layers (d_model 896, 14 query heads over 2, QKV
+    bias) in f32 on the paged engine (``slice_parity``), every prompt
+    ingested one token a decode dispatch (a VLM takes no fused prefill, as
+    in the reference): a paged launch a layer a dispatch, all on the
+    decode path (the 7-row fold), and 2 L + 1 RMSNorm at 896, all one
+    pass."""
+    rec = {"phase": "vlm_parity",
+           **slice_parity(VLM_ARCH, VLM_PARITY_LAYERS,
+                          dict(SLICE_PARITY_KW, cache_mode="paged", page_size=16))}
+    require(rec["counters_card_cpu"]["prefill_dispatches"] == [0, 0],
+            "vlm_parity: a VLM prompt took the fused prefill")
+    emit(rec)
+    return rec
+
+
+def slice_serve(arch: str, kw: dict, n_requests: int, prompt: int, new: int) -> tuple:
+    """bf16 at full depth, weights drawn on the card: ``n_requests`` of
+    ``prompt`` tokens and ``new`` new at ``max_batch`` 16, every step timed
+    on the host clock (it syncs on its sampled tokens), then 8 decode
+    dispatches of 16 rows deep in their prompts traced.  Returns the
+    record, the model and the card's tree."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    dtype = torch.bfloat16
+    model = zoo_model(arch, get_arch(arch).n_layers, dtype)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    warm = [Request(uid=f"w{i}", prompt=list(range(1, 20 + i)), max_new_tokens=4)
+            for i in range(2)]
+    run_engine(model, params, warm, "cuda", **kw)
+    rng = np.random.default_rng(10)
+    reqs = [Request(uid=f"s{i}", prompt=rng.integers(1, cfg.vocab_size, prompt).tolist(),
+                    max_new_tokens=new) for i in range(n_requests)]
+    eng = ServeEngine(model, params, device="cuda", **kw)
+    eng._decode = DispatchTimer(eng._decode)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    while eng.pending or eng.scheduler.has_active():
+        t_step = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    outs = {r.uid: r.output for r in eng.finished}
+    name = f"{arch} serve"
+    require(len(outs) == len(reqs), f"{name}: not every request finished")
+    require(all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+            f"{name}: a request emitted a wrong number of tokens or an id outside the vocab")
+    require(eng.prefill_dispatches == 0, f"{name}: a prompt took the fused prefill")
+    paged = cfg.n_layers * eng.dispatches if kw["cache_mode"] == "paged" else 0
+    require_exact_launches(cfg, launches, eng.dispatches, name, paged=paged)
+    d = eng.dispatches
+    rec = {
+        "arch": arch, "dtype": "bfloat16", "weights": weights, "knobs": kw,
+        "requests": len(reqs), "prompt_tokens": prompt, "max_new_tokens": new,
+        "wall_s": wall, "tokens_emitted": eng.tokens_emitted,
+        "tokens_per_s": eng.tokens_emitted / wall, "dispatches": d,
+        "decode_dispatches": eng.decode_dispatches, "dispatch_wall_ms": summary(step_ms),
+        "decode_dispatch_device_span_ms": summary(eng._decode.ms()),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "peak_cache_bytes": eng.peak_cache_bytes, "launches": launches,
+        "launches_per_dispatch": {k: v / d for k, v in launches.items()},
+    }
+    if kw["cache_mode"] == "dense":
+        rec["cache_slots"] = eng.cache["k"].shape[2]
+        require(eng.cache_mgr.cache_is_rolling(), f"{name}: the cache does not roll")
+    del eng
+    eng = ServeEngine(model, params, device="cuda", **kw)
+    eng.submit([Request(uid=f"q{i}", prompt=rng.integers(1, cfg.vocab_size, 256).tolist(),
+                        max_new_tokens=64) for i in range(16)])
+    for _ in range(4):
+        eng.step()
+    d0 = eng.decode_dispatches
+    profile = trace(eng.step, SLICE_TRACE_TICKS, "dispatch",
+                    watch=("rmsnorm_row_kernel", "paged_decode_kernel", "gemm", "gemv", "nvjet"))
+    require(eng.decode_dispatches - d0 == 2 * SLICE_TRACE_TICKS,
+            f"{name}: traced ticks were not all decode dispatches")
+    profile["rmsnorm_ms_per_dispatch"] = profile["watched_ops"]["rmsnorm_row_kernel"][
+        "ms_per_dispatch"]
+    rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256",
+                      "ticks": SLICE_TRACE_TICKS, **profile}
+    del eng
+    return rec, model, params
+
+
+def phase_danube_serve() -> dict:
+    """h2o-danube-3-4b whole (24 layers) in bf16 on the rolling dense cache
+    (4224 slots under its 4096 window): 16 requests of 128 tokens, 64 new,
+    every prompt ingested one token a decode dispatch (a rolling cache
+    takes no fused prefill, as in the reference): tokens/s, dispatch wall
+    median and p99, peak memory, 49 one-pass RMSNorm a dispatch and no
+    other launch, a traced decode dispatch (busy, idle share, ops,
+    RMSNorm's device time); RMSNorm at 3840 timed."""
+    t_phase = time.perf_counter()
+    rec, model, params = slice_serve(DANUBE_ARCH, DANUBE_SERVE_KW, 16, 128, 64)
+    del params
+    release_device_memory()
+    rec["kernel_times"] = {"rmsnorm": {
+        "decode": time_rmsnorm("decode", 16, model.cfg.d_model, torch.bfloat16)}}
+    rec = {"phase": "danube_serve", **rec, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def phase_vlm_serve() -> dict:
+    """internvl2-1b whole (24 layers) in bf16 on the paged engine: 16
+    requests of 128 tokens, 32 new, every prompt ingested one token a
+    decode dispatch: the numbers of ``danube_serve``, a paged launch a
+    layer a dispatch on the decode path (the 7-row fold) and 49 one-pass
+    RMSNorm at 896; the paged kernel at the decode fold (B 16, Hkv 2, G 7,
+    dk 64, 128-158 keys) in both dtypes and RMSNorm at 896 timed beside
+    their bounds, plain versions and SDPA / ``F.rms_norm``."""
+    t_phase = time.perf_counter()
+    rec, model, params = slice_serve(VLM_ARCH, VLM_SERVE_KW, 16, 128, 32)
+    del params
+    release_device_memory()
+    cfg = model.cfg
+    g, hd, hkv = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_kv_heads
+    offsets = list(range(128, 160, 2))
+    rec["kernel_times"] = {
+        "paged_attention": {f"decode_{tag}": time_paged(f"decode_{tag}", 16, 1, offsets, dt,
+                                                        P=16, hkv=hkv, g=g, dk=hd)
+                            for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+        "rmsnorm": {at: time_rmsnorm(at, rows, cfg.d_model, torch.bfloat16)
+                    for at, rows in (("decode", 16), ("prefill", 256))}}
+    for name, t in rec["kernel_times"]["paged_attention"].items():
+        require(t["path"] == "decode", f"vlm_serve: the G 7 fold {name} took {t['path']}")
+    for t in rec["kernel_times"]["rmsnorm"].values():
+        require(t["path"] == "one_pass", f"vlm_serve: rmsnorm at {t['shape']} took {t['path']}")
+    rec = {"phase": "vlm_serve", **rec, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def eval_runs(phase: str, cfg, params, batch: dict, **rt) -> tuple:
+    """The eval gate of a forward over ``batch`` (tokens, labels, a VLM's
+    patches) on ``params`` (f32), ``rt`` the runtime's other knobs.  f32
+    (TF32 off): the kernels (flash, RMSNorm) against the plain path
+    (chunked attention, plain RMSNorm) at the eval gate 1e-3, with exact
+    launches (L flash and 2 L + 1 one-pass RMSNorm a forward) and a finite
+    loss.  bf16 on the same weights: timed and reported (its distance from
+    the f32 plain path), finite, launches exact.  ``tokens_per_s`` counts
+    every position (patches included).  Returns ``(runs, misses)``: the
+    caller holds the gate after emitting its record."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ModelRuntime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens, patches = batch["tokens"], batch.get("patches")
+    positions = tokens.numel() + (patches.shape[0] * patches.shape[1] if patches is not None
+                                  else 0)
+
+    def timed_loss(m, p) -> tuple:
+        ms = []
+        for _ in range(2):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            with torch.no_grad():
+                loss = float(m.loss(p, batch)[0])
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e))
+        return loss, min(ms)
+
+    def logits(m, p) -> torch.Tensor:
+        with torch.no_grad():
+            return m.forward(p, tokens, patches=patches)[..., :cfg.vocab_size]
+
+    plain_rt = dict(rt, attn_impl="chunked")
+    with patched(ops, "rmsnorm", plain_rmsnorm):
+        witness = logits(Model(cfg, ModelRuntime(**plain_rt)), params)
+    runs, misses = [], []
+    for dtype, name in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        p = params if dtype == torch.float32 else cast_params(params, dtype, "cuda")
+        kern_model = Model(cfg, ModelRuntime(dtype=dtype, **rt))
+        reset_launches()
+        kern = logits(kern_model, p)
+        launches = read_launches()
+        require_exact_launches(cfg, launches, 1, f"{phase} {name}", flash=cfg.n_layers)
+        loss, forward_ms = timed_loss(kern_model, p)
+        require(math.isfinite(loss) and bool(torch.isfinite(kern).all()),
+                f"{phase} {name}: loss or logits not finite")
+        run = {"dtype": name, "loss": loss, "forward_ms": forward_ms,
+               "tokens_per_s": positions / (forward_ms / 1e3), "launches": launches,
+               "from_f32_plain": {"max": (kern - witness).abs().max().item(),
+                                  "mean": (kern - witness).abs().mean().item()}}
+        if dtype == torch.float32:
+            t = EVAL_LOGIT_TOL[dtype]
+            run["gate"] = {"tol": t, "against_plain_max_abs": run["from_f32_plain"]["max"],
+                           "worst_over_tol": worst_over(kern, witness, t)}
+            if run["gate"]["worst_over_tol"] > 1.0:
+                misses.append(f"f32 kernels against the plain path: {run['gate']}")
+        else:
+            with patched(ops, "rmsnorm", plain_rmsnorm):
+                plain = logits(Model(cfg, ModelRuntime(dtype=dtype, **plain_rt)), p)
+            run["bf16_plain_from_f32_plain"] = {"max": (plain - witness).abs().max().item(),
+                                                "mean": (plain - witness).abs().mean().item()}
+            del plain
+        runs.append(run)
+        del kern, p
+    return runs, misses
+
+
+def slice_eval(arch: str, batch: dict, phase: str) -> dict:
+    """``eval_runs`` at full depth, weights drawn on the card: the phase's
+    record with its ``runs`` and ``misses``."""
+    from repro_torch.configs import get_arch
+
+    model = zoo_model(arch, get_arch(arch).n_layers, torch.float32)
+    params, weights = zoo_weights(model)
+    tokens = batch["tokens"]
+    rec = {"phase": phase, "arch": arch, "weights": weights, "batch": list(tokens.shape),
+           "seq_len": tokens.shape[1] + (model.cfg.n_vision_tokens if "patches" in batch else 0)}
+    rec["runs"], rec["misses"] = eval_runs(phase, model.cfg, params, batch)
+    del params
+    release_device_memory()
+    return rec
+
+
+def phase_danube_eval() -> dict:
+    """h2o-danube-3-4b whole over 1 x 8192 tokens of the eval runner's
+    synthetic stream (``slice_eval``: flash at head width 120 with the
+    4096 window, 24 flash and 49 RMSNorm a forward); then flash at BH 32 x
+    8192, hd 120, window 4096 timed in both dtypes beside its bound (the
+    windowed pair count at 120, not the padded 128), its plain version and
+    SDPA given the window as a boolean mask, and causal at BH 32 x 512."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(DANUBE_ARCH)
+    batch = SyntheticLM(cfg, DataConfig(seq_len=DANUBE_EVAL_TOKENS, global_batch=1, seed=1234),
+                        device="cuda").batch(0)
+    rec = slice_eval(DANUBE_ARCH, batch, "danube_eval")
+    rec["kernel_times"] = []
+    for dtype in (torch.bfloat16, torch.float32):  # BH: 1 row of n_heads
+        rec["kernel_times"].append(time_flash(cfg.n_heads, DANUBE_EVAL_TOKENS, dtype,
+                                              hd=cfg.resolved_head_dim, window=DANUBE_WINDOW))
+        release_device_memory()
+    # the same width causal at S 512, under the window (the kernels case
+    # hd120_causal_32x512)
+    rec["kernel_times"] += [time_flash(cfg.n_heads, 512, dtype, hd=cfg.resolved_head_dim)
+                            for dtype in (torch.bfloat16, torch.float32)]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    require(not rec["misses"], "danube_eval: " + "; ".join(rec["misses"]))
+    return rec
+
+
+def phase_vlm_eval() -> dict:
+    """internvl2-1b whole over 8 rows of 256 patches and 768 tokens (S 1024)
+    from ``SyntheticLM`` (``slice_eval``: flash at hd 64, 24 flash and 49
+    RMSNorm at 896 a forward); then flash at BH 112 x 1024, hd 64, timed
+    in both dtypes beside its bound, its plain version and SDPA."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(VLM_ARCH)
+    rows, text = VLM_EVAL_SHAPE
+    batch = SyntheticLM(cfg, DataConfig(seq_len=text, global_batch=rows, seed=1234),
+                        device="cuda").batch(0)
+    require(batch["patches"].shape == (rows, cfg.n_vision_tokens, cfg.d_model),
+            f"vlm_eval: patches of shape {tuple(batch['patches'].shape)}")
+    rec = slice_eval(VLM_ARCH, batch, "vlm_eval")
+    s = text + cfg.n_vision_tokens
+    rec["kernel_times"] = [time_flash(rows * cfg.n_heads, s, dtype, hd=cfg.resolved_head_dim)
+                           for dtype in (torch.bfloat16, torch.float32)]
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    require(not rec["misses"], "vlm_eval: " + "; ".join(rec["misses"]))
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -5368,13 +5768,16 @@ PATH_SOURCES = {"paged_attention": {
 def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, ds_serve: dict,
                  ds_store: dict, train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict,
                  hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict,
-                 zoo_serve: dict, moe_serve: dict, moe_eval: dict, mla_serve: dict) -> dict:
+                 zoo_serve: dict, moe_serve: dict, moe_eval: dict, mla_serve: dict,
+                 slices: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
     spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
     eval, ssm_serve, ssm_eval, the hybrid's static job through the control
     plane, hybrid_serve, hybrid_eval, each zoo model's serve run,
     moe_serve's dense and capacity runs, moe_eval's forwards, mla_serve's
-    run: counts set to 0 before each run and read after), the paged kernel's and
+    run, and ``slices``: danube_serve's and vlm_serve's runs, danube_eval's
+    and vlm_eval's forwards: counts set to 0 before each run and read
+    after), the paged kernel's and
     RMSNorm's also by kernel path, its worst error, and its times at its
     first timed shape with the others beside."""
     def total(runs):
@@ -5389,21 +5792,30 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
              **{f"zoo_serve_{arch}": r["launches"] for arch, r in zoo_serve.items()},
              "moe_serve": moe_serve["launches"],
              "moe_serve_capacity": moe_serve["capacity"]["launches"],
-             "moe_eval": total(moe_eval["runs"]), "mla_serve": mla_serve["launches"]}
+             "moe_eval": total(moe_eval["runs"]), "mla_serve": mla_serve["launches"],
+             "danube_serve": slices["danube_serve"]["launches"],
+             "danube_eval": total(slices["danube_eval"]["runs"]),
+             "vlm_serve": slices["vlm_serve"]["launches"],
+             "vlm_eval": total(slices["vlm_eval"]["runs"])}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
                             **spec_serve["kernel_times"]["paged_attention"],
                             **{f"{arch}_{k}": t for arch, r in zoo_serve.items()
                                for k, t in r["kernel_times"]["paged_attention"].items()},
                             **{f"deepseek_{k}": t for k, t in
-                               mla_serve["kernel_times"]["paged_attention"].items()}},
+                               mla_serve["kernel_times"]["paged_attention"].items()},
+                            **{f"internvl_{k}": t for k, t in
+                               slices["vlm_serve"]["kernel_times"]["paged_attention"].items()}},
         "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
                     **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()},
                     **{f"d4096_{k}": t for k, t in hybrid_serve["kernel_times"]["rmsnorm"].items()},
                     **{f"d{t['shape']['d']}_{k}": t for r in zoo_serve.values()
                        for k, t in r["kernel_times"]["rmsnorm"].items()},
                     **{f"deepseek_{k}": t
-                       for k, t in mla_serve["kernel_times"]["rmsnorm"].items()}},
+                       for k, t in mla_serve["kernel_times"]["rmsnorm"].items()},
+                    **{f"{arch}_d{t['shape']['d']}_{k}": t for arch, phase in
+                       (("danube", "danube_serve"), ("internvl", "vlm_serve"))
+                       for k, t in slices[phase]["kernel_times"]["rmsnorm"].items()}},
         "flash_attention": {**{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}": t
                                for t in evals["kernel_times"]},
                             **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
@@ -5411,7 +5823,11 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                                for t in hybrid_eval["kernel_times"]["flash_attention"]},
                             **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
                                f"{t['shape']['hd']}_window{t['shape']['window']}": t
-                               for t in moe_eval["kernel_times"]}},
+                               for t in [*moe_eval["kernel_times"],
+                                         *slices["danube_eval"]["kernel_times"]]},
+                            **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
+                               f"{t['shape']['hd']}": t
+                               for t in slices["vlm_eval"]["kernel_times"]}},
         "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
                 **ssm_serve["kernel_times"]["ssd"],
                 **{t["at"]: t for t in hybrid_eval["kernel_times"]["ssd"]},
@@ -5545,9 +5961,16 @@ def main() -> int:
     lap("mla_parity")
     mla_serve = phase_mla_serve()
     lap("mla_serve")
+    slices = {}
+    for name, phase in (("danube_parity", phase_danube_parity),
+                        ("danube_serve", phase_danube_serve),
+                        ("danube_eval", phase_danube_eval), ("vlm_parity", phase_vlm_parity),
+                        ("vlm_serve", phase_vlm_serve), ("vlm_eval", phase_vlm_eval)):
+        slices[name] = phase()
+        lap(name)
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
                       ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve,
-                      moe_serve, moe_eval, mla_serve))
+                      moe_serve, moe_eval, mla_serve, slices))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

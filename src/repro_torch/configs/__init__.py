@@ -9,6 +9,8 @@ from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
     ds_paper_100m,
     granite_34b,
+    h2o_danube_3_4b,
+    internvl2_1b,
     mamba2_1p3b,
     mixtral_8x7b,
     nemotron_4_340b,

@@ -91,6 +91,17 @@
 //   ptxas -v (sm_90a, nvcc 12.9): 181, 134 and 184 registers at HD 64, 128
 //   and 192, no spills.
 //
+// Head width 120 (h2o-danube-3-4b) is not a multiple of 64 (a swizzle slab)
+// nor of 16 (wgmma's bf16 depth), so both kernels run it at a padded depth
+// HDP and store HD columns: the bf16 kernel at 128 (two 64-column slabs; the
+// TMA maps' inner dimension stays 120, a 240-byte row stride, so columns
+// 120-127 come back as zeros and S takes 8 k16 steps over them; P.V runs
+// both 64-column slabs and the 8 padded output columns are never stored),
+// the f32 kernel at 128 too (an even number of 8-wide k-steps: the copy
+// zero-fills columns 120-127 of Q, K and V, S takes 16 k-steps, O keeps 15
+// n-tiles).  The scale stays 1/sqrt(120), from the wrapper.  The padding
+// costs 8/120 of S's products and nothing of the bytes read.
+//
 // Bound on this card: the work must read q, k and v once and write out
 // once, and for causal attention do about 2 * BH * S^2 * HD multiply-adds'
 // worth of flops (QK and PV over the lower triangle).  At S = 512 and
@@ -137,12 +148,16 @@ struct WgCfg {
   // registers after setmaxnreg (the producer warpgroup keeps 24): three
   // groups fit HD 64's S, P and O fragments in 160, two take 240
   static constexpr int NWG = NWG_;
+  // the depth in shared memory: HD padded to whole 64-column slabs (120 ->
+  // 128); TMA fills the columns past HD with zeros, which add nothing to
+  // S, and O's columns past HD are never stored
+  static constexpr int HDP = (HD + 63) / 64 * 64;
   static constexpr int REGS = NWG == 3 ? 160 : 240;
   static constexpr int THREADS = 128 * (NWG + 1);
   static constexpr int ST = 2;  // K/V ring depth (3 measured no faster)
   static constexpr int BM = 64 * NWG;             // query rows per block
-  static constexpr int BN = HD == 64 ? 128 : 64;  // keys per tile
-  static constexpr int SLABS = HD / 64;        // 128-byte swizzle slabs along HD
+  static constexpr int BN = HDP == 64 ? 128 : 64;  // keys per tile
+  static constexpr int SLABS = HDP / 64;        // 128-byte swizzle slabs along HDP
   static constexpr uint32_t Q_BYTES = SLABS * BM * 128;
   static constexpr uint32_t T_BYTES = SLABS * BN * 128;  // one K or V tile
   // two Q slots (the next item's Q loads during this one), ST K and V slots
@@ -414,7 +429,7 @@ __global__ void __launch_bounds__(WgCfg<HD, NWG>::THREADS, 1)
     auto issue_s = [&](int r) {
       const uint32_t kt = k_s0 + (r % ST) * C::T_BYTES;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < C::HDP / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;  // k16 step inside a slab
         const uint64_t da = sw128_desc(q_s + (kk >> 2) * BM * 128 + wg * 64 * 128 + off, 16);
         const uint64_t db = sw128_desc(kt + (kk >> 2) * BN * 128 + off, 16);
@@ -611,6 +626,7 @@ __global__ void __launch_bounds__(WgCfg<HD, NWG>::THREADS, 1)
       for (int sl = 0; sl < SLABS; ++sl)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
+          if (sl * 64 + j * 8 >= HD) continue;  // padded depth (HD 120: columns 120-127)
           const int col = sl * 64 + j * 8 + tq4 * 2;
           if (row_a < a.sq)
             *reinterpret_cast<uint32_t*>(og + (size_t)row_a * HD + col) =
@@ -636,7 +652,11 @@ constexpr int kF32Threads = 128;  // 4 warps
 template <int HD>
 struct F32Cfg {
   static constexpr int BN = 32;      // keys per tile
-  static constexpr int LD = HD + 4;  // padded rows (floats): fragment loads hit distinct banks
+  // the depth in shared memory: HD padded to whole pairs of 8-wide k-steps
+  // (120 -> 128), the columns past HD zero-filled by the copy so they add
+  // nothing to S; O keeps HD / 8 n-tiles
+  static constexpr int HDP = (HD + 15) / 16 * 16;
+  static constexpr int LD = HDP + 4;  // padded rows (floats): fragment loads hit distinct banks
   // M-tiles of 16 query rows a warp: at HD 64 two, so each K and V
   // fragment (and its split) serves 32 rows, with Q split once into hi and
   // lo halves in shared memory; at 128 and 192 one (the O fragments of two
@@ -650,14 +670,15 @@ struct F32Cfg {
 };
 
 // Rows [row0, row0 + rows) of a (n_rows, HD) f32 matrix into shared memory
-// at dst[r * LD] with 16-byte cp.async, zero-filled past n_rows.
-template <int HD, int LD>
+// at dst[r * LD], HDP columns a row, with 16-byte cp.async, zero-filled past
+// n_rows and past column HD.
+template <int HD, int HDP, int LD>
 __device__ __forceinline__ void cp_rows(const float* __restrict__ src, int row0, int n_rows,
                                         float* dst, int rows) {
-  constexpr int kChunks = HD / 4;
+  constexpr int kChunks = HDP / 4;
   for (int i = threadIdx.x; i < rows * kChunks; i += kF32Threads) {
     const int r = i / kChunks, c = (i - r * kChunks) * 4;
-    const bool in = row0 + r < n_rows;
+    const bool in = row0 + r < n_rows && c < HD;
     cp_async16(dst + r * LD + c, src + (in ? (size_t)(row0 + r) * HD + c : 0), in);
   }
 }
@@ -665,7 +686,7 @@ __device__ __forceinline__ void cp_rows(const float* __restrict__ src, int row0,
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const Args a) {
   using C = F32Cfg<HD>;
-  constexpr int BN = C::BN, LD = C::LD, KSTEPS = HD / 8, MT = C::MT, BM = C::BM;
+  constexpr int BN = C::BN, HDP = C::HDP, LD = C::LD, KSTEPS = HDP / 8, MT = C::MT, BM = C::BM;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [BM][LD]: Q, then its hi halves
   float* qlo = qs + BM * LD;                     // [BM][LD]: Q's lo halves (QSPLIT)
@@ -688,10 +709,10 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const Args a) {
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
   auto load_tile = [&](int it) {
     float* ks = ring + (it & 1) * 2 * BN * LD;
-    cp_rows<HD, LD>(kg, k_begin + it * BN, a.skv, ks, BN);
-    cp_rows<HD, LD>(vg, k_begin + it * BN, a.skv, ks + BN * LD, BN);
+    cp_rows<HD, HDP, LD>(kg, k_begin + it * BN, a.skv, ks, BN);
+    cp_rows<HD, HDP, LD>(vg, k_begin + it * BN, a.skv, ks + BN * LD, BN);
   };
-  cp_rows<HD, LD>(qg, q0, a.sq, qs, BM);
+  cp_rows<HD, HDP, LD>(qg, q0, a.sq, qs, BM);
   cp_async_commit();
   if (n_tiles > 0) load_tile(0);
   cp_async_commit();
@@ -700,8 +721,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_f32_kernel(const Args a) {
     // first barrier orders these writes before any read)
     cp_async_wait<1>();
     __syncthreads();
-    for (int i = threadIdx.x; i < BM * HD / 4; i += kF32Threads) {
-      const int r = i / (HD / 4), col = (i - r * (HD / 4)) * 4;
+    for (int i = threadIdx.x; i < BM * HDP / 4; i += kF32Threads) {
+      const int r = i / (HDP / 4), col = (i - r * (HDP / 4)) * 4;
       float4* p = reinterpret_cast<float4*>(qs + r * LD + col);
       const float4 x = *p;
       uint32_t h[4], l[4];
@@ -993,6 +1014,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (hd == 64) return run_f32<64>(a, bh, s);
+    if (hd == 120) return run_f32<120>(a, bh, s);
     if (hd == 128) return run_f32<128>(a, bh, s);
     if (hd == 192) return run_f32<192>(a, bh, s);
   } else if (dtype == 1) {
@@ -1002,6 +1024,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
     // (BH 24 x 4096: 0.149 ms with three, 0.153 with two; BH 96 x 512:
     // 0.035 with three, 0.029 with two; NVIDIA H100 80GB HBM3, 700 W)
     if (hd == 64) return sq >= 1024 ? run_wgmma<64, 3>(a, bh, s) : run_wgmma<64, 2>(a, bh, s);
+    if (hd == 120) return run_wgmma<120, 2>(a, bh, s);
     if (hd == 128) return run_wgmma<128, 2>(a, bh, s);
     if (hd == 192) return run_wgmma<192, 2>(a, bh, s);
   }

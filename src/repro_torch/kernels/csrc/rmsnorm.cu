@@ -10,10 +10,11 @@
 // pass over x (and w read after the reduction) made two.
 //   - The widths the models use (768, 2048, zamba2's shared block at
 //     4096, the dense zoo's 6144, 8192 and 18432, deepseek-v2-236b's
-//     512 (kv_norm), 1536 (q_norm) and 5120 (d_model)) and 3840 are
+//     512 (kv_norm), 1536 (q_norm) and 5120 (d_model), internvl2-1b's 896,
+//     h2o-danube-3-4b's 3840) are
 //     instantiated with a compile-time count of 16-byte vectors a row,
 //     shared by the fewest warps that keep a lane at 2 vectors or under
-//     (kMaxVecPerLane: 512 bf16 takes one warp, 768 64 threads, 1536 and
+//     (kMaxVecPerLane: 512 bf16 takes one warp, 768 and 896 64 threads, 1536 and
 //     2048 128, 4096 256), up to the block's 256 threads, where a lane
 //     takes up to 4 (f32 at 3840 and 4096, bf16 at 5120, 6144 and 8192:
 //     2.5, 3 and 4 vectors); a row past 4 vectors a lane at 256 threads
@@ -219,6 +220,7 @@ cudaError_t launch(const void* x, const void* w, void* out, int rows, int d, flo
     switch (d) {
       case 512: return launch_rows<TX, TW, 512 / kVec>(x, w, out, rows, eps, stream);
       case 768: return launch_rows<TX, TW, 768 / kVec>(x, w, out, rows, eps, stream);
+      case 896: return launch_rows<TX, TW, 896 / kVec>(x, w, out, rows, eps, stream);
       case 1536: return launch_rows<TX, TW, 1536 / kVec>(x, w, out, rows, eps, stream);
       case 2048: return launch_rows<TX, TW, 2048 / kVec>(x, w, out, rows, eps, stream);
       case 3840: return launch_rows<TX, TW, 3840 / kVec>(x, w, out, rows, eps, stream);

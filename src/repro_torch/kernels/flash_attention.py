@@ -27,7 +27,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 192)  # the kernel's instantiations
+HEAD_DIMS = (64, 120, 128, 192)  # the kernel's instantiations (120 at a padded depth of 128)
 
 
 def supports(seq_len: int, head_dim: int, block: int = 512) -> bool:

@@ -1,15 +1,16 @@
 """The dense decoder, the MoE family (mixtral; deepseek with MLA), the
-SSM (mamba2) family and the hybrid (zamba2) family: full-sequence
-forward, loss and the serving path on a paged or a dense (per-slot)
-cache.
+SSM (mamba2) family, the hybrid (zamba2) family and the VLM backbone
+(internvl2): full-sequence forward, loss and the serving path on a paged
+or a dense (per-slot) cache.
 
 Counterpart of the reference package's ``models/transformer.py`` for
-the dense, MoE, SSM and hybrid families:
+the dense, MoE, SSM, hybrid and VLM families:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
     params = model.draw(torch.Generator("cuda").manual_seed(seed))  # drawn on the card
     logits = model.forward(params, tokens)              # (B, S, Vp)
+    logits = model.forward(params, tokens, patches=p)   # VLM: (B, n_vision + S, Vp)
     loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
     cache = model.init_cache(batch, max_len)            # dense, the default
     cache = model.init_cache(batch, max_len, paged=True, page_size=16, n_pages=N)
@@ -26,8 +27,13 @@ only); an SSM layer chooses its scan by ``resolve_ssd``: the plain
 only); a MoE layer's feed-forward follows ``moe_strategy``
 (``moe.apply_moe``); an MLA layer (``cfg.use_mla``) runs
 ``mla.apply_mla``, plain einsums and never the flash kernel, as in the
-reference.  Layers run as a Python loop over the per-layer dicts (the
-reference scans stacked layers); remat is not ported.
+reference.  A VLM's forward takes the stub frontend's ``patches``
+``(B, n_vision_tokens, d)``, cast to the model dtype and put ahead of the
+token embeddings, positions running over the whole stream; its loss
+drops the patches' logits.  Its serving path ingests tokens alone, one a
+dispatch (``supports_fused_prefill``), as the reference's does.  Layers
+run as a Python loop over the per-layer dicts (the reference scans
+stacked layers); remat is not ported.
 
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
 one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo} (MLA's leaves, see
@@ -316,16 +322,16 @@ class Model:
     def __init__(self, cfg: ArchConfig, runtime: Optional[ModelRuntime] = None):
         unsupported = [
             name for name, on in (
-                (f"family {cfg.family!r}", cfg.family not in ("dense", "moe", "ssm", "hybrid")),
+                (f"family {cfg.family!r}",
+                 cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm")),
                 ("encoder-decoder", cfg.is_encoder_decoder),
-                ("vision tokens", cfg.n_vision_tokens > 0),
                 ("learned positions", cfg.max_position_embeddings > 0),
             ) if on
         ]
         if unsupported:
             raise NotImplementedError(
                 f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
-                "(ROADMAP Queue 1: whisper, internvl)"
+                "(ROADMAP Queue 1: whisper)"
             )
         self.cfg = cfg
         self.rt = runtime or ModelRuntime()
@@ -459,11 +465,16 @@ class Model:
         return params
 
     # ------------------------------------------------------------- forward
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: Params, tokens: torch.Tensor,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence causal forward: tokens ``(B, S)`` -> logits
-        ``(B, S, Vp)`` float32."""
+        ``(B, S, Vp)`` float32; a VLM's ``patches`` ``(B, n_vision_tokens,
+        d)`` go ahead of the tokens, and the logits are ``(B, n_vision_tokens
+        + S, Vp)``."""
         x = params["embed"][tokens].to(self.rt.dtype)
-        b, s = tokens.shape
+        if self.cfg.n_vision_tokens and patches is not None:
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         h = x
         for i, lp in enumerate(params["layers"]):
@@ -488,9 +499,12 @@ class Model:
         return inv if at == 0 and inv < cfg.n_layers // every else None
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
-        """Next-token cross-entropy over ``batch`` (``tokens``, ``labels``
-        and an optional float ``loss_mask``)."""
-        logits = self.forward(params, batch["tokens"])
+        """Next-token cross-entropy over ``batch`` (``tokens``, ``labels``,
+        a VLM's ``patches`` and an optional float ``loss_mask``); the
+        patches' positions carry no label."""
+        logits = self.forward(params, batch["tokens"], patches=batch.get("patches"))
+        if self.cfg.n_vision_tokens and "patches" in batch:
+            logits = logits[:, self.cfg.n_vision_tokens:]
         labels = batch["labels"].long()
         logp = torch.log_softmax(logits.float(), dim=-1)
         ll = logp.gather(-1, labels[..., None])[..., 0]
@@ -500,9 +514,10 @@ class Model:
         loss = -(ll * mask).sum() / mask.sum().clamp_min(1.0)
         return loss, {"loss": loss, "tokens": mask.sum()}
 
-    def prefill(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prefill forward: the last position's logits ``(B, 1, Vp)``."""
-        return self.forward(params, tokens)[:, -1:]
+        return self.forward(params, tokens, patches=patches)[:, -1:]
 
     # ------------------------------------------------------------- cache
     @property

@@ -89,8 +89,8 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(
     np_params: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = torch.float32
 ) -> Dict[str, Any]:
-    """Port parameters from the reference's dense-, MoE-, SSM- or
-    hybrid-model pytree of numpy leaves (layers stacked along ``L``, a
+    """Port parameters from the reference's dense-, MoE-, SSM-, hybrid- or
+    VLM-model pytree of numpy leaves (layers stacked along ``L``, a
     MoE's ``dense_layers`` before them, MLA's attention leaves as any
     other's; a hybrid's ``shared`` block, its LoRA stacked over the
     invocations, kept as it is), converted to ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias`` and a MoE's

@@ -12,10 +12,12 @@ its stochastic rounding from ``jax.random`` with the default
   ``out0 ^ out1`` of ``threefry2x32(k, (0, i))``, ``i`` the row-major
   flat index.
 
-The samplers (``uniform``, ``gumbel``, ``randint``, ``bernoulli``) then
-follow ``jax/_src/random.py`` step for step, so every integer a draw
-produces is the reference's bit for bit; floats derived from the bits
-by ``log`` agree to the last ulp of the two libraries' ``log``.
+The samplers (``uniform``, ``gumbel``, ``randint``, ``bernoulli``,
+``normal``) then follow ``jax/_src/random.py`` step for step, so every
+integer a draw produces is the reference's bit for bit; floats derived
+from the bits by ``log`` agree to the last ulp of the two libraries'
+``log``, and ``normal``'s, computed through XLA's single-precision
+``erf_inv`` polynomial, to a few ulps (XLA's ``log1p`` is its own).
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two 32-bit words;
 leading axes batch independent keys, and every function broadcasts over
@@ -175,3 +177,36 @@ def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.
 def bernoulli(key: torch.Tensor, p: float = 0.5, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.bernoulli`` ("low" mode, float32 ``p``): ``uniform < p``."""
     return uniform(key, shape) < float(np.float32(p))
+
+
+# XLA's single-precision erf_inv (M. Giles, "Approximating the erfinv
+# function"): a degree-8 polynomial in w - 2.5 for w = -log1p(-x^2) < 5,
+# else in sqrt(w) - 3, times x
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                   0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` for float32 as XLA expands it: ``torch.erfinv``
+    differs from it by up to ~2e-5 at the draws' tails.  Each Horner step
+    is one fused multiply-add (the product and sum in float64, rounded
+    once), as XLA's CPU code forms it; ``x = +-1`` gives ``+-inf``."""
+    w = -torch.log1p(-x * x)
+    central = w < 5
+    t = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0).double()
+    c = [torch.where(central, torch.tensor(a, dtype=torch.float32, device=x.device),
+                     torch.tensor(b, dtype=torch.float32, device=x.device)).double()
+         for a, b in zip(_ERFINV_CENTRAL, _ERFINV_TAIL)]
+    p = c[0].float()
+    for ci in c[1:]:
+        p = (ci + p.double() * t).float()
+    return torch.where(x.abs() == 1, x * float("inf"), p * x)
+
+
+def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.normal`` for float32: ``uniform`` over
+    ``[nextafter(-1, 0), 1)``, then ``sqrt(2) * erf_inv``."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return float(np.float32(np.sqrt(2))) * erfinv(uniform(key, shape, minval=lo, maxval=1.0))

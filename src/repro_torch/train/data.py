@@ -10,8 +10,10 @@ Counterpart of the reference package's ``train/data.py``:
   fixed windows, strided by ``(dp_rank, n_dp)``.
 
 Batches are int64 tensors on the dataset's device (``cuda`` unless the
-caller names the CPU).  The audio/vlm stub frontends (frame and patch
-embeddings) are not ported with their model families.
+caller names the CPU).  A VLM's batch also holds ``patches``, the stub
+frontend's patch embeddings ``(local, n_vision_tokens, d_model)`` float32
+from ``normal(fold_in(key, 8))``, as the reference draws them; the audio
+stub's frames are not ported with their family.
 """
 
 from __future__ import annotations
@@ -39,9 +41,9 @@ class SyntheticLM:
     each row is random tokens or a repeated 8-token motif."""
 
     def __init__(self, cfg: ArchConfig, data: DataConfig, device=None):
-        if cfg.is_encoder_decoder or cfg.n_vision_tokens:
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                "frame/patch stub inputs are not ported (ROADMAP Queue 1: the model zoo)")
+                "frame stub inputs are not ported (ROADMAP Queue 1: whisper)")
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(device)
@@ -60,7 +62,11 @@ class SyntheticLM:
         reps = motif.repeat(1, (d.seq_len + 8) // 8)[:, : d.seq_len + 1]
         use_motif = prng.bernoulli(k3, 0.5, (local, 1))
         toks = torch.where(use_motif, reps, base)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.cfg.n_vision_tokens:
+            batch["patches"] = prng.normal(prng.fold_in(key, 8),
+                                           (local, self.cfg.n_vision_tokens, self.cfg.d_model))
+        return batch
 
 
 class TokenFileDataset:

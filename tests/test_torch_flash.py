@@ -170,14 +170,17 @@ F32_ARITH_CASES = [(bh, s, hd, causal, 0) for bh, s, hd in ((2, 128, 64), (1, 25
                                                            (2, 192, 64), (1, 320, 64))
                    for causal in (True, False)]
 F32_ARITH_CASES += [(2, 320, 64, True, 128), (1, 1024, 64, True, 0)]
+# h2o-danube-3-4b's head width 120 (the kernel pads its depth to 128 with
+# zeros, which leaves every product unchanged): causal, full and windowed
+F32_ARITH_CASES += [(2, 256, 120, True, 0), (2, 256, 120, False, 0), (1, 320, 120, True, 64)]
 
 
 @pytest.mark.parametrize("bh,s,hd,causal,window", F32_ARITH_CASES)
 def test_flash_f32_3xtf32_arithmetic_meets_the_gate(bh, s, hd, causal, window):
     """The f32 kernel's 3xTF32 split, emulated on the CPU with TF32 rounding
     by integer bit arithmetic, holds the reference at the f32 gate (2e-5)
-    over the sweep's f32 shapes, a window and causal S 1024; plain TF32
-    misses it."""
+    over the sweep's f32 shapes, a window, causal S 1024 and head width
+    120; plain TF32 misses it."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv((bh, s, hd), "float32", seed=s + hd + window)
     want = f32(jref.attention_reference(jq, jk, jv, causal=causal, window=window))
     got = _attention_3xtf32(tq, tk, tv, causal, window)

@@ -6,6 +6,7 @@ without CUDA raises instead of running on the CPU; and ``chip_smoke.py``
 prints no result without a card."""
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -79,14 +80,30 @@ def test_unported_model_features_refuse(tiny):
                      n_kv_heads=4, d_ff=128, vocab_size=256, n_experts=4, top_k=2,
                      use_mla=True, kv_lora_rank=32, rope_head_dim=8)
     assert Model(mla).cfg.use_mla  # MLA builds now
-    vision = ArchConfig(name="x-vlm", family="dense", n_layers=2, d_model=64, n_heads=4,
+    vision = ArchConfig(name="x-vlm", family="vlm", n_layers=2, d_model=64, n_heads=4,
                         n_kv_heads=4, d_ff=128, vocab_size=256, n_vision_tokens=8)
-    with pytest.raises(NotImplementedError, match="vision tokens not ported yet.*ROADMAP Queue 1"):
-        Model(vision)
+    assert Model(vision).cfg.n_vision_tokens == 8  # vision tokens build now
+    assert reduced(vision).n_vision_tokens == 8
+    # what is left unported: the encoder-decoder, learned positions and the
+    # audio family, each refusal naming whisper
+    encdec = dataclasses.replace(vision, name="x-encdec", family="dense", n_vision_tokens=0,
+                                 is_encoder_decoder=True)
+    with pytest.raises(NotImplementedError,
+                       match="encoder-decoder not ported yet.*ROADMAP Queue 1: whisper"):
+        Model(encdec)
+    learned = dataclasses.replace(vision, name="x-pos", family="dense", n_vision_tokens=0,
+                                  max_position_embeddings=512)
+    with pytest.raises(NotImplementedError,
+                       match="learned positions not ported yet.*ROADMAP Queue 1: whisper"):
+        Model(learned)
     audio = ArchConfig(name="x-audio", family="audio", n_layers=2, d_model=64, n_heads=4,
                        n_kv_heads=4, d_ff=128, vocab_size=256, is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="dense, MoE, SSM and hybrid"):
+    with pytest.raises(NotImplementedError, match="family 'audio', encoder-decoder.*whisper"):
+        Model(audio)
+    with pytest.raises(NotImplementedError, match="dense, MoE, SSM, hybrid and VLM.*whisper"):
         reduced(audio)
+    with pytest.raises(NotImplementedError, match="frame stub inputs.*whisper"):
+        SyntheticLM(encdec, DataConfig(), device="cpu")
 
 
 def test_engine_refuses_params_on_another_device(tiny):

@@ -173,9 +173,11 @@ def test_paged_wrapper_rejects_bad_fold():
 
 # ------------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-# 2048, 3840 and 4096 (zamba2's shared block) are compiled into the kernel's one-pass path
+# 2048, 3840 and 4096 (zamba2's shared block) are compiled into the kernel's one-pass path,
+# and internvl2-1b's 896
 @pytest.mark.parametrize("shape", [(4, 256), (2, 8, 512), (3, 5, 128), (37, 100), (3, 8192),
-                                   (16, 2048), (4, 3840), (16, 4096), (256, 4096)])
+                                   (16, 2048), (4, 3840), (16, 4096), (256, 4096), (16, 896),
+                                   (256, 896)])
 def test_rmsnorm_sweep(shape, dtype):
     rng = np.random.default_rng(5)
     x = rng.standard_normal(shape).astype(np.float32)
@@ -187,6 +189,30 @@ def test_rmsnorm_sweep(shape, dtype):
     want_ref = jref.rmsnorm_reference(jx, jnp.asarray(w))
     for want in (want_kernel, want_ref, ref.rmsnorm_reference(tx, torch.from_numpy(w))):
         np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
+ONE_PASS_WIDTHS = (512, 768, 896, 1536, 2048, 3840, 4096, 5120, 6144, 8192, 18432)
+
+
+def test_rmsnorm_one_pass_widths_are_the_served_ones():
+    """The widths ``csrc/rmsnorm.cu`` compiles into its one pass (its
+    ``case`` labels) are the served models' norm widths, and the set
+    ``chip_smoke.py`` holds each launch's reported path to."""
+    import ast
+    import re
+
+    from repro_torch.configs import get_arch
+
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    compiled = tuple(sorted(int(d) for d in re.findall(r"case (\d+): return launch_rows", src)))
+    assert compiled == ONE_PASS_WIDTHS
+    smoke = ast.parse((_build.CSRC.parents[3] / "chip_smoke.py").read_text())
+    held = next(ast.literal_eval(n.value) for n in smoke.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "RMSNORM_ONE_PASS_WIDTHS")
+    assert tuple(held) == ONE_PASS_WIDTHS
+    for arch in ("ds-paper-100m", "mamba2-1.3b", "granite-34b", "qwen2-72b", "nemotron-4-340b",
+                 "mixtral-8x7b", "h2o-danube-3-4b", "internvl2-1b"):
+        assert get_arch(arch).d_model in ONE_PASS_WIDTHS, arch
 
 
 def test_rmsnorm_gradient_gradcheck():
