@@ -3,8 +3,9 @@ kernels, holds each against its plain PyTorch version, drives the serving
 engine (paged and dense caches), training, eval, the SSM family, the
 hybrid family, the dense zoo, the MoE family (with the rolling
 sliding-window cache), MLA over the MoE (deepseek-v2-236b, its latent
-paged cache), h2o-danube-3-4b (head width 120, a 4096 window) and the
-VLM backbone internvl2-1b (stub vision tokens) at full width and prints
+paged cache), h2o-danube-3-4b (head width 120, a 4096 window), the
+VLM backbone internvl2-1b (stub vision tokens) and the encoder-decoder
+whisper-tiny (stub audio frames, a cross cache) at full width and prints
 what it measured.
 
     python3 chip_smoke.py
@@ -58,9 +59,13 @@ Phases, each printing one JSON line:
   and 128, hd 128 and 192, and mixtral's hd 128 with a 4096 window over
   8192 positions; h2o-danube-3-4b's head width 120, at a padded depth of
   128: causal at BH 32 x 512, S 320 causal and not, a 128 window over
-  S 1216, its 4096 window over 8192 positions), internvl2-1b's 7-row
-  decode fold on the paged kernel's decode path (``dec_vlm_g7_*``) and
-  RMSNorm at its 896 (16 and 256 rows, one pass), and
+  S 1216, its 4096 window over 8192 positions; whisper-tiny's lengths:
+  non-causal at S 1,500 and at 448 queries over 1,500 keys, and S 100 and
+  1,436, no multiple of 16, causal and not), internvl2-1b's 7-row
+  decode fold on the paged kernel's decode path (``dec_vlm_g7_*``),
+  whisper's cross cache on that path (``dec_whisper_cross_*``: B 16, Hkv
+  6, G 1 over 1,500 keys in pages of 20, offsets 1499) and
+  RMSNorm at internvl's 896 (16 and 256 rows, one pass), and
   the SSD chunk kernel over the reference's
   sweep, chunks of 1-16 positions, the serve prefill shape with padded
   tokens and idle rows, mamba2's eval shapes, zamba2's (state 64) serve
@@ -243,7 +248,8 @@ Phases, each printing one JSON line:
   beside their bounds, plain versions and library calls;
 - ``moe_parity``: ``mixtral-8x7b`` at 1 layer in f32 (TF32 off; 1.72 B
   parameters, 6.9 GB), weights drawn on the card, 16 requests (prompts
-  16-48, 8 new, ``max_batch`` 16) through the dense-cache engine, every
+  8-24, 8 new, ``max_batch`` 16; 16-48 before a cut for the time limit,
+  ``MOE_PARITY_PROMPTS``) through the dense-cache engine, every
   prompt ingested one token a decode dispatch (MoE takes no fused
   prefill), on the card against the same engine on the CPU, under
   ``capacity`` (5 slots an expert at 16 rows: entries drop, counted) and
@@ -268,7 +274,8 @@ Phases, each printing one JSON line:
 - ``mla_parity``: ``deepseek-v2-236b`` at 2 of its 60 layers (the dense
   first layer and one MoE layer of 160 experts, top 6, 2 shared) in f32,
   TF32 off (5.36 B parameters, 21.4 GB), weights drawn on the card, 16
-  requests (prompts 8-24, 4 new, ``max_batch`` 16, page 16) through the
+  requests (prompts 4-12, 4 new, ``max_batch`` 16, page 16; 8-24 before
+  a cut for the time limit, ``MLA_PARITY_PROMPTS``) through the
   paged engine, every prompt ingested one token a decode dispatch, on the
   card against the same engine on the CPU, under ``capacity`` (drops
   counted, required) and ``dense``: equal greedy tokens (the near-tie
@@ -327,7 +334,30 @@ Phases, each printing one JSON line:
   drawn by ``prng.normal``) and 768 tokens, S 1024: f32 held at 1e-3
   against the plain path with 24 flash (hd 64) and 49 one-pass RMSNorm a
   forward and a finite loss, bf16 reported; flash at BH 112 x 1024, hd 64
-  timed in both dtypes beside its bound, plain version and SDPA.
+  timed in both dtypes beside its bound, plain version and SDPA;
+- ``whisper_parity``: ``whisper-tiny`` whole (4 encoder and 4 decoder
+  layers, d 384, 6 heads of 64, 1,500 frames) in f32, TF32 off, weights
+  drawn on the host and moved through the bridge, card against CPU: the
+  dense engine on 4 requests (prompts 8-48, 16 new), every prompt ingested
+  one token a decode dispatch, every dispatch's logits at 1e-4, tokens and
+  counters equal, exactly 4 paged launches a dispatch (each decoder
+  layer's cross attention over the cross cache's page view), all on the
+  decode path; ``decode_step`` on 2 rows over 32 tokens with the cross
+  cache filled from ``SyntheticLM``'s frames, each step at 1e-4; one
+  forward at 2 x 448: exactly 12 flash launches (4 encoder, non-causal
+  over 1,500; 4 causal self; 4 cross, 448 x 1,500);
+- ``whisper_serve``: bf16, the dense engine, 16 requests (prompts 16-64,
+  128 new, ``max_len`` 448): tokens/s, dispatch wall median and p99, peak
+  memory, 4 decode-path paged launches a dispatch and nothing else, a
+  traced decode dispatch, LayerNorm timed alone; the paged kernel over
+  the cross cache (B 16, Hkv 6, G 1, 1,500 keys in pages of 20) timed in
+  both dtypes beside its byte bound, plain version and SDPA;
+- ``whisper_eval``: 16 x (1,500 frames + 448 tokens) from ``SyntheticLM``:
+  f32 through the kernels held at 1e-3 against the plain path, 12 flash
+  launches a forward, a finite loss, bf16 reported; flash at the
+  encoder's BH 96 x 1,500 and cross attention's 96 x 448 x 1,500 (both
+  non-causal) and the decoder's 96 x 448 (causal) timed in both dtypes
+  beside its bound, plain version and SDPA.
 
 A ``lap`` line after each phase gives its seconds.  Then a
 ``kernels`` summary line (the paged kernel's and RMSNorm's launches
@@ -751,7 +781,57 @@ def check_paged_attention() -> dict:
         require(ok, f"paged_attention case {name} disagrees with its plain version")
         key = str(kw["dtype"]).removeprefix("torch.")
         worst[key] = max(worst[key], err)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).removeprefix("torch.")
+        worst[key] = max(worst[key], check_cross_cache(dtype))
     return worst
+
+
+def cross_cache_inputs(dtype, seed: int = 31):
+    """whisper-tiny's decode cross attention at the serve shape: B 16 rows,
+    Hkv 6 heads of 64 (G 1), a cross cache of 1,500 frames read through
+    its page view (``cross_page_view``: pages of 20, offsets 1499):
+    ``(q, k_pool, v_pool, table, offsets, caches)``, q folded and
+    ``caches`` the contiguous ``(B, 1500, Hkv, hd)`` K and V."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import cross_page_view
+
+    cfg = get_arch(WHISPER_ARCH)
+    b, n, hkv, hd = WHISPER_SERVE_KW["max_batch"], cfg.encoder_seq, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kc, vc = (torch.randn((b, n, hkv, hd), generator=gen, device="cuda").to(dtype)
+              for _ in "kv")
+    ps, table, offsets = cross_page_view(b, n, kc.device)
+    q = torch.randn((b, hkv, cfg.n_heads // hkv, hd), generator=gen, device="cuda").to(dtype)
+    pool = (b * n // ps, ps, hkv, hd)
+    return q, kc.view(pool), vc.view(pool), table, offsets, (kc, vc)
+
+
+def check_cross_cache(dtype) -> float:
+    """The paged kernel over whisper's cross cache (``cross_cache_inputs``)
+    against its plain version, on the decode path."""
+    from repro_torch.kernels.flash_decode import (
+        paged_flash_attention_folded,
+        paged_flash_attention_folded_plain,
+    )
+
+    q, kp, vp, table, offs, _ = cross_cache_inputs(dtype)
+    before = paged_flash_attention_folded.launches_by_path["decode"]
+    got = paged_flash_attention_folded(q, kp, vp, table, offs, tokens_per_row=1)
+    torch.cuda.synchronize()
+    on_decode = paged_flash_attention_folded.launches_by_path["decode"] == before + 1
+    want = paged_flash_attention_folded_plain(q, kp, vp, table, offs, tokens_per_row=1,
+                                              scale=1.0 / math.sqrt(q.shape[-1]))
+    err = (got.float() - want.float()).abs().max().item()
+    ok = bool(torch.allclose(got.float(), want.float(), atol=tol(dtype), rtol=tol(dtype)))
+    name = f"dec_whisper_cross_{'f32' if dtype == torch.float32 else 'bf16'}"
+    emit({"phase": "kernels", "kernel": "paged_attention", "case": name,
+          "shape": list(q.shape), "page_size": kp.shape[1], "pages_per_slot": table.shape[1],
+          "path": "decode" if on_decode else "other", "max_abs_err": err, "ok": ok})
+    require(on_decode, f"paged_attention case {name} did not take the decode path")
+    require(ok, f"paged_attention case {name} disagrees with its plain version")
+    return err
 
 
 # compiled into csrc/rmsnorm.cu
@@ -899,14 +979,27 @@ def flash_cases():
         cases.append((f"hd120_window128_s1216_{tag}", 2, 1216, 120, 64, True, 128, dtype))
         cases.append((f"danube_hd120_window4096_s8192_{tag}", 2, 8192, 120, 512, True,
                       DANUBE_WINDOW, dtype))
+        # whisper-tiny's encoder: non-causal over 1,500 frames (23 tiles of
+        # 64 and 28 rows), at blocks equal to the length as the model passes
+        # them; lengths that are no multiple of 16, causal and not (a last
+        # key tile ending inside a 16-key k-step, a last query block ending
+        # inside a warpgroup's 16-row slice)
+        cases.append((f"whisper_full_s1500_{tag}", 2, 1500, 64, 1500, False, 0, dtype))
+        for s in (100, 1436):
+            for causal in (True, False):
+                cases.append((f"ragged16_s{s}_{'causal' if causal else 'full'}_{tag}", 2, s, 64,
+                              s, causal, 0, dtype))
     return cases
 
 
-# (name, bh, sq, skv, hd, causal): queries and keys of different lengths
-# (positions count from 0 in both)
-FLASH_SQ_NE_SKV = [(f"sq{sq}_skv{skv}", 2, sq, skv, 64, causal)
+# (name, bh, sq, skv, hd, causal, block_q, block_k): queries and keys of
+# different lengths (positions count from 0 in both); whisper's cross
+# attention, 448 decoder queries over 1,500 frames, at blocks equal to the
+# lengths
+FLASH_SQ_NE_SKV = [(f"sq{sq}_skv{skv}", 2, sq, skv, 64, causal, 64, 64)
                    for sq, skv in ((128, 320), (320, 192), (1216, 1024))
-                   for causal in (True, False)]
+                   for causal in (True, False)] + [
+    ("whisper_cross_sq448_skv1500", 2, 448, 1500, 64, False, 448, 1500)]
 
 
 def check_flash_attention() -> dict:
@@ -933,12 +1026,12 @@ def check_flash_attention() -> dict:
         require(ok, f"flash_attention case {name} disagrees with its plain version")
         key = str(dtype).removeprefix("torch.")
         worst[key] = max(worst[key], err)
-    for name, bh, sq, skv, hd, causal in FLASH_SQ_NE_SKV:
+    for name, bh, sq, skv, hd, causal, block_q, block_k in FLASH_SQ_NE_SKV:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((bh, sq, hd), generator=gen, device="cuda").to(dtype)
             k, v = (torch.randn((bh, skv, hd), generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
-            got = flash_attention_bhsd(q, k, v, causal=causal, block_q=64, block_k=64)
+            got = flash_attention_bhsd(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
             torch.cuda.synchronize()
             want = flash_attention_bhsd_plain(q, k, v, causal=causal)
             err = (got.float() - want.float()).abs().max().item()
@@ -1133,6 +1226,11 @@ def next_token_logits(model, params, tokens, device) -> torch.Tensor:
         cache["page_table"].copy_(torch.arange(pages, dtype=torch.int32)[None])
     else:
         cache = model.init_cache(1, pages * ps, device=device)
+    if model.cfg.is_encoder_decoder:  # no fused prefill: a token a decode step
+        for i, t in enumerate(tokens):
+            logits, _ = model.decode_step(params, cache, torch.tensor([[t]], device=device),
+                                          torch.tensor([i], device=device))
+        return logits[0, 0, :model.cfg.vocab_size].float()
     logits = None
     for s in range(0, len(tokens), ps):
         chunk = tokens[s:s + ps]
@@ -2185,18 +2283,29 @@ def trace_train_step() -> dict:
     return {"what": "f32 train step, 8 x 512 tokens", **trace(one_step, 3, "step")}
 
 
-def flash_work(bh: int, s: int, hd: int, dtype, window: int = 0) -> tuple:
-    """Bytes (q, k, v read once, out written once) and causal flops
-    (2 * BH * S^2 * hd: QK and PV over the lower triangle; with a window
-    W, 4 * BH * hd over the W (W + 1) / 2 + (S - W) W pairs in it)."""
+def flash_work(bh: int, s: int, hd: int, dtype, window: int = 0, *, skv: int = 0,
+               causal: bool = True) -> tuple:
+    """Bytes (q, k, v read once, out written once) and flops: causal, 2 *
+    BH * S^2 * hd (QK and PV over the lower triangle; with a window W, 4 *
+    BH * hd over the W (W + 1) / 2 + (S - W) W pairs in it); non-causal,
+    over ``s`` queries and ``skv`` keys (``s`` by default), 4 * BH * S *
+    Skv * hd (every pair)."""
     item = torch.tensor([], dtype=dtype).element_size()
+    skv = skv or s
+    nbytes = 2 * bh * (s + skv) * hd * item
+    if not causal:
+        return nbytes, 4 * bh * s * skv * hd
     if window and window < s:
-        return 4 * bh * s * hd * item, 4 * bh * hd * (window * (window + 1) // 2
-                                                       + (s - window) * window)
-    return 4 * bh * s * hd * item, 2 * bh * s * s * hd
+        return nbytes, 4 * bh * hd * (window * (window + 1) // 2 + (s - window) * window)
+    return nbytes, 2 * bh * s * s * hd
 
 
-def time_flash(bh: int, s: int, dtype, hd: int = 64, window: int = 0) -> dict:
+def time_flash(bh: int, s: int, dtype, hd: int = 64, window: int = 0, *, skv: int = 0,
+               causal: bool = True) -> dict:
+    """The flash kernel over ``bh`` heads of ``s`` queries (and ``skv`` keys,
+    ``s`` by default), causal or not, held against its plain version and
+    timed beside its bound, its plain version and SDPA (a window as a
+    boolean mask; no mask when not causal)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
@@ -2204,14 +2313,21 @@ def time_flash(bh: int, s: int, dtype, hd: int = 64, window: int = 0) -> dict:
         flash_attention_bhsd_plain,
     )
 
+    skv = skv or s
     gen = torch.Generator(device="cuda").manual_seed(23)
-    q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
-    kern = lambda: flash_attention_bhsd(q, k, v, causal=True, window=window)  # noqa: E731
-    plain = lambda: flash_attention_bhsd_plain(q, k, v, causal=True, window=window)  # noqa: E731
+    q = torch.randn((bh, s, hd), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((bh, skv, hd), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    blocks = {} if causal else dict(block_q=s, block_k=skv)  # the model's blocks
+    kern = lambda: flash_attention_bhsd(q, k, v, causal=causal, window=window,  # noqa: E731
+                                        **blocks)
+    plain = lambda: flash_attention_bhsd_plain(q, k, v, causal=causal,  # noqa: E731
+                                               window=window)
     # SDPA takes its fast kernels for (batch, heads, S, hd): the same folded
     # tensors with a unit batch axis; a window as a boolean mask
-    if window:
+    if not causal:
+        lib = lambda: F.scaled_dot_product_attention(q[None], k[None], v[None])  # noqa: E731
+    elif window:
         pos = torch.arange(s, device="cuda")
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -2219,8 +2335,9 @@ def time_flash(bh: int, s: int, dtype, hd: int = 64, window: int = 0) -> dict:
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q[None], k[None], v[None], is_causal=True)
-    err = check_at_shape(f"flash attention ({bh}x{s}, window {window})", kern, plain, dtype)
-    nbytes, flops = flash_work(bh, s, hd, dtype, window)
+    err = check_at_shape(f"flash attention ({bh}x{s}x{skv}, window {window}, causal {causal})",
+                         kern, plain, dtype)
+    nbytes, flops = flash_work(bh, s, hd, dtype, window, skv=skv, causal=causal)
     bms, by = bound(nbytes, flops, dtype)
     route = {"bound_route": "bf16 tensor cores, 989 TFLOP/s"}
     if dtype == torch.float32:
@@ -2230,12 +2347,15 @@ def time_flash(bh: int, s: int, dtype, hd: int = 64, window: int = 0) -> dict:
                  "bound_ms_cuda_core": bms, "bound_by_cuda_core": by}
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_OPS
         bms, by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-    return {"shape": {"BH": bh, "S": s, "hd": hd, "window": window},
-            "dtype": str(dtype).removeprefix("torch."),
+    shape = {"BH": bh, "S": s, "hd": hd, "window": window}
+    if not causal:
+        shape.update(Skv=skv, causal=False)
+    return {"shape": shape, "dtype": str(dtype).removeprefix("torch."),
             "max_abs_err": err, "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=10),
             "bound_ms": bms, "bound_by": by, **route, "library_ms": time_ms(lib),
             "library_call": "F.scaled_dot_product_attention on the folded tensors viewed as "
-                            "(1, BH, S, hd), " + ("a boolean window mask" if window
+                            "(1, BH, S, hd), " + ("no mask" if not causal else
+                                                  "a boolean window mask" if window
                                                   else "is_causal=True")}
 
 
@@ -4748,6 +4868,9 @@ MOE_PARITY_LAYERS = 1
 MOE_EVAL_LAYERS = 2
 MOE_SERVE_LAYERS = 4
 MOE_PARITY_KW = dict(max_batch=16, max_len=128, prefill_chunk=16, cache_mode="dense")
+# prompts 16-48 before a cut for the time limit (the CPU side's
+# decode dispatches, each reading the layer's 5.6 GB of f32 experts)
+MOE_PARITY_PROMPTS = (8, 24)
 MOE_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, cache_mode="dense")
 MOE_WINDOW_POSITIONS = 4608  # past the rolling cache's 4,224 slots and the window
 MOE_EVAL_TOKENS = 8192
@@ -4772,24 +4895,28 @@ def moe_model(layers: int, dtype, strategy: str = "dense"):
 
 
 def moe_parity_requests(vocab: int):
-    """16 greedy requests, prompts of 16-48 tokens, 8 new each."""
+    """16 greedy requests, prompts of ``MOE_PARITY_PROMPTS`` tokens, 8 new
+    each."""
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(4)
+    lo, hi = MOE_PARITY_PROMPTS
     return [Request(uid=f"m{i}", prompt=rng.integers(1, vocab, int(n)).tolist(),
                     max_new_tokens=8)
-            for i, n in enumerate(rng.integers(16, 49, 16))]
+            for i, n in enumerate(rng.integers(lo, hi + 1, 16))]
 
 
 def require_exact_launches(cfg, launches: dict, dispatches: int, what: str, flash: int = 0,
                            paged: int = 0) -> None:
-    """A mixtral, danube or internvl run's exact launches: 2 L + 1 RMSNorm
-    a dispatch or forward, every one on the one-pass path (4096, 3840 and
-    896 are compiled into it); ``flash`` flash launches; ``paged`` paged
-    launches, every one on the decode path (internvl's 7-row fold; a
-    windowed cache is never paged); no SSD (a MoE's expert products are
-    plain GEMMs, as in the reference)."""
-    want = (2 * cfg.n_layers + 1) * dispatches
+    """A mixtral, danube, internvl or whisper run's exact launches: 2 L + 1
+    RMSNorm a dispatch or forward, every one on the one-pass path (4096,
+    3840 and 896 are compiled into it), none where the norm is LayerNorm
+    (whisper's, plain torch as in the reference); ``flash`` flash launches;
+    ``paged`` paged launches, every one on the decode path (internvl's
+    7-row fold, whisper's cross cache; a windowed cache is never paged);
+    no SSD (a MoE's expert products are plain GEMMs, as in the
+    reference)."""
+    want = (2 * cfg.n_layers + 1) * dispatches if cfg.norm == "rmsnorm" else 0
     require(launches["rmsnorm"] == want == launches["rmsnorm_one_pass"],
             f"{what}: rmsnorm launched {launches['rmsnorm']} times "
             f"({launches['rmsnorm_one_pass']} one-pass), want {want}, all one-pass")
@@ -5117,6 +5244,9 @@ MLA_PARITY_LAYERS = 2
 MLA_SERVE_LAYERS = 4
 MLA_PARITY_KW = dict(max_batch=16, max_len=32, prefill_chunk=16, page_size=16,
                      cache_mode="paged")
+# prompts 8-24 before a cut for the time limit (the CPU side's
+# decode dispatches over 160 f32 experts)
+MLA_PARITY_PROMPTS = (4, 12)
 MLA_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
                     cache_mode="paged")
 MLA_FORWARD_SHAPE = (2, 128)
@@ -5136,13 +5266,15 @@ def mla_model(layers: int, dtype, strategy: str = "dense"):
 
 
 def mla_parity_requests(vocab: int):
-    """16 greedy requests, prompts of 8-24 tokens, 4 new each."""
+    """16 greedy requests, prompts of ``MLA_PARITY_PROMPTS`` tokens, 4 new
+    each."""
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(8)
+    lo, hi = MLA_PARITY_PROMPTS
     return [Request(uid=f"d{i}", prompt=rng.integers(1, vocab, int(n)).tolist(),
                     max_new_tokens=4)
-            for i, n in enumerate(rng.integers(8, 25, 16))]
+            for i, n in enumerate(rng.integers(lo, hi + 1, 16))]
 
 
 def require_mla_launches(cfg, launches: dict, dispatches: int, what: str, dtype,
@@ -5605,24 +5737,35 @@ def phase_vlm_serve() -> dict:
     return rec
 
 
+def flash_per_forward(cfg) -> int:
+    """Flash launches a forward makes on the card: one a layer; an
+    encoder-decoder's encoder layers and its decoder's cross attention one
+    each more."""
+    if cfg.is_encoder_decoder:
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 def eval_runs(phase: str, cfg, params, batch: dict, **rt) -> tuple:
     """The eval gate of a forward over ``batch`` (tokens, labels, a VLM's
-    patches) on ``params`` (f32), ``rt`` the runtime's other knobs.  f32
-    (TF32 off): the kernels (flash, RMSNorm) against the plain path
-    (chunked attention, plain RMSNorm) at the eval gate 1e-3, with exact
-    launches (L flash and 2 L + 1 one-pass RMSNorm a forward) and a finite
-    loss.  bf16 on the same weights: timed and reported (its distance from
-    the f32 plain path), finite, launches exact.  ``tokens_per_s`` counts
-    every position (patches included).  Returns ``(runs, misses)``: the
-    caller holds the gate after emitting its record."""
+    patches, an encoder-decoder's frames) on ``params`` (f32), ``rt`` the
+    runtime's other knobs.  f32 (TF32 off): the kernels (flash, RMSNorm)
+    against the plain path (chunked attention, plain RMSNorm; cross
+    attention direct, as the reference attends) at the eval gate 1e-3,
+    with exact launches (``flash_per_forward`` flash and 2 L + 1 one-pass
+    RMSNorm a forward, none under LayerNorm) and a finite loss.  bf16 on
+    the same weights: timed and reported (its distance from the f32 plain
+    path), finite, launches exact.  ``tokens_per_s`` counts every position
+    (patches and frames included).  Returns ``(runs, misses)``: the caller
+    holds the gate after emitting its record."""
     from repro_torch.kernels import ops
     from repro_torch.models import Model, ModelRuntime
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tokens, patches = batch["tokens"], batch.get("patches")
-    positions = tokens.numel() + (patches.shape[0] * patches.shape[1] if patches is not None
-                                  else 0)
+    tokens, patches, frames = batch["tokens"], batch.get("patches"), batch.get("frames")
+    positions = tokens.numel() + sum(x.shape[0] * x.shape[1] for x in (patches, frames)
+                                     if x is not None)
 
     def timed_loss(m, p) -> tuple:
         ms = []
@@ -5638,7 +5781,7 @@ def eval_runs(phase: str, cfg, params, batch: dict, **rt) -> tuple:
 
     def logits(m, p) -> torch.Tensor:
         with torch.no_grad():
-            return m.forward(p, tokens, patches=patches)[..., :cfg.vocab_size]
+            return m.forward(p, tokens, patches=patches, frames=frames)[..., :cfg.vocab_size]
 
     plain_rt = dict(rt, attn_impl="chunked")
     with patched(ops, "rmsnorm", plain_rmsnorm):
@@ -5650,7 +5793,7 @@ def eval_runs(phase: str, cfg, params, batch: dict, **rt) -> tuple:
         reset_launches()
         kern = logits(kern_model, p)
         launches = read_launches()
-        require_exact_launches(cfg, launches, 1, f"{phase} {name}", flash=cfg.n_layers)
+        require_exact_launches(cfg, launches, 1, f"{phase} {name}", flash=flash_per_forward(cfg))
         loss, forward_ms = timed_loss(kern_model, p)
         require(math.isfinite(loss) and bool(torch.isfinite(kern).all()),
                 f"{phase} {name}: loss or logits not finite")
@@ -5747,6 +5890,363 @@ def phase_vlm_eval() -> dict:
     return rec
 
 
+WHISPER_ARCH = "whisper-tiny"
+# Full width and full depth everywhere (4 encoder and 4 decoder layers, d
+# 384, 6 heads of 64, 1,500 frames; 50.1 M parameters): no cut.
+# whisper_parity draws its f32 weights on the host (Model.init from seed
+# 0, LayerNorm's w and b redrawn off 1 and 0 so a lost bias shows) and
+# moves them to both devices through the bridge (params_to_jax, then
+# params_from_jax); whisper_serve and whisper_eval draw on the card
+# (Model.draw).
+WHISPER_PARITY_KW = dict(max_batch=4, max_len=448, prefill_chunk=16, cache_mode="dense")
+WHISPER_SERVE_KW = dict(max_batch=16, max_len=448, prefill_chunk=16, cache_mode="dense")
+WHISPER_DECODE = (2, 32)  # whisper_parity (b): rows x tokens decoded over a filled cross cache
+WHISPER_EVAL_SHAPE = (16, 448)  # rows x text tokens, each row over 1,500 frames
+WHISPER_NORM_STD = 0.1
+WHISPER_NORM_SEED = 1  # the numpy generator of the LayerNorm redraw
+
+
+def whisper_model(dtype):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, ModelRuntime
+
+    return Model(get_arch(WHISPER_ARCH), ModelRuntime(dtype=dtype))
+
+
+def whisper_host_weights(model) -> tuple:
+    """``(card tree, CPU tree, record)``: ``Model.init`` from seed 0 on the
+    host, every LayerNorm's ``w`` and ``b`` redrawn around 1 and 0, then
+    through the bridge (``params_to_jax``: the reference's stacked
+    ``encoder.layers`` and ``cross``) and back (``params_from_jax``) onto
+    each device."""
+    from repro_torch.models.weights import params_from_jax, params_to_jax
+    from repro_torch.tree import tree_leaves, tree_map_with_path
+
+    rng = np.random.default_rng(WHISPER_NORM_SEED)
+    host = model.init(0, device="cpu")
+
+    def redraw(path, t):
+        if path[-1] not in ("w", "b"):
+            return t
+        draw = torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32))
+        return (draw * WHISPER_NORM_STD + (1.0 if path[-1] == "w" else 0.0)).to(t.dtype)
+
+    bridged = params_to_jax(tree_map_with_path(redraw, host))
+    card = params_from_jax(bridged, device="cuda", dtype=model.rt.dtype)
+    cpu = params_from_jax(bridged, device="cpu", dtype=model.rt.dtype)
+    leaves = tree_leaves(card)
+    return card, cpu, {"init": "Model.init(0) on the host, LayerNorm w/b redrawn "
+                               f"(std {WHISPER_NORM_STD}), through params_to_jax/params_from_jax",
+                       "parameters": sum(t.numel() for t in leaves)}
+
+
+def whisper_requests(vocab: int, n: int, lo: int, hi: int, new: int, seed: int):
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=f"w{i}", prompt=rng.integers(1, vocab, int(k)).tolist(),
+                    max_new_tokens=new)
+            for i, k in enumerate(rng.integers(lo, hi + 1, n))]
+
+
+def fill_cross_cache(model, params, cache, frames) -> None:
+    """The cross cache filled from the encoder as the reference's
+    ``tests/test_arch_smoke.py`` fills it: ``_encode``, then each layer's
+    K and V projections (not an engine feature, in either package)."""
+    from repro_torch.models.layers import qkv_project
+
+    cfg = model.cfg
+    with torch.no_grad():
+        enc = model._encode(params, frames)
+        for i, cp in enumerate(params["cross"]):
+            _, k, v = qkv_project(cp["attn"], enc, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim)
+            cache["cross_k"][i].copy_(k)
+            cache["cross_v"][i].copy_(v)
+
+
+def whisper_decode(model, params, frames, tokens, device) -> tuple:
+    """``decode_step`` over ``tokens`` ``(B, T)`` from a dense cache whose
+    cross cache is filled from ``frames``: every step's logits ``(B, T,
+    Vp)`` on the CPU, and the launches of the steps (the encoder's
+    excluded)."""
+    b, t = tokens.shape
+    cache = model.init_cache(b, t, device=device)
+    fill_cross_cache(model, params, cache, frames.to(device))
+    reset_launches()
+    out = []
+    with torch.no_grad():
+        for i in range(t):
+            logits, cache = model.decode_step(params, cache, tokens[:, i:i + 1].to(device),
+                                              torch.full((b,), i, device=device))
+            out.append(logits.cpu())
+    return torch.cat(out, dim=1), read_launches()
+
+
+def phase_whisper_parity() -> dict:
+    """whisper-tiny whole in f32 (TF32 off), weights from the host through
+    the bridge (``whisper_host_weights``), card against CPU: (a) the dense
+    engine on 4 requests (prompts 8-48, 16 new), every prompt ingested one
+    token a decode dispatch: equal greedy tokens (the near-tie exception),
+    every counter, every dispatch's logits at parity's 1e-4, exactly 4
+    paged launches a dispatch (the cross attention of each decoder layer
+    over the engine's zero cross cache), all on the decode path, and no
+    other; (b) ``decode_step`` on 2 rows over a fixed 32-token sequence
+    with the cross cache filled from ``SyntheticLM``'s 1,500 frames: each
+    step's logits at 1e-4, 4 decode-path paged launches a step, and the
+    distance from the teacher-forced forward reported; (c) one forward at
+    2 x 448 over those frames: exactly 12 flash launches (4 encoder,
+    non-causal over 1,500; 4 causal self; 4 cross, 448 x 1,500) and
+    nothing else, its distance from the CPU's forward reported."""
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    model = whisper_model(torch.float32)
+    cfg = model.cfg
+    params, params_cpu, weights = whisper_host_weights(model)
+    rec = {"phase": "whisper_parity", "arch": WHISPER_ARCH, "dtype": "float32",
+           "weights": weights, "against": "the same calls on the CPU"}
+    # (a) the dense engine
+    reqs = lambda: whisper_requests(cfg.vocab_size, 4, 8, 48, 16, 12)  # noqa: E731
+    reset_launches()
+    gpu, gpu_s, gpu_calls = run_recorded(model, params, reqs(), "cuda", **WHISPER_PARITY_KW)
+    launches = read_launches()
+    cpu, cpu_s, cpu_calls = run_recorded(model, params_cpu, reqs(), "cpu", **WHISPER_PARITY_KW)
+    what = "whisper_parity engine, card against CPU"
+    divs = compare_greedy(model, params_cpu, gpu, cpu, what)
+    require(gpu.prefill_dispatches == 0, f"{what}: a prompt took the fused prefill")
+    require_exact_launches(cfg, launches, gpu.dispatches, what, paged=cfg.n_layers * gpu.dispatches)
+    rec["engine"] = {"requests": 4, "knobs": WHISPER_PARITY_KW, "tokens_equal": not divs,
+                     "divergences": divs,
+                     "counters_card_cpu": compare_counters(gpu, cpu, what, MOE_COUNTERS),
+                     "logits": compare_dispatch_logits(gpu_calls, cpu_calls, bool(divs), what),
+                     "launches": launches,
+                     "launches_per_dispatch": {k: v / gpu.dispatches
+                                               for k, v in launches.items()},
+                     "card_s": gpu_s, "cpu_s": cpu_s}
+    # (b) decode over a cross cache filled from the frames
+    b, t = WHISPER_DECODE
+    batch = SyntheticLM(cfg, DataConfig(seq_len=t, global_batch=b, seed=21), device="cpu").batch(0)
+    frames, tokens = batch["frames"], batch["tokens"]
+    card, launches = whisper_decode(model, params, frames, tokens, "cuda")
+    host, _ = whisper_decode(model, params_cpu, frames, tokens, "cpu")
+    what = "whisper_parity decode over the filled cross cache, card against CPU"
+    diff = (card - host).abs()
+    ratio = float((diff / (PARITY_PARAM_ATOL + PARITY_RTOL * host.abs())).max())
+    require_exact_launches(cfg, launches, t, what, paged=cfg.n_layers * t)
+    with torch.no_grad():
+        forced = model.forward(params_cpu, tokens, frames=frames)
+    rec["decode"] = {"rows": b, "tokens": t, "frames": cfg.encoder_seq,
+                     "max_abs_err": float(diff.max()), "worst_over_tolerance": ratio,
+                     "launches": launches,
+                     "from_teacher_forced_forward_max_abs": float((card - forced).abs().max())}
+    require(ratio <= 1.0, f"{what}: logits {ratio}x past rtol {PARITY_RTOL} / atol "
+            f"{PARITY_PARAM_ATOL}")
+    # (c) one forward at 448 through the flash kernel
+    s = WHISPER_EVAL_SHAPE[1]
+    batch = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=2, seed=22), device="cpu").batch(0)
+    reset_launches()
+    with torch.no_grad():
+        card = model.forward(params, batch["tokens"].cuda(), frames=batch["frames"].cuda())
+        torch.cuda.synchronize()
+        launches = read_launches()
+        host = model.forward(params_cpu, batch["tokens"], frames=batch["frames"])
+    what = "whisper_parity forward at 2 x 448"
+    require_exact_launches(cfg, launches, 1, what, flash=flash_per_forward(cfg))
+    rec["forward"] = {"batch": [2, s], "launches": launches,
+                      "from_cpu_max_abs": float((card.cpu() - host).abs().max()),
+                      "cpu_logits_max_abs": float(host.abs().max())}
+    del params, params_cpu
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def time_layernorm(rows: int, d: int, dtype) -> dict:
+    """The plain LayerNorm (``layers.apply_norm``, as the reference
+    computes it: no kernel of its own) at ``rows x d``: its device time
+    and its byte bound (x read, the output written, w and b read once)."""
+    from repro_torch.models.layers import apply_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x = torch.randn((rows, d), generator=gen, device="cuda").to(dtype)
+    p = {"w": torch.randn(d, generator=gen, device="cuda").to(dtype),
+         "b": torch.randn(d, generator=gen, device="cuda").to(dtype)}
+    item = x.element_size()
+    return {"shape": {"rows": rows, "d": d}, "dtype": str(dtype).removeprefix("torch."),
+            "ms": time_ms(lambda: apply_norm(p, x, "layernorm", 1e-5)),
+            "bound_ms": (2 * rows * d + 2 * d) * item / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(lambda: torch.nn.functional.layer_norm(x, (d,), p["w"], p["b"])),
+            "library_call": "F.layer_norm"}
+
+
+def time_cross_cache(dtype) -> dict:
+    """The paged kernel over whisper's cross cache at the serve shape
+    (``cross_cache_inputs``: B 16, Hkv 6, G 1, 1,500 keys in pages of 20),
+    held against its plain version and timed beside its bound (36.9 MB of
+    K and V), the plain version and SDPA on the contiguous K/V (no mask:
+    the pages gather nothing)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (
+        decode_plan,
+        kernel_path,
+        paged_flash_attention_folded,
+        paged_flash_attention_folded_plain,
+    )
+
+    q, kp, vp, table, offs, (kc, vc) = cross_cache_inputs(dtype, seed=33)
+    b, hkv, g, dk = q.shape
+    scale = 1.0 / math.sqrt(dk)
+    kern = lambda: paged_flash_attention_folded(  # noqa: E731
+        q, kp, vp, table, offs, tokens_per_row=1, scale=scale)
+    plain = lambda: paged_flash_attention_folded_plain(  # noqa: E731
+        q, kp, vp, table, offs, tokens_per_row=1, scale=scale)
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(q, kt, vt)  # noqa: E731
+    path = kernel_path(dtype, g, dk, dk)
+    nbytes, flops = paged_work(q, kp, table, offs, 1, dk)
+    bms, by, _ = paged_route_bound(nbytes, flops, dtype, path)
+    err = check_at_shape("paged attention (whisper cross cache)", kern, plain, dtype)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, rounds = decode_plan(b, hkv, table.shape[1], kp.shape[1], dk, dk, q.element_size(),
+                                 sms)
+    return {"at": f"whisper_cross_{'f32' if dtype == torch.float32 else 'bf16'}",
+            "shape": {"B": b, "Hkv": hkv, "G": g, "T": 1, "dk": dk, "keys": kc.shape[1],
+                      "page_size": kp.shape[1], "pages_per_slot": table.shape[1]},
+            "dtype": str(dtype).removeprefix("torch."), "path": path,
+            "plan": {"splits": splits, "round_pages": rounds}, "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "library_ms": time_ms(lib),
+            "library_call": "F.scaled_dot_product_attention on the contiguous cross cache"}
+
+
+def phase_whisper_serve() -> dict:
+    """whisper-tiny whole in bf16 on the dense engine, weights drawn on the
+    card: 16 requests (prompts 16-64, 128 new, ``max_len`` 448, whisper's
+    text context), every prompt ingested one token a decode dispatch; the
+    cross cache (147.5 MB at 16 rows) is zero as the reference's engine
+    leaves it, and the paged kernel reads all of it.  Tokens/s, dispatch
+    wall median and p99, peak memory, exactly 4 decode-path paged launches
+    a dispatch and nothing else launched; a traced decode dispatch (wall,
+    busy, idle share, ops, the paged kernel's device time) and LayerNorm
+    timed alone at the dispatch's 16 x 384 (13 a dispatch); the cross
+    attention timed in both dtypes (``time_cross_cache``)."""
+    from repro_torch.serving.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    model = whisper_model(torch.bfloat16)
+    cfg = model.cfg
+    params, weights = zoo_weights(model)
+    kw = WHISPER_SERVE_KW
+    run_engine(model, params, whisper_requests(cfg.vocab_size, 2, 16, 20, 4, 1), "cuda", **kw)
+    reqs = whisper_requests(cfg.vocab_size, 16, 16, 64, 128, 13)
+    eng = ServeEngine(model, params, device="cuda", **kw)
+    eng._decode = DispatchTimer(eng._decode)
+    eng.submit(reqs)
+    release_device_memory()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    step_ms = []
+    t0 = time.perf_counter()
+    while eng.pending or eng.scheduler.has_active():
+        t_step = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    name = "whisper_serve"
+    outs = {r.uid: r.output for r in eng.finished}
+    require(len(outs) == len(reqs) and all(
+        len(o) == 128 and all(0 <= t < cfg.vocab_size for t in o) for o in outs.values()),
+        f"{name}: a request did not finish with 128 tokens inside the vocab")
+    require(eng.prefill_dispatches == 0, f"{name}: a prompt took the fused prefill")
+    require_exact_launches(cfg, launches, eng.dispatches, name,
+                           paged=cfg.n_layers * eng.dispatches)
+    cross = eng.cache["cross_k"]
+    d = eng.dispatches
+    rec = {"phase": name, "arch": WHISPER_ARCH, "dtype": "bfloat16", "weights": weights,
+           "knobs": kw, "requests": len(reqs), "prompt_tokens": [16, 64], "max_new_tokens": 128,
+           "wall_s": wall, "tokens_emitted": eng.tokens_emitted,
+           "tokens_per_s": eng.tokens_emitted / wall, "dispatches": d,
+           "decode_dispatches": eng.decode_dispatches, "dispatch_wall_ms": summary(step_ms),
+           "decode_dispatch_device_span_ms": summary(eng._decode.ms()),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "cross_cache_bytes": 2 * cross.numel() * cross.element_size(),
+           "peak_cache_bytes": eng.peak_cache_bytes, "launches": launches,
+           "launches_per_dispatch": {k: v / d for k, v in launches.items()}}
+    del eng
+    eng = ServeEngine(model, params, device="cuda", **kw)
+    eng.submit(whisper_requests(cfg.vocab_size, 16, 256, 256, 64, 14))
+    for _ in range(4):
+        eng.step()
+    d0 = eng.decode_dispatches
+    profile = trace(eng.step, SLICE_TRACE_TICKS, "dispatch",
+                    watch=("paged_decode_kernel", "gemm", "gemv", "nvjet"))
+    require(eng.decode_dispatches - d0 == 2 * SLICE_TRACE_TICKS,
+            f"{name}: traced ticks were not all decode dispatches")
+    profile["paged_ms_per_dispatch"] = profile["watched_ops"]["paged_decode_kernel"][
+        "ms_per_dispatch"]
+    norm = time_layernorm(16, cfg.d_model, torch.bfloat16)
+    norms = 3 * cfg.n_layers + 1  # ln1, the cross ln and ln2 a layer, then ln_f
+    profile["layernorm"] = {"norms_per_dispatch": norms, "timed_alone": norm,
+                            "ms_per_dispatch": norms * norm["ms"]}
+    rec["profile"] = {"what": "decode dispatch, 16 rows, prompts 256", "ticks": SLICE_TRACE_TICKS,
+                      **profile}
+    del eng, params
+    release_device_memory()
+    rec["kernel_times"] = {"paged_attention": {
+        t["at"]: t for t in (time_cross_cache(dt) for dt in (torch.bfloat16, torch.float32))}}
+    for t in rec["kernel_times"]["paged_attention"].values():
+        require(t["path"] == "decode", f"{name}: the cross cache {t['at']} took {t['path']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def phase_whisper_eval() -> dict:
+    """whisper-tiny whole over 16 x (1,500 frames + 448 tokens) from
+    ``SyntheticLM``, weights drawn on the card (``eval_runs``: f32 through
+    the kernels held at 1e-3 against the plain path, 12 flash launches a
+    forward and no RMSNorm, a finite loss; bf16 timed and reported); then
+    flash at each of its shapes timed in both dtypes beside its bound, its
+    plain version and SDPA: the encoder (BH 96 x 1,500, non-causal), cross
+    attention (BH 96 x 448 x 1,500, non-causal) and the decoder (BH 96 x
+    448, causal)."""
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    t_phase = time.perf_counter()
+    model = whisper_model(torch.float32)
+    cfg = model.cfg
+    rows, text = WHISPER_EVAL_SHAPE
+    batch = SyntheticLM(cfg, DataConfig(seq_len=text, global_batch=rows, seed=1234),
+                        device="cuda").batch(0)
+    require(batch["frames"].shape == (rows, cfg.encoder_seq, cfg.d_model),
+            f"whisper_eval: frames of shape {tuple(batch['frames'].shape)}")
+    params, weights = zoo_weights(model)
+    rec = {"phase": "whisper_eval", "arch": WHISPER_ARCH, "weights": weights,
+           "batch": [rows, text], "frames": cfg.encoder_seq}
+    rec["runs"], rec["misses"] = eval_runs("whisper_eval", cfg, params, batch)
+    del params
+    release_device_memory()
+    bh = rows * cfg.n_heads
+    rec["kernel_times"] = [
+        time_flash(bh, s, dtype, hd=cfg.resolved_head_dim, skv=skv, causal=causal)
+        for s, skv, causal in ((cfg.encoder_seq, cfg.encoder_seq, False),
+                               (text, cfg.encoder_seq, False), (text, text, True))
+        for dtype in (torch.bfloat16, torch.float32)]
+    release_device_memory()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    require(not rec["misses"], "whisper_eval: " + "; ".join(rec["misses"]))
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -5775,9 +6275,9 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
     eval, ssm_serve, ssm_eval, the hybrid's static job through the control
     plane, hybrid_serve, hybrid_eval, each zoo model's serve run,
     moe_serve's dense and capacity runs, moe_eval's forwards, mla_serve's
-    run, and ``slices``: danube_serve's and vlm_serve's runs, danube_eval's
-    and vlm_eval's forwards: counts set to 0 before each run and read
-    after), the paged kernel's and
+    run, and ``slices``: danube_serve's, vlm_serve's and whisper_serve's
+    runs, danube_eval's, vlm_eval's and whisper_eval's forwards: counts
+    set to 0 before each run and read after), the paged kernel's and
     RMSNorm's also by kernel path, its worst error, and its times at its
     first timed shape with the others beside."""
     def total(runs):
@@ -5796,7 +6296,9 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
              "danube_serve": slices["danube_serve"]["launches"],
              "danube_eval": total(slices["danube_eval"]["runs"]),
              "vlm_serve": slices["vlm_serve"]["launches"],
-             "vlm_eval": total(slices["vlm_eval"]["runs"])}
+             "vlm_eval": total(slices["vlm_eval"]["runs"]),
+             "whisper_serve": slices["whisper_serve"]["launches"],
+             "whisper_eval": total(slices["whisper_eval"]["runs"])}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
                             **spec_serve["kernel_times"]["paged_attention"],
@@ -5805,7 +6307,8 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                             **{f"deepseek_{k}": t for k, t in
                                mla_serve["kernel_times"]["paged_attention"].items()},
                             **{f"internvl_{k}": t for k, t in
-                               slices["vlm_serve"]["kernel_times"]["paged_attention"].items()}},
+                               slices["vlm_serve"]["kernel_times"]["paged_attention"].items()},
+                            **slices["whisper_serve"]["kernel_times"]["paged_attention"]},
         "rmsnorm": {**serve["kernel_times"]["rmsnorm"],
                     **{f"d2048_{k}": t for k, t in ssm_serve["kernel_times"]["rmsnorm"].items()},
                     **{f"d4096_{k}": t for k, t in hybrid_serve["kernel_times"]["rmsnorm"].items()},
@@ -5827,7 +6330,11 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                                          *slices["danube_eval"]["kernel_times"]]},
                             **{f"{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}_hd"
                                f"{t['shape']['hd']}": t
-                               for t in slices["vlm_eval"]["kernel_times"]}},
+                               for t in slices["vlm_eval"]["kernel_times"]},
+                            **{f"whisper_{t['dtype']}_{t['shape']['BH']}x{t['shape']['S']}"
+                               f"{'x' + str(t['shape']['Skv']) if 'Skv' in t['shape'] else ''}"
+                               f"_{'causal' if t['shape'].get('causal', True) else 'full'}": t
+                               for t in slices["whisper_eval"]["kernel_times"]}},
         "ssd": {**{t["at"]: t for t in ssm_eval["kernel_times"]},
                 **ssm_serve["kernel_times"]["ssd"],
                 **{t["at"]: t for t in hybrid_eval["kernel_times"]["ssd"]},
@@ -5965,7 +6472,10 @@ def main() -> int:
     for name, phase in (("danube_parity", phase_danube_parity),
                         ("danube_serve", phase_danube_serve),
                         ("danube_eval", phase_danube_eval), ("vlm_parity", phase_vlm_parity),
-                        ("vlm_serve", phase_vlm_serve), ("vlm_eval", phase_vlm_eval)):
+                        ("vlm_serve", phase_vlm_serve), ("vlm_eval", phase_vlm_eval),
+                        ("whisper_parity", phase_whisper_parity),
+                        ("whisper_serve", phase_whisper_serve),
+                        ("whisper_eval", phase_whisper_eval)):
         slices[name] = phase()
         lap(name)
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,

@@ -15,5 +15,6 @@ from repro_torch.configs import (  # noqa: F401
     mixtral_8x7b,
     nemotron_4_340b,
     qwen2_72b,
+    whisper_tiny,
     zamba2_1p2b,
 )

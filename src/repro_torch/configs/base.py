@@ -2,10 +2,9 @@
 registry and :func:`reduced` for CPU-sized tests.
 
 A copy of the reference package's ``configs/base.py`` (the port keeps
-its own: it imports nothing of the JAX package), restricted to what the
-port's dense, MoE (MLA included), SSM, hybrid and VLM paths read.  Field
-names, defaults and derived properties are unchanged so a config means
-the same thing in both packages.
+its own: it imports nothing of the JAX package).  Field names, defaults
+and derived properties are unchanged so a config means the same thing in
+both packages.
 """
 
 from __future__ import annotations
@@ -131,19 +130,14 @@ def get_arch(name: str) -> ArchConfig:
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     """A tiny same-family config for CPU tests (the reference package's
-    ``reduced`` for the dense, MoE, SSM, hybrid and VLM families: 2 layers,
-    d_model 64, vocab 256; 4 query heads over at most 2 KV heads of 16, or
-    SSM state 16, head width 16 and chunk 16; a MoE has 4 experts of width
-    64, top-k at most 2, at most 1 shared expert and 1 dense layer; MLA
-    has a latent of rank 32 (queries 48), RoPE keys of 8, no-RoPE and value
-    heads of 16; a hybrid has 4 layers with the shared block every 2 and a
-    LoRA rank of at most 8; a VLM 8 vision tokens; a sliding window becomes
-    32)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        raise NotImplementedError(
-            f"reduced() is ported for the dense, MoE, SSM, hybrid and VLM families only, "
-            f"got {cfg.family!r} (ROADMAP Queue 1: whisper)"
-        )
+    ``reduced``): 2 layers, d_model 64, vocab 256; 4 query heads over at
+    most 2 KV heads of 16, or SSM state 16, head width 16 and chunk 16; a
+    MoE has 4 experts of width 64, top-k at most 2, at most 1 shared
+    expert and 1 dense layer; MLA has a latent of rank 32 (queries 48),
+    RoPE keys of 8, no-RoPE and value heads of 16; a hybrid has 4 layers
+    with the shared block every 2 and a LoRA rank of at most 8; an
+    encoder-decoder 2 encoder layers over 32 frames; a VLM 8 vision
+    tokens; a sliding window becomes 32; learned positions 512."""
     small: Dict = dict(
         n_layers=max(2, cfg.shared_attn_every or 0) * 2 if cfg.family == "hybrid" else 2,
         d_model=64,
@@ -165,6 +159,8 @@ def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:
     if cfg.shared_attn_every:
         small.update(shared_attn_every=2, n_layers=4,
                      shared_attn_lora_rank=min(cfg.shared_attn_lora_rank, 8))
+    if cfg.is_encoder_decoder:
+        small.update(n_encoder_layers=2, encoder_seq=32)
     if cfg.n_vision_tokens:
         small.update(n_vision_tokens=8)
     if cfg.sliding_window:

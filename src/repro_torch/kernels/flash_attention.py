@@ -30,10 +30,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 120, 128, 192)  # the kernel's instantiations (120 at a padded depth of 128)
 
 
-def supports(seq_len: int, head_dim: int, block: int = 512) -> bool:
-    """Whether the kernel takes a causal self-attention of this length and
-    head width with the default blocks."""
-    return head_dim in HEAD_DIMS and seq_len % min(block, seq_len) == 0
+def supports(seq_len: int, head_dim: int, block: int = 512, *, causal: bool = True) -> bool:
+    """Whether the model's route takes the kernel at this head width: a
+    causal self-attention whose length fits the default blocks; a
+    non-causal one (an encoder's, cross attention) at any lengths of
+    queries and keys, since its caller passes blocks equal to the lengths
+    (the reference's signature takes ``block_q = Sq``) and the kernel
+    masks the keys and skips the rows past a ragged last tile."""
+    if head_dim not in HEAD_DIMS:
+        return False
+    return not causal or seq_len % min(block, seq_len) == 0
 
 
 def flash_attention_bhsd_plain(

@@ -1,16 +1,16 @@
 """The dense decoder, the MoE family (mixtral; deepseek with MLA), the
-SSM (mamba2) family, the hybrid (zamba2) family and the VLM backbone
-(internvl2): full-sequence forward, loss and the serving path on a paged
-or a dense (per-slot) cache.
+SSM (mamba2) family, the hybrid (zamba2) family, the VLM backbone
+(internvl2) and the encoder-decoder (whisper): full-sequence forward,
+loss and the serving path on a paged or a dense (per-slot) cache.
 
-Counterpart of the reference package's ``models/transformer.py`` for
-the dense, MoE, SSM, hybrid and VLM families:
+Counterpart of the reference package's ``models/transformer.py``:
 
     model = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
     params = model.init(seed, device="cuda")
     params = model.draw(torch.Generator("cuda").manual_seed(seed))  # drawn on the card
     logits = model.forward(params, tokens)              # (B, S, Vp)
     logits = model.forward(params, tokens, patches=p)   # VLM: (B, n_vision + S, Vp)
+    logits = model.forward(params, tokens, frames=f)    # encoder-decoder: (B, S, Vp)
     loss, metrics = model.loss(params, {"tokens": ..., "labels": ...})
     cache = model.init_cache(batch, max_len)            # dense, the default
     cache = model.init_cache(batch, max_len, paged=True, page_size=16, n_pages=N)
@@ -31,7 +31,14 @@ reference.  A VLM's forward takes the stub frontend's ``patches``
 ``(B, n_vision_tokens, d)``, cast to the model dtype and put ahead of the
 token embeddings, positions running over the whole stream; its loss
 drops the patches' logits.  Its serving path ingests tokens alone, one a
-dispatch (``supports_fused_prefill``), as the reference's does.  Layers
+dispatch (``supports_fused_prefill``), as the reference's does.  An
+encoder-decoder's forward runs the encoder over the stub frontend's
+``frames`` ``(B, encoder_seq, d)`` (non-causal, no RoPE) and adds each
+decoder layer's cross attention to its output; learned positions
+(``max_position_embeddings``) replace RoPE.  On the card all three
+attentions take the flash kernel; decode reads each layer's cross cache
+through the paged kernel (``cross_page_view``).  Its serving path takes
+the dense cache, a token a dispatch.  Layers
 run as a Python loop over the per-layer dicts (the reference scans
 stacked layers); remat is not ported.
 
@@ -41,7 +48,11 @@ one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo} (MLA's leaves, see
 {wi, wg, wo}, or in a MoE layer ``moe`` {router, wi, wg, wo, shared},
 see ``moe.moe_param_tree``, the ``first_k_dense`` dense layers first; or
 for an SSM layer ``ln1`` and ``mixer``, see ``ssm.mamba2_param_tree``),
-``ln_f`` and ``lm_head`` ``(d, Vp)``.  A
+``ln_f`` and ``lm_head`` ``(d, Vp)``.  An encoder-decoder adds
+``encoder`` (``layers``, ``ln_f``, its frame positions ``pos``
+``(encoder_seq, d)``), ``cross`` (a list, one ``ln`` and ``attn`` a
+decoder layer) and the decoder's ``pos`` ``(max_position_embeddings,
+d)``; LayerNorm carries a bias ``b``.  A
 hybrid model adds ``shared``: one transformer block at width ``2 d``
 (``ln1``, ``attn``, ``ln2``, ``mlp``, ``down`` back to ``d``) run before
 each full segment of ``shared_attn_every`` SSM layers, its ``wq`` offset
@@ -56,6 +67,8 @@ sites read alike.  The paged cache holds ``page_table``, ``k_pages`` and
 rope)``); the dense cache ``k``/``v`` ``(L, B, t, Hkv, hd)`` for the
 attention families (``t = max_len``, or with a sliding window the rolling
 ``min(max_len, pad128(window + 1))`` slots written at ``position % t``;
+an encoder-decoder adds ``cross_k``/``cross_v`` ``(L, B, encoder_seq,
+Hkv, hd)``;
 MLA: ``c_kv`` ``(L, B, max_len, r)`` and ``k_rope`` ``(L, B, max_len,
 rope)``) and, for an SSM, ``state``: the conv windows ``(L, B,
 k-1, c)`` in the model dtype and ``ssm`` ``(L, B, h, p, n)`` in fp32; a
@@ -76,6 +89,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -99,6 +113,7 @@ from repro_torch.models.layers import (
 
 Params = Dict[str, Any]
 ATTN_IMPLS = ("auto", "direct", "chunked", "kernel")
+CROSS_PAGE_SIZE = 20  # the most keys a page of the cross cache's page view holds
 
 
 @dataclass(frozen=True)
@@ -119,18 +134,19 @@ class ModelRuntime:
             raise ValueError(f"moe_strategy {self.moe_strategy!r} not in {moe.STRATEGIES}")
 
     def resolve_attn(self, seq_len: int, *, device=None, grad: bool = False,
-                     head_dim: int = 0) -> str:
-        """The full-sequence attention implementation.  An explicit
+                     head_dim: int = 0, causal: bool = True) -> str:
+        """The full-sequence attention implementation over ``seq_len``
+        queries, causal or not.  An explicit
         ``attn_impl`` is obeyed.  ``auto`` keeps the reference's rule
         (``direct`` up to 4096 tokens, else ``chunked``) on the CPU and
         wherever a gradient is taken; on a CUDA device with no gradient it
-        takes the flash kernel where the kernel has the head width and the
-        length fits its blocks, as the reference's ``resolve_paged_attn``
-        picks its kernel on its own accelerator."""
+        takes the flash kernel wherever ``flash.supports`` the call, as
+        the reference's ``resolve_paged_attn`` picks its kernel on its own
+        accelerator."""
         if self.attn_impl != "auto":
             return self.attn_impl
         on_card = device is not None and torch.device(device).type == "cuda"
-        if on_card and not grad and flash.supports(seq_len, head_dim):
+        if on_card and not grad and flash.supports(seq_len, head_dim, causal=causal):
             return "kernel"
         return "chunked" if seq_len > 4096 else "direct"
 
@@ -209,36 +225,113 @@ def chunked_attention(
     return torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, s, h, hd)
 
 
+def _full_attention(q, k, v, rt: ModelRuntime, *, causal: bool, q_positions, kv_positions,
+                    sliding_window: int = 0, logit_softcap: float = 0.0) -> torch.Tensor:
+    """Attention of ``q`` ``(B, Sq, H, hd)`` over ``k``/``v`` ``(B, Skv,
+    H, hd)`` (KV heads repeated) by ``rt.resolve_attn``: the flash kernel
+    (no logit softcap, as the reference's kernel branch; a non-causal call
+    passes blocks equal to its lengths, which ``flash.supports`` counts
+    on), ``chunked`` where the lengths are equal, else ``direct``."""
+    sq, skv, hd = q.shape[1], k.shape[1], q.shape[3]
+    impl = rt.resolve_attn(sq, device=q.device, grad=q.requires_grad, head_dim=hd,
+                           causal=causal)
+    if impl == "kernel":
+        blocks = {} if causal else dict(block_q=sq, block_k=skv)
+        return ops.flash_attention(q, k, v, causal=causal, sliding_window=sliding_window,
+                                   **blocks)
+    if impl == "chunked" and sq == skv:
+        return chunked_attention(q, k, v, causal=causal, sliding_window=sliding_window,
+                                 chunk=_pick_chunk(sq, rt.attn_chunk))
+    return attention_scores(q, k, v, causal=causal, sliding_window=sliding_window,
+                            q_positions=q_positions, kv_positions=kv_positions,
+                            logit_softcap=logit_softcap)
+
+
 def _attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, rt: ModelRuntime, *,
-                  positions: torch.Tensor, n_heads: Optional[int] = None,
-                  n_kv: Optional[int] = None, head_dim: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence causal self-attention of one layer (the reference's
-    ``_attn_forward``); the heads default to the config's, the hybrid's
-    shared block passes its own."""
+                  positions: torch.Tensor, causal: bool = True, use_rope: bool = True,
+                  n_heads: Optional[int] = None, n_kv: Optional[int] = None,
+                  head_dim: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence self-attention of one layer (the reference's
+    ``_attn_forward``): causal in a decoder, not in an encoder; RoPE
+    unless the model learns its positions.  The heads default to the
+    config's, the hybrid's shared block passes its own."""
     h, hkv = n_heads or cfg.n_heads, n_kv or cfg.n_kv_heads
     hd = head_dim or cfg.resolved_head_dim
     b, s, _ = x.shape
     q, k, v = qkv_project(p, x, h, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    kr, vr = repeat_kv(k, h), repeat_kv(v, h)
-    impl = rt.resolve_attn(s, device=x.device, grad=q.requires_grad, head_dim=hd)
-    if impl == "kernel":
-        # as the reference's kernel branch, no logit softcap here
-        out = ops.flash_attention(q, kr, vr, causal=True, sliding_window=cfg.sliding_window)
-    elif impl == "chunked":
-        out = chunked_attention(q, kr, vr, causal=True, sliding_window=cfg.sliding_window,
-                                chunk=_pick_chunk(s, rt.attn_chunk))
-    else:
-        out = attention_scores(q, kr, vr, causal=True, sliding_window=cfg.sliding_window,
-                               q_positions=positions, kv_positions=positions,
-                               logit_softcap=cfg.attn_logit_softcap)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = _full_attention(q, repeat_kv(k, h), repeat_kv(v, h), rt, causal=causal,
+                          q_positions=positions, kv_positions=positions,
+                          sliding_window=cfg.sliding_window,
+                          logit_softcap=cfg.attn_logit_softcap)
     return out.reshape(b, s, h * hd) @ p["wo"]
+
+
+def _project(p: Params, x: torch.Tensor, name: str, heads: int, hd: int) -> torch.Tensor:
+    """One of ``qkv_project``'s three projections alone (``name`` q, k or
+    v), bias included where there is one: ``(B, S, heads, hd)``."""
+    y = x @ p[f"w{name}"]
+    if f"b{name}" in p:
+        y = y + p[f"b{name}"]
+    return y.reshape(x.shape[0], x.shape[1], heads, hd)
+
+
+def _cross_forward(p: Params, x: torch.Tensor, enc: torch.Tensor, cfg: ArchConfig,
+                   rt: ModelRuntime, positions: torch.Tensor) -> torch.Tensor:
+    """A decoder layer's cross attention over the encoder's output (the
+    reference's, inlined in its ``_run_decoder_with_cross``): queries from
+    the normed stream ``x``, keys and values from ``enc``, no mask, no
+    RoPE.  The reference attends directly; on the card this takes the
+    flash kernel (``_full_attention``)."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, s, _ = x.shape
+    q = _project(p, x, "q", h, hd)
+    k, v = (repeat_kv(_project(p, enc, n, hkv, hd), h) for n in "kv")
+    enc_pos = torch.arange(enc.shape[1], device=enc.device)[None].expand(b, -1)
+    out = _full_attention(q, k, v, rt, causal=False, q_positions=positions,
+                          kv_positions=enc_pos)
+    return out.reshape(b, s, h * hd) @ p["wo"]
+
+
+@lru_cache(maxsize=None)
+def cross_page_view(batch: int, n_keys: int, device: torch.device) -> Tuple[int, torch.Tensor,
+                                                                             torch.Tensor]:
+    """How decode reads the cross cache through the paged kernel: a layer's
+    ``(B, n_keys, Hkv, hd)`` slice, contiguous, is a pool of ``B * P``
+    pages of ``ps`` keys (``ps`` the largest divisor of ``n_keys`` up to
+    ``CROSS_PAGE_SIZE``: 20 at whisper's 1,500 frames), row ``b`` owning
+    pages ``b P .. b P + P - 1``; every row's query sits at position
+    ``n_keys - 1``, so the kernel's ``kv_pos <= q_pos`` admits every key,
+    the reference's ``causal=False``.  ``(ps, table (B, P) int32, offsets
+    (B,) int32)``, built once a shape and device (no host sync in a
+    dispatch)."""
+    ps = max(d for d in range(1, min(CROSS_PAGE_SIZE, n_keys) + 1) if n_keys % d == 0)
+    n_pages = n_keys // ps
+    table = torch.arange(batch * n_pages, dtype=torch.int32, device=device).view(batch, n_pages)
+    offsets = torch.full((batch,), n_keys - 1, dtype=torch.int32, device=device)
+    return ps, table, offsets
+
+
+def _cross_decode(p: Params, x: torch.Tensor, cross_k, cross_v, cfg: ArchConfig) -> torch.Tensor:
+    """A decode dispatch's cross attention of one layer over its cross cache
+    ``(B, encoder_seq, Hkv, hd)`` (the reference's block in its
+    ``_decode_attn``: unmasked, no RoPE), through ``ops.paged_attention``
+    over the cache's page view (``cross_page_view``): the paged kernel on
+    the card, its plain version on the CPU."""
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, n_keys = cross_k.shape[0], cross_k.shape[1]
+    ps, table, offsets = cross_page_view(b, n_keys, cross_k.device)
+    pool = (b * n_keys // ps, ps, hkv, hd)
+    out = ops.paged_attention(_project(p, x, "q", h, hd), cross_k.view(pool),
+                              cross_v.view(pool), table, offsets)
+    return out.reshape(b, x.shape[1], h * hd) @ p["wo"]
 
 
 def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: ArchConfig, *,
                       n_heads: Optional[int] = None, n_kv: Optional[int] = None,
-                      head_dim: Optional[int] = None):
+                      head_dim: Optional[int] = None, use_rope: bool = True):
     """Decode or chunked prefill against a dense per-slot KV cache ``(B, t,
     Hkv, hd)`` (the reference's ``_attn_decode``/``_attn_extend``): the
     tokens ``writes = (rows, toks)`` write their K/V at ``position % t``, in
@@ -246,13 +339,15 @@ def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: Ar
     slot ``s`` holds ``last - ((last - s) mod t)``, the reference's
     reconstruction (the slot itself while the cache does not wrap; negative
     = never written), within ``cfg.sliding_window`` of it when there is
-    one.  The heads default to the config's."""
+    one.  The heads default to the config's; RoPE unless ``use_rope`` is
+    off (learned positions)."""
     h, hkv = n_heads or cfg.n_heads, n_kv or cfg.n_kv_heads
     hd = head_dim or cfg.resolved_head_dim
     b, T, _ = x.shape
     q, k, v = qkv_project(p, x, h, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     t = cache_k.shape[1]
     rows, toks = writes
     write = positions[rows, toks] % t
@@ -273,7 +368,9 @@ def _mixer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> 
         return ssm.apply_mamba2(p["mixer"], xn, cfg, use_kernel=use_kernel)
     if cfg.use_mla:
         return mla.apply_mla(p["attn"], xn, cfg, positions=positions)
-    return _attn_forward(p["attn"], xn, cfg, rt, positions=positions)
+    # archs with learned absolute positions (whisper) do not use RoPE
+    return _attn_forward(p["attn"], xn, cfg, rt, positions=positions,
+                         use_rope=not cfg.max_position_embeddings)
 
 
 def _ffn(p: Params, hn, cfg: ArchConfig, rt: ModelRuntime) -> torch.Tensor:
@@ -320,19 +417,6 @@ def _shared_block_apply(p: Params, h, x0, inv: int, cfg: ArchConfig, rt: ModelRu
 
 class Model:
     def __init__(self, cfg: ArchConfig, runtime: Optional[ModelRuntime] = None):
-        unsupported = [
-            name for name, on in (
-                (f"family {cfg.family!r}",
-                 cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm")),
-                ("encoder-decoder", cfg.is_encoder_decoder),
-                ("learned positions", cfg.max_position_embeddings > 0),
-            ) if on
-        ]
-        if unsupported:
-            raise NotImplementedError(
-                f"arch {cfg.name!r}: {', '.join(unsupported)} not ported yet "
-                "(ROADMAP Queue 1: whisper)"
-            )
         self.cfg = cfg
         self.rt = runtime or ModelRuntime()
 
@@ -418,6 +502,14 @@ class Model:
             p["wo"] = dense(f, width, depth_scale)
             return p
 
+        def attn(bias: bool = cfg.qkv_bias) -> Params:
+            p = {"wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
+                 "wo": dense(h * hd, d, depth_scale)}
+            if bias:
+                p.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
+                         bv=const((hkv * hd,), 0.0))
+            return p
+
         n_dense = cfg.first_k_dense if cfg.family == "moe" else 0
         params: Params = {"embed": normal((vp, d), 0.02), "layers": []}
         for i in range(cfg.n_layers):
@@ -426,22 +518,24 @@ class Model:
                     "ln1": norm(),
                     "mixer": ssm.mamba2_param_tree(cfg, normal, const, fp32, depth_scale)})
                 continue
-            if cfg.use_mla:
-                attn = mla.mla_param_tree(cfg, dense, norm, depth_scale)
-            else:
-                attn = {
-                    "wq": dense(d, h * hd), "wk": dense(d, hkv * hd), "wv": dense(d, hkv * hd),
-                    "wo": dense(h * hd, d, depth_scale),
-                }
-            if cfg.qkv_bias:
-                attn.update(bq=const((h * hd,), 0.0), bk=const((hkv * hd,), 0.0),
-                            bv=const((hkv * hd,), 0.0))
-            layer = {"ln1": norm(), "attn": attn, "ln2": norm()}
+            a = mla.mla_param_tree(cfg, dense, norm, depth_scale) if cfg.use_mla else attn()
+            layer = {"ln1": norm(), "attn": a, "ln2": norm()}
             if cfg.family == "moe" and i >= n_dense:
                 layer["moe"] = moe.moe_param_tree(cfg, normal, mlp, depth_scale)
             else:
                 layer["mlp"] = mlp(d)
             params["layers"].append(layer)
+        if cfg.is_encoder_decoder:  # the reference's encoder and cross stacks
+            params["encoder"] = {
+                "layers": [{"ln1": norm(), "attn": attn(), "ln2": norm(), "mlp": mlp(d)}
+                           for _ in range(cfg.n_encoder_layers)],
+                "ln_f": norm(),
+                "pos": normal((cfg.encoder_seq, d), 0.02),
+            }
+            params["cross"] = [{"ln": norm(), "attn": attn(bias=False)}
+                               for _ in range(cfg.n_layers)]
+        if cfg.max_position_embeddings:
+            params["pos"] = normal((cfg.max_position_embeddings, d), 0.02)
         if cfg.family == "hybrid":  # the reference's _shared_block_init
             d2 = 2 * d
             hd2 = d2 // h
@@ -466,16 +560,21 @@ class Model:
 
     # ------------------------------------------------------------- forward
     def forward(self, params: Params, tokens: torch.Tensor,
-                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+                patches: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence causal forward: tokens ``(B, S)`` -> logits
         ``(B, S, Vp)`` float32; a VLM's ``patches`` ``(B, n_vision_tokens,
         d)`` go ahead of the tokens, and the logits are ``(B, n_vision_tokens
-        + S, Vp)``."""
-        x = params["embed"][tokens].to(self.rt.dtype)
+        + S, Vp)``; an encoder-decoder's decoder attends the encoder's
+        output over ``frames`` ``(B, encoder_seq, d)``."""
+        x = self._embed(params, tokens)
         if self.cfg.n_vision_tokens and patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        if self.cfg.is_encoder_decoder:
+            enc = self._encode(params, frames)
+            return self._logits(params, self._run_decoder_with_cross(params, x, enc, positions))
         h = x
         for i, lp in enumerate(params["layers"]):
             inv = self._shared_at(i)
@@ -484,6 +583,48 @@ class Model:
                                             positions)
             h = _layer_apply(lp, h, self.cfg, self.rt, positions)
         return self._logits(params, h)
+
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings in the model dtype, plus the learned position
+        table's rows where the model has one (the reference's ``_embed``
+        and ``_embed_decode``): at ``positions`` ``(B, T)``, or from 0."""
+        x = params["embed"][tokens]
+        if self.cfg.max_position_embeddings:
+            if positions is None:
+                x = x + params["pos"][:tokens.shape[1]][None]
+            else:
+                x = x + params["pos"][positions]
+        return x.to(self.rt.dtype)
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over the stub frontend's frame embeddings ``(B,
+        encoder_seq, d)`` (the reference's ``_encode``): learned positions,
+        non-causal self-attention without RoPE, the final norm."""
+        cfg, enc = self.cfg, params["encoder"]
+        x = frames.to(self.rt.dtype) + enc["pos"][None, :frames.shape[1]]
+        positions = torch.arange(frames.shape[1], device=x.device)[None].expand(x.shape[:2])
+        h = x
+        for lp in enc["layers"]:
+            hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
+            h = h + _attn_forward(lp["attn"], hn, cfg, self.rt, positions=positions,
+                                  causal=False, use_rope=False)
+            h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps),
+                              cfg.activation)
+        return apply_norm(enc["ln_f"], h, cfg.norm, cfg.norm_eps)
+
+    def _run_decoder_with_cross(self, params: Params, x: torch.Tensor, enc: torch.Tensor,
+                                positions: torch.Tensor) -> torch.Tensor:
+        """The decoder's layers (the reference's ``_run_decoder_with_cross``):
+        self-attention, then cross attention over ``enc``, then the MLP."""
+        cfg, h = self.cfg, x
+        for lp, cp in zip(params["layers"], params["cross"]):
+            h = h + _mixer_apply(lp, h, cfg, self.rt, positions)
+            h = h + _cross_forward(cp["attn"], apply_norm(cp["ln"], h, cfg.norm, cfg.norm_eps),
+                                   enc, cfg, self.rt, positions)
+            h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps),
+                              cfg.activation)
+        return h
 
     def _shared_at(self, i: int) -> Optional[int]:
         """The invocation of the hybrid's shared block that runs before
@@ -500,9 +641,10 @@ class Model:
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict]:
         """Next-token cross-entropy over ``batch`` (``tokens``, ``labels``,
-        a VLM's ``patches`` and an optional float ``loss_mask``); the
-        patches' positions carry no label."""
-        logits = self.forward(params, batch["tokens"], patches=batch.get("patches"))
+        a VLM's ``patches``, an encoder-decoder's ``frames`` and an optional
+        float ``loss_mask``); the patches' positions carry no label."""
+        logits = self.forward(params, batch["tokens"], patches=batch.get("patches"),
+                              frames=batch.get("frames"))
         if self.cfg.n_vision_tokens and "patches" in batch:
             logits = logits[:, self.cfg.n_vision_tokens:]
         labels = batch["labels"].long()
@@ -515,9 +657,10 @@ class Model:
         return loss, {"loss": loss, "tokens": mask.sum()}
 
     def prefill(self, params: Params, tokens: torch.Tensor,
-                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+                patches: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Prefill forward: the last position's logits ``(B, 1, Vp)``."""
-        return self.forward(params, tokens, patches=patches)[:, -1:]
+        return self.forward(params, tokens, patches=patches, frames=frames)[:, -1:]
 
     # ------------------------------------------------------------- cache
     @property
@@ -552,7 +695,10 @@ class Model:
         hd)``, ``t = max_len`` without a sliding window, else the rolling
         ``min(max_len, pad128(window + 1))`` slots.
         MLA: ``c_kv`` ``(L, batch, max_len, r)`` and ``k_rope`` ``(L, batch,
-        max_len, rope)``.
+        max_len, rope)``.  An encoder-decoder adds ``cross_k``/``cross_v``
+        ``(L, batch, encoder_seq, Hkv, hd)``, zeros until a caller fills them
+        from the encoder (the serving engine never does, as in the
+        reference).
         ``paged=True``: ``k_pages``/``v_pages`` ``(L, n_pages, page_size,
         Hkv, hd)`` (MLA: ``kv_pages`` ``(L, n_pages, page_size, r +
         rope)``, a slot's latent and RoPE key side by side) and a
@@ -580,8 +726,13 @@ class Model:
             window = cfg.sliding_window  # rolling: the window + 1 slots, padded to 128
             t = max_len if window == 0 else min(max_len, -(-(window + 1) // 128) * 128)
             shape = (L, batch, t, cfg.n_kv_heads, cfg.resolved_head_dim)
-            return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                    "v": torch.zeros(shape, dtype=dtype, device=device)}
+            cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}
+            if cfg.is_encoder_decoder:
+                shape = (L, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+                cache["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+                cache["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+            return cache
         if not self.supports_paged_cache:
             raise ValueError(
                 f"paged cache unsupported for arch {cfg.name!r} "
@@ -611,7 +762,7 @@ class Model:
         ``(B, 1, Vp)``."""
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, device=tokens.device).long().expand(b)
-        h = params["embed"][tokens].to(self.rt.dtype)
+        h = self._embed(params, tokens, pos[:, None])
         if "page_table" in cache:
             h = self._run_layers_paged(params, cache, h, pos[:, None], valid=None)
         elif self.cfg.family in ("ssm", "hybrid"):
@@ -654,6 +805,11 @@ class Model:
         return self._logits(params, h), cache
 
     def _prefill_hidden(self, params, cache, tokens, offsets, lengths) -> torch.Tensor:
+        if self.cfg.is_encoder_decoder:  # the reference's refusal, message for message
+            raise NotImplementedError(
+                f"fused prefill unsupported for arch family {self.cfg.family!r} "
+                "(enc-dec / vlm / moe)"
+            )
         T = tokens.shape[1]
         ar = torch.arange(T, device=tokens.device)
         positions = offsets.long()[:, None] + ar[None, :]
@@ -674,6 +830,8 @@ class Model:
         return self._run_layers_dense(params, cache, h, positions, valid.nonzero(as_tuple=True))
 
     def _run_layers_dense(self, params, cache, h, positions, writes) -> torch.Tensor:
+        """The dense-cache layers; an encoder-decoder's decode adds each
+        layer's cross attention over its cross cache (``_cross_decode``)."""
         cfg = self.cfg
         for i, lp in enumerate(params["layers"]):
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
@@ -683,7 +841,12 @@ class Model:
                                              writes)[0]
             else:
                 h = h + _attn_dense_cache(lp["attn"], hn, cache["k"][i], cache["v"][i],
-                                          positions, writes, cfg)
+                                          positions, writes, cfg,
+                                          use_rope=not cfg.max_position_embeddings)
+            if cfg.is_encoder_decoder:
+                cp = params["cross"][i]
+                h = h + _cross_decode(cp["attn"], apply_norm(cp["ln"], h, cfg.norm, cfg.norm_eps),
+                                      cache["cross_k"][i], cache["cross_v"][i], cfg)
             h = h + _ffn(lp, apply_norm(lp["ln2"], h, cfg.norm, cfg.norm_eps), cfg, self.rt)
         return h
 

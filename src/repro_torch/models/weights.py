@@ -4,11 +4,15 @@ The reference stacks every layer's leaves along a leading ``L`` axis
 (its layers run as a ``lax.scan``); the port keeps ``layers`` as a list
 of per-layer dicts.  A MoE model's leading dense layers (``first_k_dense``)
 are the reference's separate ``dense_layers`` stack and the head of the
-port's ``layers`` list.  Both directions are here:
+port's ``layers`` list.  An encoder-decoder's ``encoder.layers`` are
+stacked the same way, and so is its top-level ``cross`` (each decoder
+layer's cross-attention ``ln`` and ``attn``: a stacked dict in the
+reference, a list in the port).  Both directions are here:
 
 - ``to_reference_layout`` / ``from_reference_layout`` restack torch
   trees on their device: parameters, gradients and optimizer states
-  alike (every dict whose ``layers`` is a list, or a stacked dict);
+  alike (every dict whose ``layers`` or ``cross`` is a list, or a
+  stacked dict);
 - ``params_from_jax`` / ``params_to_jax`` and ``opt_state_from_jax`` /
   ``opt_state_to_jax`` cross to and from the reference's numpy leaves
   (``jax.tree.map(np.asarray, tree)`` on its side).  Parity tests share
@@ -38,10 +42,11 @@ def _stack(layers: list) -> Tree:
 
 
 def to_reference_layout(tree: Tree) -> Tree:
-    """Stack the per-layer list of every ``layers`` entry along a new
-    leading axis (the reference's layout); other leaves are shared.  When
-    the list's head differs from its tail (a MoE model's dense layers
-    before its MoE layers), the head is stacked as ``dense_layers``."""
+    """Stack the per-layer list of every ``layers`` (and ``cross``) entry
+    along a new leading axis (the reference's layout); other leaves are
+    shared.  When the list's head differs from its tail (a MoE model's
+    dense layers before its MoE layers), the head is stacked as
+    ``dense_layers``."""
     if not isinstance(tree, dict):
         return tree
     out = {}
@@ -51,6 +56,8 @@ def to_reference_layout(tree: Tree) -> Tree:
             if n_dense:
                 out["dense_layers"] = _stack(v[:n_dense])
             out[k] = _stack(v[n_dense:])
+        elif k == "cross" and isinstance(v, list):
+            out[k] = _stack(v)
         else:
             out[k] = to_reference_layout(v)
     return out
@@ -58,8 +65,8 @@ def to_reference_layout(tree: Tree) -> Tree:
 
 def from_reference_layout(tree: Tree) -> Tree:
     """Split every stacked ``layers`` entry (after ``dense_layers``, where
-    there is one) into the port's list of per-layer dicts (each leaf its
-    own contiguous tensor)."""
+    there is one) and ``cross`` entry into the port's list of per-layer
+    dicts (each leaf its own contiguous tensor)."""
     if not isinstance(tree, dict):
         return tree
 
@@ -70,6 +77,8 @@ def from_reference_layout(tree: Tree) -> Tree:
     for k, v in tree.items():
         if k == "layers" and isinstance(v, dict):
             out[k] = (split(tree["dense_layers"]) if "dense_layers" in tree else []) + split(v)
+        elif k == "cross" and isinstance(v, dict):
+            out[k] = split(v)
         elif k != "dense_layers" or "layers" not in tree:
             out[k] = from_reference_layout(v)
     return out
@@ -89,17 +98,17 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 def params_from_jax(
     np_params: Dict[str, Any], device=None, dtype: Optional[torch.dtype] = torch.float32
 ) -> Dict[str, Any]:
-    """Port parameters from the reference's dense-, MoE-, SSM-, hybrid- or
-    VLM-model pytree of numpy leaves (layers stacked along ``L``, a
-    MoE's ``dense_layers`` before them, MLA's attention leaves as any
-    other's; a hybrid's ``shared`` block, its LoRA stacked over the
-    invocations, kept as it is), converted to ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias`` and a MoE's
+    """Port parameters from the reference's pytree of numpy leaves (layers
+    stacked along ``L``, a MoE's ``dense_layers`` before them, MLA's
+    attention leaves as any other's; a hybrid's ``shared`` block, its
+    LoRA stacked over the invocations, kept as it is; an
+    encoder-decoder's ``encoder`` and ``cross`` split as ``layers`` is),
+    converted to ``dtype``; an SSM's ``A_log``, ``D`` and ``dt_bias`` and a MoE's
     ``router`` stay float32, as the reference keeps them in every model
     dtype."""
     device = resolve_device(device)
     if "layers" not in np_params:
-        raise NotImplementedError(
-            "params_from_jax takes the dense, MoE, SSM or hybrid family's pytree only")
+        raise NotImplementedError("params_from_jax takes a model's pytree (with 'layers')")
 
     def leaf(path, a):
         return _tensor(a, device, torch.float32 if path[-1] in FP32_PARAMS else dtype)

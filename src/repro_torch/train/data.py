@@ -10,10 +10,12 @@ Counterpart of the reference package's ``train/data.py``:
   fixed windows, strided by ``(dp_rank, n_dp)``.
 
 Batches are int64 tensors on the dataset's device (``cuda`` unless the
-caller names the CPU).  A VLM's batch also holds ``patches``, the stub
-frontend's patch embeddings ``(local, n_vision_tokens, d_model)`` float32
-from ``normal(fold_in(key, 8))``, as the reference draws them; the audio
-stub's frames are not ported with their family.
+caller names the CPU).  An encoder-decoder's batch also holds ``frames``,
+the audio stub's frame embeddings ``(local, encoder_seq, d_model)``
+float32 from ``normal(fold_in(key, 7))``, and a VLM's ``patches``, the
+stub frontend's patch embeddings ``(local, n_vision_tokens, d_model)``
+float32 from ``normal(fold_in(key, 8))``, each as the reference draws
+them.
 """
 
 from __future__ import annotations
@@ -41,9 +43,6 @@ class SyntheticLM:
     each row is random tokens or a repeated 8-token motif."""
 
     def __init__(self, cfg: ArchConfig, data: DataConfig, device=None):
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                "frame stub inputs are not ported (ROADMAP Queue 1: whisper)")
         self.cfg = cfg
         self.data = data
         self.device = resolve_device(device)
@@ -63,6 +62,9 @@ class SyntheticLM:
         use_motif = prng.bernoulli(k3, 0.5, (local, 1))
         toks = torch.where(use_motif, reps, base)
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if self.cfg.is_encoder_decoder:
+            batch["frames"] = prng.normal(prng.fold_in(key, 7),
+                                          (local, self.cfg.encoder_seq, self.cfg.d_model))
         if self.cfg.n_vision_tokens:
             batch["patches"] = prng.normal(prng.fold_in(key, 8),
                                            (local, self.cfg.n_vision_tokens, self.cfg.d_model))

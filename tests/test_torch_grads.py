@@ -4,9 +4,11 @@
 rel 1e-5 and every leaf's gradient within 1e-4 of that leaf's largest
 reference gradient, for reduced ``mixtral-8x7b`` (``dense`` and
 ``capacity``, and with a shared expert and a dense first layer), reduced
-``mamba2-1.3b`` and 5-layer ``zamba2-1.2b`` (a trailing layer past the
+``mamba2-1.3b``, 5-layer ``zamba2-1.2b`` (a trailing layer past the
 last full segment) with ``lora_b`` drawn non-zero (its init is zeros),
-so the shared block's LoRA, stacked over its invocations, is held too."""
+so the shared block's LoRA, stacked over its invocations, is held too,
+and reduced ``whisper-tiny`` over stub frames (the encoder, the stacked
+cross attention, LayerNorm's biases, both learned position tables)."""
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +43,7 @@ GRAD_CASES = {  # name -> (arch, overrides, moe_strategy)
                                       "capacity"),
     "mamba2": ("mamba2-1.3b", {}, "capacity"),
     "zamba2_5_layers": ("zamba2-1.2b", {"n_layers": 5}, "capacity"),
+    "whisper": ("whisper-tiny", {}, "capacity"),
 }
 
 
@@ -60,8 +63,12 @@ def test_loss_and_every_gradient_match_jax_grad(case):
     p = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     for _, t in tree_leaves_with_path(p):
         t.requires_grad_()
-    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 49))
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (2, 49))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.is_encoder_decoder:  # the encoder's stub frames
+        batch["frames"] = rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(
+            np.float32)
     (jl, _), jg = jax.value_and_grad(lambda q: jm.loss(q, batch), has_aux=True)(jp)
     tl, _ = m.loss(p, {k: torch.from_numpy(v) for k, v in batch.items()})
     tl.backward()

@@ -1,12 +1,11 @@
 """The port stands apart from the reference package and from the CPU:
 no port module imports ``jax`` or ``repro`` (the prefix store included);
-a model family not ported yet refuses with ``NotImplementedError`` (the
-dense cache, ported since, runs); a default-device entry point on a host
+every reference config builds, none refused; the dense cache runs; a
+default-device entry point on a host
 without CUDA raises instead of running on the CPU; and ``chip_smoke.py``
 prints no result without a card."""
 
 import ast
-import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -14,7 +13,8 @@ import pytest
 import torch
 
 from repro_torch import prng, resolve_device
-from repro_torch.configs import ArchConfig, get_arch, reduced
+from repro_torch.configs import get_arch, reduced
+from repro_torch.configs.base import _REGISTRY
 from repro_torch.core.storage import ObjectStore
 from repro_torch.launch.train import run_train_span
 from repro_torch.models import Model
@@ -71,39 +71,25 @@ def test_invalid_engine_knobs_raise_value_error(tiny, knob):
         ServeEngine(m, p, device="cpu", **knob)
 
 
-def test_unported_model_features_refuse(tiny):
-    m, _ = tiny
-    dense = m.init_cache(2, 32, paged=False, device="cpu")  # the dense cache runs now
-    assert set(dense) == {"k", "v"} and dense["k"].shape == (2, 2, 32, 2, 16)
-    assert set(m.init_cache(2, 32, device="cpu")) == {"k", "v"}  # and is the default
-    mla = ArchConfig(name="x-mla", family="moe", n_layers=2, d_model=64, n_heads=4,
-                     n_kv_heads=4, d_ff=128, vocab_size=256, n_experts=4, top_k=2,
-                     use_mla=True, kv_lora_rank=32, rope_head_dim=8)
-    assert Model(mla).cfg.use_mla  # MLA builds now
-    vision = ArchConfig(name="x-vlm", family="vlm", n_layers=2, d_model=64, n_heads=4,
-                        n_kv_heads=4, d_ff=128, vocab_size=256, n_vision_tokens=8)
-    assert Model(vision).cfg.n_vision_tokens == 8  # vision tokens build now
-    assert reduced(vision).n_vision_tokens == 8
-    # what is left unported: the encoder-decoder, learned positions and the
-    # audio family, each refusal naming whisper
-    encdec = dataclasses.replace(vision, name="x-encdec", family="dense", n_vision_tokens=0,
-                                 is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError,
-                       match="encoder-decoder not ported yet.*ROADMAP Queue 1: whisper"):
-        Model(encdec)
-    learned = dataclasses.replace(vision, name="x-pos", family="dense", n_vision_tokens=0,
-                                  max_position_embeddings=512)
-    with pytest.raises(NotImplementedError,
-                       match="learned positions not ported yet.*ROADMAP Queue 1: whisper"):
-        Model(learned)
-    audio = ArchConfig(name="x-audio", family="audio", n_layers=2, d_model=64, n_heads=4,
-                       n_kv_heads=4, d_ff=128, vocab_size=256, is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError, match="family 'audio', encoder-decoder.*whisper"):
-        Model(audio)
-    with pytest.raises(NotImplementedError, match="dense, MoE, SSM, hybrid and VLM.*whisper"):
-        reduced(audio)
-    with pytest.raises(NotImplementedError, match="frame stub inputs.*whisper"):
-        SyntheticLM(encdec, DataConfig(), device="cpu")
+@pytest.mark.parametrize("arch", sorted(_REGISTRY))
+def test_every_reference_config_builds(arch):
+    """Every one of the reference's eleven configs builds in the port, none
+    refused: ``Model`` at full width (nothing allocated), ``reduced`` and
+    its weights, a ``SyntheticLM`` batch with the stub inputs the family
+    takes (an encoder-decoder's frames, a VLM's patches), and a finite
+    loss on it."""
+    assert len(_REGISTRY) == 11
+    cfg = get_arch(arch)
+    assert Model(cfg).cfg is cfg
+    small = reduced(cfg)
+    m = Model(small)
+    batch = SyntheticLM(small, DataConfig(seq_len=16, global_batch=2), device="cpu").batch(0)
+    stubs = {"frames"} if small.is_encoder_decoder else set()
+    stubs |= {"patches"} if small.n_vision_tokens else set()
+    assert set(batch) == {"tokens", "labels"} | stubs
+    with torch.no_grad():
+        loss, _ = m.loss(m.init(0, device="cpu"), batch)
+    assert torch.isfinite(loss)
 
 
 def test_engine_refuses_params_on_another_device(tiny):
