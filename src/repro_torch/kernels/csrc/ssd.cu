@@ -11,8 +11,8 @@
 // bf16, dA and dt in f32; both outputs f32.
 //
 // Design.  One block of 8 warps per (batch*chunk, head block); q is padded
-// to 16-row tiles (at most 8).  The two input types take two routes, each
-// held to its gates on the card:
+// to 16-row tiles (at most 8).  The two input types take two routes on one
+// warp layout, each held to its gates on the card:
 //   - f32: S = C.B^T as fp32 FMA in order on the CUDA cores, the plain
 //     version's rounding bit for bit (s_tiles: the 2e-5 gate needs it);
 //     Y_diag and the states on the tensor cores in 3xTF32
@@ -26,14 +26,21 @@
 //     the A fragment without a shuffle, x read in the same order).  The
 //     states (w o x)^T.B, w_j = exp(cum_end - cum_j) dt_j, a 16 p x (n /
 //     warps-per-p-tile) tile a warp, w o x split as it is loaded.
-//   - bf16: every product in order on the CUDA cores: S into shared
-//     memory once per block; per head, x to fp32 once, then Y_diag on half
-//     the block by pairs of rows r, q - 1 - r (equal work for every
-//     thread) and the states on the other half by 8 p x 8 n tiles, side by
-//     side; all fp32 FMA chains in the plain version's order.  A bf16
-//     tensor-core route (mma.sync, M and w o x in three bf16 parts) held
-//     the kernel's 2e-2 but moved mamba2's bf16 eval logits past their
-//     gate, as any rounding but the plain one does (PERF.md, SSD).
+//   - bf16: every product on the tensor cores (mma.sync.m16n8k16, fp32
+//     accumulation).  S = C.B^T from the bf16 operands as they are (their
+//     products are exact in fp32), in registers in the accumulator layout
+//     as on the f32 route.  Y = M.x: M formed in fp32 from the
+//     accumulators as on the f32 route (the mask on the diagonal tile
+//     before the split), then split into three bf16 parts hi + mid + lo
+//     (about 2^-24 of M) that feed the A fragments of three products
+//     against x (bf16, exact): an accumulator tile pair (columns 2t, 2t + 1
+//     of tiles 2k and 2k + 1) is the A fragment of k-step k, the P-from-S
+//     packing of csrc/paged_tensor_core.cu.  The states (w o x)^T.B take w o
+//     x in three bf16 parts as x's fragment is loaded.  Every fragment comes
+//     through ldmatrix (x and B transposed where j is the summed index).
+//     The result sits within 1e-4 of the plain version (the f32 plain
+//     outputs rounded to bf16 miss it): mamba2's bf16 eval holds its logits
+//     to an f32 witness of the same weights (chip_smoke.py, witness_gate).
 //   - B and C come into shared memory once per block through 16-byte
 //     cp.async, rows padded (bf16 by 8 elements, f32 by 4) so fragment
 //     loads hit distinct banks.
@@ -42,14 +49,17 @@
 //     reference's rounding: in order within blocks of 16 positions, each
 //     block offset by the in-order total of the blocks before, what its
 //     jnp.cumsum computes on the CPU backend).  Where all of the block's
-//     heads fit (short chunks: serving prefill), each has a slot: every
-//     copy is issued at once, the warps sum the heads side by side, and the
-//     heads run with no barrier between them.  Else two slots: the next
-//     head's copy is in flight while one computes, warp 0 sums it, one
-//     barrier a head, and shared memory does not grow with the heads a
-//     block takes.
-//   - the f32 route's outputs leave straight from the accumulator
-//     fragments, 8 bytes a lane: each store fills whole 32-byte sectors.
+//     heads fit in half of a block's shared memory (short chunks: serving
+//     prefill), each has a slot: every copy is issued at once, the warps
+//     sum the heads side by side, and the heads run with no barrier between
+//     them.  Else two slots: the next head's copy is in flight while one
+//     computes, warp 0 sums it, one barrier a head, and shared memory does
+//     not grow with the heads a block takes.  (bf16 at q 128 would hold
+//     all 8 heads in 229,376 bytes; so it ran 1.2x slower than through two
+//     slots, every copy landing before any head computed:
+//     tools/kernel_variants.py.)
+//   - the outputs leave straight from the accumulator fragments, 8 bytes
+//     a lane: each store fills whole 32-byte sectors.
 //   Every output element is written once by one thread: no atomics, the
 //   same result from run to run.  Padded rows (dt = 0) and idle rows give
 //   exactly 0.
@@ -57,9 +67,12 @@
 // Bound on this card, at mamba2-1.3b's eval shapes (q 128, h 64, p 64,
 // n 128): bytes (the f32 Y_diag and states are most of what moves, ~172
 // MB at bf16 8 x 512; in f32 three TF32 passes at 494.7 TFLOP/s come near
-// that time).  The in-order bf16 route is held to its ~6.5 GFLOP at 8 x
-// 512 on the 67 TFLOP/s fp32 CUDA cores, about twice that.  One block of
-// 8 warps an SM: the register bound leaves up to 255 a thread.
+// that time, in bf16 three bf16 passes take about a third of it).  One
+// block of 8 warps an SM: the register bound leaves up to 255 a thread.
+// ptxas -v (sm_90a): bf16 168-172 registers at p 64, 156-158 at 32,
+// 144-146 at 16; f32 183-222 at p 64; no spills.  bf16's shared memory
+// would admit two blocks at q 128 (109,568 bytes); capped at 128
+// registers for them it spilled and ran 1.07x slower.
 // tools/kernel_variants.py times each choice here undone, the phases'
 // shares, and a zero fill of the outputs (the f32 writes alone take
 // about half of the f32 route's time).
@@ -75,7 +88,10 @@ namespace {
 using mma_sm80::cp_async16;
 using mma_sm80::cp_async_commit;
 using mma_sm80::cp_async_wait;
+using mma_sm80::ldmatrix_x4;
+using mma_sm80::ldmatrix_x4_trans;
 using mma_sm80::mma_3xtf32;
+using mma_sm80::mma_bf16;
 using mma_sm80::smem_addr;
 using mma_sm80::split_tf32;
 
@@ -88,29 +104,26 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Bytes of dynamic shared memory (kernels/ssd.py::smem_bytes mirrors it):
 // B and C (q rows of n + pad), `slots` head slots, each one head's x (q
-// rows of p + pad) and its running sums, dt and state weights, and in bf16
-// S (q rows of q + 1 floats) and one head's x in fp32 (q rows of p + 4
-// floats).
+// rows of p + pad) and its running sums, dt and state weights.
 __host__ __device__ constexpr int pad_of(int item) { return item == 4 ? 4 : 8; }
 __host__ __device__ constexpr size_t smem_bytes(int q, int p, int n, int item, int slots) {
   return (size_t)((q + 15) & ~15) *
-         (2 * (n + pad_of(item)) * item + slots * ((p + pad_of(item)) * item + 3 * sizeof(float)) +
-          (item == 2 ? (((q + 15) & ~15) + 1 + p + 4) * sizeof(float) : 0));
+         (2 * (n + pad_of(item)) * item + slots * ((p + pad_of(item)) * item + 3 * sizeof(float)));
 }
 
-// Head slots a block takes: one a head where all of its heads fit, so
-// every copy is issued at once; else two, the next head's copy in flight
-// while one computes.
+// Head slots a block takes: one a head where all of its heads fit in half
+// of the block's limit, so every copy is issued at once; else two, the
+// next head's copy in flight while one computes.
 int head_slots(int q, int p, int n, int item, int hb) {
-  return hb <= 2 || smem_bytes(q, p, n, item, hb) <= kSmemLimit ? hb : 2;
+  return hb <= 2 || smem_bytes(q, p, n, item, hb) <= kSmemLimit / 2 ? hb : 2;
 }
 
 template <typename T, int P, int N>
 struct Tile {
   static constexpr int LDB = N + pad_of(sizeof(T));  // B and C rows (elements)
   static constexpr int LDX = P + pad_of(sizeof(T));  // x rows
-  // f32 states: 16 p a m-tile; warps share an m-tile's n columns in units
-  // of one 8-column n-tile
+  // states: 16 p a m-tile; warps share an m-tile's n columns in units of
+  // one 8-column n-tile
   static constexpr int MT = P / 16;
   static constexpr int WPM = kWarps / MT;
   static constexpr int UNITS = N / 8;
@@ -313,129 +326,146 @@ __device__ __forceinline__ void state_head(const float* xs, const float* Bs, con
       store_tile(ra + (u0 + i) * 8, ra + 8 * N + (u0 + i) * 8, acc[i], t, true, true);
 }
 
-// -------------------------------------------- bf16 in order, CUDA cores
-// Each product is a chain of fp32 FMAs over its sum's index in order, as
-// the plain version's matmuls on this card (the first version of this
-// kernel matched them bit for bit, and so does this route).  mamba2's bf16
-// activations turn any other rounding of Y_diag or the states, however
-// small, into logit differences past the eval gate (1e-1) over 48 layers;
-// the plain scan with its two products in float64 misses it as well
-// (tools/kernel_variants.py ssd_logits).
+// ----------------------------------------------- bf16, on the tensor cores
+// Fragments through ldmatrix: lane 8 i + r addresses row r of 8 x 8 matrix
+// i (li = i, lr = r below).
 
-__device__ __forceinline__ void bf16x8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+// v0, v1 (neighbouring k) in three bf16 parts, packed as mma operands:
+// hi + mid + lo = v to about 2^-24 of v (each remainder is exact in fp32).
+// Zero stays exactly zero in every part.
+__device__ __forceinline__ void split_bf16x3(float v0, float v1, uint32_t& hi, uint32_t& mid,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float r0 = v0 - __low2float(h), r1 = v1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// S into shared memory at pitch sp: 4 x 4 entries a thread, rows and
-// columns strided by qp / 4 so neighbouring threads read neighbouring rows.
+// c += (hi + mid + lo).b, the small parts first
+__device__ __forceinline__ void mma_bf16x3(float* c, const uint32_t (&ah)[4],
+                                           const uint32_t (&am)[4], const uint32_t (&al)[4],
+                                           uint32_t b0, uint32_t b1) {
+  mma_bf16(c, al, b0, b1);
+  mma_bf16(c, am, b0, b1);
+  mma_bf16(c, ah, b0, b1);
+}
+
+// S = C.B^T: warp w's rows 16 w .. 16 w + 15 against key tiles on or below
+// the diagonal, k-steps of 16 over n; an x4 load of B gives two 8-row tiles.
 template <int N>
-__device__ __forceinline__ void s_in_order(float* Ss, int sp, const __nv_bfloat16* Cs,
-                                           const __nv_bfloat16* Bs, int qp, int tid) {
+__device__ __forceinline__ void s_tiles_bf16(float (&s)[16][4], const __nv_bfloat16* Cs,
+                                             const __nv_bfloat16* Bs, int warp, int lane) {
   constexpr int LD = N + 8;
-  const int R = qp / 4;
-  for (int item = tid; item < R * R; item += kThreads) {
-    const int ti = item / R, tj = item % R;
-    float acc[4][4] = {};
-    for (int n = 0; n < N; n += 8) {
-      float cv[4][8], bv[4][8];
+  const int li = lane >> 3, lr = lane & 7;
+  const __nv_bfloat16* ca = Cs + (warp * 16 + (li & 1) * 8 + lr) * LD + (li >> 1) * 8;
+  const __nv_bfloat16* bb = Bs + ((li >> 1) * 8 + lr) * LD + (li & 1) * 8;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) bf16x8(Cs + (ti + a * R) * LD + n, cv[a]);
+  for (int k = 0; k < N; k += 16) {
+    uint32_t a[4];
+    ldmatrix_x4(a, ca + k);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) bf16x8(Bs + (tj + b * R) * LD + n, bv[b]);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[a][b] = fmaf(cv[a][e], bv[b][e], acc[a][b]);
+    for (int jt = 0; jt < kWarps; ++jt) {
+      if (jt <= warp) {
+        uint32_t b[4];
+        ldmatrix_x4(b, bb + jt * 16 * LD + k);
+        mma_bf16(s[2 * jt], a, b[0], b[1]);
+        mma_bf16(s[2 * jt + 1], a, b[2], b[3]);
+      }
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) Ss[(ti + a * R) * sp + tj + b * R] = acc[a][b];
   }
 }
 
-// The in-order route's half blocks: Y_diag on threads 0-127, the states on
-// 128-255, side by side (the two share no output), each reading x of the
-// head as fp32 from Xf (rows at p + 4 floats).
-constexpr int kHalf = kThreads / 2;
-
-// Y_diag of one head: an item is rows r and q - 1 - r (q + 1 positions j
-// between them, so every item does the same work) by 32 columns p (16 at
-// p 16).
+// Y_diag of one head: k-step kc takes S's tiles 2 kc and 2 kc + 1 as M's
+// A fragment, x's rows 16 kc .. 16 kc + 15 (transposed) as B, two p-tiles
+// an x4 load.
 template <int P>
-__device__ __forceinline__ void y_in_order(const float* Ss, int sp, const float* Xf,
-                                           const float* hv, int q, int qp, int tid, float* yg,
-                                           int hp) {
-  constexpr int LD = P + 4, YC = P < 32 ? P : 32, NG = P / YC;
+__device__ __forceinline__ void y_head_bf16(const float (&s)[16][4], const __nv_bfloat16* xs,
+                                            const float* hv, int qp, int q, int warp, int lane,
+                                            float* yg, int hp) {
+  constexpr int LD = P + 8;
+  const int g = lane >> 2, t = lane & 3, li = lane >> 3, lr = lane & 7;
   const float* cum = hv;
   const float* dtv = hv + qp;
-  const int pairs = (q + 1) / 2;
-  for (int item = tid; item < pairs * NG; item += kHalf) {
-    const int r = item / NG, c0 = (item % NG) * YC;
-    for (int k = 0; k < 2; ++k) {
-      const int i = k == 0 ? r : q - 1 - r;
-      if (k == 1 && i == r) break;
-      float acc[YC] = {};
-      const float ci = cum[i];
-      const float* srow = Ss + i * sp;
-      for (int j = 0; j <= i; ++j) {
-        const float m = srow[j] * expf(ci - cum[j]) * dtv[j];
-        const float4* xr = reinterpret_cast<const float4*>(Xf + j * LD + c0);
+  const int r0 = warp * 16;
+  const float ca = cum[r0 + g], cb = cum[r0 + g + 8];
+  const __nv_bfloat16* xl = xs + ((li & 1) * 8 + lr) * LD + (li >> 1) * 8;
+  float acc[P / 8][4] = {};
 #pragma unroll
-        for (int e = 0; e < YC / 4; ++e) {
-          const float4 v = xr[e];
-          acc[4 * e] = fmaf(m, v.x, acc[4 * e]);
-          acc[4 * e + 1] = fmaf(m, v.y, acc[4 * e + 1]);
-          acc[4 * e + 2] = fmaf(m, v.z, acc[4 * e + 2]);
-          acc[4 * e + 3] = fmaf(m, v.w, acc[4 * e + 3]);
-        }
+  for (int kc = 0; kc < kWarps; ++kc) {
+    if (kc <= warp) {
+      float m0[4], m1[4];
+      m_values(m0, s[2 * kc], cum, dtv, kc * 16 + 2 * t, ca, cb, kc == warp, 2 * t, g);
+      m_values(m1, s[2 * kc + 1], cum, dtv, kc * 16 + 8 + 2 * t, ca, cb, kc == warp, 8 + 2 * t,
+               g);
+      uint32_t ah[4], am[4], al[4];
+      split_bf16x3(m0[0], m0[1], ah[0], am[0], al[0]);
+      split_bf16x3(m0[2], m0[3], ah[1], am[1], al[1]);
+      split_bf16x3(m1[0], m1[1], ah[2], am[2], al[2]);
+      split_bf16x3(m1[2], m1[3], ah[3], am[3], al[3]);
+#pragma unroll
+      for (int pt = 0; pt < P / 16; ++pt) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, xl + kc * 16 * LD + pt * 16);
+        mma_bf16x3(acc[2 * pt], ah, am, al, b[0], b[1]);
+        mma_bf16x3(acc[2 * pt + 1], ah, am, al, b[2], b[3]);
       }
-      float4* yo = reinterpret_cast<float4*>(yg + (size_t)i * hp + c0);
-#pragma unroll
-      for (int e = 0; e < YC / 4; ++e)
-        yo[e] = make_float4(acc[4 * e], acc[4 * e + 1], acc[4 * e + 2], acc[4 * e + 3]);
     }
   }
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int nt = 0; nt < P / 8; ++nt)
+    store_tile(yg + (size_t)ra * hp + nt * 8, yg + (size_t)rb * hp + nt * 8, acc[nt], t, ra < q,
+               rb < q);
 }
 
-// The states of one head: a thread owns 8 p by 8 neighbouring n and walks
-// all j (8 bf16 of B a 16-byte load, neighbouring lanes on neighbouring n).
+// The states of one head: A = (w o x)^T (x's rows 16 kc .. 16 kc + 15
+// transposed, times w_j, in three parts), B = B's rows (transposed), two
+// n-tiles an x4 load (one where a warp owns one).
 template <int P, int N>
-__device__ __forceinline__ void state_in_order(const float* Xf, const __nv_bfloat16* Bs,
-                                               const float* wv, int q, int tid, float* sg) {
-  constexpr int LDX = P + 4, LDB = N + 8, NN = N / 8;
-  for (int item = tid; item < (P / 8) * NN; item += kHalf) {
-    const int pg = item / NN, n0 = (item % NN) * 8;
-    float acc[8][8] = {};
-#pragma unroll 2
-    for (int j = 0; j < q; ++j) {
-      const float w = wv[j];
-      const float4 x0 = *reinterpret_cast<const float4*>(Xf + j * LDX + pg * 8);
-      const float4 x1 = *reinterpret_cast<const float4*>(Xf + j * LDX + pg * 8 + 4);
-      const float xw[8] = {x0.x * w, x0.y * w, x0.z * w, x0.w * w,
-                           x1.x * w, x1.y * w, x1.z * w, x1.w * w};
-      float b[8];
-      bf16x8(Bs + j * LDB + n0, b);
+__device__ __forceinline__ void state_head_bf16(const __nv_bfloat16* xs, const __nv_bfloat16* Bs,
+                                                const float* wv, int qt, int warp, int lane,
+                                                float* sg) {
+  using K = Tile<__nv_bfloat16, P, N>;
+  const int g = lane >> 2, t = lane & 3, li = lane >> 3, lr = lane & 7;
+  const int mt = warp / K::WPM, u0 = (warp % K::WPM) * K::UPW;
+  if (u0 >= K::UNITS) return;
+  const __nv_bfloat16* xa = xs + ((li >> 1) * 8 + lr) * K::LDX + mt * 16 + (li & 1) * 8;
+  const __nv_bfloat16* bl = Bs + ((li & 1) * 8 + lr) * K::LDB;
+  float acc[K::UPW + 1][4] = {};
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
+  for (int kc = 0; kc < kWarps; ++kc) {
+    if (kc < qt) {
+      uint32_t raw[4];
+      ldmatrix_x4_trans(raw, xa + kc * 16 * K::LDX);
+      const float2 w0 = *reinterpret_cast<const float2*>(wv + kc * 16 + 2 * t);
+      const float2 w1 = *reinterpret_cast<const float2*>(wv + kc * 16 + 8 + 2 * t);
+      uint32_t ah[4], am[4], al[4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[k][e] = fmaf(xw[k], b[e], acc[k][e]);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const float2 w = i < 2 ? w0 : w1;
+        split_bf16x3(__uint_as_float(raw[i] << 16) * w.x,
+                     __uint_as_float(raw[i] & 0xffff0000u) * w.y, ah[i], am[i], al[i]);
+      }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      float4* so = reinterpret_cast<float4*>(sg + (size_t)(pg * 8 + k) * N + n0);
-      so[0] = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
-      so[1] = make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+      for (int u = 0; u < K::UPW; u += 2) {
+        if (u0 + u < K::UNITS) {
+          const bool two = u + 1 < K::UPW && u0 + u + 1 < K::UNITS;
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, bl + kc * 16 * K::LDB + (u0 + u + (two && li >= 2)) * 8);
+          mma_bf16x3(acc[u], ah, am, al, b[0], b[1]);
+          if (two) mma_bf16x3(acc[u + 1], ah, am, al, b[2], b[3]);
+        }
+      }
     }
   }
+  float* ra = sg + (size_t)(mt * 16 + g) * N;
+#pragma unroll
+  for (int i = 0; i < K::UPW; ++i)
+    if (u0 + i < K::UNITS)
+      store_tile(ra + (u0 + i) * 8, ra + 8 * N + (u0 + i) * 8, acc[i], t, true, true);
 }
 
 // ------------------------------------------------------------------ kernel
@@ -453,9 +483,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* Cs = Bs + qp * K::LDB;               // [qp][LDB]
   T* xs0 = Cs + qp * K::LDB;              // [slots][qp][LDX]: heads' x
   float* hv0 = reinterpret_cast<float*>(xs0 + slots * qp * K::LDX);  // [slots][cum | dt | w][qp]
-  float* Ss = hv0 + slots * 3 * qp;       // [qp][qp + 1]: S on the in-order bf16 route
-  float* Xf = Ss + qp * (qp + 1);         // [qp][P + 4]: its head's x in fp32
-  constexpr bool kInOrder = sizeof(T) == 2;  // bf16: every product in order
+  constexpr bool kBf16 = sizeof(T) == 2;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bc = blockIdx.x, h0 = blockIdx.y * hb;
   constexpr int E = 16 / sizeof(T);  // elements a 16-byte copy
@@ -518,11 +546,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   float s[16][4] = {};
-  if constexpr (kInOrder) {
-    s_in_order<N>(Ss, qp + 1, Cs, Bs, qp, tid);
-    __syncthreads();
-  } else if (warp < qt) {
-    s_tiles<N>(s, Cs, Bs, warp, lane);
+  if (warp < qt) {
+    if constexpr (kBf16)
+      s_tiles_bf16<N>(s, Cs, Bs, warp, lane);
+    else
+      s_tiles<N>(s, Cs, Bs, warp, lane);
   }
 
   for (int hh = 0; hh < hb; ++hh) {
@@ -531,28 +559,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* hv = hv0 + buf * 3 * qp;
     float* yh = y + ((size_t)bc * q * H + h) * P;
     float* sh = st + ((size_t)bc * H + h) * P * N;
-    if constexpr (kInOrder) {
-      for (int e = tid; e < qp * (P / 8); e += kThreads) {
-        const int r = e / (P / 8), c = (e % (P / 8)) * 8;
-        float v[8];
-        bf16x8(xs + r * K::LDX + c, v);
-        float4* d = reinterpret_cast<float4*>(Xf + r * (P + 4) + c);
-        d[0] = make_float4(v[0], v[1], v[2], v[3]);
-        d[1] = make_float4(v[4], v[5], v[6], v[7]);
-      }
-      __syncthreads();
-      if (tid < kHalf)
-        y_in_order<P>(Ss, qp + 1, Xf, hv, q, qp, tid, yh, H * P);
-      else
-        state_in_order<P, N>(Xf, Bs, hv + 2 * qp, q, tid - kHalf, sh);
+    if constexpr (kBf16) {
+      if (warp < qt) y_head_bf16<P>(s, xs, hv, qp, q, warp, lane, yh, H * P);
+      state_head_bf16<P, N>(xs, Bs, hv + 2 * qp, qt, warp, lane, sh);
     } else {
       if (warp < qt) y_head<P>(s, xs, hv, qp, q, warp, lane, yh, H * P);
       state_head<P, N>(xs, Bs, hv + 2 * qp, qt, warp, lane, sh);
     }
-    if (resident) {  // no slot is reused: a barrier only before Xf is
-      if constexpr (kInOrder) __syncthreads();
-      continue;
-    }
+    if (resident) continue;  // no slot is reused
     // head hh + 1's copies have landed for this thread; warp 0 sums them
     cp_async_wait<0>();
     if (warp == 0 && hh + 1 < hb) {

@@ -15,9 +15,11 @@ Outputs ``Y_diag`` ``(b, nc, q, h, p)`` and ``states`` ``(b, nc, h, p,
 n)``, both float32.  The plain version
 upcasts at load and takes every product and sum in fp32; the kernel
 takes them in f32 on the tensor cores in 3xTF32 (``C.B^T`` excepted: an
-in-order fp32 FMA on the CUDA cores), and in bf16 every product as
-in-order fp32 FMA on the CUDA cores, the plain version's rounding bit for
-bit, which mamba2's bf16 eval needs (``csrc/ssd.cu`` says why).
+in-order fp32 FMA on the CUDA cores), and in bf16 on the tensor cores in
+bf16 with fp32 sums: ``C.B^T`` from the operands as they are (exact
+products), ``M`` and ``w x`` split into three bf16 parts against the
+exact bf16 ``x`` and ``B``, within 1e-4 of the plain version
+(``csrc/ssd.cu``).
 
 ``cum`` is taken in the reference's rounding (:func:`blocked_cumsum`):
 the reference's ``jnp.cumsum`` runs, on its CPU backend, as an in-order
@@ -94,9 +96,9 @@ def ssd_chunk_plain(
 
 def head_slots(q: int, p: int, n: int, dtype: torch.dtype, block_h: int) -> int:
     """Head slots a block takes (mirrors ``csrc/ssd.cu``): one a head where
-    all of the block's heads fit (short chunks: serving prefill), else two
-    that the heads stream through."""
-    if block_h <= 2 or _smem(q, p, n, _itemsize(dtype), block_h) <= SMEM_LIMIT:
+    all of the block's heads fit in half of a block's shared memory (short
+    chunks: serving prefill), else two that the heads stream through."""
+    if block_h <= 2 or _smem(q, p, n, _itemsize(dtype), block_h) <= SMEM_LIMIT // 2:
         return block_h
     return 2
 
@@ -105,9 +107,7 @@ def smem_bytes(q: int, p: int, n: int, dtype: torch.dtype, block_h: int) -> int:
     """Dynamic shared memory of one block (mirrors ``csrc/ssd.cu``): q
     rounded up to 16-row tiles; B and C at n + pad elements a row (pad 8
     in bf16, 4 in f32), each head slot one head's x at p + pad and its
-    running sums, dt and state weights in f32, and in bf16 S (q rows of
-    q + 1 floats) and one head's x in f32 (q rows of p + 4) for the
-    in-order route."""
+    running sums, dt and state weights in f32."""
     return _smem(q, p, n, _itemsize(dtype), head_slots(q, p, n, dtype, block_h))
 
 
@@ -118,9 +118,7 @@ def _itemsize(dtype: torch.dtype) -> int:
 def _smem(q: int, p: int, n: int, item: int, slots: int) -> int:
     pad = 4 if item == 4 else 8
     qp = -(-q // 16) * 16
-    # the in-order bf16 route's S and one head's x in fp32
-    in_order = qp * (qp + 1 + p + 4) * 4 if item == 2 else 0
-    return qp * (2 * (n + pad) * item + slots * ((p + pad) * item + 3 * 4)) + in_order
+    return qp * (2 * (n + pad) * item + slots * ((p + pad) * item + 3 * 4))
 
 
 def _check(x, dA, dt, B, C, block_h: int) -> int:

@@ -62,12 +62,15 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
   CUDA-core path and the timed shape's record;
 - the SSD chunk kernel at mamba2-1.3b's eval shapes (b 8 x nc 4 and b 2 x
   nc 32 chunks of 128, h 64, p 64, n 128) and the serve prefill shape (b
-  16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate
-  is reported with its error, not timed): heads streamed through two
-  slots even where all fit one each; the in-order states' loop over j not unrolled (bf16);
-  16-byte stores after a lane swap instead of 8-byte ones straight from
-  the fragments (f32); expf as __expf (f32); copies that
-  stop after C.B^T, or skip Y_diag or the states, for the phases'
+  16, q 16) in bf16, and at 8 x 4 in f32 (a variant that misses the gate,
+  ``chip_smoke.ssd_tol``, is reported with its error, not timed), and at
+  chunks of 64 in f32: heads streamed through two slots even where all fit
+  one each (bf16), each head its own slot wherever all fit the block's
+  limit and not only half of it; registers capped for two blocks an SM
+  (bf16); M and w x in two bf16
+  parts instead of three (bf16); 16-byte stores after a lane swap instead
+  of 8-byte ones straight from the fragments; expf as __expf; copies
+  that stop after C.B^T, or skip Y_diag or the states, for the phases'
   shares; and a zero fill of the f32 outputs (what writing them alone
   takes);
 - RMSNorm at 16 and 256 rows of 768 and 2048, 16 of 6144 and 8192, 16
@@ -79,8 +82,11 @@ variant, committed) with ``chip_smoke.time_ms`` (cold L2, median of 30):
 - the ``mma.sync`` ceilings: m16n8k8 TF32 and m16n8k16 bf16 with 4
   independent accumulators a warp and 32 warps an SM;
 - ``ssd_logits`` (not in the default run): mamba2-1.3b's bf16 eval logits
-  against the plain chunked scan for the committed SSD kernel and for the
-  plain scan with its products in float64.
+  for the committed SSD kernel (three bf16 parts on the tensor cores), and
+  for the plain scan with its products in float64 and with M and w x in
+  three bf16 parts: against the plain chunked scan (the in-order design)
+  at 1e-1, and each row's distance from the f32 witness over the plain
+  scan's.
 
 Every variant is held against the plain version first.  Prints one JSON
 line per measurement, then the card's name and power limit.
@@ -198,10 +204,16 @@ TC_F32_EDITS = {
 }
 
 SSD_EDITS = {  # name: (edits, the dtypes it is timed in)
-    "two_slots": ([("return hb <= 2 || smem_bytes(q, p, n, item, hb) <= kSmemLimit ? hb : 2;",
+    "two_slots": ([("return hb <= 2 || smem_bytes(q, p, n, item, hb) <= kSmemLimit / 2 ? hb : 2;",
                     "return hb <= 2 ? hb : 2;")], ("bfloat16",)),
-    "states_loop_rolled": ([("#pragma unroll 2\n    for (int j = 0; j < q; ++j) {",
-                              "#pragma unroll 1\n    for (int j = 0; j < q; ++j) {")], ("bfloat16",)),
+    "slots_to_the_limit": ([("smem_bytes(q, p, n, item, hb) <= kSmemLimit / 2 ? hb : 2;",
+                             "smem_bytes(q, p, n, item, hb) <= kSmemLimit ? hb : 2;")],
+                           ("bfloat16", "float32")),
+    # registers capped for two blocks an SM (bf16 only)
+    "two_blocks_an_sm": ([("__launch_bounds__(kThreads, 1)",
+                           "__launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)")], ("bfloat16",)),
+    "two_bf16_parts": ([("  mma_bf16(c, al, b0, b1);\n  mma_bf16(c, am, b0, b1);\n",
+                         "  mma_bf16(c, am, b0, b1);\n")], ("bfloat16",)),
     "float4_lane_swap": ([
         ("  if (ok_a) *reinterpret_cast<float2*>(row_a + 2 * t) = make_float2(c[0], c[1]);\n"
          "  if (ok_b) *reinterpret_cast<float2*>(row_b + 2 * t) = make_float2(c[2], c[3]);\n",
@@ -212,21 +224,21 @@ SSD_EDITS = {  # name: (edits, the dtypes it is timed in)
          "    if (ok_a) *reinterpret_cast<float4*>(row_a + 2 * t) = make_float4(c[0], c[1], r0, r1);\n"
          "  } else if (ok_b) {\n"
          "    *reinterpret_cast<float4*>(row_b + 2 * t - 2) = make_float4(r0, r1, c[2], c[3]);\n"
-         "  }\n")], ("float32",)),
+         "  }\n")], ("float32", "bfloat16")),
     "fast_exp": ([("  m[0] = s[0] * expf(ca - cj.x) * dj.x;\n  m[1] = s[1] * expf(ca - cj.y) * dj.y;\n"
                    "  m[2] = s[2] * expf(cb - cj.x) * dj.x;\n  m[3] = s[3] * expf(cb - cj.y) * dj.y;\n",
                    "  m[0] = s[0] * __expf(ca - cj.x) * dj.x;\n  m[1] = s[1] * __expf(ca - cj.y) * dj.y;\n"
                    "  m[2] = s[2] * __expf(cb - cj.x) * dj.x;\n  m[3] = s[3] * __expf(cb - cj.y) * dj.y;\n")],
-                 ("float32",)),
+                 ("float32", "bfloat16")),
 }
 # copies that stop short (their output is then not the op's), timed in both types
 _HEAD_LOOP = "  for (int hh = 0; hh < hb; ++hh) {\n    const int h = h0 + hh, buf = slot_of(hh);"
 SSD_STOPS = {
     "s_only": [(_HEAD_LOOP, "  float z = 0.f;\n  for (int i = 0; i < 16; ++i) z += s[i][0] + s[i][1] + s[i][2] + s[i][3];\n"
-                            "  if (z == 1234.5f) y[0] = z + Ss[0];\n  cp_async_wait<0>();\n  return;\n" + _HEAD_LOOP)],
-    "no_y": [("        y_in_order<P>(Ss, qp + 1, Xf, hv, q, qp, tid, yh, H * P);\n", ";\n"),
+                            "  if (z == 1234.5f) y[0] = z;\n  cp_async_wait<0>();\n  return;\n" + _HEAD_LOOP)],
+    "no_y": [("      if (warp < qt) y_head_bf16<P>(s, xs, hv, qp, q, warp, lane, yh, H * P);\n", ""),
              ("      if (warp < qt) y_head<P>(s, xs, hv, qp, q, warp, lane, yh, H * P);\n", "")],
-    "no_states": [("        state_in_order<P, N>(Xf, Bs, hv + 2 * qp, q, tid - kHalf, sh);\n", ";\n"),
+    "no_states": [("      state_head_bf16<P, N>(xs, Bs, hv + 2 * qp, qt, warp, lane, sh);\n", ""),
                   ("      state_head<P, N>(xs, Bs, hv + 2 * qp, qt, warp, lane, sh);\n", "")],
 }
 RMSNORM_EDITS = {
@@ -892,7 +904,8 @@ def ssd_variants(libs: dict) -> None:
     shapes = [("eval_8x512", 8, 4, 128, torch.bfloat16, None),
               ("eval_2x4096", 2, 32, 128, torch.bfloat16, None),
               ("serve_prefill", 16, 1, 16, torch.bfloat16, serve_lengths),
-              ("eval_8x512", 8, 4, 128, torch.float32, None)]
+              ("eval_8x512", 8, 4, 128, torch.float32, None),
+              ("chunk64_8x512", 8, 8, 64, torch.float32, None)]
     h, p, n = 64, 64, 128
     for label, b, nc, q, dtype, lengths in shapes:
         x, dt, A, B, C = c.ssd_inputs(b, nc, q, h, p, n, dtype, 70, lengths)
@@ -909,7 +922,7 @@ def ssd_variants(libs: dict) -> None:
             _build.check(status, "ssd_chunk_fwd (variant)")
 
         want = ssd_chunk_plain(x, dA, dt, B, C)
-        t = c.tol(dtype)
+        t = c.ssd_tol(dtype)
         errs, run = {}, ["committed"] + [k for k, (_, tags) in SSD_EDITS.items() if tag in tags]
         for name in list(run):
             call(libs[f"ssd_{name}"])
@@ -934,10 +947,13 @@ def ssd_variants(libs: dict) -> None:
 
 def ssd_logits(_libs: dict) -> None:
     """mamba2-1.3b's bf16 eval logits (seed-0 weights, 8 x 512 and 2 x 4096)
-    against the plain chunked scan (fp32 FMA in order) for the committed
-    kernel and for the plain scan with its two products (C.B^T, M.x) in
-    float64, rounded once: how far a rounding other than the plain one
-    moves them against the eval gate."""
+    for the committed kernel (three bf16 parts on the tensor cores) and for
+    the plain scan with its products taken another way: C.B^T and M.x in
+    float64, rounded once; M.x and (w x)^T.B with M and w x in three bf16
+    parts, as the kernel forms them.  Each against the plain chunked scan
+    (fp32 FMA in order) at the old 1e-1 comparison, and each batch row's
+    distance from the f32 plain forward of the same weights over the plain
+    scan's (``chip_smoke.witness_gate``'s ratio)."""
     import repro_torch.models.ssm as ssm
     from repro_torch.models import Model, ModelRuntime
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -949,9 +965,20 @@ def ssd_logits(_libs: dict) -> None:
             return einsum(eq, *(o.double() for o in ops)).float()
         return einsum(eq, *ops)
 
+    def einsum_bf16x3(eq, *ops):
+        if eq in ("bcqkh,bckhp->bcqhp", "bckhp,bckn->bchpn"):
+            a, b = ops
+            parts = []
+            for _ in range(3):
+                parts.append(a.bfloat16().float())
+                a = a - parts[-1]
+            return sum(einsum(eq, part, b) for part in reversed(parts))
+        return einsum(eq, *ops)
+
     cfg, params_cpu = c.ssm_weights()
     params = c.cast_params(params_cpu, torch.bfloat16, "cuda")
     del params_cpu
+    p32 = c.cast_params(params, torch.float32, "cuda")
     gate = c.SSM_LOGIT_TOL[torch.bfloat16]
     for b, s in c.EVAL_SHAPES:
         tokens = SyntheticLM(cfg, DataConfig(seq_len=s, global_batch=b, seed=1234),
@@ -959,21 +986,28 @@ def ssd_logits(_libs: dict) -> None:
         plain = Model(cfg, ModelRuntime(dtype=torch.bfloat16, use_ssd_kernel=False))
         kern = Model(cfg, ModelRuntime(dtype=torch.bfloat16, use_ssd_kernel=True))
         with torch.no_grad():
+            witness = Model(cfg, ModelRuntime(dtype=torch.float32, use_ssd_kernel=False)).forward(
+                p32, tokens)
             base = plain.forward(params, tokens).float()
             got = {}
-            ssm.torch.einsum = einsum_f64
-            try:
-                got["plain_scan_f64_products"] = plain.forward(params, tokens).float()
-            finally:
-                ssm.torch.einsum = einsum
+            for name, patch in (("plain_scan_f64_products", einsum_f64),
+                                ("plain_scan_bf16x3_products", einsum_bf16x3)):
+                ssm.torch.einsum = patch
+                try:
+                    got[name] = plain.forward(params, tokens).float()
+                finally:
+                    ssm.torch.einsum = einsum
             got["committed"] = kern.forward(params, tokens).float()
+        base_rows = c.row_distance(base, witness, cfg.vocab_size)
         for name, out in got.items():
             d = (out - base).abs()
             c.emit({"what": "ssd_logits", "at": f"bf16_{b}x{s}", "route": name,
                     "against": "plain chunked scan", "max_abs": d.max().item(),
                     "mean_abs": d.mean().item(),
-                    "worst_over_gate": (d / (gate + gate * base.abs())).max().item()})
-        del base, got
+                    "worst_over_gate": (d / (gate + gate * base.abs())).max().item(),
+                    "witness_row_ratios": (c.row_distance(out, witness, cfg.vocab_size)
+                                           / base_rows).tolist()})
+        del base, got, witness
 
 
 def rmsnorm_variants(libs: dict) -> None:

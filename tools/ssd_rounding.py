@@ -1,5 +1,5 @@
-"""Which rounding of the SSD chunk kernel's products holds the f32 gate,
-on the CPU.
+"""Which rounding of the SSD chunk kernel's products holds its gates, on
+the CPU.
 
     python3 tools/ssd_rounding.py [--chunks 8] [--seed 70]
 
@@ -14,7 +14,15 @@ sweep draws them) with ``S`` and ``M.x`` each taken one of four ways --
 ``in_order`` (fp32 FMA chains, the plain version's rounding), ``exact``
 (float64), ``3xtf32`` (TF32 hi/lo split, lo.hi + hi.lo + hi.hi) -- and
 prints, for each design, the largest ``|y - plain| / (2e-5 + 2e-5
-|plain|)``: at most 1 passes the gate.  Needs no card.
+|plain|)``: at most 1 passes the gate.
+
+Then the bf16 route's gate, 1e-4 (``chip_smoke.SSD_BF16_TOL``): x, B and
+C rounded to bf16, the plain version in order from them, against the
+kernel's design (``S`` from the exact bf16 products summed in fp32, ``M``
+in three bf16 parts against the exact x: ``bf16x3``), the same with two
+parts and one, ``M.x`` in float64 after an in-order ``S``, and the plain
+``Y_diag`` itself rounded to bf16 (what a route storing bf16 would give):
+the largest share of 1e-4's allowance and of 2e-2's.  Needs no card.
 """
 
 from __future__ import annotations
@@ -57,6 +65,14 @@ def product(a, b, eq: str, how: str) -> torch.Tensor:
         return in_order(a, b, eq)
     if how == "exact":
         return torch.einsum(spec, a.double(), b.double()).float()
+    if how == "f32":  # bf16 operands: exact products, fp32 sums
+        return torch.einsum(spec, a, b)
+    if how.startswith("bf16x"):  # a in k bf16 parts, b exact; small parts first
+        parts, rest = [], a
+        for _ in range(int(how[5:])):
+            parts.append(rest.bfloat16().float())
+            rest = rest - parts[-1]
+        return sum(torch.einsum(spec, u, b) for u in reversed(parts))
     ah, bh = tf32(a), tf32(b)
     al, bl = tf32(a - ah), tf32(b - bh)
     return sum(torch.einsum(spec, u.double(), v.double()) for u, v in
@@ -95,6 +111,19 @@ def main() -> int:
         score = ((got - plain).abs() / (2e-5 + 2e-5 * plain.abs())).max().item()
         print(json.dumps({"S": s_how, "M.x": y_how, "elements": plain.numel(),
                           "seed": args.seed, "worst_over_gate": score}), flush=True)
+    x, B, C = (t.bfloat16().float() for t in (x, B, C))
+    plain = y_diag(x, dt, A, B, C, "in_order", "in_order")
+    designs = {f"S f32, M.x {how}": y_diag(x, dt, A, B, C, "f32", how)
+               for how in ("bf16x3", "bf16x2", "bf16x1")}
+    designs["S in_order, M.x exact"] = y_diag(x, dt, A, B, C, "in_order", "exact")
+    designs["plain rounded to bf16"] = plain.bfloat16().float()
+    for name, got in designs.items():
+        d = (got - plain).abs()
+        print(json.dumps({"inputs": "bf16", "design": name, "elements": plain.numel(),
+                          "seed": args.seed, "max_abs": d.max().item(),
+                          "worst_over_1e-4": (d / (1e-4 + 1e-4 * plain.abs())).max().item(),
+                          "worst_over_2e-2": (d / (2e-2 + 2e-2 * plain.abs())).max().item()}),
+              flush=True)
     return 0
 
 
