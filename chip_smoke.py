@@ -165,6 +165,23 @@ Phases, each printing one JSON line:
   the card against the same steps on the CPU from the same weights and
   batches (loss, grad norm, parameters), once as one batch and once as 2
   microbatches with int8 stochastic-rounding accumulation;
+- ``family_train_parity``: the same two f32 steps (TF32 off, 2 x 128)
+  through the payload's ``build_model``/``build_train_step`` for each
+  family past ds-paper-100m at full width: ``mamba2-1.3b``'s first layer
+  and ``zamba2-1.2b``'s first 7 (a shared-block invocation with its LoRA,
+  ``lora_b`` at zero, and a trailing layer) cut from ``ssm_weights`` and
+  ``hybrid_weights``, ``mixtral-8x7b`` at 1 layer under ``capacity`` and
+  ``deepseek-v2-236b``'s dense first layer (MLA and the 12,288-wide MLP),
+  drawn on the card; card against CPU at 1e-4 (loss, grad norm, every
+  parameter), RMSNorm launches exact, ``lora_a`` moved by its gradient;
+  step ms, tokens/s, peak memory, card and CPU seconds;
+- ``remat_train``: ``mamba2-1.3b`` under ``ModelRuntime(remat=True)``
+  through ``make_train_step`` at 2 x 4096, f32 (TF32 off): its first 6
+  layers 2 steps with remat against 2 without (equal within rel 1e-6, a
+  lower peak, each layer's RMSNorm launched again in the recompute), the
+  bytes a forward leaves held; then all 48 layers, 3 steps with remat
+  (the last traced): finite losses, step ms, tokens/s, peak memory, and
+  the peak without remat predicted, not run;
 - ``train``: full width in f32 at 2 of the 12 layers (a depth cut), 8 x
   512 tokens, 20 steps through the span
   runner into a checkpoint, resumed for 2 more and held against an
@@ -244,15 +261,15 @@ Phases, each printing one JSON line:
   3xTF32 but qwen2's 8-row decode, on the decode path), RMSNorm all
   one-pass;
 - ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
-  granite-34b at 11 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
+  granite-34b at 6 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
   at 2, each freed before the next: tokens/s, dispatch times, peak
   memory, launches exact by path, a traced decode dispatch, and the paged
   kernel and RMSNorm at the model's decode and prefill shapes timed
   beside their bounds, plain versions and library calls;
 - ``moe_parity``: ``mixtral-8x7b`` at 1 layer in f32 (TF32 off; 1.72 B
   parameters, 6.9 GB), weights drawn on the card, 16 requests (prompts
-  8-24, 8 new, ``max_batch`` 16; 16-48 before a cut for the time limit,
-  ``MOE_PARITY_PROMPTS``) through the dense-cache engine, every
+  8-16, 8 new, ``max_batch`` 16; 16-48, then 8-24, before cuts for the
+  time limit, ``MOE_PARITY_PROMPTS``) through the dense-cache engine, every
   prompt ingested one token a decode dispatch (MoE takes no fused
   prefill), on the card against the same engine on the CPU, under
   ``capacity`` (5 slots an expert at 16 rows: entries drop, counted) and
@@ -263,9 +280,9 @@ Phases, each printing one JSON line:
   cache: each position's logits against one windowed full forward on the
   plain chunked path (1e-4) and through the flash kernel (1e-3), and a
   forward without the window that must miss past position 4096;
-- ``moe_serve``: 4 layers in bf16 (12.1 GB), ``serve``'s 32 requests on
+- ``moe_serve``: 2 layers in bf16 (6.1 GB), ``serve``'s 32 requests on
   the dense cache under ``dense`` (the entry points' default): tokens/s,
-  dispatch times, peak memory, 9 one-pass RMSNorm a dispatch, 8 decode
+  dispatch times, peak memory, 5 one-pass RMSNorm a dispatch, 8 decode
   dispatches traced (GEMM and routing device time); a ``capacity`` run's
   tokens/s beside it;
 - ``moe_eval``: 2 layers over 1 x 8192 tokens, ``dense``: f32 logits
@@ -277,8 +294,8 @@ Phases, each printing one JSON line:
 - ``mla_parity``: ``deepseek-v2-236b`` at 2 of its 60 layers (the dense
   first layer and one MoE layer of 160 experts, top 6, 2 shared) in f32,
   TF32 off (5.36 B parameters, 21.4 GB), weights drawn on the card, 16
-  requests (prompts 4-12, 4 new, ``max_batch`` 16, page 16; 8-24 before
-  a cut for the time limit, ``MLA_PARITY_PROMPTS``) through the
+  requests (prompts 4-8, 4 new, ``max_batch`` 16, page 16; 8-24, then
+  4-12, before cuts for the time limit, ``MLA_PARITY_PROMPTS``) through the
   paged engine, every prompt ingested one token a decode dispatch, on the
   card against the same engine on the CPU, under ``capacity`` (drops
   counted, required) and ``dense``: equal greedy tokens (the near-tie
@@ -289,7 +306,8 @@ Phases, each printing one JSON line:
   ``c_kv``/``k_rope`` engine on the card against the paged one (tokens,
   logits at 1e-4); one ``Model.forward`` of 2 x 128 tokens under
   ``capacity`` card against CPU at 1e-4;
-- ``mla_serve``: 4 layers in bf16 (13.30 B, 26.6 GB), ``serve``'s 32
+- ``mla_serve``: 2 layers in bf16 (the dense first layer and one MoE
+  layer: 5.36 B, 10.7 GB), ``serve``'s 32
   requests through the paged engine under ``dense``: tokens/s, dispatch
   wall median and p99, peak memory, the latent cache's peak bytes beside
   a per-head cache's for the same pages, launches exact, 8 decode
@@ -2172,7 +2190,12 @@ PARITY_RTOL = 1e-4
 PARITY_PARAM_ATOL = 1e-4
 
 
-def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
+def train_two_steps(job: dict, device: str, seq_len: int, batch: int, params=None):
+    """Two steps of ``job``'s model through the payload's ``build_model``,
+    ``build_train_step`` and AdamW, from ``params`` (seed 0's
+    ``init_params`` when None; the step is functional and leaves them
+    untouched): each step's loss, grad_norm and wall ms (the loss read
+    back ends it), and the final tree."""
     from repro_torch import prng
     from repro_torch.launch.train import build_model, build_train_step
     from repro_torch.train.data import DataConfig, SyntheticLM
@@ -2181,12 +2204,15 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int):
     model = build_model(job)
     step_fn, opt_cfg = build_train_step(job, model)
     data = SyntheticLM(model.cfg, DataConfig(seq_len=seq_len, global_batch=batch), device=device)
-    params = init_params(model, 0, device)
+    if params is None:
+        params = init_params(model, 0, device)
     opt = init_opt_state(params, opt_cfg)
     metrics = []
     for step in range(2):
+        t0 = time.perf_counter()
         params, opt, met = step_fn(params, opt, data.batch(step), prng.PRNGKey(step, device=device))
-        metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"])})
+        metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                        "step_ms": (time.perf_counter() - t0) * 1e3})
     return metrics, params
 
 
@@ -4572,10 +4598,11 @@ ZOO_SEED = 0  # of the card's generator: zoo weights are drawn on the card (Mode
 ZOO_BIAS_STD = 0.5  # qwen2's bq/bk/bv drawn non-zero: q, k and v are ~N(0, 1) at init
 # Depth cuts, never widths.  zoo_parity in f32: granite-34b and qwen2-72b at
 # 1 layer (card and CPU copies), nemotron-4-340b at 1 (51.6 GB, on the card
-# only).  zoo_serve in bf16: granite-34b at 11 of its 88 layers, qwen2-72b at
-# 8 (17.8 GiB), nemotron-4-340b at 2 (30.4 GiB).
+# only).  zoo_serve in bf16: granite-34b at 6 of its 88 layers (11 before a
+# cut for the time limit), qwen2-72b at 8 (17.8 GiB), nemotron-4-340b at 2
+# (30.4 GiB).
 ZOO_PARITY_LAYERS = {"granite-34b": 1, "qwen2-72b": 1, "nemotron-4-340b": 1}
-ZOO_SERVE_LAYERS = {"granite-34b": 11, "qwen2-72b": 8, "nemotron-4-340b": 2}
+ZOO_SERVE_LAYERS = {"granite-34b": 6, "qwen2-72b": 8, "nemotron-4-340b": 2}
 # The paged kernel's path of a decode dispatch (T 1) and of a prefill one
 # (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
 ZOO_PATHS = {  # f32 on the tensor cores in 3xTF32
@@ -4587,11 +4614,11 @@ ZOO_PATHS = {  # f32 on the tensor cores in 3xTF32
     ("nemotron-4-340b", torch.bfloat16): ("tensor_core", "tensor_core"),
 }
 ZOO_PARITY_KW = dict(max_batch=4, max_len=128, prefill_chunk=16)
-# parity's 6 requests at 8 new tokens each, not 24: the CPU side's decode
-# dispatches (qwen2-72b's 152k-entry head on the host) are most of the
-# phase's time (a cut of the time limit's, made for the danube and
-# internvl phases)
-ZOO_PARITY_NEW = 8
+# parity's 6 requests at 4 new tokens each, not 24 (8 before the training
+# phases past ds-paper-100m came in): the CPU side's decode dispatches
+# (qwen2-72b's 152k-entry head on the host) are most of the phase's time
+# (cuts for the time limit; p5 still hits p0's published prefix)
+ZOO_PARITY_NEW = 4
 ZOO_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
                     cache_mode="paged")
 ZOO_TRACE_TICKS = 8
@@ -4931,15 +4958,16 @@ DANUBE_WINDOW = 4096  # h2o-danube-3-4b's
 # Depth cuts, never widths: mixtral-8x7b whole is 46.7 B parameters (93.4 GB
 # in bf16).  moe_parity and moe_window in f32 at 1 layer (1.72 B, 6.9 GB on
 # the card and again on the host for parity), moe_eval at 2 (3.17 B, 12.7 GB
-# in f32), moe_serve in bf16 at 4 (6.07 B, 12.1 GB).  Weights are drawn on
-# the card (``zoo_weights``: Model.draw from ZOO_SEED).
+# in f32), moe_serve in bf16 at 2 (6.3 GB; 4 before a cut for the time
+# limit).  Weights are drawn on the card (``zoo_weights``: Model.draw from
+# ZOO_SEED).
 MOE_PARITY_LAYERS = 1
 MOE_EVAL_LAYERS = 2
-MOE_SERVE_LAYERS = 4
+MOE_SERVE_LAYERS = 2  # 4 before a cut for the time limit
 MOE_PARITY_KW = dict(max_batch=16, max_len=128, prefill_chunk=16, cache_mode="dense")
-# prompts 16-48 before a cut for the time limit (the CPU side's
+# prompts 16-48, then 8-24, before cuts for the time limit (the CPU side's
 # decode dispatches, each reading the layer's 5.6 GB of f32 experts)
-MOE_PARITY_PROMPTS = (8, 24)
+MOE_PARITY_PROMPTS = (8, 16)
 MOE_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, cache_mode="dense")
 MOE_WINDOW_POSITIONS = 4608  # past the rolling cache's 4,224 slots and the window
 MOE_EVAL_TOKENS = 8192
@@ -5157,12 +5185,12 @@ def phase_moe_window(params) -> dict:
 
 
 def phase_moe_serve() -> dict:
-    """mixtral-8x7b at 4 layers in bf16 on the dense (rolling-capable)
-    cache, ``dense`` as the entry points default: ``serve``'s 32 requests
-    (prompts 128-512, 64 new, ``max_batch`` 16), every prompt ingested one
-    token a decode dispatch (MoE takes no fused prefill, as in the
-    reference): tokens/s, dispatch times, peak memory, 9 one-pass RMSNorm
-    a dispatch; one ``capacity`` run's tokens/s beside it (reported: its
+    """mixtral-8x7b at ``MOE_SERVE_LAYERS`` layers in bf16 on the dense
+    (rolling-capable) cache, ``dense`` as the entry points default:
+    ``serve``'s 32 requests (prompts 128-512, 64 new, ``max_batch`` 16),
+    every prompt ingested one token a decode dispatch (MoE takes no fused
+    prefill, as in the reference): tokens/s, dispatch times, peak memory,
+    2 L + 1 one-pass RMSNorm a dispatch; one ``capacity`` run's tokens/s beside it (reported: its
     drops make other tokens); 8 decode dispatches traced (GEMM and routing
     device time)."""
     from repro_torch.models import Model, ModelRuntime
@@ -5307,15 +5335,15 @@ MLA_ARCH = "deepseek-v2-236b"
 # Depth cuts, never widths: deepseek-v2-236b whole is 235.7 B parameters
 # (472 GB in bf16).  mla_parity in f32 at 2 layers, the dense first layer
 # and one MoE layer (5.36 B, 21.4 GB on the card and again on the host),
-# mla_serve in bf16 at 4 (13.30 B, 26.6 GB).  Weights are drawn on the
-# card (``zoo_weights``: Model.draw from ZOO_SEED).
+# mla_serve in bf16 at 2 (10.7 GB; 4 before a cut for the time limit).
+# Weights are drawn on the card (``zoo_weights``: Model.draw from ZOO_SEED).
 MLA_PARITY_LAYERS = 2
-MLA_SERVE_LAYERS = 4
+MLA_SERVE_LAYERS = 2
 MLA_PARITY_KW = dict(max_batch=16, max_len=32, prefill_chunk=16, page_size=16,
                      cache_mode="paged")
-# prompts 8-24 before a cut for the time limit (the CPU side's
+# prompts 8-24, then 4-12, before cuts for the time limit (the CPU side's
 # decode dispatches over 160 f32 experts)
-MLA_PARITY_PROMPTS = (4, 12)
+MLA_PARITY_PROMPTS = (4, 8)
 MLA_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
                     cache_mode="paged")
 MLA_FORWARD_SHAPE = (2, 128)
@@ -5469,8 +5497,8 @@ def phase_mla_parity() -> dict:
 
 
 def phase_mla_serve() -> dict:
-    """deepseek-v2-236b at 4 layers in bf16 through the paged engine,
-    ``dense`` as the entry points' default: ``serve``'s 32 requests (prompts
+    """deepseek-v2-236b at ``MLA_SERVE_LAYERS`` layers in bf16 through the
+    paged engine, ``dense`` as the entry points' default: ``serve``'s 32 requests (prompts
     128-512, 64 new, ``max_batch`` 16, page 16), every prompt ingested one
     token a decode dispatch (a MoE takes no fused prefill, as in the
     reference): tokens/s, dispatch wall median and p99, peak memory, the
@@ -6316,6 +6344,288 @@ def phase_whisper_eval() -> dict:
     return rec
 
 
+# ------------------------------------------------------------------ training past ds-paper-100m
+# family_train_parity: each family past ds-paper-100m trained at full width
+# and a depth cut, card against CPU as train_parity does; remat_train:
+# mamba2-1.3b under ModelRuntime(remat=True), at 6 layers against no remat
+# and at all 48.
+FAMILY_TRAIN_LAYERS = {SSM_ARCH: 1, HYBRID_ARCH: 7, MOE_ARCH: 1, MLA_ARCH: 1}
+FAMILY_TRAIN_SHAPE = (2, 128)  # rows x tokens a step, train_parity's
+REMAT_SHAPE = (2, 4096)
+REMAT_PARITY_LAYERS = SSM_PARITY_LAYERS
+REMAT_STEPS = 3
+REMAT_RTOL = 1e-6  # remat against no remat: losses, and each leaf against its largest value
+
+
+def forward_norms(cfg) -> int:
+    """RMSNorm launches a full-sequence forward: ``hybrid_norms`` in the
+    hybrid; ``ln1`` a layer in the SSM family; ``ln1`` and ``ln2`` a layer
+    elsewhere, MLA's ``q_norm`` and ``kv_norm`` besides; and ``ln_f``.  A
+    train step launches these once: its backward is plain torch."""
+    if cfg.family == "hybrid":
+        return hybrid_norms(cfg)
+    per_layer = 1 if cfg.family == "ssm" else 4 if cfg.use_mla else 2
+    return per_layer * cfg.n_layers + 1
+
+
+def require_train_launches(launches: dict, norms: int, what: str) -> None:
+    """A training run's exact launches: ``norms`` RMSNorm, all one-pass (the
+    widths here, 512 to 5120, are compiled in), and no attention or SSD
+    kernel: training takes the plain paths, as the reference does."""
+    require(launches["rmsnorm"] == norms == launches["rmsnorm_one_pass"]
+            and launches["ssd"] == 0 and launches["flash_attention"] == 0
+            and launches["paged_attention"] == 0,
+            f"{what}: launches {launches}, want {norms} one-pass RMSNorm and nothing else")
+
+
+def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
+    """Two f32 train steps (TF32 off) of each family past ds-paper-100m at
+    full width, through the payload's ``build_model``/``build_train_step``
+    and AdamW, on the card against the CPU from one tree: mamba2-1.3b's
+    first layer and zamba2-1.2b's first 7 (one shared-block invocation
+    with its LoRA, and a trailing layer) cut from ``ssm``/``hybrid`` (the
+    host trees of ``ssm_weights``/``hybrid_weights``, zamba2's ``lora_b``
+    back at the reference's zeros); mixtral-8x7b at 1 layer under
+    ``capacity`` (the expert gather and the index backward run with
+    atomics on the card) and deepseek-v2-236b's dense first layer (MLA's
+    eight leaves and the 12,288-wide MLP), drawn on the card and copied to
+    the host.  Held as ``train_parity`` holds ds-paper-100m: loss and
+    grad_norm at each step, every parameter after 2 steps, RMSNorm launches
+    exact.  zamba2's zero ``lora_b`` leaves ``lora_a`` no gradient at step
+    1, so it must move at step 2 past what weight decay alone gives."""
+    from repro_torch.launch.train import build_model, build_train_step
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, seq = FAMILY_TRAIN_SHAPE
+    rec = {"phase": "family_train_parity", "dtype": "float32", "tokens": f"{rows} x {seq}",
+           "steps": 2, "rtol": PARITY_RTOL, "param_atol": PARITY_PARAM_ATOL, "cases": {},
+           "launches": {}}
+    for arch, layers in FAMILY_TRAIN_LAYERS.items():
+        job = {"arch": arch, "arch_overrides": {"n_layers": layers}, "moe_strategy": "capacity"}
+        model = build_model(job)
+        release_device_memory()
+        if arch in (SSM_ARCH, HYBRID_ARCH):
+            _, host = first_layers(*(ssm if arch == SSM_ARCH else hybrid), layers)
+            weights = {"from": "ssm_weights" if arch == SSM_ARCH else "hybrid_weights"}
+            if arch == HYBRID_ARCH:
+                shared = host["shared"]
+                host = {**host, "shared": {**shared, "lora_b": torch.zeros_like(shared["lora_b"])}}
+            card_init = tree_map(lambda t: t.to("cuda", copy=True), host)
+        else:
+            card_init, weights = zoo_weights(model)
+            host = tree_map(lambda t: t.cpu(), card_init)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        card, card_params = train_two_steps(job, "cuda", seq, rows, params=card_init)
+        card_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        del card_init
+        release_device_memory()
+        t0 = time.perf_counter()
+        cpu, cpu_params = train_two_steps(job, "cpu", seq, rows, params=host)
+        cpu_s = time.perf_counter() - t0
+        cpu_params = tree_map(lambda t: t.to("cuda"), cpu_params)  # compared on the card
+        what = f"family_train_parity {arch}"
+        worst, worst_leaf = 0.0, None
+        for (path, a), b in zip(tree_leaves_with_path(card_params), tree_leaves(cpu_params)):
+            err = (a - b).abs().max().item()
+            if err >= worst:
+                worst, worst_leaf = err, "/".join(map(str, path))
+            require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
+                    f"{what}: {worst_leaf} differs after 2 steps (max {err})")
+        for step, (c, h) in enumerate(zip(card, cpu)):
+            for key in ("loss", "grad_norm"):
+                require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
+                        f"{what}: {key} at step {step} card {c[key]} cpu {h[key]}")
+        require_train_launches(launches, 2 * forward_norms(model.cfg), what)
+        case = {"layers": layers, "weights": weights,
+                "parameters": sum(t.numel() for t in tree_leaves(host)),
+                "card": card, "cpu": cpu, "card_s": card_s, "cpu_s": cpu_s,
+                "param_max_abs_err": worst, "worst_leaf": worst_leaf,
+                "max_memory_allocated_bytes": peak,
+                "tokens_per_s": rows * seq / (card[-1]["step_ms"] / 1e3),
+                "rmsnorm_launches": launches["rmsnorm"]}
+        if arch == HYBRID_ARCH:  # lora_a moved by its gradient at step 2, not by decay alone
+            _, opt = build_train_step(job, model)
+            decay = opt.weight_decay * (opt.schedule(1) + opt.schedule(2))
+            a0 = host["shared"]["lora_a"].to("cuda")
+            moved = {"card": (card_params["shared"]["lora_a"] - a0).abs().max().item(),
+                     "cpu": (cpu_params["shared"]["lora_a"] - a0).abs().max().item()}
+            by_decay = decay * a0.abs().max().item()
+            require(min(moved.values()) > 10 * by_decay,
+                    f"{what}: lora_a moved {moved} in 2 steps, weight decay alone {by_decay}")
+            case["lora_a_moved"] = {**moved, "by_weight_decay_alone": by_decay}
+        rec["cases"][arch] = case
+        rec["launches"] = add_launches(rec["launches"], launches)
+        del host, card_params, cpu_params
+    release_device_memory()
+    emit(rec)
+    return rec
+
+
+def saved_after_forward(model, params, batch) -> int:
+    """Bytes one loss's forward leaves held on the card for its backward
+    (the activations it saved and the logits): the allocator's growth
+    across the forward, on fresh leaves with the gradient on."""
+    from repro_torch.tree import tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with torch.enable_grad():
+        loss, _ = model.loss(leaves, batch)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    del loss, leaves
+    return held
+
+
+def remat_steps(cfg, host, remat: bool, steps: int, traced: bool = False) -> dict:
+    """``steps`` f32 train steps of ``cfg`` on the card from the host tree
+    ``host``, through ``make_train_step`` and ``init_opt_state`` (AdamW's
+    defaults) under ``ModelRuntime(remat=remat)``, at ``REMAT_SHAPE``:
+    each step's loss and wall ms, the parameters and optimizer state's
+    bytes (``static_bytes``), the bytes a forward leaves held for its
+    backward, the peak over the steps, the launches and the final tree;
+    ``traced``: the last step under the profiler (``trace``, whose untraced
+    rep is the step before it)."""
+    from repro_torch import prng
+    from repro_torch.models import Model, ModelRuntime
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.steps import TrainStepConfig, make_train_step
+
+    rows, seq = REMAT_SHAPE
+    model = Model(cfg, ModelRuntime(remat=remat))
+    tcfg = TrainStepConfig()
+    step_fn = make_train_step(model, tcfg)
+    data = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=rows), device="cuda")
+    release_device_memory()
+    state = {"params": cast_params(host, torch.float32, "cuda")}
+    state["opt"] = init_opt_state(state["params"], tcfg.opt)
+    torch.cuda.synchronize()
+    static = torch.cuda.memory_allocated()
+    saved = saved_after_forward(model, state["params"], data.batch(0))
+    release_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = [], []
+
+    def one_step():
+        i = len(losses)
+        t0 = time.perf_counter()
+        state["params"], state["opt"], met = step_fn(state["params"], state["opt"],
+                                                     data.batch(i), prng.PRNGKey(i, device="cuda"))
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(steps - 2 if traced else steps):
+        one_step()
+    profile = trace(one_step, 1, "step") if traced else None
+    out = {"remat": remat, "layers": cfg.n_layers, "losses": losses, "step_ms": step_ms,
+           "static_bytes": static, "saved_after_forward_bytes": saved,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": read_launches(), "params": state["params"]}
+    if traced:
+        out["profile"] = {"what": f"f32 train step under remat, {rows} x {seq} tokens, "
+                                  f"{cfg.n_layers} layers (the last step)", **profile}
+    return out
+
+
+def tree_gap(a, b) -> dict:
+    """Leaf by leaf: the largest gap against the leaf's largest value in
+    ``b``, and the leaves that are not bit-equal."""
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    worst, differ = 0.0, []
+    for (path, x), y in zip(tree_leaves_with_path(a), tree_leaves(b)):
+        if not torch.equal(x, y):
+            differ.append("/".join(map(str, path)))
+            scale = max(y.abs().max().item(), 1e-30)
+            worst = max(worst, (x - y).abs().max().item() / scale)
+    return {"worst_rel_to_leaf_max": worst, "not_bit_equal": differ}
+
+
+def phase_remat_train(cfg, params_cpu) -> dict:
+    """mamba2-1.3b trained in f32 (TF32 off) under ``ModelRuntime(remat=
+    True)`` through ``make_train_step``, at REMAT_SHAPE (2 x 4096 tokens).
+    (a) Its first 6 layers, 2 steps with remat against 2 without, on the
+    card: losses and every parameter equal within REMAT_RTOL (where not bit
+    for bit, a second run without remat says whether an op is
+    nondeterministic run to run), the peak lower with remat, RMSNorm
+    launched again in the recompute (each layer's ``ln1``, exact), no SSD
+    kernel (training takes the plain scan); the bytes a forward leaves held
+    give the per-layer activation bytes.  (b) All 48 layers, 3 steps with
+    remat (the last traced): finite losses, exact launches, step ms,
+    tokens/s and the peak; the peak without remat is not run, only
+    predicted from (a)'s per-layer bytes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, seq = REMAT_SHAPE
+    cut_cfg, cut = first_layers(cfg, params_cpu, REMAT_PARITY_LAYERS)
+    rec = {"phase": "remat_train", "arch": cfg.name, "dtype": "float32",
+           "tokens": f"{rows} x {seq}", "rtol": REMAT_RTOL, "launches": {}}
+    runs = {}
+    for name, remat in (("no_remat", False), ("remat", True)):
+        out = remat_steps(cut_cfg, cut, remat, 2)
+        norms = 2 * (forward_norms(cut_cfg) + (cut_cfg.n_layers if remat else 0))
+        require_train_launches(out["launches"], norms, f"remat_train {name}")
+        rec["launches"] = add_launches(rec["launches"], out["launches"])
+        runs[name] = out
+    a, b = runs["remat"], runs["no_remat"]
+    gap = tree_gap(a["params"], b["params"])
+    gap["losses"] = [(x, y) for x, y in zip(a["losses"], b["losses"])]
+    if gap["not_bit_equal"] or a["losses"] != b["losses"]:  # remat, or an op run to run?
+        again = remat_steps(cut_cfg, cut, False, 2)
+        gap["no_remat_run_to_run"] = {**tree_gap(again["params"], b["params"]),
+                                      "losses_equal": again["losses"] == b["losses"]}
+        del again
+    for name in runs:
+        runs[name].pop("params")
+    release_device_memory()
+    require(all(abs(x - y) <= REMAT_RTOL * abs(y) for x, y in gap["losses"])
+            and gap["worst_rel_to_leaf_max"] <= REMAT_RTOL,
+            f"remat_train: remat against no remat {gap}")
+    require(a["max_memory_allocated_bytes"] < b["max_memory_allocated_bytes"],
+            f"remat_train: peak {a['max_memory_allocated_bytes']} with remat, "
+            f"{b['max_memory_allocated_bytes']} without")
+    boundary = rows * seq * cfg.d_model * 4  # a checkpoint's input, what remat keeps a layer
+    per_layer = (b["saved_after_forward_bytes"] - a["saved_after_forward_bytes"]) / \
+        REMAT_PARITY_LAYERS + boundary
+    full = remat_steps(cfg, params_cpu, True, REMAT_STEPS, traced=True)
+    full.pop("params")
+    release_device_memory()
+    require(len(full["losses"]) == REMAT_STEPS
+            and all(math.isfinite(x) for x in full["losses"]),
+            f"remat_train: full-depth losses {full['losses']}")
+    require_train_launches(full["launches"],
+                           REMAT_STEPS * (forward_norms(cfg) + cfg.n_layers),
+                           "remat_train full depth")
+    rec["launches"] = add_launches(rec["launches"], full["launches"])
+    untraced = full["step_ms"][:-1]
+    predicted = full["saved_after_forward_bytes"] + cfg.n_layers * (per_layer - boundary)
+    rec.update({
+        "cut": {"layers": REMAT_PARITY_LAYERS, **runs, "remat_against_no_remat": gap,
+                "per_layer_saved_bytes": {"no_remat": per_layer, "remat": boundary}},
+        "full_depth": {**full, "step_ms_untraced": summary(untraced),
+                       "tokens_per_s": rows * seq / (summary(untraced)["median"] / 1e3)},
+        "predicted_no_remat_full_depth": {
+            "what": "a prediction, not run: the bytes a 48-layer forward without remat "
+                    "would leave held (the remat forward's plus 48 x (a) per-layer bytes "
+                    "less the boundary), and with the parameters and AdamW state, a lower "
+                    "bound on its peak",
+            "saved_after_forward_bytes": predicted,
+            "peak_lower_bound_bytes": full["static_bytes"] + predicted},
+        "device": smi_line()})
+    emit(rec)
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -6338,14 +6648,15 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
                  ds_store: dict, train: dict, evals: dict, ssm_serve: dict, ssm_eval: dict,
                  hybrid_static: dict, hybrid_serve: dict, hybrid_eval: dict,
                  zoo_serve: dict, moe_serve: dict, moe_eval: dict, mla_serve: dict,
-                 slices: dict) -> dict:
+                 slices: dict, trains: dict) -> dict:
     """One row per kernel: its launches on the main paths (serve,
     spec_serve, ds_parity's, ds_serve's and ds_store's payload runs, train,
     eval, ssm_serve, ssm_eval, the hybrid's static job through the control
     plane, hybrid_serve, hybrid_eval, each zoo model's serve run,
     moe_serve's dense and capacity runs, moe_eval's forwards, mla_serve's
     run, and ``slices``: danube_serve's, vlm_serve's and whisper_serve's
-    runs, danube_eval's, vlm_eval's and whisper_eval's forwards: counts
+    runs, danube_eval's, vlm_eval's and whisper_eval's forwards; and
+    ``trains``: family_train_parity's card runs and remat_train's: counts
     set to 0 before each run and read after), the paged kernel's and
     RMSNorm's also by kernel path, its worst error, and its times at its
     first timed shape with the others beside."""
@@ -6367,7 +6678,7 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
              "vlm_serve": slices["vlm_serve"]["launches"],
              "vlm_eval": total(slices["vlm_eval"]["runs"]),
              "whisper_serve": slices["whisper_serve"]["launches"],
-             "whisper_eval": total(slices["whisper_eval"]["runs"])}
+             "whisper_eval": total(slices["whisper_eval"]["runs"]), **trains}
     timed_by_kernel = {
         "paged_attention": {**serve["kernel_times"]["paged_attention"],
                             **spec_serve["kernel_times"]["paged_attention"],
@@ -6491,6 +6802,10 @@ def main() -> int:
         del plain
     phase_train_parity()
     lap("train_parity")
+    family_train = phase_family_train_parity((cfg, params_cpu), (hcfg, hparams_cpu))
+    lap("family_train_parity")
+    remat_train = phase_remat_train(cfg, params_cpu)
+    lap("remat_train")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
         lap("train")
@@ -6549,7 +6864,9 @@ def main() -> int:
         lap(name)
     emit(kernels_line(checks, serve, spec_serve, ds_parity, ds_serve, ds_store, train, evals,
                       ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve,
-                      moe_serve, moe_eval, mla_serve, slices))
+                      moe_serve, moe_eval, mla_serve, slices,
+                      {"family_train_parity": family_train["launches"],
+                       "remat_train": remat_train["launches"]}))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

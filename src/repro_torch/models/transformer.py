@@ -40,7 +40,20 @@ attentions take the flash kernel; decode reads each layer's cross cache
 through the paged kernel (``cross_page_view``).  Its serving path takes
 the dense cache, a token a dispatch.  Layers
 run as a Python loop over the per-layer dicts (the reference scans
-stacked layers); remat is not ported.
+stacked layers).
+
+Remat (``ModelRuntime.remat``, ``remat_segment``) follows the reference's
+``_run_layers``/``_run_hybrid``: the full-sequence forward checkpoints
+each layer (``torch.utils.checkpoint``, non-reentrant), or with
+``remat_segment`` k > 1 each run of k layers, in each group (a MoE's
+``first_k_dense`` dense layers, then the rest) whose length k divides;
+a group it does not divide is checkpointed a layer at a time.  The
+hybrid checkpoints each SSM layer alone, never its shared block, and
+ignores the segment.  The encoder-decoder takes no remat, in its
+encoder or decoder, as in the reference; nor do the serving paths.
+The checkpoint is non-reentrant so its forward runs with the gradient
+enabled: the recompute then resolves the same attention and SSD route
+(both read ``requires_grad``) as the forward it replays.
 
 Parameters are a plain dict: ``embed`` ``(Vp, d)``, ``layers`` (a list,
 one dict per layer: ``ln1``, ``attn`` {wq, wk, wv, wo} (MLA's leaves, see
@@ -94,6 +107,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -126,6 +140,10 @@ class ModelRuntime:
     attn_chunk: int = 1024
     use_ssd_kernel: Optional[bool] = None  # None = resolve_ssd's rule
     moe_strategy: str = "capacity"  # dense | capacity | capacity_scatter | shardmap
+    remat: bool = False
+    # 0 = checkpoint every layer; k > 1 = checkpoint every k layers of a
+    # group whose length k divides (the reference's sqrt-remat)
+    remat_segment: int = 0
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -575,14 +593,42 @@ class Model:
         if self.cfg.is_encoder_decoder:
             enc = self._encode(params, frames)
             return self._logits(params, self._run_decoder_with_cross(params, x, enc, positions))
+        return self._logits(params, self._run_layers(params, x, positions))
+
+    def _run_layers(self, params: Params, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+        """The decoder stack over ``x`` (the reference's ``_run_layers`` and
+        ``_run_hybrid``), checkpointed by ``rt.remat``: in a hybrid each SSM
+        layer alone and the shared block never; elsewhere the dense group
+        and the rest apart, each in runs of ``remat_segment`` layers where
+        that divides the group, else a layer at a time."""
+        cfg, rt, layers = self.cfg, self.rt, params["layers"]
         h = x
-        for i, lp in enumerate(params["layers"]):
-            inv = self._shared_at(i)
-            if inv is not None:  # the reference's _run_hybrid
-                h = h + _shared_block_apply(params["shared"], h, x, inv, self.cfg, self.rt,
-                                            positions)
-            h = _layer_apply(lp, h, self.cfg, self.rt, positions)
-        return self._logits(params, h)
+        if cfg.family == "hybrid":
+            for i, lp in enumerate(layers):
+                inv = self._shared_at(i)
+                if inv is not None:
+                    h = h + _shared_block_apply(params["shared"], h, x, inv, cfg, rt, positions)
+                h = self._apply_layers([lp], h, positions)
+            return h
+        n_dense = cfg.first_k_dense if cfg.family == "moe" else 0
+        for group in (layers[:n_dense], layers[n_dense:]):
+            seg = rt.remat_segment
+            seg = seg if rt.remat and seg > 1 and len(group) % seg == 0 else 1
+            for s in range(0, len(group), seg):
+                h = self._apply_layers(group[s:s + seg], h, positions)
+        return h
+
+    def _apply_layers(self, lps: list, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """``lps`` in order over ``h``, as one checkpoint under ``rt.remat``:
+        only ``h`` is kept for the backward, which runs them again."""
+
+        def run(h):
+            for lp in lps:
+                h = _layer_apply(lp, h, self.cfg, self.rt, positions)
+            return h
+
+        return checkpoint(run, h, use_reentrant=False) if self.rt.remat else run(h)
 
     def _embed(self, params: Params, tokens: torch.Tensor,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:

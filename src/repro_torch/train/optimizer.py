@@ -144,12 +144,18 @@ def adamw_update(params: Tree, grads: Tree, state: Tree,
             nu_f = dequantize_blockwise(nu, p.shape)
         else:
             mu_f, nu_f = mu, nu
-        mu_f = cfg.b1 * mu_f + (1 - cfg.b1) * g
-        nu_f = cfg.b2 * nu_f + (1 - cfg.b2) * g.square()
-        mhat = mu_f / bc1
-        nhat = nu_f / bc2
-        delta = mhat / (torch.sqrt(nhat) + cfg.eps) + cfg.weight_decay * p.float()
-        new_p = p.float() - lr * delta
+        # the reference's arithmetic op for op, in two temporaries of the
+        # leaf's size (``g``, ``tmp``) besides the three results: on the
+        # host each fresh multi-GB tensor costs about as much as the op
+        tmp = torch.mul(g, 1 - cfg.b1)
+        mu_f = mu_f * cfg.b1
+        mu_f.add_(tmp)
+        nu_f = nu_f * cfg.b2
+        nu_f.add_(g.square_().mul_(1 - cfg.b2))
+        delta = torch.div(mu_f, bc1, out=tmp)
+        den = torch.div(nu_f, bc2, out=g).sqrt_().add_(cfg.eps)
+        delta.div_(den).add_(den.copy_(p).mul_(cfg.weight_decay))
+        new_p = p.float() - delta.mul_(lr)
         if cfg.moments_dtype == "int8":
             return new_p, quantize_blockwise(mu_f), quantize_blockwise(nu_f)
         return new_p, mu_f, nu_f

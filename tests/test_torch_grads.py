@@ -7,8 +7,11 @@ reference gradient, for reduced ``mixtral-8x7b`` (``dense`` and
 ``mamba2-1.3b``, 5-layer ``zamba2-1.2b`` (a trailing layer past the
 last full segment) with ``lora_b`` drawn non-zero (its init is zeros),
 so the shared block's LoRA, stacked over its invocations, is held too,
-and reduced ``whisper-tiny`` over stub frames (the encoder, the stacked
-cross attention, LayerNorm's biases, both learned position tables)."""
+reduced ``whisper-tiny`` over stub frames (the encoder, the stacked
+cross attention, LayerNorm's biases, both learned position tables),
+reduced ``deepseek-v2-236b`` under ``dense`` and ``capacity`` (every MLA
+leaf of its dense first layer and its MoE layer) and reduced
+``h2o-danube-3-4b``, whose window of 32 binds on the 48-token rows."""
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +47,11 @@ GRAD_CASES = {  # name -> (arch, overrides, moe_strategy)
     "mamba2": ("mamba2-1.3b", {}, "capacity"),
     "zamba2_5_layers": ("zamba2-1.2b", {"n_layers": 5}, "capacity"),
     "whisper": ("whisper-tiny", {}, "capacity"),
+    "deepseek_dense": ("deepseek-v2-236b", {}, "dense"),
+    "deepseek_capacity": ("deepseek-v2-236b", {}, "capacity"),
+    "danube_window": ("h2o-danube-3-4b", {}, "capacity"),
 }
+MLA_LEAVES = ["k_up", "kv_down", "kv_norm", "q_down", "q_norm", "q_up", "v_up", "wo"]
 
 
 @pytest.mark.parametrize("case", list(GRAD_CASES))
@@ -81,6 +88,13 @@ def test_loss_and_every_gradient_match_jax_grad(case):
         scale = float(np.abs(w).max())
         err = float(np.abs(g - w).max())
         assert err <= 1e-4 * max(scale, 1e-12), (jax.tree_util.keystr(path), err, scale)
+    if cfg.use_mla:  # every MLA leaf of every layer is among those held
+        for group in ("dense_layers", "layers"):
+            attn = jg[group]["attn"]
+            assert sorted(attn) == MLA_LEAVES
+            assert all(float(np.abs(np.asarray(w)).max()) > 0 for w in jax.tree.leaves(attn))
+    if cfg.sliding_window:  # the reduced window binds on the 48-token rows
+        assert cfg.sliding_window < batch["tokens"].shape[1]
     if cfg.shared_attn_lora_rank:  # the LoRA's gradients reach both stacked factors
         lora = {jax.tree_util.keystr(k): w for k, w in want if "lora" in jax.tree_util.keystr(k)}
         assert sorted(lora) == ["['shared']['lora_a']", "['shared']['lora_b']"]
