@@ -161,11 +161,12 @@ Phases, each printing one JSON line:
   host ms per page by step, the store's share of each lease's wall time,
   peak memory, the split's tokens against the unified lease's (reported);
 - ``train_parity``: full-width f32 training at 1 of the 12 layers (the
-  depth cut keeps its CPU side short), 2 x 128 tokens, 2 AdamW steps on
+  depth cut keeps its CPU side short), 2 x 128 tokens, AdamW steps on
   the card against the same steps on the CPU from the same weights and
-  batches (loss, grad norm, parameters), once as one batch and once as 2
+  batches (loss, grad norm, parameters), 2 as one batch and 1 as 2
   microbatches with int8 stochastic-rounding accumulation;
-- ``family_train_parity``: the same two f32 steps (TF32 off, 2 x 128)
+- ``family_train_parity``: the same f32 steps (TF32 off, 2 x 128; 2 for
+  mamba2 and zamba2, 1 for mixtral and deepseek)
   through the payload's ``build_model``/``build_train_step`` for each
   family past ds-paper-100m at full width: ``mamba2-1.3b``'s first layer
   and ``zamba2-1.2b``'s first 7 (a shared-block invocation with its LoRA,
@@ -182,6 +183,19 @@ Phases, each printing one JSON line:
   bytes a forward leaves held; then all 48 layers, 3 steps with remat
   (the last traced): finite losses, step ms, tokens/s, peak memory, and
   the peak without remat predicted, not run;
+- ``mesh``: the model over a (1, 1) ("data", "model") ``DeviceMesh`` on
+  the card (NCCL over one rank through a ``FileStore``) under
+  ``train_rules`` with FSDP over "data", every parameter a DTensor laid
+  out by ``param_specs``, against the same runs unsharded: (a)
+  ds-paper-100m at full width, 2 layers, f32: the loss and every leaf's
+  gradient at 1e-4 (reported bit for bit or not), RMSNorm through
+  ``local_map`` onto the kernel, launches equal; (b) its bf16 eval
+  forward: logits within 1e-1, flash and RMSNorm launches equal; (c) one
+  full-width mixtral-8x7b layer in f32, ``shardmap`` against
+  ``capacity``: output at 2e-5, gradients at 1e-4 of each leaf's largest;
+  (d) ``pipeline_apply`` on a one-stage pipe at d 768; NCCL's start-up
+  seconds; a mesh of another size than the world raises.  Multi-rank
+  meshes run only on the CPU (the tests): the machine has one card;
 - ``train``: full width in f32 at 2 of the 12 layers (a depth cut), 8 x
   512 tokens, 20 steps through the span
   runner into a checkpoint, resumed for 2 more and held against an
@@ -261,7 +275,7 @@ Phases, each printing one JSON line:
   3xTF32 but qwen2's 8-row decode, on the decode path), RMSNorm all
   one-pass;
 - ``zoo_serve``: bf16, ``serve``'s 32 requests through the paged engine,
-  granite-34b at 6 of its 88 layers, qwen2-72b at 8 and nemotron-4-340b
+  granite-34b at 3 of its 88 layers, qwen2-72b at 4 and nemotron-4-340b
   at 2, each freed before the next: tokens/s, dispatch times, peak
   memory, launches exact by path, a traced decode dispatch, and the paged
   kernel and RMSNorm at the model's decode and prefill shapes timed
@@ -323,17 +337,17 @@ Phases, each printing one JSON line:
   prefill) through the dense engine on the card against the same engine
   on the CPU: equal greedy tokens (the near-tie exception), every counter,
   every dispatch's logits at 1e-4, 3 one-pass RMSNorm at 3840 a dispatch;
-- ``danube_serve``: all 24 layers in bf16 (7.9 GB) on the rolling cache
+- ``danube_serve``: 12 of its 24 layers in bf16 on the rolling cache
   (4,608 positions a row, 4,224 slots under the 4096 window: 3.1 GB at 16
   rows), 16 requests of 128 tokens, 64 new, every prompt ingested one
   token a decode dispatch: tokens/s, dispatch wall median and p99, peak
-  memory, 49 one-pass RMSNorm a dispatch and nothing else launched, a
+  memory, 25 one-pass RMSNorm a dispatch and nothing else launched, a
   traced decode dispatch (busy, idle share, ops, RMSNorm's device time),
   RMSNorm at 16 x 3840 timed;
-- ``danube_eval``: all 24 layers over 1 x 8192 tokens of the eval runner's
+- ``danube_eval``: 12 of the 24 layers over 1 x 8192 tokens of the eval runner's
   stream: f32 (TF32 off) logits with the kernels (flash at hd 120 with
   the 4096 window, RMSNorm) within 1e-3 of the plain path (chunked
-  attention, plain RMSNorm), 24 flash and 49 one-pass RMSNorm a forward,
+  attention, plain RMSNorm), 12 flash and 25 one-pass RMSNorm a forward,
   a finite loss; bf16 timed and reported (its distance from the f32 plain
   path); flash at BH 32 x 8192, hd 120, window 4096 timed in both dtypes
   beside its bound (the windowed pairs at 120, not the padded 128), its
@@ -345,15 +359,15 @@ Phases, each printing one JSON line:
   (a VLM takes no fused prefill), card against CPU as ``danube_parity``:
   a paged launch a layer a dispatch, all on the decode path (the 7-row
   fold), 5 one-pass RMSNorm at 896 a dispatch;
-- ``vlm_serve``: all 24 layers in bf16 (1.3 GB), 16 requests of 128
+- ``vlm_serve``: 12 of its 24 layers in bf16, 16 requests of 128
   tokens, 32 new, on the paged engine: ``danube_serve``'s numbers, 24
-  decode-path paged launches and 49 one-pass RMSNorm a dispatch; the
+  decode-path paged launches and 25 one-pass RMSNorm a dispatch; the
   paged kernel at the G 7 decode fold (B 16, Hkv 2, dk 64, 128-158 keys)
   in both dtypes and RMSNorm at 896 (16 and 256 rows) timed beside their
   bounds, plain versions and SDPA on pre-gathered K/V / ``F.rms_norm``;
-- ``vlm_eval``: all 24 layers over 8 rows of 256 patches (``SyntheticLM``'s,
+- ``vlm_eval``: 12 of the 24 layers over 8 rows of 256 patches (``SyntheticLM``'s,
   drawn by ``prng.normal``) and 768 tokens, S 1024: f32 held at 1e-3
-  against the plain path with 24 flash (hd 64) and 49 one-pass RMSNorm a
+  against the plain path with 12 flash (hd 64) and 25 one-pass RMSNorm a
   forward and a finite loss, bf16 reported; flash at BH 112 x 1024, hd 64
   timed in both dtypes beside its bound, plain version and SDPA;
 - ``whisper_parity``: ``whisper-tiny`` whole (4 encoder and 4 decoder
@@ -2190,10 +2204,11 @@ PARITY_RTOL = 1e-4
 PARITY_PARAM_ATOL = 1e-4
 
 
-def train_two_steps(job: dict, device: str, seq_len: int, batch: int, params=None):
-    """Two steps of ``job``'s model through the payload's ``build_model``,
-    ``build_train_step`` and AdamW, from ``params`` (seed 0's
-    ``init_params`` when None; the step is functional and leaves them
+def train_steps(job: dict, device: str, seq_len: int, batch: int, params=None,
+                steps: int = 2):
+    """``steps`` steps of ``job``'s model through the payload's
+    ``build_model``, ``build_train_step`` and AdamW, from ``params`` (seed
+    0's ``init_params`` when None; the step is functional and leaves them
     untouched): each step's loss, grad_norm and wall ms (the loss read
     back ends it), and the final tree."""
     from repro_torch import prng
@@ -2208,7 +2223,7 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int, params=Non
         params = init_params(model, 0, device)
     opt = init_opt_state(params, opt_cfg)
     metrics = []
-    for step in range(2):
+    for step in range(steps):
         t0 = time.perf_counter()
         params, opt, met = step_fn(params, opt, data.batch(step), prng.PRNGKey(step, device=device))
         metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
@@ -2218,8 +2233,11 @@ def train_two_steps(job: dict, device: str, seq_len: int, batch: int, params=Non
 
 # train_parity runs 1 of ds-paper-100m's 12 layers at full width: at all 12
 # its CPU side (2 x 2 full-width f32 steps, 135M-element threefry draws)
-# took 55 s on the host of a one-H100 machine, at 4 layers 24.5 s.
+# took 55 s on the host of a one-H100 machine, at 4 layers 24.5 s.  The
+# int8 microbatch run takes one step, for the time limit: its CPU side was
+# 19.2 s for two.
 TRAIN_PARITY_LAYERS = 1
+TRAIN_PARITY_STEPS = {"one_batch": 2, "microbatches2_int8": 1}
 
 
 def phase_train_parity() -> dict:
@@ -2229,33 +2247,34 @@ def phase_train_parity() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     runs = {"one_batch": {}, "microbatches2_int8": {"microbatches": 2, "accum_dtype": "int8"}}
     rec = {"phase": "train_parity", "arch": "ds-paper-100m", "dtype": "float32",
-           "layers": TRAIN_PARITY_LAYERS, "tokens": "2 x 128", "steps": 2, "rtol": PARITY_RTOL,
-           "param_atol": PARITY_PARAM_ATOL, "runs": {}}
+           "layers": TRAIN_PARITY_LAYERS, "tokens": "2 x 128", "steps": TRAIN_PARITY_STEPS,
+           "rtol": PARITY_RTOL, "param_atol": PARITY_PARAM_ATOL, "runs": {}}
     for name, extra in runs.items():
         job = {"arch": "ds-paper-100m", "arch_overrides": {"n_layers": TRAIN_PARITY_LAYERS},
                **extra}
         t0 = time.perf_counter()
         reset_launches()
-        card, card_params = train_two_steps(job, "cuda", 128, 2)
+        steps = TRAIN_PARITY_STEPS[name]
+        card, card_params = train_steps(job, "cuda", 128, 2, steps=steps)
         card_launches = read_launches()["rmsnorm"]
         card_s = time.perf_counter() - t0
         card_params = [p.cpu() for p in tree_leaves(card_params)]
         t0 = time.perf_counter()
-        cpu, cpu_params = train_two_steps(job, "cpu", 128, 2)
+        cpu, cpu_params = train_steps(job, "cpu", 128, 2, steps=steps)
         cpu_s = time.perf_counter() - t0
         worst = 0.0
         for a, b in zip(card_params, tree_leaves(cpu_params)):
             worst = max(worst, (a - b).abs().max().item())
             require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
-                    f"train_parity {name}: parameters after 2 steps differ (max {worst})")
+                    f"train_parity {name}: parameters after {steps} steps differ (max {worst})")
         for step, (c, h) in enumerate(zip(card, cpu)):
             for key in ("loss", "grad_norm"):
                 require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
                         f"train_parity {name}: {key} at step {step} card {c[key]} cpu {h[key]}")
         # one forward and one backward per microbatch; norms run forward only
         per_step = (2 * TRAIN_PARITY_LAYERS + 1) * job.get("microbatches", 1)
-        require(card_launches == 2 * per_step,
-                f"rmsnorm launched {card_launches} times in 2 training steps")
+        require(card_launches == steps * per_step,
+                f"rmsnorm launched {card_launches} times in {steps} training steps")
         rec["runs"][name] = {"card": card, "cpu": cpu, "param_max_abs_err": worst,
                              "card_s": card_s, "cpu_s": cpu_s,
                              "rmsnorm_launches": card_launches}
@@ -4598,11 +4617,11 @@ ZOO_SEED = 0  # of the card's generator: zoo weights are drawn on the card (Mode
 ZOO_BIAS_STD = 0.5  # qwen2's bq/bk/bv drawn non-zero: q, k and v are ~N(0, 1) at init
 # Depth cuts, never widths.  zoo_parity in f32: granite-34b and qwen2-72b at
 # 1 layer (card and CPU copies), nemotron-4-340b at 1 (51.6 GB, on the card
-# only).  zoo_serve in bf16: granite-34b at 6 of its 88 layers (11 before a
-# cut for the time limit), qwen2-72b at 8 (17.8 GiB), nemotron-4-340b at 2
-# (30.4 GiB).
+# only).  zoo_serve in bf16: granite-34b at 3 of its 88 layers (11, then 6
+# before cuts for the time limit), qwen2-72b at 4 (8 before a cut),
+# nemotron-4-340b at 2 (30.4 GiB).
 ZOO_PARITY_LAYERS = {"granite-34b": 1, "qwen2-72b": 1, "nemotron-4-340b": 1}
-ZOO_SERVE_LAYERS = {"granite-34b": 6, "qwen2-72b": 8, "nemotron-4-340b": 2}
+ZOO_SERVE_LAYERS = {"granite-34b": 3, "qwen2-72b": 4, "nemotron-4-340b": 2}
 # The paged kernel's path of a decode dispatch (T 1) and of a prefill one
 # (T 16) by model and dtype: G = n_heads / n_kv_heads queries fold onto a KV head
 ZOO_PATHS = {  # f32 on the tensor cores in 3xTF32
@@ -4938,8 +4957,8 @@ def zoo_serve_arch(arch: str) -> dict:
 def phase_zoo_serve() -> dict:
     """The dense zoo in bf16 through the paged engine at ``serve``'s knobs
     and requests (32, prompts 128-512, 64 new tokens, ``max_batch`` 16,
-    page 16), each model freed before the next: granite-34b at 11
-    layers, qwen2-72b at 8, nemotron-4-340b at 2; tokens/s, dispatch times,
+    page 16), each model freed before the next: granite-34b at 3
+    layers, qwen2-72b at 4, nemotron-4-340b at 2 (``ZOO_SERVE_LAYERS``); tokens/s, dispatch times,
     peak memory, launches exact by path, a traced decode dispatch, and
     the paged kernel and RMSNorm at the model's decode and prefill shapes
     beside their bounds, plain versions and library calls."""
@@ -5613,7 +5632,7 @@ DANUBE_ARCH = "h2o-danube-3-4b"
 VLM_ARCH = "internvl2-1b"
 # Depth cuts, never widths.  danube_parity in f32 at 1 of its 24 layers
 # (0.64 B parameters, 2.6 GB on the card and again on the host),
-# vlm_parity at 2 of 24 (0.21 B); the serve and eval phases at full depth
+# vlm_parity at 2 of 24 (0.21 B); the serve and eval phases at 12 (below)
 # (h2o-danube-3-4b 3.97 B, 7.9 GB in bf16; internvl2-1b 0.63 B, 1.3 GB).
 # Weights are drawn on the card (``zoo_weights``: Model.draw from ZOO_SEED;
 # internvl's QKV bias redrawn non-zero).
@@ -5626,6 +5645,9 @@ DANUBE_SERVE_KW = dict(max_batch=16, max_len=4608, prefill_chunk=16, cache_mode=
 VLM_SERVE_KW = dict(max_batch=16, max_len=256, prefill_chunk=16, page_size=16,
                     cache_mode="paged")
 DANUBE_EVAL_TOKENS = 8192
+# danube's serve and eval phases and internvl's run 12 of their 24 layers
+# (a depth cut for the time limit; whole before)
+SLICE_LAYERS = {DANUBE_ARCH: 12, VLM_ARCH: 12}
 VLM_EVAL_SHAPE = (8, 768)  # rows x text tokens: the 256 patches ahead make S 1024
 SLICE_TRACE_TICKS = 8
 
@@ -5709,7 +5731,8 @@ def phase_vlm_parity() -> dict:
 
 
 def slice_serve(arch: str, kw: dict, n_requests: int, prompt: int, new: int) -> tuple:
-    """bf16 at full depth, weights drawn on the card: ``n_requests`` of
+    """bf16 at ``SLICE_LAYERS``' depth (whole where unnamed), weights drawn
+    on the card: ``n_requests`` of
     ``prompt`` tokens and ``new`` new at ``max_batch`` 16, every step timed
     on the host clock (it syncs on its sampled tokens), then 8 decode
     dispatches of 16 rows deep in their prompts traced.  Returns the
@@ -5718,7 +5741,7 @@ def slice_serve(arch: str, kw: dict, n_requests: int, prompt: int, new: int) -> 
     from repro_torch.serving.engine import Request, ServeEngine
 
     dtype = torch.bfloat16
-    model = zoo_model(arch, get_arch(arch).n_layers, dtype)
+    model = zoo_model(arch, SLICE_LAYERS.get(arch, get_arch(arch).n_layers), dtype)
     cfg = model.cfg
     params, weights = zoo_weights(model)
     warm = [Request(uid=f"w{i}", prompt=list(range(1, 20 + i)), max_new_tokens=4)
@@ -5786,11 +5809,11 @@ def slice_serve(arch: str, kw: dict, n_requests: int, prompt: int, new: int) -> 
 
 
 def phase_danube_serve() -> dict:
-    """h2o-danube-3-4b whole (24 layers) in bf16 on the rolling dense cache
-    (4224 slots under its 4096 window): 16 requests of 128 tokens, 64 new,
+    """h2o-danube-3-4b at 12 of its 24 layers in bf16 on the rolling dense
+    cache (4224 slots under its 4096 window): 16 requests of 128 tokens, 64 new,
     every prompt ingested one token a decode dispatch (a rolling cache
     takes no fused prefill, as in the reference): tokens/s, dispatch wall
-    median and p99, peak memory, 49 one-pass RMSNorm a dispatch and no
+    median and p99, peak memory, 25 one-pass RMSNorm a dispatch and no
     other launch, a traced decode dispatch (busy, idle share, ops,
     RMSNorm's device time); RMSNorm at 3840 timed."""
     t_phase = time.perf_counter()
@@ -5805,10 +5828,10 @@ def phase_danube_serve() -> dict:
 
 
 def phase_vlm_serve() -> dict:
-    """internvl2-1b whole (24 layers) in bf16 on the paged engine: 16
+    """internvl2-1b at 12 of its 24 layers in bf16 on the paged engine: 16
     requests of 128 tokens, 32 new, every prompt ingested one token a
     decode dispatch: the numbers of ``danube_serve``, a paged launch a
-    layer a dispatch on the decode path (the 7-row fold) and 49 one-pass
+    layer a dispatch on the decode path (the 7-row fold) and 25 one-pass
     RMSNorm at 896; the paged kernel at the decode fold (B 16, Hkv 2, G 7,
     dk 64, 128-158 keys) in both dtypes and RMSNorm at 896 timed beside
     their bounds, plain versions and SDPA / ``F.rms_norm``."""
@@ -5916,11 +5939,12 @@ def eval_runs(phase: str, cfg, params, batch: dict, **rt) -> tuple:
 
 
 def slice_eval(arch: str, batch: dict, phase: str) -> dict:
-    """``eval_runs`` at full depth, weights drawn on the card: the phase's
+    """``eval_runs`` at ``SLICE_LAYERS``' depth (whole where unnamed),
+    weights drawn on the card: the phase's
     record with its ``runs`` and ``misses``."""
     from repro_torch.configs import get_arch
 
-    model = zoo_model(arch, get_arch(arch).n_layers, torch.float32)
+    model = zoo_model(arch, SLICE_LAYERS.get(arch, get_arch(arch).n_layers), torch.float32)
     params, weights = zoo_weights(model)
     tokens = batch["tokens"]
     rec = {"phase": phase, "arch": arch, "weights": weights, "batch": list(tokens.shape),
@@ -5932,9 +5956,9 @@ def slice_eval(arch: str, batch: dict, phase: str) -> dict:
 
 
 def phase_danube_eval() -> dict:
-    """h2o-danube-3-4b whole over 1 x 8192 tokens of the eval runner's
+    """h2o-danube-3-4b at 12 of 24 layers over 1 x 8192 tokens of the eval runner's
     synthetic stream (``slice_eval``: flash at head width 120 with the
-    4096 window, 24 flash and 49 RMSNorm a forward); then flash at BH 32 x
+    4096 window, 12 flash and 25 RMSNorm a forward); then flash at BH 32 x
     8192, hd 120, window 4096 timed in both dtypes beside its bound (the
     windowed pair count at 120, not the padded 128), its plain version and
     SDPA given the window as a boolean mask, and causal at BH 32 x 512."""
@@ -5962,8 +5986,9 @@ def phase_danube_eval() -> dict:
 
 
 def phase_vlm_eval() -> dict:
-    """internvl2-1b whole over 8 rows of 256 patches and 768 tokens (S 1024)
-    from ``SyntheticLM`` (``slice_eval``: flash at hd 64, 24 flash and 49
+    """internvl2-1b at 12 of 24 layers over 8 rows of 256 patches and 768
+    tokens (S 1024)
+    from ``SyntheticLM`` (``slice_eval``: flash at hd 64, 12 flash and 25
     RMSNorm at 896 a forward); then flash at BH 112 x 1024, hd 64, timed
     in both dtypes beside its bound, its plain version and SDPA."""
     from repro_torch.configs import get_arch
@@ -6350,6 +6375,10 @@ def phase_whisper_eval() -> dict:
 # mamba2-1.3b under ModelRuntime(remat=True), at 6 layers against no remat
 # and at all 48.
 FAMILY_TRAIN_LAYERS = {SSM_ARCH: 1, HYBRID_ARCH: 7, MOE_ARCH: 1, MLA_ARCH: 1}
+# mixtral's and deepseek's CPU steps took ~15 s each (AdamW over 1.7 and
+# 1.4 B f32 parameters on the host): one step each, for the time limit;
+# zamba2 keeps two, its lora_a moving only at step 2
+FAMILY_TRAIN_STEPS = {SSM_ARCH: 2, HYBRID_ARCH: 2, MOE_ARCH: 1, MLA_ARCH: 1}
 FAMILY_TRAIN_SHAPE = (2, 128)  # rows x tokens a step, train_parity's
 REMAT_SHAPE = (2, 4096)
 REMAT_PARITY_LAYERS = SSM_PARITY_LAYERS
@@ -6379,7 +6408,8 @@ def require_train_launches(launches: dict, norms: int, what: str) -> None:
 
 
 def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
-    """Two f32 train steps (TF32 off) of each family past ds-paper-100m at
+    """f32 train steps (TF32 off; ``FAMILY_TRAIN_STEPS``: two for mamba2 and
+    zamba2, one for mixtral and deepseek) of each family past ds-paper-100m at
     full width, through the payload's ``build_model``/``build_train_step``
     and AdamW, on the card against the CPU from one tree: mamba2-1.3b's
     first layer and zamba2-1.2b's first 7 (one shared-block invocation
@@ -6390,7 +6420,7 @@ def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
     atomics on the card) and deepseek-v2-236b's dense first layer (MLA's
     eight leaves and the 12,288-wide MLP), drawn on the card and copied to
     the host.  Held as ``train_parity`` holds ds-paper-100m: loss and
-    grad_norm at each step, every parameter after 2 steps, RMSNorm launches
+    grad_norm at each step, every parameter after the last, RMSNorm launches
     exact.  zamba2's zero ``lora_b`` leaves ``lora_a`` no gradient at step
     1, so it must move at step 2 past what weight decay alone gives."""
     from repro_torch.launch.train import build_model, build_train_step
@@ -6400,7 +6430,8 @@ def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     rows, seq = FAMILY_TRAIN_SHAPE
     rec = {"phase": "family_train_parity", "dtype": "float32", "tokens": f"{rows} x {seq}",
-           "steps": 2, "rtol": PARITY_RTOL, "param_atol": PARITY_PARAM_ATOL, "cases": {},
+           "steps": FAMILY_TRAIN_STEPS, "rtol": PARITY_RTOL, "param_atol": PARITY_PARAM_ATOL,
+           "cases": {},
            "launches": {}}
     for arch, layers in FAMILY_TRAIN_LAYERS.items():
         job = {"arch": arch, "arch_overrides": {"n_layers": layers}, "moe_strategy": "capacity"}
@@ -6420,14 +6451,15 @@ def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        card, card_params = train_two_steps(job, "cuda", seq, rows, params=card_init)
+        steps = FAMILY_TRAIN_STEPS[arch]
+        card, card_params = train_steps(job, "cuda", seq, rows, params=card_init, steps=steps)
         card_s = time.perf_counter() - t0
         launches = read_launches()
         peak = torch.cuda.max_memory_allocated()
         del card_init
         release_device_memory()
         t0 = time.perf_counter()
-        cpu, cpu_params = train_two_steps(job, "cpu", seq, rows, params=host)
+        cpu, cpu_params = train_steps(job, "cpu", seq, rows, params=host, steps=steps)
         cpu_s = time.perf_counter() - t0
         cpu_params = tree_map(lambda t: t.to("cuda"), cpu_params)  # compared on the card
         what = f"family_train_parity {arch}"
@@ -6437,13 +6469,13 @@ def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
             if err >= worst:
                 worst, worst_leaf = err, "/".join(map(str, path))
             require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
-                    f"{what}: {worst_leaf} differs after 2 steps (max {err})")
+                    f"{what}: {worst_leaf} differs after {steps} steps (max {err})")
         for step, (c, h) in enumerate(zip(card, cpu)):
             for key in ("loss", "grad_norm"):
                 require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
                         f"{what}: {key} at step {step} card {c[key]} cpu {h[key]}")
-        require_train_launches(launches, 2 * forward_norms(model.cfg), what)
-        case = {"layers": layers, "weights": weights,
+        require_train_launches(launches, steps * forward_norms(model.cfg), what)
+        case = {"layers": layers, "steps": steps, "weights": weights,
                 "parameters": sum(t.numel() for t in tree_leaves(host)),
                 "card": card, "cpu": cpu, "card_s": card_s, "cpu_s": cpu_s,
                 "param_max_abs_err": worst, "worst_leaf": worst_leaf,
@@ -6626,6 +6658,245 @@ def phase_remat_train(cfg, params_cpu) -> dict:
     return rec
 
 
+
+# The mesh: the card's machine has one H100, so its mesh is (1, 1)
+# over NCCL: the run shows that the DTensor path reaches the hand-written
+# kernels and gives what the plain path gives; the multi-rank arithmetic
+# is held on the CPU (tests/test_torch_distribution.py and friends).
+MESH_ARCH = "ds-paper-100m"
+MESH_LAYERS = 2  # of its 12, at full width (12 x 768)
+MESH_TRAIN_SHAPE = (2, 128)  # rows x tokens
+MESH_EVAL_SHAPE = (2, 512)  # flash's block: the eval forward takes the kernel
+MESH_MOE_SHAPE = (2, 128)  # tokens through one full-width mixtral-8x7b layer
+MESH_PIPE = (8, 2)  # microbatches x rows through a one-stage pipe at d 768
+MESH_MOE_OUT_TOL = 2e-5
+MESH_MOE_GRAD_RTOL = 1e-4  # of each leaf's largest gradient
+
+
+def mesh_world(root: Path) -> float:
+    """A one-rank NCCL group on the card through a ``FileStore`` (its
+    address given, as nothing on the machine names a cluster); the
+    seconds until its first all-reduce returns.  A failed start raises."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "nccl_store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    require(one.item() == 1.0, f"mesh: all-reduce over one rank gave {one.item()}")
+    return time.perf_counter() - t0
+
+
+def gap_to(a: torch.Tensor, b: torch.Tensor) -> dict:
+    return {"bit_equal": bool(torch.equal(a, b)), "max_abs_err": (a - b).abs().max().item(),
+            "ref_max": b.abs().max().item()}
+
+
+def phase_mesh(root: Path) -> dict:
+    """The model over a (1, 1) ("data", "model") DeviceMesh on the card
+    (NCCL, one rank) under ``train_rules``, FSDP over "data", every
+    parameter a DTensor laid out by ``param_specs``, against the same model
+    run unsharded on the card: (a) ds-paper-100m at full width, 2 layers,
+    f32 (TF32 off): the loss and every leaf's gradient, RMSNorm forward
+    (the kernel, through ``local_map``) and backward; (b) its bf16 eval
+    forward: logits, flash and RMSNorm launches; (c) one full-width
+    mixtral-8x7b layer in f32, ``shardmap`` (the expert-parallel layer:
+    all-to-alls and gathers over one rank) against ``capacity``: output at
+    2e-5, gradients at 1e-4 of each leaf's largest; (d) ``pipeline_apply``
+    on a one-stage pipe at d 768 against the stage run directly.  A mesh
+    of another size than the world raises.  Launches by kernel path are
+    equal between each sharded run and its unsharded one."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import Model, ModelRuntime, moe
+    from repro_torch.sharding import (
+        PartitionSpec as P,
+        ShardingPolicy,
+        axis_rules,
+        distribute_params,
+        param_specs,
+        spec_placements,
+        train_rules,
+    )
+    from repro_torch.train.pipeline import pipeline_apply
+    from repro_torch.train.steps import _value_and_grad
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"phase": "mesh", "arch": MESH_ARCH, "layers": MESH_LAYERS, "mesh": "(1, 1) data x model",
+           "backend": "nccl", "rules": "train_rules, fsdp_axes=('data',)", "launches": {}}
+    rec["nccl_start_s"] = mesh_world(root)
+    try:
+        try:
+            make_test_mesh((2, 1), ("data", "model"))
+            raise CheckFailed("mesh: a (2, 1) mesh over a world of 1 was built")
+        except ValueError as e:
+            rec["wrong_world_raises"] = str(e)
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        rules = train_rules(multi_pod=False)
+
+        def full(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        def place(params):
+            specs, _ = param_specs(params, mesh, ShardingPolicy(fsdp_axes=("data",)))
+            return distribute_params(params, mesh, specs)
+
+        def rows(t):
+            return distribute_tensor(t, mesh, spec_placements(P("data", *([None] * (t.dim() - 1))),
+                                                              mesh))
+
+        # (a) training: the loss and every gradient
+        cfg = dataclasses.replace(get_arch(MESH_ARCH), n_layers=MESH_LAYERS)
+        model = Model(cfg, ModelRuntime())
+        params = init_params(model, 0, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(32)
+        b, s = MESH_TRAIN_SHAPE
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), device="cuda", generator=gen)
+        batch = {"tokens": toks[:, :-1].contiguous(), "labels": toks[:, 1:].contiguous()}
+
+        def ruled(fn):
+            def run(p, bt):
+                with axis_rules(mesh, rules):
+                    return fn(p, bt)
+            return run
+
+        runs = {}
+        for name, (p, bt, fn) in {
+                "plain": (params, batch, model.loss),
+                "mesh": (place(params), {k: rows(v) for k, v in batch.items()},
+                         ruled(model.loss))}.items():
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            loss, grads = _value_and_grad(fn, p, bt)
+            loss = float(full(loss))
+            grads = [full(g) for g in tree_leaves(grads)]
+            torch.cuda.synchronize()
+            runs[name] = {"loss": loss, "grads": grads, "launches": read_launches(),
+                          "ms": (time.perf_counter() - t0) * 1e3}
+        plain, mesh_run = runs["plain"], runs["mesh"]
+        worst, differ = 0.0, []
+        for (path, _), a, g in zip(tree_leaves_with_path(params), mesh_run["grads"],
+                                   plain["grads"]):
+            if not torch.equal(a, g):
+                differ.append("/".join(map(str, path)))
+            rel = (a - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+            worst = max(worst, rel)
+        train = {"loss": [mesh_run["loss"], plain["loss"]], "grads_not_bit_equal": differ,
+                 "grad_worst_rel_to_leaf_max": worst,
+                 "ms": [mesh_run["ms"], plain["ms"]], "launches": mesh_run["launches"],
+                 "launches_plain": plain["launches"]}
+        require(abs(mesh_run["loss"] - plain["loss"]) <= PARITY_RTOL * abs(plain["loss"])
+                and worst <= PARITY_RTOL,
+                f"mesh (a): sharded loss/gradients against plain {train}")
+        require(mesh_run["launches"] == plain["launches"]
+                and plain["launches"]["rmsnorm"] == forward_norms(cfg),
+                f"mesh (a): launches {mesh_run['launches']} against {plain['launches']}")
+        rec["train"] = train
+        rec["launches"]["train"] = mesh_run["launches"]
+        del runs, plain, mesh_run
+
+        # (b) the bf16 eval forward: flash and RMSNorm through local_map
+        emodel = Model(cfg, ModelRuntime(dtype=torch.bfloat16))
+        eparams = cast_params(params, torch.bfloat16, "cuda")
+        eb, es = MESH_EVAL_SHAPE
+        etoks = torch.randint(0, cfg.vocab_size, (eb, es), device="cuda", generator=gen)
+        outs = {}
+        for name, (p, t, fn) in {
+                "plain": (eparams, etoks, emodel.forward),
+                "mesh": (place(eparams), rows(etoks), ruled(emodel.forward))}.items():
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = full(fn(p, t))
+            torch.cuda.synchronize()
+            outs[name] = {"logits": logits, "launches": read_launches(),
+                          "ms": (time.perf_counter() - t0) * 1e3}
+        ev = {**gap_to(outs["mesh"]["logits"], outs["plain"]["logits"]),
+              "finite": bool(torch.isfinite(outs["mesh"]["logits"]).all()),
+              "ms": [outs["mesh"]["ms"], outs["plain"]["ms"]],
+              "launches": outs["mesh"]["launches"], "launches_plain": outs["plain"]["launches"]}
+        require(ev["finite"] and ev["max_abs_err"] <= EVAL_LOGIT_TOL[torch.bfloat16],
+                f"mesh (b): sharded bf16 logits against plain {ev}")
+        require(ev["launches"] == ev["launches_plain"]
+                and ev["launches"]["flash_attention"] == MESH_LAYERS
+                and ev["launches"]["rmsnorm"] == forward_norms(cfg),
+                f"mesh (b): launches {ev['launches']} against {ev['launches_plain']}")
+        rec["eval"] = ev
+        rec["launches"]["eval"] = outs["mesh"]["launches"]
+        del outs, eparams, params
+        release_device_memory()
+
+        # (c) one full-width mixtral-8x7b layer: shardmap against capacity
+        mcfg = get_arch(MOE_ARCH)
+
+        def normal(shape, std, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="cuda").normal_(0.0, std, generator=gen)
+
+        mp = moe.moe_param_tree(mcfg, normal, None, 1.0 / math.sqrt(2 * mcfg.n_layers))
+        x = normal((*MESH_MOE_SHAPE, mcfg.d_model), 1.0)
+        res = {}
+        for name, (p, xx, fn) in {
+                "capacity": ({k: v.clone().requires_grad_(True) for k, v in mp.items()}, x,
+                             lambda p, xx: moe.apply_moe(p, xx, mcfg, "capacity")),
+                "shardmap": (place({k: v.clone() for k, v in mp.items()}), rows(x),
+                             ruled(lambda p, xx: moe.apply_moe(p, xx, mcfg, "shardmap")))}.items():
+            leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(leaves, xx)
+            gs = torch.autograd.grad((y.float() ** 2).sum(), [leaves[k] for k in sorted(leaves)])
+            res[name] = {"y": full(y).detach(), "grads": [full(g) for g in gs]}
+            torch.cuda.synchronize()
+            res[name]["ms"] = (time.perf_counter() - t0) * 1e3
+        a, c = res["shardmap"], res["capacity"]
+        moe_rec = {"tokens": "x".join(map(str, MESH_MOE_SHAPE)), "out": gap_to(a["y"], c["y"]),
+                   "grads": {k: {**gap_to(ga, gc),
+                                 "rel_to_leaf_max": (ga - gc).abs().max().item()
+                                 / max(gc.abs().max().item(), 1e-30)}
+                             for k, ga, gc in zip(sorted(mp), a["grads"], c["grads"])},
+                   "ms": [a["ms"], c["ms"]]}
+        require(moe_rec["out"]["max_abs_err"] <= MESH_MOE_OUT_TOL
+                and all(g["rel_to_leaf_max"] <= MESH_MOE_GRAD_RTOL
+                        for g in moe_rec["grads"].values()),
+                f"mesh (c): shardmap against capacity {moe_rec}")
+        rec["moe"] = moe_rec
+        del res, a, c, mp, x
+        release_device_memory()
+
+        # (d) GPipe on a one-stage pipe
+        pipe = make_test_mesh((1,), ("pipe",))
+        m, mb = MESH_PIPE
+        d = cfg.d_model
+        w = normal((1, d, d), 1.0 / math.sqrt(d))
+        bias = normal((1, d), 0.1)
+        xs = normal((m, mb, d), 1.0)
+
+        def stage(p, h):
+            return torch.tanh(h @ p["w"] + p["b"])
+
+        got = pipeline_apply(pipe, {"w": w, "b": bias}, xs, stage)
+        want = stage({"w": w[0], "b": bias[0]}, xs)
+        rec["pipeline"] = {"microbatches": m, "rows": mb, "d": d, **gap_to(got, want)}
+        require(rec["pipeline"]["max_abs_err"] <= F32_TOL,
+                f"mesh (d): pipeline against the stage {rec['pipeline']}")
+    finally:
+        dist.destroy_process_group()
+    release_device_memory()
+    rec["device"] = smi_line()
+    emit(rec)
+    return rec
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -6807,6 +7078,9 @@ def main() -> int:
     remat_train = phase_remat_train(cfg, params_cpu)
     lap("remat_train")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        mesh = phase_mesh(Path(tmp))
+    lap("mesh")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
         lap("train")
         evals = phase_eval(Path(tmp))
@@ -6866,7 +7140,9 @@ def main() -> int:
                       ssm_serve, ssm_eval, hybrid_static, hybrid_serve, hybrid_eval, zoo_serve,
                       moe_serve, moe_eval, mla_serve, slices,
                       {"family_train_parity": family_train["launches"],
-                       "remat_train": remat_train["launches"]}))
+                       "remat_train": remat_train["launches"],
+                       "mesh_train": mesh["launches"]["train"],
+                       "mesh_eval": mesh["launches"]["eval"]}))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,15 @@
 """Model-layout entry points for the kernels (counterpart of the
 reference package's ``kernels/ops.py``).  Each folds its inputs into the
 layout its kernel takes and unfolds the result; the kernel wrappers pick
-the CUDA kernel or the plain version from the tensors' device."""
+the CUDA kernel or the plain version from the tensors' device.
+
+A ``DTensor`` (the model run over a mesh, ``sharding.logical``) reaches
+its kernel through ``local_map`` (``logical.local_call``): the operands
+are laid out as the active rules say for their logical axes (heads on
+``"model"``, the batch on the data axes), with the dimensions the kernel
+reduces or scans over gathered, and each rank's kernel runs on its local
+shard.  On a CUDA mesh that is the Hopper kernel, never its plain
+version."""
 
 from __future__ import annotations
 
@@ -10,11 +18,13 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.flash_decode import paged_flash_attention_folded
-from repro_torch.kernels.ssd import blocked_cumsum, ssd_chunk
+from repro_torch.kernels.ssd import blocked_cumsum, ssd_chunk, ssd_on_mesh
+from repro_torch.sharding.logical import kernel_placements, local_call, partial_where_sharded, remap
 
 
 def _fold_flash(attend: Callable, q, k, v, *, causal: bool, sliding_window: int) -> torch.Tensor:
@@ -41,6 +51,11 @@ def flash_attention(
 ) -> torch.Tensor:  # (B, S, H, hd)
     """Full-sequence flash attention; the sequence must divide
     ``min(block, S)`` (the reference's block contract)."""
+    if isinstance(q, DTensor):  # each rank's kernel on its batch rows and heads
+        pl = kernel_placements(q, ("batch", "seq", "heads", "head_dim"), whole=(1, 3))
+        fn = functools.partial(flash_attention, causal=causal, sliding_window=sliding_window,
+                               block_q=block_q, block_k=block_k)
+        return local_call(fn, (q, k, v), (pl, pl, pl), pl)
     attend = functools.partial(flash_attention_bhsd, block_q=block_q, block_k=block_k)
     return _fold_flash(attend, q, k, v, causal=causal, sliding_window=sliding_window)
 
@@ -77,9 +92,27 @@ def paged_attention(
     """Flash-decode (``T = 1``) / chunk-extend (``T > 1``) against a paged
     KV cache.  Grouped-query layout: KV heads are not repeated; the ``G``
     query heads of a KV head are folded group-major into one block of
-    ``G*T`` query rows (``i = g*T + t``)."""
+    ``G*T`` query rows (``i = g*T + t``).  Over a mesh the rows (with
+    their table rows and offsets) and the heads (query and KV heads
+    together, where both divide) are split; the pool is read whole."""
+    if isinstance(q, DTensor):
+        return _paged_on_mesh(q, k_pages, v_pages, page_table, offsets, scale=scale,
+                              softcap=softcap, v_width=v_width)
     return _fold_paged(paged_flash_attention_folded, q, k_pages, v_pages, page_table, offsets,
                        scale=scale, softcap=softcap, v_width=v_width)
+
+
+def _paged_on_mesh(q, k_pages, v_pages, page_table, offsets, **kw) -> DTensor:
+    hkv = k_pages.shape[2]
+    sizes = q.device_mesh.shape
+    pl = kernel_placements(q, ("cache_batch", None, "heads", None), whole=(1, 3))
+    pl = [Replicate() if getattr(p, "dim", None) == 2 and hkv % sizes[i] else p
+          for i, p in enumerate(pl)]
+    pool = remap(pl, {2: 2})
+    rows = remap(pl, {0: 0})
+    fn = functools.partial(paged_attention, **kw)
+    return local_call(fn, (q, k_pages, v_pages, page_table, offsets),
+                      (pl, pool, pool, rows, rows), pl)
 
 
 def paged_verify(
@@ -105,7 +138,14 @@ def paged_verify(
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last axis of ``x`` (any leading shape)."""
+    """RMSNorm over the last axis of ``x`` (any leading shape).  Over a
+    mesh each rank normalises its own rows, and ``w``'s gradient is summed
+    over the ranks that split them."""
+    if isinstance(x, DTensor):
+        pl = kernel_placements(x, None, whole=(-1,))
+        rep = [Replicate()] * len(pl)
+        return local_call(functools.partial(rmsnorm, eps=eps), (x, w), (pl, rep), pl,
+                          grad_placements=(pl, partial_where_sharded(pl)))
     shape = x.shape
     out = _rmsnorm.rmsnorm(x.reshape(-1, shape[-1]).contiguous(), w.contiguous(), eps)
     return out.reshape(shape)
@@ -126,7 +166,11 @@ def ssd(
     inter-chunk recurrence and ``Y_off`` in plain torch, as the reference
     leaves them in jnp.  The contract of ``models.ssm.ssd_chunked``:
     returns ``(y (b, l, h, p) in x's dtype, final state (b, h, p, n)
-    float32)``."""
+    float32)``.  Over a mesh each rank scans its own batch rows and heads
+    (``"ssm_heads"``)."""
+    if isinstance(x, DTensor):
+        return ssd_on_mesh(functools.partial(ssd, block_h=block_h), x, dt, A, B, C,
+                           chunk=chunk, initial_state=initial_state)
     b, l, h, p = x.shape
     n = B.shape[-1]
     if l % chunk:

@@ -36,10 +36,14 @@ kernel either, so training takes the plain ``ssd_chunked`` path
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 
 from repro_torch.kernels import _build
+from repro_torch.sharding.logical import kernel_placements, local_call, on_mesh, remap
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 128  # the kernel's largest q: 8 warps of 16 rows of S = C.B^T
@@ -201,3 +205,28 @@ def ssd_chunk(
 
 
 ssd_chunk.launches = 0
+
+
+def ssd_on_mesh(scan: Callable, x, dt, A, B, C, *, chunk: int, initial_state=None):
+    """``scan(x, dt, A, B, C, chunk=, initial_state=)`` (``ssd`` or the
+    plain ``models.ssm.ssd_chunked``) on DTensors: each rank scans its own
+    batch rows and heads (``"ssm_heads"``) over the whole sequence.  B and
+    C are shared by the heads, and A by the rows, so their gradients are
+    summed over the ranks that split the heads or the rows."""
+    b, l, h, p = x.shape
+    if initial_state is None:
+        initial_state = on_mesh(torch.zeros((b, h, p, B.shape[-1]), dtype=torch.float32,
+                                            device=x.device), x)
+    pl = kernel_placements(x, ("batch", "seq", "ssm_heads", None), whole=(1, 3))
+    state = remap(pl, {0: 0, 2: 1})
+    rows = remap(pl, {0: 0})
+    heads = remap(pl, {2: 0})
+    rows_grad = [Partial() if getattr(q, "dim", None) == 2 else r for q, r in zip(pl, rows)]
+    heads_grad = [Partial() if getattr(q, "dim", None) == 0 else r for q, r in zip(pl, heads)]
+
+    def run(x, dt, A, B, C, s0):
+        return scan(x, dt, A, B, C, chunk=chunk, initial_state=s0)
+
+    ins = (pl, remap(pl, {0: 0, 2: 2}), heads, rows, rows, state)
+    return local_call(run, (x, dt, A, B, C, initial_state), ins, (pl, state),
+                      grad_placements=ins[:2] + (heads_grad, rows_grad, rows_grad, state))

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.logical import on_mesh, shard, unflatten_last
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -56,7 +57,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     """Half-split (not interleaved) rotary embedding with fp32 angles.
     x: (..., seq, heads, head_dim); positions: (..., seq)."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)
+    freqs = on_mesh(rope_frequencies(hd, theta, x.device), x)
     angles = positions[..., :, None].float() * freqs  # (..., seq, hd/2)
     cos = torch.cos(angles)[..., :, None, :]
     sin = torch.sin(angles)[..., :, None, :]
@@ -66,7 +67,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # ------------------------------------------------------------------- MLP
 def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
-    h = x @ p["wi"]
+    x = shard(x, "act_batch", "seq", "act_embed")
+    h = shard(x @ p["wi"], "batch", "seq", "ff")
     if activation == "silu":
         h = F.silu(h) * (x @ p["wg"])
     elif activation == "gelu_gated":
@@ -77,7 +79,7 @@ def apply_mlp(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.relu(h).square()
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return h @ p["wo"]
+    return shard(h @ p["wo"], "batch", "residual_seq", "embed")
 
 
 # ------------------------------------------------------------------- attention
@@ -85,13 +87,14 @@ def qkv_project(
     p: Params, x: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
+    x = shard(x, "act_batch", "seq", "act_embed")
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (
-        q.reshape(b, s, n_heads, head_dim),
-        k.reshape(b, s, n_kv_heads, head_dim),
-        v.reshape(b, s, n_kv_heads, head_dim),
+        unflatten_last(q, n_heads, head_dim),
+        unflatten_last(k, n_kv_heads, head_dim),
+        unflatten_last(v, n_kv_heads, head_dim),
     )
 
 
@@ -124,6 +127,7 @@ def gqa_attention(
     g = h // hkv
     qg = q.reshape(b, sq, hkv, g, hd)
     logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float()) * (1.0 / math.sqrt(hd))
+    logits = shard(logits, "cache_batch", "kv_heads", None, None, "kv_seq")
     if logit_softcap > 0:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     qp = q_positions[:, None, None, :, None]
@@ -136,7 +140,7 @@ def gqa_attention(
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqt,btkd->bqkgd", probs, v)
-    return out.reshape(b, sq, h, hd)
+    return shard(out.reshape(b, sq, h, hd), "cache_batch", "seq", "heads", "head_dim")
 
 
 def attention_scores(
@@ -158,15 +162,16 @@ def attention_scores(
     sq, hd = q.shape[1], q.shape[3]
     skv = k.shape[1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    logits = shard(logits, "batch", "heads", None, "kv_seq")
     if logit_softcap > 0:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     if q_positions is None:
-        q_positions = torch.arange(sq, device=q.device)[None, :]
+        q_positions = on_mesh(torch.arange(sq, device=q.device)[None, :], q)
     if kv_positions is None:
-        kv_positions = torch.arange(skv, device=q.device)[None, :]
+        kv_positions = on_mesh(torch.arange(skv, device=q.device)[None, :], q)
     qp = q_positions[:, None, :, None]
     kp = kv_positions[:, None, None, :]
-    mask = torch.ones((), dtype=torch.bool, device=q.device)
+    mask = on_mesh(torch.ones((), dtype=torch.bool, device=q.device), q)
     if causal:
         mask = kp <= qp
     if sliding_window > 0:
@@ -175,4 +180,4 @@ def attention_scores(
         mask = mask & kv_mask[:, None, None, :]
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return shard(torch.einsum("bhqk,bkhd->bqhd", probs, v), "batch", "seq", "heads", "head_dim")

@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import NEG_INF, apply_norm, apply_rope
+from repro_torch.sharding.logical import on_mesh, shard, unflatten_last
 
 Params = Dict[str, torch.Tensor]
 
@@ -77,7 +78,7 @@ def _project_q(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Ten
     b, s, _ = x.shape
     h, qk, qr = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
     q = apply_norm(p["q_norm"], x @ p["q_down"], cfg.norm, cfg.norm_eps) @ p["q_up"]
-    q = q.reshape(b, s, h, qk + qr)
+    q = unflatten_last(q, h, qk + qr)
     return q[..., :qk], apply_rope(q[..., qk:], positions, cfg.rope_theta)
 
 
@@ -99,18 +100,19 @@ def apply_mla(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     b, s, _ = x.shape
     h, qk, vd = cfg.n_heads, cfg.nope_head_dim, cfg.v_head_dim
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = on_mesh(torch.arange(s, device=x.device)[None, :], x)
     q_nope, q_rope = _project_q(p, x, cfg, positions)
     c_kv, k_rope = _compress_kv(p, x, cfg, positions)
-    k_nope = (c_kv @ p["k_up"]).reshape(b, s, h, qk)
-    v = (c_kv @ p["v_up"]).reshape(b, s, h, vd)
+    k_nope = shard(unflatten_last(c_kv @ p["k_up"], h, qk), "batch", "seq", "heads", "head_dim")
+    v = shard(unflatten_last(c_kv @ p["v_up"], h, vd), "batch", "seq", "heads", "head_dim")
     logits = (torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
               + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())) * _scale(cfg)
+    logits = shard(logits, "batch", "heads", None, "kv_seq")
     mask = positions[:, None, None, :] <= positions[:, None, :, None]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, h * vd)
-    return out @ p["wo"]
+    return shard(out @ p["wo"], "batch", "seq", "embed")
 
 
 def mla_decode_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
@@ -129,7 +131,7 @@ def _absorbed_value(p: Params, ctx: torch.Tensor, cfg: ArchConfig) -> torch.Tens
     b, T = ctx.shape[:2]
     h, vd, r = cfg.n_heads, cfg.v_head_dim, cfg.kv_lora_rank
     out = torch.einsum("bqhr,rhd->bqhd", ctx, p["v_up"].reshape(r, h, vd))
-    return out.reshape(b, T, h * vd) @ p["wo"]
+    return shard(out.reshape(b, T, h * vd) @ p["wo"], "batch", "seq", "embed")
 
 
 def _absorbed_query(p: Params, q_nope: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -161,10 +163,13 @@ def apply_mla_extend(
     slot = positions[rows, toks] % t
     c_kv[rows, slot] = c_new[rows, toks].to(c_kv.dtype)
     k_rope[rows, slot] = kr_new[rows, toks].to(k_rope.dtype)
+    c_kv = shard(c_kv, "cache_batch", "kv_seq", None)
+    k_rope = shard(k_rope, "cache_batch", "kv_seq", None)
     q_lat = _absorbed_query(p, q_nope, cfg)
     logits = (torch.einsum("bqhr,btr->bhqt", q_lat.float(), c_kv.float())
               + torch.einsum("bqhd,btd->bhqt", q_rope.float(), k_rope.float())) * _scale(cfg)
-    mask = torch.arange(t, device=x.device)[None, None, None, :] <= positions[:, None, :, None]
+    slots = on_mesh(torch.arange(t, device=x.device), x)
+    mask = slots[None, None, None, :] <= positions[:, None, :, None]
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     ctx = torch.einsum("bhqt,btr->bqhr", probs, c_kv)

@@ -5,12 +5,22 @@ Strategies, selected per call by ``apply_moe``:
 
 - ``dense``: every expert on every token, outputs gated; exact, the
   oracle;
-- ``capacity`` (the ``ModelRuntime`` default) and ``shardmap``: a static
-  per-expert capacity ``ceil(t·k/e · capacity_factor)``, gather-only
-  dispatch (``apply_moe_gather``).  On one device ``shardmap`` takes this
-  path, as the reference does without a mesh;
+- ``capacity`` (the ``ModelRuntime`` default): a static per-expert
+  capacity ``ceil(t·k/e · capacity_factor)``, gather-only dispatch
+  (``apply_moe_gather``);
+- ``shardmap``: under ``sharding.axis_rules`` on a mesh whose model axis
+  the experts divide, the expert-parallel layer of
+  ``models.moe_shardmap`` (each rank dispatches its own slice of the
+  tokens, an all-to-all over the model axis); elsewhere (no rules, or
+  experts that do not divide) the gather path, as in the reference;
 - ``capacity_scatter``: the same capacity through scatters
   (``apply_moe_capacity``, the reference's baseline).
+
+Over a mesh (DTensor ``x``) a strategy other than an applicable
+``shardmap`` runs whole on every rank (``_whole_on_mesh``): its routing
+ops (sort, searchsorted, scatters) have no DTensor sharding rule, and
+the drops depend on every token of the batch, so each rank gathers the
+tokens and the expert weights and computes the layer as on one device.
 
 Both capacity paths rank the flat ``(token, slot)`` entries by a stable
 sort of their expert ids and drop the entries past an expert's capacity
@@ -33,9 +43,12 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import GATED, apply_mlp
+from repro_torch.sharding.logical import local_call, rule_divides, shard
+from repro_torch.tree import tree_leaves_with_path, tree_map_with_path
 
 Params = Dict[str, torch.Tensor]
 STRATEGIES = ("dense", "capacity", "capacity_scatter", "shardmap")
@@ -64,8 +77,15 @@ def moe_param_tree(cfg: ArchConfig, normal: Callable, mlp: Callable,
 
 def _expert_ffn(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     """x ``(E, C, d)`` (or ``(1, C, d)``, broadcast over the experts) ->
-    ``(E, C, d)``, every expert's MLP on its own rows."""
-    h = torch.matmul(x, p["wi"])
+    ``(E, C, d)``, every expert's MLP on its own rows.  Over a mesh the
+    experts split the model axis where they divide it (expert
+    parallelism), else the hidden width does (TP inside each expert);
+    at decode (``act_embed`` active) the model width takes the FSDP axis
+    and the capacity releases it, as in the reference."""
+    ep = rule_divides(p["wi"].shape[0], "experts")
+    dec = rule_divides(x.shape[-1], "act_embed")
+    cap_ax = None if dec else "expert_cap"
+    h = shard(torch.matmul(x, p["wi"]), "experts", cap_ax, None if ep else "ff")
     if activation == "silu":
         h = F.silu(h) * torch.matmul(x, p["wg"])
     elif activation == "gelu_gated":
@@ -76,7 +96,7 @@ def _expert_ffn(p: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.relu(h).square()
     else:
         raise ValueError(activation)
-    return torch.matmul(h, p["wo"])
+    return shard(torch.matmul(h, p["wo"]), "experts", cap_ax, "act_embed" if dec else None)
 
 
 def route(p: Params, x: torch.Tensor, top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,6 +165,8 @@ def apply_moe_gather(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
     slot_tok = sorted_tok[slot_p.clamp(0, t * k - 1)]
     buf = torch.where(slot_valid[..., None], xt[slot_tok], torch.zeros((), dtype=x.dtype,
                                                                       device=x.device))
+    dec = rule_divides(d, "act_embed")
+    buf = shard(buf, "experts", None if dec else "expert_cap", "act_embed" if dec else None)
     ye = _expert_ffn(p, buf, cfg.activation)  # (E, C, d)
 
     inv = torch.empty_like(order)
@@ -154,7 +176,7 @@ def apply_moe_gather(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
     y_gathered = ye[ids, entry_pos.clamp(max=cap - 1)]  # (T, k, d)
     w = torch.where(kept, gates, torch.zeros((), device=x.device))
     y = torch.einsum("tkd,tk->td", y_gathered.float(), w).to(x.dtype).reshape(b, s, d)
-    return _with_shared(p, x, y, cfg)
+    return _with_shared(p, x, shard(y, "batch", "seq", "embed"), cfg)
 
 
 def apply_moe_capacity(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -181,21 +203,44 @@ def apply_moe_capacity(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Ten
     last = torch.full((e * cap,), -1, dtype=torch.long, device=x.device).scatter_reduce(
         0, slot, torch.arange(t * k, device=x.device), "amax")
     buf = torch.where((last >= 0)[:, None], vals[last.clamp(min=0)], zero).reshape(e, cap, d)
+    buf = shard(buf, "experts", "expert_cap", "embed")
     ye = _expert_ffn(p, buf, cfg.activation)  # (E, C, d)
 
     y_entries = ye[safe_e, safe_c]  # (T*k, d)
     weights = torch.where(keep, sorted_gates, torch.zeros((), device=x.device))
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device).index_add(
         0, sorted_tok, y_entries.float() * weights[:, None])
-    return _with_shared(p, x, y.to(x.dtype).reshape(b, s, d), cfg)
+    return _with_shared(p, x, shard(y.to(x.dtype).reshape(b, s, d), "batch", "seq", "embed"), cfg)
+
+
+# without a mesh, shardmap is the gather path (as in the reference)
+_STRATEGIES = {"dense": apply_moe_dense, "capacity": apply_moe_gather, "shardmap": apply_moe_gather,
+               "capacity_scatter": apply_moe_capacity}
+
+
+def _whole_on_mesh(fn: Callable, p: Params, x: DTensor, cfg: ArchConfig) -> DTensor:
+    """``fn(p, x, cfg)`` on every rank over the whole batch and every
+    weight (each replicated), the output laid out as the rules say."""
+    paths = [path for path, _ in tree_leaves_with_path(p)]
+    leaves = dict(tree_leaves_with_path(p))
+    whole = [Replicate()] * x.device_mesh.ndim
+
+    def run(xl, *ws):
+        local = dict(zip(paths, ws))
+        return fn(tree_map_with_path(lambda path, _: local[path], p), xl, cfg)
+
+    y = local_call(run, [x, *(leaves[k] for k in paths)], [whole] * (len(paths) + 1), whole)
+    return shard(y, "batch", "seq", "embed")
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig,
               strategy: str = "capacity") -> torch.Tensor:
-    if strategy == "dense":
-        return apply_moe_dense(p, x, cfg)
-    if strategy in ("capacity", "shardmap"):  # no mesh on one device: the gather path
-        return apply_moe_gather(p, x, cfg)
-    if strategy == "capacity_scatter":
-        return apply_moe_capacity(p, x, cfg)
-    raise ValueError(f"unknown moe strategy {strategy!r}")
+    if strategy not in _STRATEGIES:
+        raise ValueError(f"unknown moe strategy {strategy!r}")
+    if isinstance(x, DTensor):
+        from repro_torch.models.moe_shardmap import apply_moe_shardmap, shardmap_applicable
+
+        if strategy == "shardmap" and shardmap_applicable(cfg, x.shape):
+            return apply_moe_shardmap(p, x, cfg)
+        return _whole_on_mesh(_STRATEGIES[strategy], p, x, cfg)
+    return _STRATEGIES[strategy](p, x, cfg)

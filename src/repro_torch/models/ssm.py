@@ -35,12 +35,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd import blocked_cumsum
+from repro_torch.kernels.ssd import blocked_cumsum, ssd_on_mesh
 from repro_torch.models.layers import rmsnorm_gated
+from repro_torch.sharding.logical import shard, unflatten_last
 
 Params = Dict[str, torch.Tensor]
 FP32_PARAMS = ("A_log", "D", "dt_bias")  # float32 in every model dtype, as in the reference
@@ -165,7 +167,7 @@ def causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     then SiLU (in fp32, cast after)."""
     k = w.shape[0]
     pad = F.pad(xc, (0, 0, k - 1, 0))
-    acc = torch.zeros(xc.shape, dtype=torch.float32, device=xc.device)
+    acc = torch.zeros_like(xc, dtype=torch.float32)
     for i in range(k):
         acc = acc + pad[:, i:i + xc.shape[1], :].float() * w[i].float()
     return F.silu(acc + b.float()).to(xc.dtype)
@@ -174,7 +176,9 @@ def causal_conv(xc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
 def _project(p: Params, x: torch.Tensor):
     """x ``(b, l, d)`` -> z ``(b, l, di)``, xi/B/C before the conv, dt
     logits ``(b, l, h)``."""
-    return x @ p["w_z"], x @ p["w_x"], x @ p["w_B"], x @ p["w_C"], x @ p["w_dt"]
+    z = shard(x @ p["w_z"], "batch", "seq", "ssm_inner")
+    xi = shard(x @ p["w_x"], "batch", "seq", "ssm_inner")
+    return z, xi, x @ p["w_B"], x @ p["w_C"], x @ p["w_dt"]
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -186,6 +190,8 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _ssd(use_kernel: bool, *args, chunk: int, initial_state=None):
     if use_kernel:
         return ops.ssd(*args, chunk=chunk, initial_state=initial_state)
+    if isinstance(args[0], DTensor):  # the plain scan on each rank's rows and heads
+        return ssd_on_mesh(ssd_chunked, *args, chunk=chunk, initial_state=initial_state)
     return ssd_chunked(*args, chunk=chunk, initial_state=initial_state)
 
 
@@ -209,9 +215,9 @@ def apply_mamba2(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     C = causal_conv(C, p["conv_C"]["w"], p["conv_C"]["b"])
     dt = softplus(dt.float() + p["dt_bias"])  # (b, l, h)
     A = -torch.exp(p["A_log"])
-    xh = xi.reshape(b, l, h, hp)
+    xh = shard(unflatten_last(xi, h, hp), "batch", "seq", "ssm_heads", None)
     y, _ = _ssd(use_kernel, xh, dt, A, B, C, chunk=cfg.ssm_chunk)
-    return _finish(p, y, xh, z, cfg)
+    return shard(_finish(p, y, xh, z, cfg), "batch", "residual_seq", "embed")
 
 
 def mamba2_decode_state(cfg: ArchConfig, batch: int, dtype: torch.dtype,

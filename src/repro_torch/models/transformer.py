@@ -124,6 +124,7 @@ from repro_torch.models.layers import (
     qkv_project,
     repeat_kv,
 )
+from repro_torch.sharding.logical import on_mesh, shard, unflatten_last
 
 Params = Dict[str, Any]
 ATTN_IMPLS = ("auto", "direct", "chunked", "kernel")
@@ -215,18 +216,18 @@ def chunked_attention(
         return x.reshape(b, nq, chunk, h, hd).permute(1, 0, 3, 2, 4)
 
     qs, ks, vs = split(q), split(k), split(v)
-    ar = torch.arange(chunk, device=q.device)
+    ar = on_mesh(torch.arange(chunk, device=q.device), q)
     outs = []
     for iq in range(nq):
         qi = qs[iq]
         q_pos = iq * chunk + ar
-        m = torch.full((b, h, chunk), -math.inf, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, h, chunk, hd), dtype=torch.float32, device=q.device)
+        m = on_mesh(torch.full((b, h, chunk), -math.inf, dtype=torch.float32, device=q.device), q)
+        l = on_mesh(torch.zeros((b, h, chunk), dtype=torch.float32, device=q.device), q)
+        acc = on_mesh(torch.zeros((b, h, chunk, hd), dtype=torch.float32, device=q.device), q)
         for jk in range(nq):
             k_pos = jk * chunk + ar
             logits = torch.einsum("bhqd,bhkd->bhqk", qi.float(), ks[jk].float()) * scale
-            mask = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
+            mask = on_mesh(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device), q)
             if causal:
                 mask = k_pos[None, :] <= q_pos[:, None]
             if sliding_window > 0:
@@ -280,11 +281,14 @@ def _attn_forward(p: Params, x: torch.Tensor, cfg: ArchConfig, rt: ModelRuntime,
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = shard(v, "batch", "seq", "kv_heads", "head_dim")
     out = _full_attention(q, repeat_kv(k, h), repeat_kv(v, h), rt, causal=causal,
                           q_positions=positions, kv_positions=positions,
                           sliding_window=cfg.sliding_window,
                           logit_softcap=cfg.attn_logit_softcap)
-    return out.reshape(b, s, h * hd) @ p["wo"]
+    return shard(out.reshape(b, s, h * hd) @ p["wo"], "batch", "residual_seq", "embed")
 
 
 def _project(p: Params, x: torch.Tensor, name: str, heads: int, hd: int) -> torch.Tensor:
@@ -293,7 +297,7 @@ def _project(p: Params, x: torch.Tensor, name: str, heads: int, hd: int) -> torc
     y = x @ p[f"w{name}"]
     if f"b{name}" in p:
         y = y + p[f"b{name}"]
-    return y.reshape(x.shape[0], x.shape[1], heads, hd)
+    return unflatten_last(y, heads, hd)
 
 
 def _cross_forward(p: Params, x: torch.Tensor, enc: torch.Tensor, cfg: ArchConfig,
@@ -307,7 +311,7 @@ def _cross_forward(p: Params, x: torch.Tensor, enc: torch.Tensor, cfg: ArchConfi
     b, s, _ = x.shape
     q = _project(p, x, "q", h, hd)
     k, v = (repeat_kv(_project(p, enc, n, hkv, hd), h) for n in "kv")
-    enc_pos = torch.arange(enc.shape[1], device=enc.device)[None].expand(b, -1)
+    enc_pos = on_mesh(torch.arange(enc.shape[1], device=enc.device)[None].expand(b, -1), enc)
     out = _full_attention(q, k, v, rt, causal=False, q_positions=positions,
                           kv_positions=enc_pos)
     return out.reshape(b, s, h * hd) @ p["wo"]
@@ -371,12 +375,16 @@ def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: Ar
     write = positions[rows, toks] % t
     cache_k[rows, write] = k[rows, toks].to(cache_k.dtype)
     cache_v[rows, write] = v[rows, toks].to(cache_v.dtype)
+    cache_k = shard(cache_k, "cache_batch", "kv_seq", "kv_heads", "head_dim")
+    cache_v = shard(cache_v, "cache_batch", "kv_seq", "kv_heads", "head_dim")
     last = positions[:, -1:]
-    kv_pos = last - torch.remainder(last - torch.arange(t, device=x.device)[None, :], t)
+    slots = on_mesh(torch.arange(t, device=x.device)[None, :], x)
+    kv_pos = last - torch.remainder(last - slots, t)
     out = gqa_attention(q, cache_k, cache_v, q_positions=positions, kv_positions=kv_pos,
                         sliding_window=cfg.sliding_window, kv_mask=kv_pos >= 0,
                         logit_softcap=cfg.attn_logit_softcap)
-    return out.reshape(b, T, h * hd) @ p["wo"]
+    out = shard(out.reshape(b, T, h * hd), "act_batch", "seq", "act_heads")
+    return shard(out @ p["wo"], "batch", "seq", "embed")
 
 
 def _mixer_apply(p: Params, x, cfg: ArchConfig, rt: ModelRuntime, positions) -> torch.Tensor:
@@ -589,7 +597,7 @@ class Model:
         if self.cfg.n_vision_tokens and patches is not None:
             x = torch.cat([patches.to(x.dtype), x], dim=1)
         b, s = x.shape[:2]
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = on_mesh(torch.arange(s, device=tokens.device)[None].expand(b, s), x)
         if self.cfg.is_encoder_decoder:
             enc = self._encode(params, frames)
             return self._logits(params, self._run_decoder_with_cross(params, x, enc, positions))
@@ -641,7 +649,7 @@ class Model:
                 x = x + params["pos"][:tokens.shape[1]][None]
             else:
                 x = x + params["pos"][positions]
-        return x.to(self.rt.dtype)
+        return shard(x.to(self.rt.dtype), "batch", "seq", "embed")
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """The encoder over the stub frontend's frame embeddings ``(B,
@@ -650,6 +658,7 @@ class Model:
         cfg, enc = self.cfg, params["encoder"]
         x = frames.to(self.rt.dtype) + enc["pos"][None, :frames.shape[1]]
         positions = torch.arange(frames.shape[1], device=x.device)[None].expand(x.shape[:2])
+        positions = on_mesh(positions, x)
         h = x
         for lp in enc["layers"]:
             hn = apply_norm(lp["ln1"], h, cfg.norm, cfg.norm_eps)
@@ -975,8 +984,9 @@ class Model:
     def _logits(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = apply_norm(params["ln_f"], h, cfg.norm, cfg.norm_eps)
+        h = shard(h, "act_batch", "seq", "act_embed")
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return (h @ w).float()
+        return shard((h @ w).float(), "batch", "seq", "vocab")
 
 
 def _every_row(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -6,7 +6,8 @@ step in the same float32 arithmetic.  Trees are the port's parameter
 trees (``models.transformer``: ``layers`` a list of per-layer dicts);
 the moments mirror them.  ``opt_state["step"]`` is a Python int (the
 reference keeps an int32 scalar; the checkpoint bridge converts).
-``opt_state_specs`` is a sharding spec and is not ported (no mesh yet).
+``opt_state_specs`` lays the state out over a mesh from the parameters'
+specs (``sharding.rules.param_specs``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.spec import PartitionSpec as P
 from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
@@ -173,3 +175,29 @@ def adamw_update(params: Tree, grads: Tree, state: Tree,
         new_state["master"] = new_master
     metrics = {"grad_norm": gnorm, "lr": lr, "clip_scale": scale}
     return new_params, new_state, metrics
+
+
+def opt_state_specs(param_specs_tree: Tree, cfg: AdamWConfig) -> Tree:
+    """PartitionSpecs for the optimizer state, derived from param specs.
+
+    int8 moments keep the parameter layout (blocks run along the last dim),
+    so ``q`` inherits the parameter spec verbatim and the per-block scale
+    inherits every axis except the last (which stays unsharded: the block
+    count rarely divides the mesh axis).  Everything stays ZeRO-sharded.
+    """
+
+    def moment_spec(spec: P):
+        if cfg.moments_dtype == "int8":
+            axes = tuple(spec)
+            scale_axes = axes[:-1] + (None,) if axes else (None,)
+            return {"q": spec, "scale": P(*scale_axes)}
+        return spec
+
+    state_specs = {
+        "step": P(),
+        "mu": tree_map(moment_spec, param_specs_tree),
+        "nu": tree_map(moment_spec, param_specs_tree),
+    }
+    if cfg.master_fp32:
+        state_specs["master"] = param_specs_tree
+    return state_specs

@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import prng
 from repro_torch.models.weights import from_reference_layout, to_reference_layout
@@ -47,14 +48,22 @@ def make_loss_fn(model) -> Callable:
 
 def _value_and_grad(loss_fn: Callable, params: Tree, batch) -> Tuple[torch.Tensor, Tree]:
     """The loss and its gradient tree, from fresh leaves that alias
-    ``params`` (nothing is accumulated on the caller's tensors)."""
+    ``params`` (nothing is accumulated on the caller's tensors).  Over a
+    mesh each gradient is laid out as its parameter (a partial sum is
+    reduced), as GSPMD lays out the reference's."""
     with torch.enable_grad():
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(leaves, batch)[0]
         flat = tree_leaves(leaves)
         grads = torch.autograd.grad(loss, flat)
-    by_id = {id(t): g for t, g in zip(flat, grads)}
+    by_id = {id(t): _like(g, t) for t, g in zip(flat, grads)}
     return loss.detach(), tree_map(lambda t: by_id[id(t)], leaves)
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model, tcfg: TrainStepConfig) -> Callable:
