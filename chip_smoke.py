@@ -177,7 +177,7 @@ Phases, each printing one JSON line:
   parameter), RMSNorm launches exact, ``lora_a`` moved by its gradient;
   step ms, tokens/s, peak memory, card and CPU seconds;
 - ``remat_train``: ``mamba2-1.3b`` under ``ModelRuntime(remat=True)``
-  through ``make_train_step`` at 2 x 4096, f32 (TF32 off): its first 6
+  through ``make_train_step`` at 2 x 4096, f32 (TF32 off): its first 4
   layers 2 steps with remat against 2 without (equal within rel 1e-6, a
   lower peak, each layer's RMSNorm launched again in the recompute), the
   bytes a forward leaves held; then all 48 layers, 3 steps with remat
@@ -196,6 +196,19 @@ Phases, each printing one JSON line:
   (d) ``pipeline_apply`` on a one-stage pipe at d 768; NCCL's start-up
   seconds; a mesh of another size than the world raises.  Multi-rank
   meshes run only on the CPU (the tests): the machine has one card;
+- ``roofline``: ds-paper-100m's ``serve_paged_32k`` decode step at full
+  width (B 128, max_len 32,768, pages of 128, a pool of 16,384) on the
+  card's one rank (a (1, 1) layout) at 12, 2 and 4 layers against the
+  port's own count of it (``launch.dryrun``): the inputs' bytes on the
+  card equal to ``_analytic_arg_bytes``, the step's peak against the
+  projection, the count's compute, memory and bound terms (its bytes no
+  fewer than the pools and weights the step reads), the median of 25
+  steps and the share bound / measured (at most 1.05), L paged and
+  2 L + 1 RMSNorm launches a step, the reference's differencing of the
+  2- and 4-layer times against the 12-layer time; at 2 layers the paged
+  kernel (within 1/64 of its largest output, a check shown to fail an
+  output with a page or a split a row dropped) and RMSNorm against their
+  plain versions at the cell's shapes;
 - ``train``: full width in f32 at 2 of the 12 layers (a depth cut), 8 x
   512 tokens, 20 steps through the span
   runner into a checkpoint, resumed for 2 more and held against an
@@ -211,11 +224,11 @@ Phases, each printing one JSON line:
 - ``ssm_weights``: full-width ``mamba2-1.3b`` (48 layers at d_model
   2048), drawn once from seed 0 on the host during the build, reused
   below;
-- ``ssm_parity``: f32, the first 6 of those layers (the depth cut keeps
+- ``ssm_parity``: f32, the first 4 of those layers (the depth cut keeps
   the CPU side short and pays for the later phases), the dense-cache
   engine on the card against the same engine on the CPU: equal greedy
-  tokens and counters, 6 SSD launches per prefill dispatch, none per
-  decode dispatch, 7 RMSNorm per dispatch;
+  tokens and counters, 4 SSD launches per prefill dispatch, none per
+  decode dispatch, 5 RMSNorm per dispatch;
 - ``ssm_serve``: bf16, dense cache, the first 6 of the 48 layers (a depth
   cut), 32 requests: tokens/s, per-dispatch
   times, peak memory, 16 decode dispatches traced, the SSD kernel at the
@@ -265,7 +278,7 @@ Phases, each printing one JSON line:
 - ``zoo_parity``: the dense zoo in f32 (TF32 off), weights drawn on the
   card (``Model.draw``; qwen2-72b's QKV bias drawn non-zero, its reference
   init being zeros), ``parity``'s 6 requests through the paged and the
-  dense engine, 8 new tokens each (``parity``'s 24 cut for the time
+  dense engine, 2 new tokens each (``parity``'s 24 cut for the time
   limit: the CPU side's decode dispatches): granite-34b and qwen2-72b at 1 layer, the card
   against the CPU (a CPU copy of the card's tree); nemotron-4-340b at 1
   layer (51.6 GB in f32), the card's paged engine without its prefix
@@ -422,6 +435,7 @@ BF16_TOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / fp32 non-tensor
 TF32_OPS = 494.7e12  # dense TF32 tensor cores
+GIB = 1024 ** 3
 
 
 class CheckFailed(RuntimeError):
@@ -3837,10 +3851,10 @@ def first_layers(cfg, params, n: int) -> tuple:
     return cfg, params
 
 
-# The first 6 of mamba2-1.3b's 48 layers: the depth cut keeps the CPU side
-# short and pays for the later phases; ssm_serve runs them too, ssm_eval
-# all 48.
-SSM_PARITY_LAYERS = 6
+# The first 4 of mamba2-1.3b's 48 layers (6 before the roofline phase):
+# the depth cut keeps the CPU side short and pays for the later phases;
+# ssm_serve runs 6, ssm_eval all 48.
+SSM_PARITY_LAYERS = 4
 SSM_SERVE_LAYERS = 6
 
 
@@ -4636,7 +4650,8 @@ ZOO_PARITY_KW = dict(max_batch=4, max_len=128, prefill_chunk=16)
 # parity's 6 requests at 4 new tokens each, not 24 (8 before the training
 # phases past ds-paper-100m came in): the CPU side's decode dispatches
 # (qwen2-72b's 152k-entry head on the host) are most of the phase's time
-# (cuts for the time limit; p5 still hits p0's published prefix)
+# (a cut for the time limit; p5 still hits p0's published prefix, and
+# later decodes read K/V that earlier decodes wrote)
 ZOO_PARITY_NEW = 4
 ZOO_SERVE_KW = dict(max_batch=16, max_len=640, prefill_chunk=16, page_size=16,
                     cache_mode="paged")
@@ -6586,7 +6601,7 @@ def tree_gap(a, b) -> dict:
 def phase_remat_train(cfg, params_cpu) -> dict:
     """mamba2-1.3b trained in f32 (TF32 off) under ``ModelRuntime(remat=
     True)`` through ``make_train_step``, at REMAT_SHAPE (2 x 4096 tokens).
-    (a) Its first 6 layers, 2 steps with remat against 2 without, on the
+    (a) Its first 4 layers, 2 steps with remat against 2 without, on the
     card: losses and every parameter equal within REMAT_RTOL (where not bit
     for bit, a second run without remat says whether an op is
     nondeterministic run to run), the peak lower with remat, RMSNorm
@@ -6897,6 +6912,287 @@ def phase_mesh(root: Path) -> dict:
     emit(rec)
     return rec
 
+ROOFLINE_ARCH = "ds-paper-100m"
+ROOFLINE_SHAPE = "serve_paged_32k"  # B 128, max_len 32,768, pages of 128, a pool of 16,384
+ROOFLINE_DEPTHS = (2, 4, 12)  # the probes' pair, then full depth
+ROOFLINE_ORDER = (12, 2, 4)  # full depth first, while the card's memory is whole
+ROOFLINE_WARMUP = 3
+ROOFLINE_STEPS = 25  # timed decode steps a depth (the median is kept)
+ROOFLINE_MAX_SHARE = 1.05  # bound / measured above this: the count is wrong
+ROOFLINE_SEED = 0
+# the paged kernel at the cell's shape: its max error within this share of
+# the largest output (bf16 rounds an output to within 2^-9 of it)
+ROOFLINE_PAGED_REL = 1 / 64
+
+
+def roofline_inputs(cell, gen) -> tuple:
+    """The cell's inputs on the card: parameters drawn by ``gen``, the K/V
+    pools random, every row at position 16,383 holding 128 distinct pages
+    of its own (the pool exactly full), random tokens."""
+    from repro_torch.launch.cells import SERVE_PAGE_SIZE
+
+    model, shape = cell.model, cell.shape
+    b = shape.global_batch
+    n_pages = cell.args[1]["k_pages"].shape[1]
+    per_row = n_pages // b
+    # the pools first, into memory no smaller allocation has split
+    cache = model.init_cache(b, shape.seq_len, paged=True, page_size=SERVE_PAGE_SIZE,
+                             n_pages=n_pages, device="cuda")
+    params = model.draw(gen)
+    for name in ("k_pages", "v_pages"):
+        cache[name].normal_(generator=gen)
+    cache["page_table"][:, :per_row] = torch.arange(
+        n_pages, dtype=torch.int32, device="cuda").view(b, per_row)
+    tokens = torch.randint(0, cell.cfg.vocab_size, (b, 1), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    pos = torch.full((b,), per_row * SERVE_PAGE_SIZE - 1, dtype=torch.int32, device="cuda")
+    return params, cache, tokens, pos
+
+
+def paged_check_at_scale(got, q, kp, vp, table, pos, kw) -> dict:
+    """Hold the paged kernel's output ``got`` at the roofline cell's shape
+    against its plain version, to ``ROOFLINE_PAGED_REL`` of the largest
+    output: each output is a softmax mean over 16,384 keys, so the outputs
+    spread about 0.013, below the bf16 check's absolute 2e-2.  The check
+    is then shown to fail the plain version run on the table with one page
+    a row left out, and with one split's pages a row left out (the decode
+    path's ``decode_plan`` at this shape): what a kernel that skipped them
+    would return."""
+    from repro_torch.kernels import flash_decode
+
+    n_pages, width = kp.shape[0], table.shape[1]
+    want = flash_decode.paged_flash_attention_folded_plain(q, kp, vp, table, pos, **kw).float()
+    limit = ROOFLINE_PAGED_REL * want.abs().max().item()
+    err = (got.float() - want).abs().max().item()
+    require(bool(torch.isfinite(got).all()) and err <= limit,
+            f"roofline: paged attention off its plain version by {err} (limit {limit})")
+    b, hkv, _, dk = q.shape
+    splits, _ = flash_decode.decode_plan(b, hkv, width, kp.shape[1], dk, vp.shape[-1],
+                                         q.element_size(), flash_decode._sm_count(q.device.index))
+    per_split = -(-width // splits)
+    rows = torch.arange(b, device=q.device)
+    resident = int((table[0] < n_pages).sum())
+    page = table.clone()
+    page[rows, rows % resident] = n_pages  # one resident page a row, a different one each row
+    split = table.clone()
+    split[:, :per_split] = n_pages  # the first split's pages, every row
+    dropped = {}
+    for what, cut in (("one_page_a_row", page), ("one_split_a_row", split)):
+        wrong = flash_decode.paged_flash_attention_folded_plain(q, kp, vp, cut, pos, **kw)
+        dropped[what] = (wrong.float() - want).abs().max().item()
+        require(dropped[what] > limit,
+                f"roofline: the check at scale passes the output with {what} dropped "
+                f"({dropped[what]} within {limit})")
+    return {"max_abs_err": err, "limit": limit, "rel_limit": ROOFLINE_PAGED_REL,
+            "max_abs_want": limit / ROOFLINE_PAGED_REL, "splits": splits,
+            "pages_a_split": per_split, "dropped_max_abs_err": dropped}
+
+
+def roofline_kernels_at_shape(cell, params, cache, tokens, pos) -> dict:
+    """The paged kernel and RMSNorm at the cell's own shapes (layer 0's
+    pool, B 128, 128 pages of 128 a row, d 768) against their plain
+    versions, and the paged kernel timed beside its bound, its plain
+    version and SDPA on the pages gathered to a contiguous cache."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import (
+        paged_flash_attention_folded,
+        paged_flash_attention_folded_plain,
+    )
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    cfg = cell.cfg
+    b, hkv, dk = tokens.shape[0], cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(ROOFLINE_SEED + 1)
+    q = torch.randn((b, hkv, 1, dk), generator=gen, device="cuda").to(torch.bfloat16)
+    kp, vp, table = cache["k_pages"][0], cache["v_pages"][0], cache["page_table"]
+    kw = dict(tokens_per_row=1, scale=1.0 / math.sqrt(dk))
+
+    def kern():
+        return paged_flash_attention_folded(q, kp, vp, table, pos, **kw)
+
+    def plain():
+        return paged_flash_attention_folded_plain(q, kp, vp, table, pos, **kw)
+
+    rec = {"paged_attention": {"shape": {"B": b, "Hkv": hkv, "dk": dk, "page": kp.shape[1],
+                                         "pages_a_row": int((table[0] < kp.shape[0]).sum()),
+                                         "pool_pages": kp.shape[0]}}}
+    rec["paged_attention"].update(paged_check_at_scale(kern(), q, kp, vp, table, pos, kw))
+    release_device_memory()
+    nbytes, flops = paged_work(q, kp, table, pos, 1, dk)
+    bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain, iters=5)
+    release_device_memory()
+    # yardstick: SDPA on K/V pre-gathered to a contiguous (B, H, P*ps, dk)
+    # cache with a boolean mask (the gather is not timed)
+    n_pages, ps = kp.shape[0], kp.shape[1]
+    keys = table.shape[1] * ps
+    safe = table.long().clamp(max=n_pages - 1)
+    kc = kp[safe].reshape(b, keys, hkv, dk).transpose(1, 2).contiguous()
+    vc = vp[safe].reshape(b, keys, hkv, dk).transpose(1, 2).contiguous()
+    alloc = torch.repeat_interleave(table < n_pages, ps, dim=1)
+    mask = ((torch.arange(keys, device="cuda")[None] <= pos.long()[:, None]) & alloc)[:, None, None]
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kc, vc, attn_mask=mask),
+                         iters=10)
+    del kc, vc, mask, alloc, safe
+    release_device_memory()
+    rec["paged_attention"].update(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                                  share=bound_ms / ms, plain_ms=plain_ms,
+                                  library_ms=library_ms)
+    x = torch.randn((b, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    w = params["ln_f"]["w"]
+    rec["rmsnorm"] = {"shape": {"rows": b, "d": cfg.d_model}, "max_abs_err": check_at_shape(
+        "roofline: rmsnorm", lambda: rmsnorm(x, w, cfg.norm_eps),
+        lambda: rmsnorm_plain(x, w, cfg.norm_eps), torch.bfloat16)}
+    return rec
+
+
+def roofline_depth(mesh, layers: int, gen, kernels: bool) -> dict:
+    """One depth of the roofline phase: the count, the fit, the inputs'
+    bytes, the launches, the peak and the timed steps."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import build_cell, trace_cell
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(ROOFLINE_ARCH), n_layers=layers)
+    t0 = time.perf_counter()
+    cell = build_cell(ROOFLINE_ARCH, ROOFLINE_SHAPE, mesh, cfg_override=cfg)
+    traced = trace_cell(cell, mesh)
+    fit = dryrun.cell_report(cell, traced, mesh, time.perf_counter() - t0)
+    rec = {"layers": layers, "fits": fit["memory"]["fits"],
+           "projected_gib": fit["memory"]["projected_gib"],
+           "state_gib_analytic": fit["memory"]["state_gib_analytic"],
+           "traced_temp_gib": fit["memory"]["temp_gib"],
+           "card_gib": fit["memory"]["card_gib"], "free_gib": torch.cuda.mem_get_info()[0] / GIB,
+           "reserved_gib": torch.cuda.memory_reserved() / GIB,
+           "allocated_gib": torch.cuda.memory_allocated() / GIB}
+    require(rec["fits"], f"roofline: {layers} layers do not fit the card: {fit['memory']}")
+    rr = dryrun.cell_roofline(cell, traced, mesh)
+    rec["count"] = {"flops": rr.flops, "bytes": rr.bytes, "bytes_jnp": rr.bytes_jnp,
+                    "compute_s": rr.compute_s, "memory_s": rr.memory_s, "bound_s": rr.bound_s,
+                    "dominant": rr.dominant, "model_flops_global": rr.model_flops_global}
+
+    # (a) the inputs' bytes on the card against the analytic count, exactly:
+    # the allocator's requested bytes (its blocks round up, and a cached
+    # block it does not split counts whole in memory_allocated)
+    def requested() -> int:
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    before = requested()
+    params, cache, tokens, pos = roofline_inputs(cell, gen)
+    analytic = dryrun._analytic_arg_bytes(cell, mesh)
+    rec["input_bytes"] = {"allocated": requested() - before, "analytic": analytic}
+    require(rec["input_bytes"]["allocated"] == analytic,
+            f"roofline: inputs at {layers} layers allocated {rec['input_bytes']}")
+    # the count's bytes no fewer than the step must read: both pools (every
+    # page resident) and every weight once (the embedding table only where
+    # it is the head: the step gathers 128 of its rows)
+    weights = {k: v for k, v in params.items() if k != "embed" or cfg.tie_embeddings}
+    rec["count"]["floor_bytes"] = (cache["k_pages"].nbytes + cache["v_pages"].nbytes
+                                   + sum(t.nbytes for t in tree_leaves(weights)))
+    require(rr.bytes >= rec["count"]["floor_bytes"],
+            f"roofline: the count's {rr.bytes} bytes at {layers} layers miss the "
+            f"{rec['count']['floor_bytes']} the step must read")
+    if kernels:
+        rec["kernels_at_shape"] = roofline_kernels_at_shape(cell, params, cache, tokens, pos)
+
+    def step():
+        with torch.no_grad():
+            return cell.model.decode_step(params, cache, tokens, pos)[0]
+
+    for _ in range(ROOFLINE_WARMUP):
+        logits = step()
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (
+        tokens.shape[0], 1, cfg.padded_vocab), f"roofline: logits {tuple(logits.shape)}")
+    del logits
+    # (e) the launches of one step
+    reset_launches()
+    step()
+    torch.cuda.synchronize()
+    rec["launches"] = read_launches()
+    want = {"paged_attention": layers, "paged_attention_decode": layers,
+            "rmsnorm": 2 * layers + 1, "rmsnorm_one_pass": 2 * layers + 1}
+    require(all(rec["launches"][k] == n for k, n in want.items()),
+            f"roofline: launches at {layers} layers {rec['launches']}, want {want}")
+    # (b) the step's peak against the projection
+    release_device_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    rec["peak"] = {"max_memory_allocated_gib": peak / GIB, "projected_gib": rec["projected_gib"],
+                   "step_gib": (peak - base) / GIB, "traced_temp_gib": rec["traced_temp_gib"]}
+    # (c, d) the timed steps against the count's bound
+    times = []
+    for _ in range(ROOFLINE_STEPS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        step()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    rec["step_ms"] = summary(times)
+    ms = rec["step_ms"]["median"]
+    rec["share"] = rr.bound_s * 1e3 / ms
+    require(rec["share"] <= ROOFLINE_MAX_SHARE,
+            f"roofline: bound {rr.bound_s * 1e3} ms over measured {ms} ms at {layers} layers")
+    del params, cache, tokens, pos
+    release_device_memory()
+    return rec
+
+
+def phase_roofline() -> dict:
+    """ds-paper-100m's ``serve_paged_32k`` decode step at full width (12
+    heads of 64, d 768, vocab 32,768, B 128, max_len 32,768, pages of
+    128, a pool of 16,384) on the card's one rank (a (1, 1) "data" x
+    "model" layout, which splits nothing: the step runs on the plain
+    tensors, no DTensor copy of the 72 GiB pool), at the probes' depths 2
+    and 4 and at full depth 12, against the port's own count of it
+    (``launch.dryrun``): for each depth (a) the inputs' bytes on the card
+    against ``_analytic_arg_bytes``, exactly; (b) ``max_memory_allocated``
+    over a step against the projection; (c) the count's compute, memory
+    and bound, its bytes no fewer than the pools and weights the step
+    must read; (d) the median of 25 steps (CUDA events, after 3 warm-up
+    steps) and the share bound / measured, at most 1.05; (e) the paged
+    kernel's launches L and RMSNorm's 2L + 1 over one step; then (f) the
+    reference's differencing (``extrapolate``: a layer's cost from 2 and 4
+    layers, carried to 12) applied to the measured times, and to the
+    count's bounds, against those at 12.  Full depth runs first, while no
+    smaller allocation has split the card's memory.  At 2 layers the
+    paged kernel and RMSNorm are held against their plain versions at the
+    cell's shapes."""
+    release_device_memory()
+    rec = {"phase": "roofline", "arch": ROOFLINE_ARCH, "shape": ROOFLINE_SHAPE,
+           "mesh": "(1, 1) data x model", "depths": {}}
+    launches = {}
+    mesh = {"data": 1, "model": 1}
+    gen = torch.Generator(device="cuda").manual_seed(ROOFLINE_SEED)
+    for layers in ROOFLINE_ORDER:
+        d = roofline_depth(mesh, layers, gen, kernels=layers == ROOFLINE_DEPTHS[0])
+        rec["depths"][layers] = d
+        launches = {k: launches.get(k, 0) + n for k, n in d["launches"].items()}
+    # (f) the reference's differencing on the card's clock, and on the count
+    l1, l2, full = ROOFLINE_DEPTHS
+    rec["extrapolated"] = {}
+    for key, read in (("ms", lambda d: d["step_ms"]["median"]),
+                      ("bound_ms", lambda d: d["count"]["bound_s"] * 1e3)):
+        at1, at2, at_full = (read(rec["depths"][n]) for n in (l1, l2, full))
+        predicted = at1 + (at2 - at1) / (l2 - l1) * (full - l1)
+        rec["extrapolated"][key] = {"from": [l1, l2], "predicted_at_full": predicted,
+                                    "at_full": at_full, "gap": (predicted - at_full) / at_full}
+    rec["launches"] = launches
+    rec["device"] = smi_line()
+    emit(rec)
+    return rec
+
+
 KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/flash_decode.py:134"),
@@ -6927,8 +7223,9 @@ def kernels_line(checks: dict, serve: dict, spec_serve: dict, ds_parity: dict, d
     moe_serve's dense and capacity runs, moe_eval's forwards, mla_serve's
     run, and ``slices``: danube_serve's, vlm_serve's and whisper_serve's
     runs, danube_eval's, vlm_eval's and whisper_eval's forwards; and
-    ``trains``: family_train_parity's card runs and remat_train's: counts
-    set to 0 before each run and read after), the paged kernel's and
+    ``trains``: family_train_parity's card runs, remat_train's, mesh's
+    and roofline's counted steps: counts set to 0 before each run and read
+    after), the paged kernel's and
     RMSNorm's also by kernel path, its worst error, and its times at its
     first timed shape with the others beside."""
     def total(runs):
@@ -7080,6 +7377,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         mesh = phase_mesh(Path(tmp))
     lap("mesh")
+    roofline = phase_roofline()
+    lap("roofline")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         train = phase_train(Path(tmp))
         lap("train")
@@ -7142,7 +7441,8 @@ def main() -> int:
                       {"family_train_parity": family_train["launches"],
                        "remat_train": remat_train["launches"],
                        "mesh_train": mesh["launches"]["train"],
-                       "mesh_eval": mesh["launches"]["eval"]}))
+                       "mesh_eval": mesh["launches"]["eval"],
+                       "roofline": roofline["launches"]}))
     name = torch.cuda.get_device_name(0)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -22,13 +22,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
     Raises ``RuntimeError`` when a CUDA device is asked for (explicitly
     or by default) and none is available; the CPU is used only when the
-    caller names it."""
+    caller names it, and ``meta`` (shapes only, nothing allocated: the dry
+    run's) too."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch runs on a CUDA device by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' ('meta' for shapes)")
     return dev

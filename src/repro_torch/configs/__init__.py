@@ -1,7 +1,11 @@
 """Architecture registry: import the config modules to populate it."""
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ArchConfig,
+    ShapeSpec,
+    cell_applicable,
     get_arch,
+    list_archs,
     pad_to,
     reduced,
 )

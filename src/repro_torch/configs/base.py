@@ -1,5 +1,7 @@
 """Architecture configs: the frozen :class:`ArchConfig`, the ``--arch``
-registry and :func:`reduced` for CPU-sized tests.
+registry, :func:`reduced` for CPU-sized tests, and the input-shape cells
+(:data:`SHAPES`, :func:`cell_applicable`) the dry run and the roofline
+read.
 
 A copy of the reference package's ``configs/base.py`` (the port keeps
 its own: it imports nothing of the JAX package).  Field names, defaults
@@ -11,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
 
 VOCAB_PAD_MULTIPLE = 2048  # same padding as the reference package
 
@@ -107,6 +109,156 @@ class ArchConfig:
     def ssm_nheads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    @property
+    def uses_subquadratic_attention(self) -> bool:
+        """Can this arch run 500k-token decode?"""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
+    # -- parameter counting (for MODEL_FLOPS and the roofline) --------------------
+    def param_count(self) -> int:
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
+    def flops_per_token(self, seq_len: int, *, decode: bool = False) -> float:
+        """Model FLOPs per token: 6N for train, 2N for a decode step, plus
+        attention score/value terms (which 6N misses)."""
+        n = self.active_param_count()
+        mult = 2.0 if decode else 6.0
+        flops = mult * n
+        # attention O(S) term per token: 2*2*H*hd*S_kv (scores + values), x3 for bwd
+        if self.family != "ssm":
+            s_kv = seq_len
+            if self.sliding_window:
+                s_kv = min(seq_len, self.sliding_window)
+            attn_layers = self.n_layers
+            if self.shared_attn_every:
+                attn_layers = self.n_layers // self.shared_attn_every
+            h = self.n_heads
+            hd = self.resolved_head_dim
+            if self.use_mla:
+                hd = self.nope_head_dim + self.rope_head_dim
+            per_tok = 2 * 2 * h * hd * (s_kv if decode else s_kv / 2) * attn_layers
+            flops += per_tok * (1.0 if decode else 3.0)
+        return flops
+
+
+def _param_count(cfg: ArchConfig, active_only: bool = False) -> int:
+    """The reference's parameter count, term for term (embeddings padded to
+    ``padded_vocab``; a MoE's routed experts all, or ``top_k`` of them with
+    ``active_only``)."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    hd = cfg.resolved_head_dim
+    total = V * D  # embed
+    if not cfg.tie_embeddings:
+        total += D * V  # lm_head
+
+    def attn_params() -> int:
+        if cfg.use_mla:
+            p = D * cfg.q_lora_rank + cfg.q_lora_rank * cfg.n_heads * (
+                cfg.nope_head_dim + cfg.rope_head_dim
+            )
+            p += D * (cfg.kv_lora_rank + cfg.rope_head_dim)
+            p += cfg.kv_lora_rank * cfg.n_heads * (cfg.nope_head_dim + cfg.v_head_dim)
+            p += cfg.n_heads * cfg.v_head_dim * D
+            return p
+        q = D * cfg.n_heads * hd
+        kv = 2 * D * cfg.n_kv_heads * hd
+        o = cfg.n_heads * hd * D
+        b = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd if cfg.qkv_bias else 0
+        return q + kv + o + b
+
+    def mlp_params(f: int) -> int:
+        gated = cfg.activation in ("silu", "gelu_gated")
+        return (3 if gated else 2) * D * f
+
+    def ssm_params() -> int:
+        di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+        in_proj = D * (2 * di + 2 * n + h)  # z, x, B, C, dt
+        conv = (di + 2 * n) * cfg.ssm_conv
+        out = di * D
+        extra = 3 * h + di  # A_log, D, dt_bias, norm
+        return in_proj + conv + out + extra
+
+    if cfg.family == "ssm":
+        total += cfg.n_layers * ssm_params()
+    elif cfg.family == "hybrid":
+        total += cfg.n_layers * ssm_params()
+        n_inv = cfg.n_layers // max(cfg.shared_attn_every, 1)
+        total += attn_params() + mlp_params(F)  # weights are shared across invocations
+        if cfg.shared_attn_lora_rank:
+            total += n_inv * (2 * D * cfg.shared_attn_lora_rank)  # per-invocation LoRA on wq
+    elif cfg.family == "moe":
+        dense_ff = mlp_params(F) if F else 0
+        experts = cfg.n_experts * mlp_params(cfg.moe_d_ff) + D * cfg.n_experts
+        shared = cfg.n_shared_experts * mlp_params(cfg.moe_d_ff)
+        active_experts = cfg.top_k * mlp_params(cfg.moe_d_ff) + D * cfg.n_experts
+        for layer in range(cfg.n_layers):
+            per = attn_params()
+            if layer < cfg.first_k_dense:
+                per += dense_ff
+            else:
+                per += (active_experts if active_only else experts) + shared
+            total += per
+    else:  # dense / audio / vlm
+        total += cfg.n_layers * (attn_params() + mlp_params(F))
+        if cfg.is_encoder_decoder:
+            # encoder layers + decoder cross-attention
+            total += cfg.n_encoder_layers * (attn_params() + mlp_params(F))
+            total += cfg.n_layers * attn_params()  # cross-attn per decoder layer
+    return int(total)
+
+
+# ---------------------------------------------------------------- input shapes
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | serve_prefill | serve_decode | serve_paged
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+    # the serving engine's hot paths: chunked prefill writing the decode
+    # cache in one dispatch, ragged decode (per-row positions [B], one
+    # dispatch a tick) and the same decode against the paged cache (a
+    # shared page pool half the dense reservation plus a page table)
+    "serve_prefill_32k": ShapeSpec("serve_prefill_32k", 32_768, 32, "serve_prefill"),
+    "serve_ragged_32k": ShapeSpec("serve_ragged_32k", 32_768, 128, "serve_decode"),
+    "serve_paged_32k": ShapeSpec("serve_paged_32k", 32_768, 128, "serve_paged"),
+}
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Is (arch x shape) a runnable cell?  The reference's skip rules,
+    message for message."""
+    if shape.name == "long_500k" and not cfg.uses_subquadratic_attention:
+        return False, "long_500k skipped: pure full-attention arch (quadratic)"
+    if shape.kind == "serve_prefill":
+        # mirror Model.supports_fused_prefill + the rolling-cache gate
+        if cfg.is_encoder_decoder or cfg.n_vision_tokens:
+            return False, "serve_prefill skipped: side inputs (enc-dec/vlm)"
+        if cfg.family == "moe":
+            return False, "serve_prefill skipped: MoE capacity is batch-shaped"
+        if cfg.sliding_window:
+            return False, "serve_prefill skipped: rolling sliding-window cache"
+    if shape.kind == "serve_paged":
+        # mirror Model.supports_paged_cache
+        if cfg.family in ("ssm", "hybrid"):
+            return False, "serve_paged skipped: O(1) recurrent state, nothing to page"
+        if cfg.is_encoder_decoder:
+            return False, "serve_paged skipped: static enc-dec cross cache"
+        if cfg.sliding_window:
+            return False, "serve_paged skipped: rolling sliding-window cache"
+    return True, ""
+
 
 # ---------------------------------------------------------------------- registry
 _REGISTRY: Dict[str, Callable[[], ArchConfig]] = {}
@@ -126,6 +278,12 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_archs() -> List[str]:
+    from repro_torch import configs as _c  # noqa: F401  (populates the registry)
+
+    return sorted(_REGISTRY)
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

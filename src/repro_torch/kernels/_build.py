@@ -128,6 +128,14 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def runs_plain(*tensors) -> bool:
+    """Whether a wrapper takes its kernel's plain version: every operand on
+    the CPU, or on the meta device, whose tensors hold no data (the dry
+    run's shape-only trace, ``launch.cells.trace_cell``).  A CUDA operand
+    launches the kernel."""
+    return all(t.device.type in ("cpu", "meta") for t in tensors)
+
+
 def count_launch(fn, path: Optional[str] = None) -> None:
     """Add one to a wrapper's ``launches`` (and to ``launches_by_path[path]``)
     under a lock.  Worker threads serving on one card at once launch

@@ -10,7 +10,8 @@ The reference's ``block_q``/``block_k`` contract is kept: each sequence
 length must divide ``min(block, S)``, or the call raises ``ValueError``
 as the reference does; the CUDA kernel picks its own tiles.
 
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
+A tensor on the CPU (or the meta device: the dry run) takes the plain
+version; a CUDA tensor launches the
 kernel or raises.  Both run forward only: the reference cannot
 differentiate its kernel either (``jax.grad`` through its
 ``pallas_call`` fails), so training takes ``attn_impl`` ``direct`` or
@@ -97,7 +98,7 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        if all(t.device.type == "cpu" for t in (q, k, v)):
+        if _build.runs_plain(q, k, v):
             return flash_attention_bhsd_plain(q, k, v, causal=causal, window=window)
         return _launch(q, k, v, causal, window)
 

@@ -42,7 +42,8 @@ path.
 Launches are counted in total (``launches``) and per path
 (``launches_by_path``).
 
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
+A tensor on the CPU (or the meta device: the dry run) takes the plain
+version; a CUDA tensor launches the
 kernel or raises.
 """
 
@@ -332,7 +333,7 @@ def paged_flash_attention_folded(
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
     tensors = (q, k_pages, v_pages, page_table, offsets)
-    if all(t.device.type == "cpu" for t in tensors):
+    if _build.runs_plain(*tensors):
         return paged_flash_attention_folded_plain(
             q, k_pages, v_pages, page_table, offsets, tokens_per_row=tokens_per_row,
             scale=scale, softcap=softcap, v_width=v_width,

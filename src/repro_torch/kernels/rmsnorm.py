@@ -4,7 +4,8 @@
 Counterpart of the reference package's ``kernels/rmsnorm.py``
 (``rmsnorm_pallas``): ``x * rsqrt(mean(x^2) + eps) * w`` over the last
 axis of a ``(rows, d)`` input, fp32 accumulation, cast to ``x.dtype``.
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
+A tensor on the CPU (or the meta device: the dry run) takes the plain
+version; a CUDA tensor launches the
 kernel or raises.  The kernel has two paths, chosen by the C entry, which
 reports the one it launched: ``one_pass`` for the widths it compiles in
 with rows and ``w`` on the 16-byte grid, ``generic`` for the rest.
@@ -68,7 +69,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
-        if x.device.type == "cpu" and w.device.type == "cpu":
+        if _build.runs_plain(x, w):
             return rmsnorm_plain(x, w, eps)
         return _launch(x, w, eps)
 

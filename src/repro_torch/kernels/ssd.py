@@ -28,7 +28,8 @@ blocks before.  ``exp(cum_i - cum_j)`` carries any rounding difference of
 ``cum`` (~1e-5 at |cum| ~ 200) straight into the result, so a plain
 in-order cumsum would miss the reference's 2e-5 tolerance.
 
-A tensor on the CPU takes the plain version; a CUDA tensor launches the
+A tensor on the CPU (or the meta device: the dry run) takes the plain
+version; a CUDA tensor launches the
 kernel or raises.  Forward only: the reference cannot differentiate its
 kernel either, so training takes the plain ``ssd_chunked`` path
 (``ModelRuntime.resolve_ssd``) and a backward through this op raises.
@@ -176,7 +177,7 @@ def _launch(x, dA, dt, B, C, block_h: int):
 class _SSDChunk(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dA, dt, B, C, block_h):
-        if all(t.device.type == "cpu" for t in (x, dA, dt, B, C)):
+        if _build.runs_plain(x, dA, dt, B, C):
             return ssd_chunk_plain(x, dA, dt, B, C)
         return _launch(x, dA, dt, B, C, block_h)
 

@@ -15,7 +15,8 @@ production layout.
 
 Target hardware: one NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit; the
 rates are NVIDIA's data-sheet figures for that part (dense, no
-sparsity).  HBM capacity is read from the card itself (:func:`hbm_bytes`).
+sparsity).  HBM capacity is read from the card itself (:func:`hbm_bytes`);
+where no card is present the data sheet's 80 GB stands in.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ H100 = {
     "peak_flops_fp32": 67e12,  # outside the tensor cores
     "hbm_bw": 3.35e12,  # B/s
     "nvlink_bw": 900e9,  # B/s per card, both directions, all 18 links
+    "hbm_bytes": 80 * 10 ** 9,  # the data sheet's 80 GB; hbm_bytes() reads the card's own
 }
 
 MeshLike = Union[DeviceMesh, Mapping[str, int]]

@@ -15,9 +15,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
-from repro_torch.sharding.logical import on_mesh, shard, unflatten_last
+from repro_torch.sharding.logical import (
+    on_mesh,
+    rule_divides,
+    shard,
+    unflatten_dim,
+    unflatten_last,
+)
 
 Params = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -99,11 +106,23 @@ def qkv_project(
 
 
 def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """(B, S, Hkv, hd) -> (B, S, H, hd) by repeating groups (GQA)."""
+    """(B, S, Hkv, hd) -> (B, S, H, hd) by repeating groups (GQA).  Over a
+    mesh whose rules split the query heads but not the KV heads, the KV
+    heads are repeated whole and the result laid out as the rules say:
+    the repeat's backward views its gradient as ``(Hkv, group)``, which
+    DTensor refuses on a heads dimension split more ways than ``Hkv``
+    (GSPMD reshards it itself)."""
     n_kv = k.shape[2]
     if n_kv == n_heads:
         return k
-    return torch.repeat_interleave(k, n_heads // n_kv, dim=2)
+    g = n_heads // n_kv
+    if isinstance(k, DTensor) and rule_divides(n_heads, "heads") and not rule_divides(
+            n_kv, "heads"):
+        whole = [Replicate() if isinstance(pl, Shard) and pl.dim == 2 else pl
+                 for pl in k.placements]
+        out = torch.repeat_interleave(k.redistribute(k.device_mesh, whole), g, dim=2)
+        return shard(out, "batch", "seq", "heads", None)
+    return torch.repeat_interleave(k, g, dim=2)
 
 
 def gqa_attention(
@@ -125,7 +144,7 @@ def gqa_attention(
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
-    qg = q.reshape(b, sq, hkv, g, hd)
+    qg = unflatten_dim(q, 2, (hkv, g))
     logits = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k.float()) * (1.0 / math.sqrt(hd))
     logits = shard(logits, "cache_batch", "kv_heads", None, None, "kv_seq")
     if logit_softcap > 0:

@@ -42,7 +42,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import NEG_INF, apply_norm, apply_rope
-from repro_torch.sharding.logical import on_mesh, shard, unflatten_last
+from repro_torch.sharding.logical import on_mesh, shard, unflatten_last, write_at
 
 Params = Dict[str, torch.Tensor]
 
@@ -161,8 +161,8 @@ def apply_mla_extend(
     # a parked row's stale position may sit past the cache (the reference
     # drops that write; indexing past the end would raise)
     slot = positions[rows, toks] % t
-    c_kv[rows, slot] = c_new[rows, toks].to(c_kv.dtype)
-    k_rope[rows, slot] = kr_new[rows, toks].to(k_rope.dtype)
+    write_at(c_kv, (rows, slot), c_new[rows, toks])
+    write_at(k_rope, (rows, slot), kr_new[rows, toks])
     c_kv = shard(c_kv, "cache_batch", "kv_seq", None)
     k_rope = shard(k_rope, "cache_batch", "kv_seq", None)
     q_lat = _absorbed_query(p, q_nope, cfg)
@@ -215,7 +215,7 @@ def apply_mla_paged(
     q_nope, q_rope = _project_q(p, x, cfg, positions)
     c_new, kr_new = _compress_kv(p, x, cfg, positions)
     rows, toks, pages, offs = slots
-    kv_pages[pages, offs] = torch.cat([c_new, kr_new], dim=-1)[rows, toks].to(kv_pages.dtype)
+    write_at(kv_pages, (pages, offs), torch.cat([c_new, kr_new], dim=-1)[rows, toks])
     q_eff = torch.cat([_absorbed_query(p, q_nope, cfg), q_rope], dim=-1)  # (b, T, H, r + rope)
     kv = kv_pages[:, :, None, :]
     ctx = ops.paged_attention(q_eff, kv, kv, page_table, positions[:, 0], scale=_scale(cfg),

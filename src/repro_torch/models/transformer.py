@@ -124,7 +124,7 @@ from repro_torch.models.layers import (
     qkv_project,
     repeat_kv,
 )
-from repro_torch.sharding.logical import on_mesh, shard, unflatten_last
+from repro_torch.sharding.logical import nonzero, on_mesh, shard, unflatten_last, write_at
 
 Params = Dict[str, Any]
 ATTN_IMPLS = ("auto", "direct", "chunked", "kernel")
@@ -373,8 +373,8 @@ def _attn_dense_cache(p: Params, x, cache_k, cache_v, positions, writes, cfg: Ar
     t = cache_k.shape[1]
     rows, toks = writes
     write = positions[rows, toks] % t
-    cache_k[rows, write] = k[rows, toks].to(cache_k.dtype)
-    cache_v[rows, write] = v[rows, toks].to(cache_v.dtype)
+    write_at(cache_k, (rows, write), k[rows, toks])
+    write_at(cache_v, (rows, write), v[rows, toks])
     cache_k = shard(cache_k, "cache_batch", "kv_seq", "kv_heads", "head_dim")
     cache_v = shard(cache_v, "cache_batch", "kv_seq", "kv_heads", "head_dim")
     last = positions[:, -1:]
@@ -882,7 +882,7 @@ class Model:
 
     def _prefill_attn(self, params, cache, h, positions, valid) -> torch.Tensor:
         """Only the valid tokens write (one host sync a dispatch)."""
-        return self._run_layers_dense(params, cache, h, positions, valid.nonzero(as_tuple=True))
+        return self._run_layers_dense(params, cache, h, positions, nonzero(valid))
 
     def _run_layers_dense(self, params, cache, h, positions, writes) -> torch.Tensor:
         """The dense-cache layers; an encoder-decoder's decode adds each
@@ -933,7 +933,7 @@ class Model:
         dispatch, as the dense layers' prefill)."""
         cfg, state = self.cfg, cache["state"]
         use_kernel = self.rt.resolve_ssd(device=h.device)
-        writes = valid.nonzero(as_tuple=True) if cfg.family == "hybrid" else None
+        writes = nonzero(valid) if cfg.family == "hybrid" else None
         x0 = h
         for i, lp in enumerate(params["layers"]):
             inv = self._shared_at(i)
@@ -975,8 +975,8 @@ class Model:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         rows, toks, pages, offs = slots
-        k_pages[pages, offs] = k[rows, toks].to(k_pages.dtype)
-        v_pages[pages, offs] = v[rows, toks].to(v_pages.dtype)
+        write_at(k_pages, (pages, offs), k[rows, toks])
+        write_at(v_pages, (pages, offs), v[rows, toks])
         out = ops.paged_attention(q, k_pages, v_pages, table, positions[:, 0],
                                   softcap=cfg.attn_logit_softcap)
         return out.reshape(b, T, h * hd) @ p["wo"]
@@ -994,8 +994,8 @@ def _every_row(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     its one token (the reference's decode writes every row, parked ones
     included, at ``pos % t``)."""
     b = h.shape[0]
-    return (torch.arange(b, device=h.device),
-            torch.zeros(b, dtype=torch.long, device=h.device))
+    return (on_mesh(torch.arange(b, device=h.device), h),
+            on_mesh(torch.zeros(b, dtype=torch.long, device=h.device), h))
 
 
 def write_slots(
@@ -1014,5 +1014,5 @@ def write_slots(
     ok = (phys >= 0) & (phys < n_pages)
     if valid is not None:
         ok = ok & valid
-    rows, toks = ok.nonzero(as_tuple=True)
+    rows, toks = nonzero(ok)
     return rows, toks, phys[rows, toks], positions[rows, toks] % page_size

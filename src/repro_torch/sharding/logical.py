@@ -103,20 +103,25 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
 
 def unflatten_last(t: torch.Tensor, n: int, width: int) -> torch.Tensor:
     """``t`` ``(..., n * width)`` viewed as ``(..., n, width)`` (heads
-    out of a projection).  Over a mesh, a last dimension split over more
-    ranks than ``n`` divides is gathered first (GSPMD reshards such a
-    reshape itself; DTensor refuses it)."""
+    out of a projection); see :func:`unflatten_dim`."""
+    return unflatten_dim(t, t.ndim - 1, (n, width))
+
+
+def unflatten_dim(t: torch.Tensor, dim: int, sizes: Sequence[int]) -> torch.Tensor:
+    """``t`` with dimension ``dim`` viewed as ``sizes``.  Over a mesh, a
+    dimension split over more ranks than ``sizes[0]`` divides is gathered
+    first (GSPMD reshards such a reshape itself; DTensor refuses it)."""
     if isinstance(t, DTensor):
-        sizes = t.device_mesh.shape
-        on_last = [i for i, pl in enumerate(t.placements)
-                   if isinstance(pl, Shard) and pl.dim == t.ndim - 1]
+        sizes_m = t.device_mesh.shape
+        on_dim = [i for i, pl in enumerate(t.placements)
+                  if isinstance(pl, Shard) and pl.dim == dim]
         split = 1
-        for i in on_last:
-            split *= sizes[i]
-        if n % split:
-            t = t.redistribute(t.device_mesh, [Replicate() if i in on_last else pl
+        for i in on_dim:
+            split *= sizes_m[i]
+        if sizes[0] % split:
+            t = t.redistribute(t.device_mesh, [Replicate() if i in on_dim else pl
                                                for i, pl in enumerate(t.placements)])
-    return t.unflatten(-1, (n, width))
+    return t.unflatten(dim, tuple(sizes))
 
 
 def rule_divides(dim: int, logical: str) -> bool:
@@ -143,6 +148,59 @@ def on_mesh(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         return t
     mesh = like.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def nonzero(t: torch.Tensor) -> tuple:
+    """``t.nonzero(as_tuple=True)``.  DTensor has no rule for it (its
+    result's length depends on the data), so a DTensor's is computed whole
+    on every rank and replicated."""
+    if not isinstance(t, DTensor):
+        return t.nonzero(as_tuple=True)
+    mesh = t.device_mesh
+    whole = t.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    return tuple(on_mesh(i, t) for i in whole.nonzero(as_tuple=True))
+
+
+def write_at(dst: torch.Tensor, index: Sequence[torch.Tensor], values: torch.Tensor) -> None:
+    """``dst[index] = values`` in place, cast to ``dst``'s dtype: ``index``
+    one 1-D integer tensor for each of ``dst``'s leading dimensions,
+    ``values`` ``(n, *dst.shape[len(index):])`` (a cache's K/V writes).
+
+    DTensor takes no in-place scatter into a split tensor, so over a mesh
+    each rank writes the entries that fall in its own shard of ``dst``
+    (the indices and values whole on every rank; a split trailing
+    dimension takes the rank's slice of the values)."""
+    if not isinstance(dst, DTensor):
+        dst[tuple(index)] = values.to(dst.dtype)
+        return
+    mesh = dst.device_mesh
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t):
+        return t.redistribute(mesh, whole).to_local() if isinstance(t, DTensor) else t
+
+    idx, vals = [local(i) for i in index], local(values)
+    coord = mesh.get_coordinate()
+    lo, size = [0] * dst.ndim, list(dst.shape)
+    for m, pl in enumerate(dst.placements):  # a dimension split in mesh order
+        if isinstance(pl, Shard):
+            chunk = -(-size[pl.dim] // mesh.size(m))
+            start = min(coord[m] * chunk, size[pl.dim])
+            lo[pl.dim] += start
+            size[pl.dim] = min(chunk, size[pl.dim] - start)
+    keep = None
+    for d, i in enumerate(idx):
+        if size[d] != dst.shape[d]:
+            ok = (i >= lo[d]) & (i < lo[d] + size[d])
+            keep = ok if keep is None else keep & ok
+            idx[d] = i - lo[d]
+    for d in range(len(idx), dst.ndim):
+        if size[d] != dst.shape[d]:
+            vals = vals.narrow(d - len(idx) + 1, lo[d], size[d])
+    if keep is not None:
+        rows = keep.nonzero(as_tuple=True)[0]
+        idx, vals = [i[rows] for i in idx], vals[rows]
+    dst.to_local()[tuple(idx)] = vals.to(dst.dtype)
 
 
 def local_call(fn: Callable, args: Sequence[torch.Tensor], in_placements: Sequence,

@@ -75,8 +75,8 @@ def make_train_step(model, tcfg: TrainStepConfig) -> Callable:
             loss, grads = _value_and_grad(loss_fn, params, batch)
         else:
             acc_dtype = torch.bfloat16 if tcfg.accum_dtype == "bf16" else torch.float32
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype, device=p.device),
-                           params)
+            # laid out as the parameters (a DTensor's zeros over a mesh)
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dtype), params)
             total = 0.0
             for i in range(m):
                 mb = {k: v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)]
