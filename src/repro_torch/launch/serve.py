@@ -90,13 +90,13 @@ from repro_torch.train.checkpoint import latest_step, restore_state
 # construction and seed-init dominate a cold build.  Both are
 # content-keyed, so concurrent workers racing a cold key build identical
 # values and the last writer wins on one dict store.
-_MODEL_CACHE: Dict[tuple, object] = {}
-_PARAM_CACHE: Dict[tuple, object] = {}
+_MODEL_CACHE: Dict[tuple, object] = {}  # dslint: disable=R5(content-keyed memo: concurrent workers racing a cold key rebuild identical values and last-writer-wins on a single GIL-atomic dict store)
+_PARAM_CACHE: Dict[tuple, object] = {}  # dslint: disable=R5(content-keyed memo: same last-writer-wins-identical-value argument as _MODEL_CACHE)
 # warm lease state, keyed (worker_id, request_queue, output_prefix):
 # survives LeaseYield between claims by the same worker; dropped on
 # completion, drain, or crash.  Keys embed the worker id, so each worker
 # thread only touches its own entries.
-_LEASE_STATES: Dict[tuple, "_LeaseState"] = {}
+_LEASE_STATES: Dict[tuple, "_LeaseState"] = {}  # dslint: disable=R5(keys embed worker_id, so each worker thread only ever touches its own entries; individual dict ops are GIL-atomic)
 
 
 def reset_serve_state() -> None:

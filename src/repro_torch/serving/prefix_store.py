@@ -179,7 +179,7 @@ class PrefixStore:
         skip redundant writes; a lost race is a benign last-writer-wins
         overwrite of identical bytes.  Every caller retries this put
         (:class:`AsyncPublisher`)."""
-        self.store.put_bytes(
+        self.store.put_bytes(  # dslint: disable=R1(every caller retries this put: AsyncPublisher._publish_with_retry re-attempts with content-keyed backoff, and the only synchronous caller is that retry loop)
             self._object_key(page_key), self.pack(arrays, page_key=page_key)
         )
 
