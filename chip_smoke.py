@@ -166,18 +166,25 @@ Phases, each printing one JSON line:
   batches (loss, grad norm, parameters), 2 as one batch and 1 as 2
   microbatches with int8 stochastic-rounding accumulation;
 - ``family_train_parity``: the same f32 steps (TF32 off, 2 x 128; 2 for
-  mamba2 and zamba2, 1 for mixtral and deepseek)
+  mamba2, zamba2 and deepseek, 1 for mixtral), donated (the parameters
+  and optimizer state updated in place) on the card and the CPU,
   through the payload's ``build_model``/``build_train_step`` for each
   family past ds-paper-100m at full width: ``mamba2-1.3b``'s first layer
   and ``zamba2-1.2b``'s first 7 (a shared-block invocation with its LoRA,
   ``lora_b`` at zero, and a trailing layer) cut from ``ssm_weights`` and
-  ``hybrid_weights``, ``mixtral-8x7b`` at 1 layer under ``capacity`` and
-  ``deepseek-v2-236b``'s dense first layer (MLA and the 12,288-wide MLP),
-  drawn on the card; card against CPU at 1e-4 (loss, grad norm, every
-  parameter), RMSNorm launches exact, ``lora_a`` moved by its gradient;
-  step ms, tokens/s, peak memory, card and CPU seconds;
+  ``hybrid_weights``, ``mixtral-8x7b`` at 1 layer under ``capacity``
+  (its donated step bit for bit against its functional step on the card,
+  both peaks), drawn on the card; card against CPU at 1e-4 (loss, grad
+  norm, every parameter), RMSNorm launches exact, ``lora_a`` moved by its
+  gradient; and ``deepseek-v2-236b`` at 2 layers (the dense first layer
+  and the 160-expert MoE layer, 5.36 B parameters) under int8 moments:
+  step 1's loss, grad norm and every gradient against the CPU's forward
+  and backward, each donated update bit for bit against the functional
+  update on held slices, step 2's loss finite, the peaks beside the
+  state's bytes and the host's ``MemAvailable``; step ms, tokens/s, peak
+  memory, card and CPU seconds;
 - ``remat_train``: ``mamba2-1.3b`` under ``ModelRuntime(remat=True)``
-  through ``make_train_step`` at 2 x 4096, f32 (TF32 off): its first 4
+  through the donated ``make_train_step`` at 2 x 4096, f32 (TF32 off): its first 4
   layers 2 steps with remat against 2 without (equal within rel 1e-6, a
   lower peak, each layer's RMSNorm launched again in the recompute), the
   bytes a forward leaves held; then all 48 layers, 3 steps with remat
@@ -2218,20 +2225,30 @@ PARITY_RTOL = 1e-4
 PARITY_PARAM_ATOL = 1e-4
 
 
+def require_metrics(card: list, cpu: list, what: str) -> None:
+    """Each step's loss and grad_norm, card against CPU, at ``PARITY_RTOL``."""
+    for step, (c, h) in enumerate(zip(card, cpu)):
+        for key in ("loss", "grad_norm"):
+            require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
+                    f"{what}: {key} at step {step} card {c[key]} cpu {h[key]}")
+
+
 def train_steps(job: dict, device: str, seq_len: int, batch: int, params=None,
-                steps: int = 2):
+                steps: int = 2, donate: bool = True):
     """``steps`` steps of ``job``'s model through the payload's
     ``build_model``, ``build_train_step`` and AdamW, from ``params`` (seed
-    0's ``init_params`` when None; the step is functional and leaves them
-    untouched): each step's loss, grad_norm and wall ms (the loss read
-    back ends it), and the final tree."""
+    0's ``init_params`` when None): each step's loss, grad_norm and wall
+    ms (the loss read back ends it), the final tree and optimizer state.
+    ``donate``: the step the training loop runs, which updates ``params``
+    in place (pass a copy of a tree read afterwards); else the functional
+    step, which leaves them untouched."""
     from repro_torch import prng
     from repro_torch.launch.train import build_model, build_train_step
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import init_opt_state
 
     model = build_model(job)
-    step_fn, opt_cfg = build_train_step(job, model)
+    step_fn, opt_cfg = build_train_step(job, model, donate=donate)
     data = SyntheticLM(model.cfg, DataConfig(seq_len=seq_len, global_batch=batch), device=device)
     if params is None:
         params = init_params(model, 0, device)
@@ -2242,7 +2259,7 @@ def train_steps(job: dict, device: str, seq_len: int, batch: int, params=None,
         params, opt, met = step_fn(params, opt, data.batch(step), prng.PRNGKey(step, device=device))
         metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
                         "step_ms": (time.perf_counter() - t0) * 1e3})
-    return metrics, params
+    return metrics, params, opt
 
 
 # train_parity runs 1 of ds-paper-100m's 12 layers at full width: at all 12
@@ -2269,22 +2286,19 @@ def phase_train_parity() -> dict:
         t0 = time.perf_counter()
         reset_launches()
         steps = TRAIN_PARITY_STEPS[name]
-        card, card_params = train_steps(job, "cuda", 128, 2, steps=steps)
+        card, card_params, _ = train_steps(job, "cuda", 128, 2, steps=steps)
         card_launches = read_launches()["rmsnorm"]
         card_s = time.perf_counter() - t0
         card_params = [p.cpu() for p in tree_leaves(card_params)]
         t0 = time.perf_counter()
-        cpu, cpu_params = train_steps(job, "cpu", 128, 2, steps=steps)
+        cpu, cpu_params, _ = train_steps(job, "cpu", 128, 2, steps=steps)
         cpu_s = time.perf_counter() - t0
         worst = 0.0
         for a, b in zip(card_params, tree_leaves(cpu_params)):
             worst = max(worst, (a - b).abs().max().item())
             require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
                     f"train_parity {name}: parameters after {steps} steps differ (max {worst})")
-        for step, (c, h) in enumerate(zip(card, cpu)):
-            for key in ("loss", "grad_norm"):
-                require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
-                        f"train_parity {name}: {key} at step {step} card {c[key]} cpu {h[key]}")
+        require_metrics(card, cpu, f"train_parity {name}")
         # one forward and one backward per microbatch; norms run forward only
         per_step = (2 * TRAIN_PARITY_LAYERS + 1) * job.get("microbatches", 1)
         require(card_launches == steps * per_step,
@@ -2351,7 +2365,7 @@ def trace_train_step() -> dict:
     from repro_torch.train.optimizer import init_opt_state
 
     model = build_model(TRAIN_JOB)
-    step_fn, opt_cfg = build_train_step(TRAIN_JOB, model)
+    step_fn, opt_cfg = build_train_step(TRAIN_JOB, model, donate=True)
     batch = SyntheticLM(model.cfg, DataConfig(seq_len=TRAIN_JOB["seq_len"],
                                               global_batch=TRAIN_JOB["global_batch"]),
                         device="cuda").batch(0)
@@ -6386,15 +6400,23 @@ def phase_whisper_eval() -> dict:
 
 # ------------------------------------------------------------------ training past ds-paper-100m
 # family_train_parity: each family past ds-paper-100m trained at full width
-# and a depth cut, card against CPU as train_parity does; remat_train:
-# mamba2-1.3b under ModelRuntime(remat=True), at 6 layers against no remat
-# and at all 48.
-FAMILY_TRAIN_LAYERS = {SSM_ARCH: 1, HYBRID_ARCH: 7, MOE_ARCH: 1, MLA_ARCH: 1}
-# mixtral's and deepseek's CPU steps took ~15 s each (AdamW over 1.7 and
-# 1.4 B f32 parameters on the host): one step each, for the time limit;
-# zamba2 keeps two, its lora_a moving only at step 2
-FAMILY_TRAIN_STEPS = {SSM_ARCH: 2, HYBRID_ARCH: 2, MOE_ARCH: 1, MLA_ARCH: 1}
+# and a depth cut, card against CPU as train_parity does, every step
+# donated (the parameters and optimizer state updated in place, as the
+# training loop runs it); deepseek-v2-236b's 160-expert layer under int8
+# moments; remat_train: mamba2-1.3b under ModelRuntime(remat=True), at 6
+# layers against no remat and at all 48.
+FAMILY_TRAIN_LAYERS = {SSM_ARCH: 1, HYBRID_ARCH: 7, MOE_ARCH: 1, MLA_ARCH: 2}
+# mixtral's CPU step took ~15 s (AdamW over 1.7 B f32 parameters on the
+# host): one step, for the time limit; zamba2 keeps two, its lora_a moving
+# only at step 2; deepseek two, the second reading the int8 moments the
+# first wrote (its host runs step 1's forward and backward only)
+FAMILY_TRAIN_STEPS = {SSM_ARCH: 2, HYBRID_ARCH: 2, MOE_ARCH: 1, MLA_ARCH: 2}
 FAMILY_TRAIN_SHAPE = (2, 128)  # rows x tokens a step, train_parity's
+# deepseek at 2 layers: the dense first layer and the first MoE layer (160
+# experts of 5120 x 1536, top 6, 2 shared), int8 moments: 50.2 GiB of
+# parameters, gradients and moments where f32 moments would need 79.9
+MLA_TRAIN_JOB = {"moments_dtype": "int8"}
+MLA_HELD_EXPERTS = 4  # the first experts of each stack the update is held on
 REMAT_SHAPE = (2, 4096)
 REMAT_PARITY_LAYERS = SSM_PARITY_LAYERS
 REMAT_STEPS = 3
@@ -6422,35 +6444,265 @@ def require_train_launches(launches: dict, norms: int, what: str) -> None:
             f"{what}: launches {launches}, want {norms} one-pass RMSNorm and nothing else")
 
 
-def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
-    """f32 train steps (TF32 off; ``FAMILY_TRAIN_STEPS``: two for mamba2 and
-    zamba2, one for mixtral and deepseek) of each family past ds-paper-100m at
-    full width, through the payload's ``build_model``/``build_train_step``
-    and AdamW, on the card against the CPU from one tree: mamba2-1.3b's
-    first layer and zamba2-1.2b's first 7 (one shared-block invocation
-    with its LoRA, and a trailing layer) cut from ``ssm``/``hybrid`` (the
-    host trees of ``ssm_weights``/``hybrid_weights``, zamba2's ``lora_b``
-    back at the reference's zeros); mixtral-8x7b at 1 layer under
-    ``capacity`` (the expert gather and the index backward run with
-    atomics on the card) and deepseek-v2-236b's dense first layer (MLA's
-    eight leaves and the 12,288-wide MLP), drawn on the card and copied to
-    the host.  Held as ``train_parity`` holds ds-paper-100m: loss and
-    grad_norm at each step, every parameter after the last, RMSNorm launches
-    exact.  zamba2's zero ``lora_b`` leaves ``lora_a`` no gradient at step
-    1, so it must move at step 2 past what weight decay alone gives."""
-    from repro_torch.launch.train import build_model, build_train_step
+def mem_available_bytes() -> int:
+    """The host's ``MemAvailable`` (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def held_to_parity(card, cpu, what: str) -> tuple:
+    """Every leaf of ``card`` against the CPU's ``cpu`` (moved to the card)
+    at ``PARITY_PARAM_ATOL``/``PARITY_RTOL``: the largest gap and its
+    leaf."""
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    worst, worst_leaf = 0.0, None
+    for (path, a), b in zip(tree_leaves_with_path(card), tree_leaves(cpu)):
+        b = b.to("cuda")
+        err = (a - b).abs().max().item()
+        if err >= worst:
+            worst, worst_leaf = err, "/".join(map(str, path))
+        require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
+                f"{what}: {'/'.join(map(str, path))} differs (max {err})")
+    return worst, worst_leaf
+
+
+def moe_donated_against_functional(job: dict, card_init, rows: int, seq: int) -> dict:
+    """mixtral's step on the card twice from ``card_init``: functional
+    (``card_init`` untouched), then donated (``card_init`` updated in
+    place): every parameter and moment bit for bit, and each run's peak
+    (the functional run's outputs, kept for the comparison, left out of
+    the donated run's).  Where not bit for bit, a second functional run
+    says whether the card's backward is nondeterministic run to run, and
+    the gap is held at ``REMAT_RTOL``.  Returns the record and the
+    donated run's metrics and tree."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f_met, f_params, f_opt = train_steps(job, "cuda", seq, rows, params=card_init, steps=1,
+                                         donate=False)
+    torch.cuda.synchronize()
+    functional_peak = torch.cuda.max_memory_allocated()
+    kept = tree_bytes((f_params, f_opt["mu"], f_opt["nu"]))
+    torch.cuda.reset_peak_memory_stats()
+    d_met, d_params, d_opt = train_steps(job, "cuda", seq, rows, params=card_init, steps=1)
+    torch.cuda.synchronize()
+    donated_peak = torch.cuda.max_memory_allocated() - kept
+    gap = tree_gap((d_params, d_opt["mu"], d_opt["nu"]), (f_params, f_opt["mu"], f_opt["nu"]))
+    gap["metrics_equal"] = d_met[0]["loss"] == f_met[0]["loss"] and \
+        d_met[0]["grad_norm"] == f_met[0]["grad_norm"]
+    rec = {"functional_peak_bytes": functional_peak, "donated_peak_bytes": donated_peak,
+           "functional_outputs_kept_bytes": kept, "functional": f_met, "donated": d_met,
+           "donated_against_functional": gap,
+           "bit_for_bit": not gap["not_bit_equal"] and gap["metrics_equal"]}
+    del f_params, f_opt
+    if not rec["bit_for_bit"]:
+        require(gap["worst_rel_to_leaf_max"] <= REMAT_RTOL,
+                f"mixtral donated against functional: {gap}")
+    require(donated_peak < functional_peak,
+            f"mixtral: donated peak {donated_peak} not below the functional {functional_peak}")
+    return rec, d_met, d_params
+
+
+def mla_moe_train(job: dict, model, rows: int, seq: int) -> dict:
+    """deepseek-v2-236b at 2 layers, full width (the dense first layer and
+    the first MoE layer: 160 experts of 5120 x 1536, top 6, 2 shared), f32
+    under ``capacity`` with int8 moments, 2 donated steps on the card
+    through the payload's ``build_train_step``.  The host holds 5.36 B
+    parameters and their gradients for step 1's forward and backward only
+    (no AdamW there).  Held: (a) step 1's loss, grad_norm and every leaf's
+    gradient against the CPU's (at ``PARITY_PARAM_ATOL``/``PARITY_RTOL``,
+    and within ``PARITY_RTOL`` of the leaf's largest); (b) before each
+    donated update, ``adamw_leaf`` (the functional update's own leaf
+    step) on the first ``MLA_HELD_EXPERTS`` experts of each stack and
+    every other leaf whole, under the step's scalars, kept on the host,
+    then the donated update's values there bit for bit; (c) step 2's loss
+    finite; (d) the peaks: the backward's before each update, the
+    update's own (the check's temporaries left out)."""
+    from repro_torch import prng
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.steps import _value_and_grad, make_loss_fn
     from repro_torch.tree import tree_leaves, tree_leaves_with_path, tree_map
+
+    rec = {"mem_available_bytes": {"before": mem_available_bytes()}}
+    release_device_memory()
+    card, weights = zoo_weights(model)
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: t.cpu(), card)
+    rec["host_copy_s"] = time.perf_counter() - t0
+    rec["mem_available_bytes"]["host_copy"] = mem_available_bytes()
+    batch = SyntheticLM(model.cfg, DataConfig(seq_len=seq, global_batch=rows),
+                        device="cpu").batch(0)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = _value_and_grad(make_loss_fn(model), host, batch)
+    cpu_norm = float(topt.global_norm(cpu_grads))
+    cpu_s = time.perf_counter() - t0
+    rec["mem_available_bytes"]["cpu_backward"] = mem_available_bytes()
+    del host
+    cpu_grads = {"leaves": tree_leaves(cpu_grads)}
+
+    step_fn, opt_cfg = build_train_step(job, model, donate=True)
+    opt = topt.init_opt_state(card, opt_cfg)
+    data = SyntheticLM(model.cfg, DataConfig(seq_len=seq, global_batch=rows), device="cuda")
+    real = topt.adamw_update_
+    checks = []
+
+    def held_rows(path, t):
+        stack = len(path) >= 2 and path[-2] == "moe" and path[-1] in ("wi", "wg", "wo")
+        return slice(0, MLA_HELD_EXPERTS) if stack else None
+
+    def spy(params, grads, state, cfg, **kw):
+        torch.cuda.synchronize()
+        entry = {"backward_peak_bytes": torch.cuda.max_memory_allocated()}
+        t0 = time.perf_counter()
+        if cpu_grads["leaves"]:  # (a) step 1's gradients against the CPU's
+            worst = 0.0
+            for (path, g), h in zip(tree_leaves_with_path(grads), cpu_grads["leaves"]):
+                err = scale = 0.0  # over the leaf's slices, compared on the card
+                for rows_ in topt._row_slices(g, topt.SLICE_ELEMS):
+                    a, b = topt._rows(g, rows_), topt._rows(h, rows_).to("cuda")
+                    require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
+                            f"deepseek: step 1 gradient {'/'.join(map(str, path))} differs")
+                    err = max(err, (a - b).abs().max().item())
+                    scale = max(scale, b.abs().max().item())
+                    del a, b
+                worst = max(worst, err / max(scale, 1e-30))
+                require(err <= PARITY_RTOL * scale,
+                        f"deepseek: step 1 gradient {'/'.join(map(str, path))} differs by {err}, "
+                        f"past {PARITY_RTOL} of its largest {scale}")
+            entry["grad_worst_rel_to_leaf_max"] = worst
+            entry["grad_check_s"] = time.perf_counter() - t0
+            cpu_grads["leaves"] = []
+        # (b) the functional update on the held slices, before any write
+        k = topt.step_scalars(grads, state, cfg)
+        ref = state["master"] if "master" in state else params
+        flat_mu = topt._moment_leaves(state["mu"], ref)
+        flat_nu = topt._moment_leaves(state["nu"], ref)
+        held = []
+        for (path, p), g, mu, nu in zip(tree_leaves_with_path(ref), tree_leaves(grads), flat_mu,
+                                        flat_nu):
+            rows_ = held_rows(path, p)
+            out = topt.adamw_leaf(topt._rows(p, rows_), topt._rows(g, rows_),
+                                  topt._rows(mu, rows_), topt._rows(nu, rows_), k, cfg)
+            held.append((rows_, tree_map(lambda t: t.cpu(), out)))
+            del out
+        del flat_mu, flat_nu, p, g, mu, nu
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = real(params, grads, state, cfg, **kw)
+        torch.cuda.synchronize()
+        entry["update_s"] = time.perf_counter() - t0
+        entry["update_peak_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()  # the next backward's peak its own
+        differ = []
+        flat_mu = topt._moment_leaves(state["mu"], ref)
+        flat_nu = topt._moment_leaves(state["nu"], ref)
+        for (path, p), mu, nu, (rows_, want) in zip(tree_leaves_with_path(ref), flat_mu, flat_nu,
+                                                    held):
+            got = (topt._rows(p, rows_), topt._rows(mu, rows_), topt._rows(nu, rows_))
+            for x, y in zip(tree_leaves(got), tree_leaves(want)):
+                if not torch.equal(x, y.to("cuda")):
+                    differ.append("/".join(map(str, path)))
+        entry["held_elements"] = sum(topt._rows(p, r).numel() for p, (r, _) in
+                                     zip(tree_leaves(ref), held))
+        entry["not_bit_equal"] = sorted(set(differ))
+        require(not differ, f"deepseek: the donated update differs from the functional on "
+                            f"{entry['not_bit_equal']}")
+        entry["grad_norm"] = float(k.grad_norm)
+        checks.append(entry)
+        return result
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics = []
+    t0 = time.perf_counter()
+    topt.adamw_update_ = spy
+    try:
+        for step in range(FAMILY_TRAIN_STEPS[MLA_ARCH]):
+            s0 = time.perf_counter()
+            card, opt, met = step_fn(card, opt, data.batch(step),
+                                     prng.PRNGKey(step, device="cuda"))
+            metrics.append({"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+                            "step_ms": (time.perf_counter() - s0) * 1e3})
+    finally:
+        topt.adamw_update_ = real
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    require_metrics(metrics[:1], [{"loss": float(cpu_loss), "grad_norm": cpu_norm}],
+                    "family_train_parity deepseek")
+    require(all(math.isfinite(m["loss"]) for m in metrics),
+            f"deepseek: losses {[m['loss'] for m in metrics]}")
+    require(len(checks) == len(metrics), f"deepseek: {len(checks)} updates held")
+    state_bytes = tree_bytes((card, opt["mu"], opt["nu"]))
+    del card, opt
+    release_device_memory()
+    rec.update({"weights": weights, "card": metrics,
+                "cpu": [{"loss": float(cpu_loss), "grad_norm": cpu_norm}],
+                "card_s": card_s, "cpu_s": cpu_s, "checks": checks,
+                "state_bytes": state_bytes,
+                "max_memory_allocated_bytes": max(max(c["backward_peak_bytes"],
+                                                      c["update_peak_bytes"]) for c in checks),
+                "launches": launches})
+    return rec
+
+
+def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
+    """f32 train steps (TF32 off; ``FAMILY_TRAIN_STEPS``), each donated, of
+    each family past ds-paper-100m at full width, through the payload's
+    ``build_model``/``build_train_step`` and AdamW, on the card against the
+    CPU from one tree: mamba2-1.3b's first layer and zamba2-1.2b's first 7
+    (one shared-block invocation with its LoRA, and a trailing layer) cut
+    from ``ssm``/``hybrid`` (the host trees of ``ssm_weights``/
+    ``hybrid_weights``, copied for the CPU's donated steps; zamba2's
+    ``lora_b`` back at the reference's zeros); mixtral-8x7b at 1 layer
+    under ``capacity`` (the expert gather and the index backward run with
+    atomics on the card), drawn on the card and copied to the host, its
+    donated step also held bit for bit against its functional step on the
+    card (``moe_donated_against_functional``); and deepseek-v2-236b's
+    dense first layer and first MoE layer under int8 moments
+    (``mla_moe_train``).  Held as ``train_parity`` holds ds-paper-100m:
+    loss and grad_norm at each step, every parameter after the last,
+    RMSNorm launches exact.  zamba2's zero ``lora_b`` leaves ``lora_a`` no
+    gradient at step 1, so it must move at step 2 past what weight decay
+    alone gives."""
+    from repro_torch.launch.train import build_model, build_train_step
+    from repro_torch.tree import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows, seq = FAMILY_TRAIN_SHAPE
     rec = {"phase": "family_train_parity", "dtype": "float32", "tokens": f"{rows} x {seq}",
            "steps": FAMILY_TRAIN_STEPS, "rtol": PARITY_RTOL, "param_atol": PARITY_PARAM_ATOL,
-           "cases": {},
+           "donated": True, "cases": {},
            "launches": {}}
     for arch, layers in FAMILY_TRAIN_LAYERS.items():
         job = {"arch": arch, "arch_overrides": {"n_layers": layers}, "moe_strategy": "capacity"}
         model = build_model(job)
+        what = f"family_train_parity {arch}"
+        steps = FAMILY_TRAIN_STEPS[arch]
+        if arch == MLA_ARCH:
+            case = mla_moe_train({**job, **MLA_TRAIN_JOB}, model, rows, seq)
+            require_train_launches(case["launches"], steps * forward_norms(model.cfg), what)
+            case.update({"layers": layers, "steps": steps, "moments_dtype": "int8",
+                         "parameters": case["weights"]["parameters"],
+                         "tokens_per_s": rows * seq / (case["card"][-1]["step_ms"] / 1e3),
+                         "rmsnorm_launches": case["launches"]["rmsnorm"]})
+            rec["cases"][arch] = case
+            rec["launches"] = add_launches(rec["launches"], case.pop("launches"))
+            continue
         release_device_memory()
         if arch in (SSM_ARCH, HYBRID_ARCH):
             _, host = first_layers(*(ssm if arch == SSM_ARCH else hybrid), layers)
@@ -6462,54 +6714,58 @@ def phase_family_train_parity(ssm: tuple, hybrid: tuple) -> dict:
         else:
             card_init, weights = zoo_weights(model)
             host = tree_map(lambda t: t.cpu(), card_init)
+        parameters = sum(t.numel() for t in tree_leaves(host))
+        a0 = host["shared"]["lora_a"].to("cuda") if arch == HYBRID_ARCH else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        steps = FAMILY_TRAIN_STEPS[arch]
-        card, card_params = train_steps(job, "cuda", seq, rows, params=card_init, steps=steps)
+        moe = None
+        if arch == MOE_ARCH:
+            moe, card, card_params = moe_donated_against_functional(job, card_init, rows, seq)
+            runs = 2  # the functional and the donated step
+        else:
+            card, card_params, _ = train_steps(job, "cuda", seq, rows, params=card_init,
+                                               steps=steps)
+            runs = 1
         card_s = time.perf_counter() - t0
         launches = read_launches()
-        peak = torch.cuda.max_memory_allocated()
+        peak = moe["donated_peak_bytes"] if moe else torch.cuda.max_memory_allocated()
         del card_init
         release_device_memory()
+        # the CPU's donated steps write into their tree: a copy where the
+        # host tree is shared with a later phase's
+        cpu_init = host if arch == MOE_ARCH else tree_map(lambda t: t.clone(), host)
+        del host
         t0 = time.perf_counter()
-        cpu, cpu_params = train_steps(job, "cpu", seq, rows, params=host, steps=steps)
+        cpu, cpu_params, _ = train_steps(job, "cpu", seq, rows, params=cpu_init, steps=steps)
         cpu_s = time.perf_counter() - t0
-        cpu_params = tree_map(lambda t: t.to("cuda"), cpu_params)  # compared on the card
-        what = f"family_train_parity {arch}"
-        worst, worst_leaf = 0.0, None
-        for (path, a), b in zip(tree_leaves_with_path(card_params), tree_leaves(cpu_params)):
-            err = (a - b).abs().max().item()
-            if err >= worst:
-                worst, worst_leaf = err, "/".join(map(str, path))
-            require(bool(torch.allclose(a, b, atol=PARITY_PARAM_ATOL, rtol=PARITY_RTOL)),
-                    f"{what}: {worst_leaf} differs after {steps} steps (max {err})")
-        for step, (c, h) in enumerate(zip(card, cpu)):
-            for key in ("loss", "grad_norm"):
-                require(math.isfinite(c[key]) and abs(c[key] - h[key]) <= PARITY_RTOL * abs(h[key]),
-                        f"{what}: {key} at step {step} card {c[key]} cpu {h[key]}")
-        require_train_launches(launches, steps * forward_norms(model.cfg), what)
+        del cpu_init
+        worst, worst_leaf = held_to_parity(card_params, cpu_params,
+                                           f"{what} after {steps} steps")
+        require_metrics(card, cpu, what)
+        require_train_launches(launches, runs * steps * forward_norms(model.cfg), what)
         case = {"layers": layers, "steps": steps, "weights": weights,
-                "parameters": sum(t.numel() for t in tree_leaves(host)),
+                "parameters": parameters,
                 "card": card, "cpu": cpu, "card_s": card_s, "cpu_s": cpu_s,
                 "param_max_abs_err": worst, "worst_leaf": worst_leaf,
                 "max_memory_allocated_bytes": peak,
                 "tokens_per_s": rows * seq / (card[-1]["step_ms"] / 1e3),
                 "rmsnorm_launches": launches["rmsnorm"]}
+        if moe:
+            case["donated_against_functional"] = moe
         if arch == HYBRID_ARCH:  # lora_a moved by its gradient at step 2, not by decay alone
             _, opt = build_train_step(job, model)
             decay = opt.weight_decay * (opt.schedule(1) + opt.schedule(2))
-            a0 = host["shared"]["lora_a"].to("cuda")
             moved = {"card": (card_params["shared"]["lora_a"] - a0).abs().max().item(),
-                     "cpu": (cpu_params["shared"]["lora_a"] - a0).abs().max().item()}
+                     "cpu": (cpu_params["shared"]["lora_a"].to("cuda") - a0).abs().max().item()}
             by_decay = decay * a0.abs().max().item()
             require(min(moved.values()) > 10 * by_decay,
                     f"{what}: lora_a moved {moved} in 2 steps, weight decay alone {by_decay}")
             case["lora_a_moved"] = {**moved, "by_weight_decay_alone": by_decay}
         rec["cases"][arch] = case
         rec["launches"] = add_launches(rec["launches"], launches)
-        del host, card_params, cpu_params
+        del card_params, cpu_params
     release_device_memory()
     emit(rec)
     return rec
@@ -6534,8 +6790,8 @@ def saved_after_forward(model, params, batch) -> int:
 
 def remat_steps(cfg, host, remat: bool, steps: int, traced: bool = False) -> dict:
     """``steps`` f32 train steps of ``cfg`` on the card from the host tree
-    ``host``, through ``make_train_step`` and ``init_opt_state`` (AdamW's
-    defaults) under ``ModelRuntime(remat=remat)``, at ``REMAT_SHAPE``:
+    ``host``, through the donated ``make_train_step`` and ``init_opt_state``
+    (AdamW's defaults) under ``ModelRuntime(remat=remat)``, at ``REMAT_SHAPE``:
     each step's loss and wall ms, the parameters and optimizer state's
     bytes (``static_bytes``), the bytes a forward leaves held for its
     backward, the peak over the steps, the launches and the final tree;
@@ -6550,7 +6806,7 @@ def remat_steps(cfg, host, remat: bool, steps: int, traced: bool = False) -> dic
     rows, seq = REMAT_SHAPE
     model = Model(cfg, ModelRuntime(remat=remat))
     tcfg = TrainStepConfig()
-    step_fn = make_train_step(model, tcfg)
+    step_fn = make_train_step(model, tcfg, donate=True)
     data = SyntheticLM(cfg, DataConfig(seq_len=seq, global_batch=rows), device="cuda")
     release_device_memory()
     state = {"params": cast_params(host, torch.float32, "cuda")}

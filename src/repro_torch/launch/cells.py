@@ -260,7 +260,8 @@ def build_cell(
     """The cell's step, its meta inputs and their specs on ``mesh`` (a
     ``DeviceMesh`` or a mapping ``{axis: size}``).  The knobs are the
     reference's; the sharding policy's budget is the card's memory
-    (:func:`card_bytes`)."""
+    (:func:`card_bytes`).  A train cell donates its parameters and
+    optimizer state to the step, as the reference's does."""
     cfg = cfg_override or get_arch(arch)
     shape = SHAPES[shape_name]
     ok, reason = cell_applicable(cfg, shape)
@@ -310,8 +311,11 @@ def build_cell(
             rules = dict(rules, residual_seq="model")
         mb = microbatches if microbatches is not None else pick_microbatches(cfg, shape)
         opt_cfg = make_opt_config(cfg, moments_dtype=moments_dtype, master_fp32=master_fp32)
+        # the reference jits the train cell with donate_argnums=(0, 1): the
+        # port's step updates the parameters and optimizer state in place
         step = make_train_step(
-            model, TrainStepConfig(microbatches=mb, accum_dtype=accum_dtype, opt=opt_cfg))
+            model, TrainStepConfig(microbatches=mb, accum_dtype=accum_dtype, opt=opt_cfg),
+            donate=True)
         opt_shape = init_opt_state(params_shape, opt_cfg)
         o_specs = opt_state_specs(p_specs, opt_cfg)
         b_structs, b_specs = batch_specs(cfg, shape, mesh)

@@ -59,7 +59,11 @@ def build_model(job: Dict) -> Model:
                                    moe_strategy=job.get("moe_strategy", "dense")))
 
 
-def build_train_step(job: Dict, model: Model):
+def build_train_step(job: Dict, model: Model, donate: bool = False):
+    """The job's train step and its AdamW config; ``donate`` the step that
+    updates the parameters and optimizer state in place
+    (``make_train_step(..., donate=True)``), as the training loop runs
+    it."""
     opt = AdamWConfig(
         schedule=Schedule(
             peak_lr=job.get("lr", 3e-4),
@@ -74,7 +78,7 @@ def build_train_step(job: Dict, model: Model):
         accum_dtype=job.get("accum_dtype", "f32"),
         opt=opt,
     )
-    return make_train_step(model, tcfg), opt
+    return make_train_step(model, tcfg, donate=donate), opt
 
 
 def run_train_span(job: Dict, store: ObjectStore, heartbeat: Callable, device=None) -> Dict:
@@ -87,7 +91,9 @@ def run_train_span(job: Dict, store: ObjectStore, heartbeat: Callable, device=No
     ckpt_every = int(job.get("ckpt_every", max(1, num)))
 
     model = build_model(job)
-    train_step, opt_cfg = build_train_step(job, model)
+    # the parameters and optimizer state are donated to the step, as the
+    # reference's loop jits it with donate_argnums=(0, 1): updated in place
+    train_step, opt_cfg = build_train_step(job, model, donate=True)
     data = SyntheticLM(model.cfg, DataConfig(seq_len=job.get("seq_len", 64),
                                              global_batch=job.get("global_batch", 4),
                                              seed=job.get("data_seed", 0)), device=device)

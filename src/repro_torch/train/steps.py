@@ -1,4 +1,4 @@
-"""Step builders: ``train_step`` and the prefill step.
+"""Step builders: ``train_step``, the prefill step and the decode step.
 
 Counterpart of the reference package's ``train/steps.py``:
 
@@ -11,8 +11,14 @@ Counterpart of the reference package's ``train/steps.py``:
 
 ``rng`` is a ``prng`` key (an int64 ``(2,)`` tensor), the same key the
 reference would pass, so int8 accumulation rounds as the reference does.
-The step is functional like the reference's: it returns new parameter
-and state trees and leaves its inputs untouched.
+By default the step is functional like the reference's
+``make_train_step``: it returns new parameter and state trees and leaves
+its inputs untouched.  ``make_train_step(..., donate=True)`` is the
+counterpart of the reference's ``jax.jit(train_step, donate_argnums=(0,
+1))``, which its training loop and train cells run: the update writes
+into the parameter and optimizer-state tensors it was given
+(``train.optimizer.adamw_update_``), so the state is held once, not
+twice.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch import prng
 from repro_torch.models.weights import from_reference_layout, to_reference_layout
-from repro_torch.train import compression
+from repro_torch.train import compression, optimizer
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -66,7 +72,31 @@ def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return g
 
 
-def make_train_step(model, tcfg: TrainStepConfig) -> Callable:
+def _mean_in_place(acc: Tree, m: int) -> Tree:
+    """``acc``'s leaves replaced one by one, in their containers, by their
+    f32 mean over ``m`` microbatches: each sum is freed as its mean is
+    made."""
+    if isinstance(acc, dict):
+        for key, v in acc.items():
+            acc[key] = _mean_in_place(v, m)
+        return acc
+    if isinstance(acc, list):
+        for i, v in enumerate(acc):
+            acc[i] = _mean_in_place(v, m)
+        return acc
+    return (acc / m).float()
+
+
+def make_train_step(model, tcfg: TrainStepConfig, donate: bool = False) -> Callable:
+    """``train_step(params, opt_state, batch, rng) -> (params, opt_state,
+    metrics)``.  With ``donate`` the parameters and optimizer state are
+    updated in place (``adamw_update_``) and the returned trees are the
+    ones passed in: after a step the caller's old trees hold the new
+    values, where the reference deletes its donated buffers.  The
+    microbatch accumulator is summed in place and freed leaf by leaf
+    before the update, and each gradient as soon as its leaf is written:
+    bit for bit the functional step.  A tree whose leaves
+    share storage is refused with ``ValueError``."""
     loss_fn = make_loss_fn(model)
 
     def train_step(params, opt_state, batch, rng):
@@ -89,11 +119,24 @@ def make_train_step(model, tcfg: TrainStepConfig) -> Callable:
                     ref = compression.decompress_tree(
                         compression.compress_tree(ref, prng.fold_in(rng, i)), ref)
                     g = from_reference_layout(ref)
-                acc = tree_map(lambda a, b: a + b.to(a.dtype), acc, g)
+                if donate:  # the reference's scan carries the sum in its buffers
+                    tree_map(lambda a, b: a.add_(b.to(a.dtype)), acc, g)
+                else:
+                    acc = tree_map(lambda a, b: a + b.to(a.dtype), acc, g)
                 total = total + loss_i
-            grads = tree_map(lambda g: (g / m).float(), acc)
+                del g
+            if donate:
+                grads, acc = _mean_in_place(acc, m), None
+            else:
+                grads = tree_map(lambda g: (g / m).float(), acc)
             loss = total / m
-        new_params, new_opt, opt_metrics = adamw_update(params, grads, opt_state, tcfg.opt)
+        if donate:
+            # the update takes the last reference to the gradients and
+            # drops each once its leaf is written
+            new_params, new_opt, opt_metrics = optimizer.adamw_update_(
+                params, grads, opt_state, tcfg.opt)
+        else:
+            new_params, new_opt, opt_metrics = adamw_update(params, grads, opt_state, tcfg.opt)
         return new_params, new_opt, {"loss": loss, **opt_metrics}
 
     return train_step
@@ -104,3 +147,10 @@ def make_prefill_step(model) -> Callable:
         return model.prefill(params, tokens)
 
     return prefill_step
+
+
+def make_decode_step(model) -> Callable:
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return decode_step

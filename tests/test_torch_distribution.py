@@ -123,6 +123,19 @@ def test_sharded_adamw_step_equals_unsharded(run, name):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6, msg=f"{part} {path}")
 
 
+@pytest.mark.parametrize("name", ["f32", "master"])
+def test_donated_adamw_on_dtensors_is_the_functional_step(run, name):
+    """``adamw_update_`` on the same DTensors: written in place, laid out
+    as before, bit for bit the functional update over the mesh."""
+    _, out = run
+    res = out[f"adamw_donated/{name}"]
+    assert res["in_place"] and res["laid_out"]
+    for part in ("params", "mu", "nu"):
+        for (path, a), b in zip(tree_leaves_with_path(res["donated"][part]),
+                                tree_leaves(res["functional"][part])):
+            assert torch.equal(a, b), f"{part} {path}"
+
+
 @pytest.mark.parametrize("op", ["flash", "rmsnorm", "paged", "ssd"])
 def test_kernel_ops_on_dtensors_equal_plain(run, op):
     _, out = run

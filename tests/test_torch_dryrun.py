@@ -15,7 +15,12 @@ tensors, collectives that move nothing):
 - ``run_cell`` on a one-rank mapping (the card's layout) and the CLI on
   the fake backend's 256 and 512 ranks for ds-paper-100m's
   ``serve_paged_32k``, writing the reference's JSON keys with ``fits``
-  for ``fits_16gib``."""
+  for ``fits_16gib``;
+- a train cell donates its parameters and optimizer state, as the
+  reference's does: traced donated, its step's outputs are its inputs and
+  its peak of temporaries is lower than the functional step's by at least
+  that state's bytes (the new copy the functional update makes) on one
+  rank; on 8 its outputs are its inputs' local shards."""
 
 import dataclasses
 import json
@@ -24,12 +29,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch, reduced
-from repro_torch.launch import dryrun
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch import cells, dryrun
 from repro_torch.launch.cells import build_cell, place_args, trace_cell
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.roofline.analysis import collective_bytes, extrapolate
 from repro_torch.roofline.hbm import hbm_traffic
 from repro_torch.sharding.rules import bytes_per_device
+from repro_torch.train.steps import make_train_step
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)  # the test workers share the host's cores
@@ -56,8 +63,8 @@ def mesh8():
 
 
 def local_bytes(tree) -> int:
-    return sum(t.to_local().numel() * t.element_size() for t in tree_leaves(tree)
-               if isinstance(t, torch.Tensor))
+    return sum(getattr(t, "_local_tensor", t).numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
 @pytest.mark.parametrize("arch,shape,over", CASES, ids=[c[0] for c in CASES])
@@ -79,6 +86,38 @@ def test_reference_cells_trace_on_eight_ranks(mesh8, arch, shape, over):
     assert sum(colls.count_by_op.values()) > 0 and colls.total_bytes > 0
     if shape != "train_4k":  # a decode step updates its cache in place
         assert traced.alias_bytes == local_bytes(placed[1])
+    else:  # a train step its parameters and optimizer state (donated)
+        assert traced.alias_bytes == local_bytes(placed[:2])
+
+
+# the train cell where the update, not the backward, holds the peak: wide
+# enough that its state outweighs the activations of 2 rows of 512 tokens
+WIDE_TRAIN = dict(n_layers=2, d_model=1024, n_heads=8, head_dim=128, n_kv_heads=4, d_ff=8192,
+                  vocab_size=2048)
+
+
+def test_donated_train_cell_drops_the_second_copy(monkeypatch):
+    """On the card's layout (one rank), a train cell cut to 2 rows of 512
+    tokens, wide enough that the update holds the peak, traced as built
+    (donated) and with the functional step in its place."""
+    monkeypatch.setitem(SHAPES, "train_4k",
+                        dataclasses.replace(SHAPES["train_4k"], global_batch=2, seq_len=512))
+    cfg = dataclasses.replace(get_arch("ds-paper-100m"), **WIDE_TRAIN)
+    mesh, traced = {"data": 1, "model": 1}, {}
+    for donate in (False, True):
+        with monkeypatch.context() as m:
+            if not donate:
+                m.setattr(cells, "make_train_step",
+                          lambda model, tcfg, donate: make_train_step(model, tcfg))
+            cell = build_cell("ds-paper-100m", "train_4k", mesh, cfg_override=cfg,
+                              microbatches=2)
+        assert cell.donate == (0, 1)
+        state = local_bytes(cell.args[:2])
+        traced[donate] = trace_cell(cell, mesh)
+    functional, donated = traced[False], traced[True]
+    assert functional.alias_bytes == 0 and donated.alias_bytes == state
+    drop = functional.recorder.trace.peak_temp_bytes - donated.recorder.trace.peak_temp_bytes
+    assert drop >= state, (drop, state)
 
 
 def test_probe_extrapolation_equals_direct_count(mesh8):

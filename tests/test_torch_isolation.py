@@ -1,5 +1,6 @@
 """The port stands apart from the reference package and from the CPU:
-no port module imports ``jax`` or ``repro`` (the prefix store included);
+no port module, ``examples_torch/`` driver or ``chip_smoke.py`` imports
+``jax`` or ``repro`` (the prefix store included);
 every reference config builds, none refused; the dense cache runs; a
 default-device entry point on a host
 without CUDA raises instead of running on the CPU; and ``chip_smoke.py``
@@ -25,7 +26,8 @@ from repro_torch.train.data import DataConfig, SyntheticLM
 torch.set_num_threads(1)  # the test workers share the host's cores
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + sorted((ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path):
@@ -41,6 +43,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     assert ROOT / "src" / "repro_torch" / "serving" / "prefix_store.py" in PORT_FILES
+    assert ROOT / "examples_torch" / "quickstart.py" in PORT_FILES
     bad = {r for r in _imported_roots(path) if r in ("jax", "jaxlib", "ml_dtypes", "repro")}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 

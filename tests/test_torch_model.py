@@ -155,6 +155,27 @@ def test_prefill_then_decode_logits_match_reference(shared):
                                    **TOL)
 
 
+@pytest.mark.parametrize("positions", ["uniform", "ragged"])
+def test_decode_step_builder_matches_reference(shared, positions):
+    """``train.steps.make_decode_step`` against the reference's on the
+    dense cache: three decode steps from empty caches, logits at 1e-4."""
+    from repro.train.steps import make_decode_step as jmake_decode_step
+    from repro_torch.train.steps import make_decode_step
+
+    jm, jp, m, p = shared
+    jstep, tstep = jmake_decode_step(jm), make_decode_step(m)
+    b, max_len = 3, 16
+    jc, tc = jm.init_cache(b, max_len), m.init_cache(b, max_len, device="cpu")
+    rng = np.random.default_rng(5)
+    pos = np.zeros(b, np.int32) if positions == "uniform" else np.asarray([0, 3, 7], np.int32)
+    for _ in range(3):
+        nxt = rng.integers(1, 256, (b, 1)).astype(np.int32)
+        jl, jc = jstep(jp, jc, jnp.asarray(nxt), jnp.asarray(pos))
+        tl, tc = tstep(p, tc, torch.from_numpy(nxt).long(), torch.from_numpy(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        pos = pos + 1
+
+
 def test_parked_and_padded_rows_write_no_page(shared):
     """JAX drops out-of-bounds scatters; the port masks them.  A parked
     row (sentinel table) and padded prefill tokens must leave every page,

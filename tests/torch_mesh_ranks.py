@@ -107,6 +107,7 @@ def distribution_rank(rank: int, world: int, root: Path) -> None:
     from repro_torch.train.optimizer import (
         AdamWConfig,
         adamw_update,
+        adamw_update_,
         init_opt_state,
         opt_state_specs,
     )
@@ -164,6 +165,19 @@ def distribution_rank(rank: int, world: int, root: Path) -> None:
             "plain": {"params": ref_p, "mu": ref_s["mu"], "nu": ref_s["nu"]},
             "laid_out": all(tuple(a.placements) == tuple(b.placements)
                             for a, b in zip(_leaves(new_s["mu"]), _leaves(sharded["mu"]))),
+        }
+        # the same step donated: written into the DTensors it was given
+        d_p = tree_map(lambda t: t.clone(), ps)
+        d_s = {k: v if k == "step" else tree_map(lambda t: t.clone(), v)
+               for k, v in sharded.items()}
+        placements = [tuple(t.placements) for t in _leaves((d_p, d_s["mu"], d_s["nu"]))]
+        got_p, got_s, _ = adamw_update_(d_p, tree_map(lambda t: t, grads), d_s, ocfg)
+        out[f"adamw_donated/{name}"] = {
+            "donated": tree_map(_full, {"params": got_p, "mu": got_s["mu"], "nu": got_s["nu"]}),
+            "functional": out[f"adamw/{name}"]["sharded"],
+            "in_place": got_p is d_p and got_s is d_s and got_s["step"] == new_s["step"],
+            "laid_out": placements == [tuple(t.placements)
+                                       for t in _leaves((got_p, got_s["mu"], got_s["nu"]))],
         }
 
     # the kernel ops take DTensors through local_map: each rank runs the
